@@ -7,11 +7,15 @@ Phases, each of which exits non-zero on a failed check:
 
   1. the card's name and power limit, as ``nvidia-smi`` reports them;
   2. the ``nvcc`` build of ``src/repro_torch/kernels/csrc/zstats.cu``;
-  3. every kernel (CUDA ``zstats``, Triton ``dirichlet_expectation`` and
-     ``zstep``) against its plain PyTorch version on the card: the edge cases
-     of the reference's kernel tests rebuilt from numpy seeds (K = 3, 130 and
-     2, strided with base, masked, several children, the V = 33,000 child,
-     the G = 70,000 prior), bf16 tables, and the main path's shapes;
+  3. every kernel (CUDA ``zstats``, ``zstats_zmap`` and ``zmap_logits``,
+     Triton ``dirichlet_expectation`` and ``zstep``) against its plain
+     PyTorch version on the card: the edge cases of the reference's kernel
+     tests rebuilt from numpy seeds (K = 3, 130 and 2, strided with base,
+     masked, several children, the V = 33,000 child, the G = 70,000 prior;
+     for segment latents its ZMAP_KERNEL_CASES, its alpha "zmap" case, two
+     zmap children, an unsorted zmap, an empty and an all-masked instance,
+     instances of more than PIECE tokens, K = 1024), elog and alpha tables,
+     bf16 tables, and each path's shapes;
   4. repeatability: two ``zstats`` calls, and two 3-step runs from one
      state, must be bitwise equal;
   5. the main path: LDA at the NYTimes bag-of-words widths (K = 100,
@@ -21,7 +25,15 @@ Phases, each of which exits non-zero on a failed check:
      ``get_result``, with the launch counts set to 0 just before and read
      just after;
   6. times (CUDA events) of each kernel, its plain version and its bound at
-     the main path's shapes, and the VMP step's ms and tokens/s.
+     the main path's shapes, and the VMP step's ms and tokens/s;
+  7. the segment-latent path: SLDA at the same widths over the same corpus,
+     cut into sentences of 7 tokens (about 1.44M sentences), through
+     ``models.make("slda")`` -> ``observe`` + ``bind("sents")`` ->
+     ``make_engine("vmp", steps=10).fit`` -> ``get_result("z")``, with the
+     same checks, two bitwise repeats and the times of ``zstats_zmap`` and
+     ``zmap_logits``; then naive Bayes at the 20 Newsgroups widths
+     (C = 20, V = 61,188, 18,774 documents of mean length 332), 5 steps,
+     the same checks.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object and the
 ``{"ok": true, "device": {...}}`` JSON object.  A fuller report goes to
@@ -49,6 +61,12 @@ DIGAMMA_OPS = 30                # f32 operations of one digamma (shift-by-8 + se
 # LDA priors (examples/lda_topics.py), depth cut from 300,000 documents
 TOPICS, VOCAB, MEAN_LEN, ALPHA, BETA, SEED = 100, 102660, 332, 0.1, 0.05, 0
 REPORT = ROOT / "chiprun_out" / "chip_smoke.json"
+# SLDA over the main path's corpus: sentences of 7 tokens inside each
+# document (benchmarks/bench_vmp.py's convention)
+SENT_LEN = 7
+# naive Bayes at the 20 Newsgroups "bydate" widths (20 classes, 61,188
+# words, 18,774 documents), the main path's priors and mean length
+NB_CLASSES, NB_VOCAB, NB_DOCS, NB_STEPS = 20, 61188, 18774, 5
 
 ZSTATS_TOL = dict(rtol=2e-4, atol=2e-4, lse_rtol=2e-5)
 DE_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -73,7 +91,22 @@ ZSTATS_CASES = {
     "prior-g70000": (4000, 16, 70000, [(16, 33, 1, False, False, False)], True,
                      None),
 }
-ZMAP_CASE = (240, 3, 10, [(3, 15, 1, False, True, True)], True, 40)
+# segment latents: the reference's ZMAP_KERNEL_CASES (masked specialized,
+# strided with base, zmap child beside a flat child), two zmap children,
+# naive Bayes' long instances (about 500 tokens each, over PIECE) and K = 1024
+ZMAP_CASES = {
+    "zmap-masked": (240, 3, 10, [(3, 15, 1, False, True, True)], True, 40),
+    "zmap-strided": (200, 3, 9, [(30, 11, 3, True, True, True)], False, 35),
+    "zmap+flat": (300, 3, 8, [(3, 12, 1, False, False, True),
+                              (21, 9, 7, True, True, False)], True, 50),
+    "two-zmap": (400, 4, 6, [(4, 20, 1, False, True, True),
+                             (4, 9, 1, False, False, True)], False, 60),
+    "long-instances": (2000, 5, 1, [(5, 300, 1, False, True, True)], False, 4),
+    "zmap-k1024": (3000, 1024, 9, [(1024, 50, 1, False, True, True)], True,
+                   300),
+}
+# the reference's ALPHA_CASES "zmap" (seed 24, concentration tables)
+ZMAP_ALPHA_CASE = (24, 240, 3, 10, [(3, 15, 1, False, True, True)], True, 40)
 SHAPES = [(1, 2), (3, 5), (7, 128), (33, 96), (128, 130), (257, 4),
           (64, 300), (1000, 3), (5, 102660), (70000, 16)]
 
@@ -106,7 +139,13 @@ def zcase(seed, n, k, gp, cfgs, zmask=False, nz=None, positive=False,
           dtype=torch.float32, device="cuda"):
     """The reference's ``_zcase`` draws (and ``_gamma_case`` concentrations
     when ``positive``), as port inputs on ``device``."""
-    from repro_torch.kernels.ref import ZChild
+    return to_port(zcase_np(seed, n, k, gp, cfgs, zmask, nz, positive),
+                   dtype, device)
+
+
+def zcase_np(seed, n, k, gp, cfgs, zmask=False, nz=None, positive=False):
+    """The draws of :func:`zcase` as numpy: ``(prior table, prior rows,
+    [(table, values, stride, zmap, base, mask)...], zmask)``."""
     rng = np.random.default_rng(seed)
     nz = nz or n
     et = rng.normal(size=(gp, k)).astype(np.float32)
@@ -130,6 +169,14 @@ def zcase(seed, n, k, gp, cfgs, zmask=False, nz=None, positive=False,
             return (prng.gamma(1.0, 1.0, t.shape) + 1e-2).astype(np.float32)
         et = pos(et)
         raw = [(pos(r[0]),) + r[1:] for r in raw]
+    return et, rows, raw, zm
+
+
+def to_port(case, dtype=torch.float32, device="cuda"):
+    """A numpy case as the port's ``(table_prior, prior_rows, children,
+    zmask)`` on ``device``, tables in ``dtype``."""
+    from repro_torch.kernels.ref import ZChild
+    et, rows, raw, zm = case
 
     def dev(a, dt=None):
         if a is None:
@@ -155,7 +202,7 @@ def within(got, want, rtol, atol):
                           <= atol + rtol * want.double().abs()))
 
 
-def compare_zstats(label, got, want, tol=ZSTATS_TOL):
+def compare_zstats(label, got, want, tol=ZSTATS_TOL, name="zstats"):
     """Max abs / rel error of the kernel's outputs against the plain
     version's; fails outside the tolerance."""
     ok = within(got[0], want[0], tol["lse_rtol"], tol["atol"])
@@ -164,10 +211,10 @@ def compare_zstats(label, got, want, tol=ZSTATS_TOL):
         ok &= g.shape == w.shape and within(g, w, tol["rtol"], tol["atol"])
         worst.append(errors(g, w))
     ab, rel = max(e[0] for e in worst), max(e[1] for e in worst)
-    log(f"  zstats {label:<28} max_abs {ab:.3e} max_rel {rel:.3e} "
+    log(f"  {name} {label:<28} max_abs {ab:.3e} max_rel {rel:.3e} "
         f"(rtol {tol['rtol']}, atol {tol['atol']}, lse rtol {tol['lse_rtol']}) "
         f"{'ok' if ok else 'FAIL'}")
-    check(ok, f"zstats {label} disagrees with its plain version")
+    check(ok, f"{name} {label} disagrees with its plain version")
     return ab
 
 
@@ -210,9 +257,13 @@ def phase_build(report):
     secs = time.perf_counter() - t0
     log(f"[build] nvcc {fused_zstats._SRC.relative_to(ROOT)} -> "
         f"{lib.name} in {secs:.2f} s")
+    entry = ""
     for line in out.splitlines():
-        if "registers" in line or "spill" in line.lower():
-            log("  " + line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or " 0 bytes spill stores" not in line \
+                and "spill" in line:
+            log(f"  {entry[:48]:<48} {line.split(':', 1)[-1].strip()}")
     fused_zstats.library()
     report["build_s"] = secs
 
@@ -243,11 +294,6 @@ def phase_kernels_vs_plain(report):
             compare_zstats(f"{label}/{tables}/bf16",
                            fz.zstats(*args, tables=tables),
                            ref.zstats(*args, tables=tables))
-    try:
-        fz.zstats(*zcase(300, *ZMAP_CASE))
-        raise CheckFailed("a zmap latent on CUDA did not raise")
-    except NotImplementedError:
-        log("  zstats zmap latent on CUDA raises NotImplementedError: ok")
     for shape in SHAPES:
         rng = np.random.default_rng(shape[0] * 7 + shape[1])
         a = torch.from_numpy((rng.gamma(1.0, 1.0, size=shape) + 1e-2)
@@ -269,6 +315,70 @@ def phase_kernels_vs_plain(report):
             compare("zstep", f"{shape} lse", lse, lp,
                     dict(rtol=1e-5, atol=1e-5))
     torch.cuda.synchronize()
+
+
+def zmap_variants():
+    """(label, numpy case, tables) of every segment-latent case: the cases
+    above in elog and alpha mode, the reference's alpha "zmap" case, an
+    unsorted zmap, an instance with no tokens beside one whose tokens are
+    all masked."""
+    out = []
+    for i, (label, case) in enumerate(ZMAP_CASES.items()):
+        for tables in ("elog", "alpha"):
+            out.append((f"{label}/{tables}",
+                        zcase_np(400 + i, *case, positive=tables == "alpha"),
+                        tables))
+    out.append(("alpha-zmap/alpha", zcase_np(*ZMAP_ALPHA_CASE, positive=True),
+                "alpha"))
+    et, rows, raw, zm = zcase_np(410, *ZMAP_CASES["zmap+flat"])
+    perm = np.random.default_rng(411).permutation(len(raw[0][1]))
+    tab, vals, stride, zmap, base, mask = raw[0]
+    raw[0] = (tab, vals[perm], stride, zmap[perm], base, mask)
+    out.append(("unsorted-zmap/elog", (et, rows, raw, zm), "elog"))
+    et, rows, raw, zm = zcase_np(412, *ZMAP_CASES["zmap-masked"])
+    tab, vals, stride, zmap, base, mask = raw[0]
+    zmap = np.where(zmap == 0, 1, zmap).astype(np.int32)     # instance 0: empty
+    mask = np.where(zmap == 2, 0.0, mask).astype(np.float32)  # 2: all masked
+    raw[0] = (tab, vals, stride, zmap, base, mask)
+    out.append(("empty+masked-instance/elog", (et, rows, raw, zm), "elog"))
+    return out
+
+
+def phase_zmap_kernels():
+    """``zstats_zmap`` and ``zmap_logits`` against ``ref.zstats`` and
+    ``ref.zmap_logits`` on every segment-latent case, f32 and bf16 tables;
+    a plan from ``ops.zstats_plan`` and a repeated call change no bit."""
+    from repro_torch.kernels import fused_zmap as fzm
+    from repro_torch.kernels import ops, ref
+    log("[kernels vs plain] segment latents (zstats_zmap, zmap_logits)")
+    worst = {"zstats_zmap": 0.0, "zmap_logits": 0.0}
+    bf16 = ("zmap-masked", "zmap-strided", "zmap+flat")
+    for label, case, tables in zmap_variants():
+        dtypes = [torch.float32]
+        if label.split("/")[0] in bf16:
+            dtypes.append(torch.bfloat16)
+        for dt in dtypes:
+            tag = label + ("/bf16" if dt == torch.bfloat16 else "")
+            args = to_port(case, dt)
+            worst["zstats_zmap"] = max(worst["zstats_zmap"], compare_zstats(
+                tag, fzm.zstats_zmap(*args, tables=tables),
+                ref.zstats(*args, tables=tables), name="zstats_zmap"))
+            zkids = tuple(c for c in args[2] if c.zmap is not None)
+            nz, k = args[1].shape[0], args[0].shape[1]
+            worst["zmap_logits"] = max(worst["zmap_logits"], compare(
+                "zmap_logits", tag,
+                fzm.zmap_logits(zkids, nz, k, tables=tables),
+                ref.zmap_logits(zkids, nz, k, tables=tables),
+                dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"])))
+    args = to_port(zcase_np(420, *ZMAP_CASES["zmap+flat"]))
+    plan = ops.zstats_plan(*args[:3])
+    a = fzm.zstats_zmap(*args, plan=plan)
+    b = fzm.zstats_zmap(*args)
+    check(bitwise((a[0], a[1], *a[2]), (b[0], b[1], *b[2])),
+          "zstats_zmap with and without a plan differ")
+    log("  zstats_zmap with ops.zstats_plan's plan and without: bitwise equal")
+    torch.cuda.synchronize()
+    return worst
 
 
 def make_main_model(args):
@@ -405,19 +515,7 @@ def phase_repeat_and_time(args, report, m, prog, counts):
     s_ops = 5 * n * k
     del logits
     # VMP step: host clock around steps that end in a synchronize
-    step = runtime.make_step(prog, device="cuda")
-    st = vmp.state_from_numpy(posts, step=0, device="cuda")
-    st, _ = step(st)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        st, elbo = step(st)
-        float(elbo)
-    step_ms = (time.perf_counter() - t0) / 5 * 1e3
-
-    def bound(nbytes, nops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
+    t_step, step, st = time_steps(prog, state)
 
     trace = phase_trace(step, st)
     per_step = {name: counts[name] / steps for name in counts}
@@ -434,10 +532,8 @@ def phase_repeat_and_time(args, report, m, prog, counts):
          "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp,
          bound(s_bytes, s_ops), zstep_err),
     ]:
-        kernels.append({"name": name, "route": route, "source": src,
-                        "replaces": rep, "launches": counts[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                        "bound_ms": bms, "bound_by": by, "library_ms": None})
+        kernels.append(kernel_entry(name, route, src, rep, counts[name], err,
+                                    ms, pms, bms, by))
         log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
             f"{bms:8.4f} ms ({by})  launches {counts[name]} "
             f"({per_step[name]:.1f} per step)")
@@ -445,13 +541,234 @@ def phase_repeat_and_time(args, report, m, prog, counts):
         f"{t_de_theta:.4f} ms, bound {g * k * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms")
     log(f"  torch.softmax beside zstep (not used by the port): "
         f"{t_softmax:.4f} ms")
-    log(f"  VMP step: {step_ms:.2f} ms, {n / step_ms * 1e3:.4e} tokens/s "
+    log(f"  VMP step: {t_step:.2f} ms, {n / t_step * 1e3:.4e} tokens/s "
         f"(N = {n})")
-    report.update(kernels=kernels, step_ms=step_ms,
-                  tokens_per_s=n / step_ms * 1e3, softmax_ms=t_softmax,
+    report.update(kernels=kernels, step_ms=t_step,
+                  tokens_per_s=n / t_step * 1e3, softmax_ms=t_softmax,
                   de_theta_ms=t_de_theta, launches_per_step=per_step,
                   trace=trace)
     return kernels
+
+
+def bound(nbytes, nops):
+    """(least ms on the card, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the f32 operations over the peak rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def kernel_entry(name, route, src, replaces, launches, err, ms, plain_ms,
+                 bound_ms, bound_by, library_ms=None):
+    return {"name": name, "route": route, "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def time_steps(prog, state, reps=5):
+    """ms per VMP step (host clock around ``reps`` steps, each ending in the
+    ELBO's ``float``, after one warm-up step) and the state after them."""
+    from repro_torch.core import runtime, vmp
+    posts, _ = vmp.state_to_numpy(state)
+    step = runtime.make_step(prog, device="cuda")
+    st, _ = step(vmp.state_from_numpy(posts, step=0, device="cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        st, elbo = step(st)
+        float(elbo)
+    return (time.perf_counter() - t0) / reps * 1e3, step, st
+
+
+# ---------------------------------------------------------------------------
+# segment latents: SLDA and naive Bayes through make_engine("vmp")
+# ---------------------------------------------------------------------------
+
+def sentences(corpus):
+    """Each document cut into sentences of SENT_LEN tokens, the last one
+    shorter; no sentence straddles two documents.  Returns (sentence of each
+    token, document of each sentence)."""
+    lengths, doc_ids = corpus["lengths"], corpus["doc_ids"]
+    per_doc = (lengths + SENT_LEN - 1) // SENT_LEN
+    first_tok = np.cumsum(lengths) - lengths
+    first_sent = np.cumsum(per_doc) - per_doc
+    pos = np.arange(len(doc_ids)) - first_tok[doc_ids]
+    tok_sent = (first_sent[doc_ids] + pos // SENT_LEN).astype(np.int32)
+    sent_doc = np.repeat(np.arange(len(lengths), dtype=np.int32), per_doc)
+    return tok_sent, sent_doc
+
+
+def make_slda(corpus):
+    """SLDA at the main path's widths over the main path's corpus."""
+    from repro_torch.core import models
+    t0 = time.perf_counter()
+    tok_sent, sent_doc = sentences(corpus)
+    m = models.make("slda", alpha=ALPHA, beta=BETA, K=TOPICS, V=VOCAB)
+    m["x"].observe(corpus["tokens"], segment_ids=tok_sent)
+    m.bind("sents", sent_doc)
+    m.compile()
+    log(f"[slda] {len(sent_doc)} sentences of <= {SENT_LEN} tokens over "
+        f"{len(corpus['lengths'])} documents, N = {len(tok_sent)}; observed "
+        f"and compiled in {time.perf_counter() - t0:.1f} s")
+    return m
+
+
+def make_naive_bayes(args):
+    """Naive Bayes at the 20 Newsgroups "bydate" widths over a planted
+    corpus of the main path's mean length (depth scaled with --docs)."""
+    from repro_torch.core import models
+    from repro_torch.data import SyntheticCorpus
+    t0 = time.perf_counter()
+    docs = max(NB_DOCS * args.docs // 30000, 100)
+    corpus = SyntheticCorpus(n_docs=docs, vocab=NB_VOCAB, n_topics=NB_CLASSES,
+                             alpha=ALPHA, beta=BETA, mean_len=MEAN_LEN,
+                             seed=SEED).generate()
+    m = models.make("naive_bayes", alpha=ALPHA, beta=BETA, C=NB_CLASSES,
+                    V=NB_VOCAB)
+    m["x"].observe(corpus["tokens"], segment_ids=corpus["doc_ids"])
+    m.compile()
+    log(f"[naive_bayes] C={NB_CLASSES} V={NB_VOCAB} D={docs} "
+        f"N={len(corpus['tokens'])} tokens, made and compiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return m
+
+
+def phase_segment(label, m, steps, latent, report):
+    """One segment-latent path through ``make_engine("vmp").fit`` and
+    ``get_result``, launch counts set to 0 just before and read just after,
+    with the checks of the main path and two bitwise repeats."""
+    from repro_torch.core import make_engine, runtime, vmp
+    from repro_torch.kernels import ops
+    prog = m.compile()
+    spec = prog.latents[0]
+    n_inst, n_tok = spec.n, len(spec.children[0].values)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = make_engine("vmp", steps=steps, seed=SEED, device="cuda").fit(m)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = ops.launch_counts()
+    r = m[latent].get_result()
+    r_again = m[latent].get_result()
+    counts = ops.launch_counts()
+    trace = res.elbo_trace
+    log(f"[{label}] make_engine('vmp', steps={steps}).fit {fit_s:.2f} s "
+        f"(first step builds the owner plan); ELBO {trace[0]:.6e} -> "
+        f"{trace[-1]:.6e}")
+    log(f"[{label}] launches: {counts}")
+    check(fit_counts["zstats_zmap"] == steps and fit_counts["zstats"] == 0,
+          f"{label}: zstats_zmap launched {fit_counts['zstats_zmap']} times "
+          f"in {steps} steps (flat zstats {fit_counts['zstats']})")
+    check(counts["zmap_logits"] == 2 and counts["zstep"] == 2,
+          f"{label}: get_result did not run zmap_logits and zstep: {counts}")
+    diffs = np.diff(trace)
+    check(bool((diffs >= -1e-6 * abs(trace[-1])).all()),
+          f"{label}: ELBO not monotone within 1e-6 relative: {diffs.tolist()}")
+    want = {spec.prior_dir: n_inst, spec.children[0].dir_name: n_tok}
+    sums = {}
+    for name, n in want.items():
+        prior = prog.dirichlets[name].prior.astype(np.float64)
+        sums[name] = float((res.posteriors[name].astype(np.float64)
+                            - prior[None, :]).sum())
+        log(f"[{label}] sum of {name} stats {sums[name]:.1f} vs {n} "
+            f"(rel {abs(sums[name] - n) / n:.2e}, tol 1e-5)")
+        check(abs(sums[name] - n) <= 1e-5 * n,
+              f"{label}: {name} stats do not sum to {n}")
+    row_err = float(np.abs(r.sum(axis=1, dtype=np.float64) - 1.0).max())
+    log(f"[{label}] q({latent}) {r.shape}: max |row sum - 1| = {row_err:.2e} "
+        f"(tol 1e-5)")
+    check(r.shape == (n_inst, spec.k) and np.isfinite(r).all()
+          and row_err <= 1e-5, f"{label}: q({latent}) rows do not sum to 1")
+    check(np.array_equal(r, r_again),
+          f"{label}: two get_result('{latent}') calls differ")
+    posts, step = vmp.state_to_numpy(m._state)
+    runs = [runtime.run_inference(prog, steps=3, device="cuda",
+                                  state=vmp.state_from_numpy(posts, step, "cuda"))
+            for _ in range(2)]
+    check(runs[0][1] == runs[1][1] and all(
+        torch.equal(runs[0][0].posteriors[k], runs[1][0].posteriors[k])
+        for k in posts), f"{label}: two 3-step runs from one state differ")
+    log(f"[{label}] two get_result('{latent}') calls and two 3-step runs "
+        f"from one state: bitwise equal")
+    _, t16 = runtime.run_inference(prog, steps=3, device="cuda",
+                                   state=vmp.state_from_numpy(posts, step, "cuda"),
+                                   elog_dtype="bfloat16")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(t16, runs[0][1]))
+    log(f"[{label}] 3 steps on bf16 concentration tables: ELBO within "
+        f"{rel:.2e} of f32 (tol 2e-2, the tables' bf16 rounding)")
+    check(rel <= 2e-2, f"{label}: bf16 tables move the ELBO by {rel:.2e}")
+    report[label] = dict(elbo_trace=trace, launches=counts, fit_s=fit_s,
+                         stats_sums=sums, n_tokens=n_tok, n_latent=n_inst)
+    return counts
+
+
+def phase_segment_times(label, m, report, counts=None):
+    """The segment-latent step's ms and tokens/s; with ``counts`` (the
+    path's launches) also ``zstats_zmap`` and ``zmap_logits`` against their
+    plain versions on the path's own inputs: their agreement, times and
+    bounds, and the kernels line's entries."""
+    from repro_torch.core import vmp
+    from repro_torch.kernels import fused_zmap as fzm
+    from repro_torch.kernels import ref
+    prog, state = m.compile(), m._state
+    spec = prog.latents[0]
+    n_inst, n_tok = spec.n, len(spec.children[0].values)
+    entries = []
+    if counts is not None:
+        log(f"[kernels vs plain] {label} shapes")
+        arrays = vmp._program_arrays(prog, state.device)
+        tabs = vmp._elog_tables(prog, state)
+        children = vmp._latent_children(spec, tabs, arrays)
+        rows = arrays[spec.name]["prior_rows"]
+        plan = vmp._latent_plan(prog, spec, tabs, arrays, children)
+        prior = tabs[spec.prior_dir]
+        err = compare_zstats(f"{label} path", fzm.zstats_zmap(
+            prior, rows, children, plan=plan), ref.zstats(prior, rows, children),
+            name="zstats_zmap")
+        k = spec.k
+        lerr = compare("zmap_logits", f"{label} path",
+                       fzm.zmap_logits(children, n_inst, k, plan=plan),
+                       ref.zmap_logits(children, n_inst, k),
+                       dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"]))
+        torch.cuda.synchronize()
+        t_z = time_ms(lambda: fzm.zstats_zmap(prior, rows, children, plan=plan),
+                      reps=10)
+        t_zp = time_ms(lambda: ref.zstats(prior, rows, children), reps=3)
+        t_l = time_ms(lambda: fzm.zmap_logits(children, n_inst, k, plan=plan),
+                      reps=10)
+        t_lp = time_ms(lambda: ref.zmap_logits(children, n_inst, k), reps=3)
+        g = prior.shape[0]
+        v = children[0].elog.shape[1]
+        tables = (g * k + k * v) * 4
+        z_bytes = n_tok * 8 + n_inst * 4 + tables * 2 + 4
+        z_ops = 8 * n_inst * k + 4 * n_tok * k
+        inter = 4 * n_inst * k * 4
+        l_bytes = n_tok * 8 + k * v * 4 + n_inst * k * 4
+        l_ops = 2 * n_tok * k
+        for name, rep, ms, pms, (bms, by), e in [
+            ("zstats_zmap", "src/repro/kernels/fused_zmap.py:236", t_z, t_zp,
+             bound(z_bytes, z_ops), err),
+            ("zmap_logits", "src/repro/kernels/fused_zmap.py:150", t_l, t_lp,
+             bound(l_bytes, l_ops), lerr),
+        ]:
+            entries.append(kernel_entry(
+                name, "cuda", "src/repro_torch/kernels/csrc/zstats.cu", rep,
+                counts[name], e, ms, pms, bms, by))
+            log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
+                f"{bms:8.4f} ms ({by})  launches {counts[name]}")
+        log(f"  zstats_zmap with its (n_latent, K) intermediates (logits, "
+            f"r, each written and read once): "
+            f"{(z_bytes + inter) / HBM_BYTES_PER_S * 1e3:.4f} ms of traffic")
+        report[label].update(zstats_zmap_ms=t_z, zmap_logits_ms=t_l,
+                             intermediate_bytes=inter)
+    t_step, step, st = time_steps(prog, state)
+    log(f"  {label} VMP step: {t_step:.2f} ms, {n_tok / t_step * 1e3:.4e} "
+        f"tokens/s (N = {n_tok}, {n_inst} latent instances)")
+    report[label].update(step_ms=t_step, tokens_per_s=n_tok / t_step * 1e3)
+    if counts is not None:
+        report[label]["trace"] = phase_trace(step, st)
+    return entries
 
 
 def phase_trace(step, st, n_steps=2):
@@ -510,9 +827,19 @@ def main(argv=None) -> int:
     report = {"device": dev_line, "args": vars(args)}
     phase_build(report)
     phase_kernels_vs_plain(report)
+    report["zmap_edge_max_abs"] = phase_zmap_kernels()
     corpus, m, prog = make_main_model(args)
     counts = phase_main(args, report, corpus, m, prog)
     kernels = phase_repeat_and_time(args, report, m, prog, counts)
+    del m, prog
+    slda = make_slda(corpus)
+    del corpus
+    counts = phase_segment("slda", slda, args.steps, "z", report)
+    kernels += phase_segment_times("slda", slda, report, counts)
+    del slda
+    nb = make_naive_bayes(args)
+    phase_segment("naive_bayes", nb, NB_STEPS, "c", report)
+    phase_segment_times("naive_bayes", nb, report)
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))

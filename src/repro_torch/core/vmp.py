@@ -13,9 +13,10 @@ responsibilities at their coordinate optimum the latent+likelihood
 contribution collapses to ``sum_i logsumexp_k(logits_i)``.
 
 The state lives on one device.  On CUDA each latent's token plate is one
-call of the ``zstats`` kernel, whose owner plan is built on the host once
-per program and cached in ``program.meta``; every reduction on the card runs
-in a fixed order, so two runs from the same state are bitwise equal.
+call of the ``zstats`` kernel (``fused_zmap`` for a segment latent), whose
+owner plan is built on the host once per program and cached in
+``program.meta``; every reduction on the card runs in a fixed order, so two
+runs from the same state are bitwise equal.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import ops as kops
 from . import dists
 from .compiler import VMPProgram
 
@@ -93,10 +95,14 @@ def state_to_numpy(state: VMPState) -> tuple[dict, int]:
 # ---------------------------------------------------------------------------
 
 def _messages_to_latent(program, spec, elog, arrays):
-    """Sum of prior + child messages -> logits (n, K)."""
+    """Sum of prior + child messages -> logits (n, K).  The children with a
+    ``zmap`` (a segment latent's) are summed per instance by
+    ``kops.zmap_logits``, in a fixed order on every device, and added last."""
     logits = elog[spec.prior_dir][arrays[spec.name]["prior_rows"].long()]
     for f in spec.children:
         a = arrays[f.x_name]
+        if a.get("zmap") is not None:
+            continue
         vals = a["values"].long()
         if f.specialized:
             e = elog[f.dir_name][:, vals].T
@@ -106,11 +112,48 @@ def _messages_to_latent(program, spec, elog, arrays):
             e = elog[f.dir_name][base + f.stride * kk[None, :], vals[:, None]]
         if a.get("mask") is not None:
             e = e * a["mask"][:, None]
-        if a.get("zmap") is not None:
-            e = torch.zeros((spec.n, spec.k), dtype=e.dtype,
-                            device=e.device).index_add_(0, a["zmap"].long(), e)
         logits = logits + e
+    children = _latent_children(spec, elog, arrays)
+    zkids = tuple(c for c in children if c.zmap is not None)
+    if zkids:
+        plan = _latent_plan(program, spec, elog, arrays, children)
+        logits = logits + kops.zmap_logits(zkids, spec.n, spec.k, plan=plan)
     return logits.contiguous()
+
+
+def _elog_tables(program: VMPProgram, state: VMPState) -> dict:
+    """Each Dirichlet's Elog table, made once (``kops.dirichlet_expectation``).
+    The table of a specialized child (phi for LDA) is made as (V, K), the
+    layout the kernels read, and used through its (K, V) transpose."""
+    transposed = {f.dir_name for spec in program.latents
+                  for f in spec.children if f.specialized}
+    return {n: kops.dirichlet_expectation(p, transpose=True).T
+            if n in transposed else kops.dirichlet_expectation(p)
+            for n, p in state.posteriors.items()}
+
+
+def _latent_children(spec, tabs: dict, arrays: dict) -> tuple:
+    """The latent's children as kernel-level ``ZChild``s over ``tabs``."""
+    return tuple(
+        kops.ZChild(elog=tabs[f.dir_name], values=arrays[f.x_name]["values"],
+                    stride=f.stride, zmap=arrays[f.x_name].get("zmap"),
+                    base=arrays[f.x_name].get("base"),
+                    mask=arrays[f.x_name].get("mask"))
+        for f in spec.children)
+
+
+def _latent_plan(program: VMPProgram, spec, tabs: dict, arrays: dict,
+                 children: tuple):
+    """The kernel's owner plan of one latent (``kops.zstats_plan``).  It
+    depends only on the program's static index streams, so it is built once
+    on the host and cached on the program, keyed per (latent name, instance
+    count, device)."""
+    rows = arrays[spec.name]["prior_rows"]
+    pcache = program.meta.setdefault("_zstats_plan", {})
+    pkey = (spec.name, rows.shape[0], str(rows.device))
+    if pkey not in pcache:
+        pcache[pkey] = kops.zstats_plan(tabs[spec.prior_dir], rows, children)
+    return pcache[pkey]
 
 
 # ---------------------------------------------------------------------------
@@ -139,26 +182,19 @@ def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
                elog_dtype=None):
     """One VMP iteration: ``(new_state, elbo)``, the ELBO a 0-d f32 tensor.
 
-    Each Dirichlet's Elog table is made once (``kops.dirichlet_expectation``)
-    and read by the token plate, the statics and the Dirichlet ELBO terms.
-    The table of a specialized child (phi for LDA) is made as (V, K), the
-    layout the ``zstats`` kernel reads, and used through its (K, V)
-    transpose.  Per latent, the fused ``kops.zstats`` substep gathers the
-    Elog messages, takes the softmax/logsumexp and scatters the sufficient
-    statistics in one pass, so the (N, K) responsibilities are never
-    materialized.  ``elog_dtype`` (e.g. ``torch.bfloat16``) instead hands
+    Each Dirichlet's Elog table is made once (:func:`_elog_tables`) and read
+    by the token plate, the statics and the Dirichlet ELBO terms.  Per
+    latent, the fused ``kops.zstats`` substep gathers the Elog messages,
+    takes the softmax/logsumexp and scatters the sufficient statistics, so
+    the token plate's (N, K) responsibilities are never materialized (a
+    segment latent's (n_latent, K) ones are).  ``elog_dtype`` (e.g. ``torch.bfloat16``) instead hands
     the token plate the posterior *concentrations* narrowed to that type
     (``tables="alpha"``), while the digamma, softmax, stats and the Dirichlet
     ELBO terms stay f32.
     """
-    from ..kernels import ops as kops
 
     device = state.device
-    transposed = {f.dir_name for spec in program.latents
-                  for f in spec.children if f.specialized}
-    elog = {n: kops.dirichlet_expectation(p, transpose=True).T
-            if n in transposed else kops.dirichlet_expectation(p)
-            for n, p in state.posteriors.items()}
+    elog = _elog_tables(program, state)
     if elog_dtype is None:
         tabs, tables = elog, "elog"
     else:
@@ -168,29 +204,12 @@ def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
     stats = {n: torch.zeros((d.g, d.k), dtype=torch.float32, device=device)
              for n, d in program.dirichlets.items()}
 
-    # the kernel's owner plan depends only on the program's static index
-    # streams: built once on the host and cached on the program, keyed per
-    # (latent name, token count, device)
-    pcache = program.meta.setdefault("_zstats_plan", {})
-
     for spec in program.latents:
-        children = tuple(
-            kops.ZChild(elog=tabs[f.dir_name],
-                        values=arrays[f.x_name]["values"],
-                        stride=f.stride,
-                        zmap=arrays[f.x_name].get("zmap"),
-                        base=arrays[f.x_name].get("base"),
-                        mask=arrays[f.x_name].get("mask"))
-            for f in spec.children)
-        rows = arrays[spec.name]["prior_rows"]
-        pkey = (spec.name, rows.shape[0], str(device))
-        if pkey not in pcache:
-            pcache[pkey] = kops.zstats_plan(tabs[spec.prior_dir], rows,
-                                            children)
+        children = _latent_children(spec, tabs, arrays)
         lse_sum, pstats, cstats = kops.zstats(
-            tabs[spec.prior_dir], rows, children,
+            tabs[spec.prior_dir], arrays[spec.name]["prior_rows"], children,
             zmask=arrays[spec.name].get("mask"), tables=tables,
-            plan=pcache[pkey])
+            plan=_latent_plan(program, spec, tabs, arrays, children))
         elbo = elbo + lse_sum
         # prior-factor stats (theta <- z)
         stats[spec.prior_dir] = stats[spec.prior_dir] + pstats
@@ -230,10 +249,8 @@ def latent_responsibilities(program: VMPProgram, state: VMPState, name: str):
     step body streams them through ``kops.zstats`` without storing them, so
     callers who want q(z) itself pay for it here, on demand.
     """
-    from ..kernels import ops as kops
     arrays = _program_arrays(program, state.device)
-    elog = {n: kops.dirichlet_expectation(p)
-            for n, p in state.posteriors.items()}
+    elog = _elog_tables(program, state)
     for spec in program.latents:
         if spec.name == name:
             logits = _messages_to_latent(program, spec, elog, arrays)

@@ -43,6 +43,32 @@
 // f32 and small enough for the 50 MB L2, loads the owner key's row once per
 // piece rather than once per token, and spends one division per token.
 //
+// Segment latents.  The same passes also replace the Pallas TPU kernel
+// repro/kernels/fused_zmap.py:zstats_zmap (_phase_logits/_logits_kernel,
+// _phase_stats/_stats_kernel, and the extra=/emit_r= use of
+// fused_zstats._zstats_call).  A latent whose child carries a zmap (token t
+// -> latent instance zmap[t]: an SLDA sentence, a naive Bayes document)
+// needs a cross-token sum before its softmax, so it runs in three phases:
+//   1. zmap_logits: the host groups each zmap child's tokens by instance;
+//      a warp per piece sums mask * message, and zstats_finish writes (or,
+//      for a later zmap child, adds) each instance's row of the (n_latent,
+//      K) logits, children in order;
+//   2a. the prior pass above over the latent instances, with those logits
+//      as `extra` after the prior row, writes each instance's r row once
+//      (`r_out`) besides the prior stats, the lse and the stats of any
+//      child without a zmap;
+//   2b. zmap_stats: the host groups each zmap child's tokens by value; a
+//      warp per piece sums mask * r[zmap] and zstats_finish writes the
+//      value's column of the stats (zmap_strided walks a strided child's
+//      value column in token order).
+// Bound on the H100 at the SLDA main path (10M tokens, 1.44M sentences,
+// K = 100): operations, about 0.08 ms, just above the 0.06 ms that its
+// inputs and outputs take at 3.35 TB/s.  The (n_latent, K) logits, their
+// per-piece partials and r are intermediates of 0.58 GB each, written and
+// read once more (about 0.7 ms of traffic that a fused kernel would not
+// move); the design accepts that for owner passes without atomics, and
+// phase 1 and 2b gather only one K-row per token (the message, or r).
+//
 // Tables arrive as f32 Elog values (the wrapper's Triton pre-pass computes
 // them from f32 or bf16 concentrations); accumulation is f32.  K may be
 // anything from 1 to 1024 (KPL = K per lane, a template parameter).
@@ -54,6 +80,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define MAX_CHILDREN 8
 #define WARPS_PER_BLOCK 8
 #define SUM_THREADS 1024
@@ -63,6 +91,7 @@ struct ZChildArgs {
   const int* values;    // (N,) observed value per token
   const int* base;      // (N,) row base, or null for all-zero
   const float* mask;    // (N,) token validity, or null
+  const int* zmap;      // (N,) token -> latent instance (segment latents), or null
   int stride;
   int kf;               // value-axis length of the parent table
   int specialized;
@@ -72,6 +101,8 @@ struct ZArgs {
   const float* prior;       // (G, K) Elog
   const int* prior_rows;    // (N,)
   const float* zmask;       // (N,) or null
+  const float* extra;       // (N, K) logits added after the prior row, or null
+  float* r_out;             // (N, K) responsibilities written by the prior pass, or null
   int k;
   int n_children;
   ZChildArgs c[MAX_CHILDREN];
@@ -89,12 +120,39 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Token i's logits (lane's share; lanes past K hold -inf).  The operand row
-// of `fixed` (-1: the prior, c >= 0: specialized child c) is `frow`, the row
+// Child ch's message for token i (lane's share, 0 past K), before its mask,
+// for the segment-latent passes: a specialized child's row v_i of its
+// (Kf, K) table, a strided child's column v_i at rows base_i + stride * k.
+template <int KPL>
+__device__ __forceinline__ void child_message(const ZChildArgs& ch, int i, int lane, int k,
+                                              float (&e)[KPL]) {
+  const int v = ch.values[i];
+  if (ch.specialized) {
+    const float* row = ch.table + (size_t)v * k;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int kk = lane + 32 * j;
+      e[j] = kk < k ? row[kk] : 0.0f;
+    }
+  } else {
+    const int b = ch.base ? ch.base[i] : 0;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int kk = lane + 32 * j;
+      e[j] = kk < k ? ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v] : 0.0f;
+    }
+  }
+}
+
+// Token i's logits (lane's share; lanes past K hold -inf): the prior row,
+// then (EXTRA, a segment latent's prior pass) the instance's row of the
+// extra logits, then each child's masked message.  The operand row of
+// `fixed` (-1: the prior, c >= 0: specialized child c) is `frow`, the row
 // the piece's owner key selects, loaded once per piece; every other row is
 // gathered.  fixed = -2 gathers every row.  The branches on `fixed` stay
-// outside the lane loops, so no row is fetched that is not used.
-template <int KPL>
+// outside the lane loops, so no row is fetched that is not used.  EXTRA is
+// a template parameter so that the flat latents' passes compile without it.
+template <int KPL, bool EXTRA>
 __device__ __forceinline__ void token_logits(const ZArgs& a, int i, int lane, int fixed,
                                              const float (&frow)[KPL], float (&x)[KPL]) {
   const int k = a.k;
@@ -107,6 +165,14 @@ __device__ __forceinline__ void token_logits(const ZArgs& a, int i, int lane, in
     for (int j = 0; j < KPL; ++j) {
       const int kk = lane + 32 * j;
       x[j] = kk < k ? prow[kk] : -INFINITY;
+    }
+  }
+  if constexpr (EXTRA) {
+    const float* erow = a.extra + (size_t)i * k;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int kk = lane + 32 * j;
+      if (kk < k) x[j] += erow[kk];
     }
   }
   for (int c = 0; c < a.n_children; ++c) {
@@ -162,9 +228,11 @@ __device__ __forceinline__ float softmax_r(float (&x)[KPL], int lane, int k, flo
 }
 
 // One warp per piece: the piece's sum of r (target < 0: the prior pass, which
-// also sums lse) or of mask_target * r (target >= 0: a specialized child).
-// All tokens of a piece share the owner key, so its table row is loaded once.
-template <int KPL>
+// also sums lse and, for a segment latent (EXTRA), writes each instance's r
+// row to r_out: every instance lies in exactly one piece of that pass) or of
+// mask_target * r (target >= 0: a specialized child).  All tokens of a piece
+// share the owner key, so its table row is loaded once.
+template <int KPL, bool EXTRA>
 __global__ void pieces_kernel(ZArgs a, int target, const int* __restrict__ perm,
                               const int* __restrict__ piece_start, int n_pieces,
                               float* __restrict__ partial, float* __restrict__ lse_part) {
@@ -188,8 +256,14 @@ __global__ void pieces_kernel(ZArgs a, int target, const int* __restrict__ perm,
   for (int t = t0; t < t1; ++t) {
     const int i = perm[t];
     float x[KPL];
-    token_logits<KPL>(a, i, lane, target < 0 ? -1 : target, frow, x);
+    token_logits<KPL, EXTRA>(a, i, lane, target < 0 ? -1 : target, frow, x);
     lse_acc += softmax_r<KPL>(x, lane, k, a.zmask ? a.zmask[i] : 1.0f);
+    if (EXTRA && target < 0) {
+      float* rrow = a.r_out + (size_t)i * k;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j)
+        if (lane + 32 * j < k) rrow[lane + 32 * j] = x[j];
+    }
     const float w = wmask ? wmask[i] : 1.0f;
 #pragma unroll
     for (int j = 0; j < KPL; ++j) acc[j] += x[j] * w;
@@ -203,11 +277,12 @@ __global__ void pieces_kernel(ZArgs a, int target, const int* __restrict__ perm,
 }
 
 // One warp per key: add the key's pieces in order; write out[key, kk] at
-// key * stride_key + kk * stride_k.  Keys without tokens write zeros.
+// key * stride_key + kk * stride_k (add != 0: add to it).  Keys without
+// tokens write zeros (add nothing).
 __global__ void finish_kernel(const float* __restrict__ partial,
                               const int* __restrict__ key_pieces, int n_keys, int k,
                               float* __restrict__ out, long long stride_key,
-                              long long stride_k) {
+                              long long stride_k, int add) {
   const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (warp >= n_keys) return;
@@ -215,13 +290,14 @@ __global__ void finish_kernel(const float* __restrict__ partial,
   for (int kk = lane; kk < k; kk += 32) {
     float acc = 0.0f;
     for (int p = p0; p < p1; ++p) acc += partial[(size_t)p * k + kk];
-    out[warp * stride_key + kk * stride_k] = acc;
+    float* o = out + warp * stride_key + kk * stride_k;
+    *o = add ? *o + acc : acc;
   }
 }
 
 // One warp per value column of a strided child: walk the column's tokens in
 // order and add mask * r into rows base + stride * k of out (zeroed).
-template <int KPL>
+template <int KPL, bool EXTRA>
 __global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ perm,
                                const int* __restrict__ key_start, int n_keys,
                                float* __restrict__ out) {
@@ -234,7 +310,7 @@ __global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ perm
   for (int t = key_start[warp]; t < t1; ++t) {
     const int i = perm[t];
     float r[KPL];
-    token_logits<KPL>(a, i, lane, -2, r, r);   // no fixed row: the first r is unread
+    token_logits<KPL, EXTRA>(a, i, lane, -2, r, r);   // no fixed row: the first r is unread
     softmax_r<KPL>(r, lane, k, a.zmask ? a.zmask[i] : 1.0f);
     const float w = ch.mask ? ch.mask[i] : 1.0f;
     const int b = ch.base ? ch.base[i] : 0;
@@ -242,6 +318,100 @@ __global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ perm
     for (int j = 0; j < KPL; ++j) {
       const int kk = lane + 32 * j;
       if (kk < k) out[(size_t)(b + ch.stride * kk) * ch.kf + warp] += r[j] * w;
+    }
+    __syncwarp();   // rows may repeat across tokens and lanes: keep token order
+  }
+}
+
+// --- segment latents (a child with a zmap: SLDA sentences, naive Bayes
+// documents).  The ZArgs of these passes hold the zmap children only.
+
+// Phase 1, one warp per piece of child `target`'s tokens grouped by latent
+// instance: the piece's sum of mask * message, the instance's logits share.
+template <int KPL>
+__global__ void zmap_logits_kernel(ZArgs a, int target, const int* __restrict__ perm,
+                                   const int* __restrict__ piece_start, int n_pieces,
+                                   float* __restrict__ partial) {
+  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_pieces) return;
+  const ZChildArgs& ch = a.c[target];
+  const int k = a.k;
+  float acc[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) acc[j] = 0.0f;
+  const int t1 = piece_start[warp + 1];
+  for (int t = piece_start[warp]; t < t1; ++t) {
+    const int i = perm[t];
+    const float mk = ch.mask ? ch.mask[i] : 1.0f;
+    float e[KPL];
+    child_message<KPL>(ch, i, lane, k, e);
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) acc[j] += e[j] * mk;
+  }
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int kk = lane + 32 * j;
+    if (kk < k) partial[(size_t)warp * k + kk] = acc[j];
+  }
+}
+
+// Phase 2b, one warp per piece of a specialized child's tokens grouped by
+// value: the piece's sum of mask * r[zmap], the value column's share.
+template <int KPL>
+__global__ void zmap_stats_kernel(ZArgs a, int target, const float* __restrict__ r,
+                                  const int* __restrict__ perm,
+                                  const int* __restrict__ piece_start, int n_pieces,
+                                  float* __restrict__ partial) {
+  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_pieces) return;
+  const ZChildArgs& ch = a.c[target];
+  const int k = a.k;
+  float acc[KPL];
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) acc[j] = 0.0f;
+  const int t1 = piece_start[warp + 1];
+  for (int t = piece_start[warp]; t < t1; ++t) {
+    const int i = perm[t];
+    const float w = ch.mask ? ch.mask[i] : 1.0f;
+    const float* rrow = r + (size_t)ch.zmap[i] * k;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int kk = lane + 32 * j;
+      if (kk < k) acc[j] += rrow[kk] * w;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KPL; ++j) {
+    const int kk = lane + 32 * j;
+    if (kk < k) partial[(size_t)warp * k + kk] = acc[j];
+  }
+}
+
+// Phase 2b of a strided child: one warp per value column walks the column's
+// tokens in order and adds mask * r[zmap] into rows base + stride * k of out
+// (zeroed).
+template <int KPL>
+__global__ void zmap_strided_kernel(ZArgs a, int target, const float* __restrict__ r,
+                                    const int* __restrict__ perm,
+                                    const int* __restrict__ key_start, int n_keys,
+                                    float* __restrict__ out) {
+  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_keys) return;
+  const ZChildArgs& ch = a.c[target];
+  const int k = a.k;
+  const int t1 = key_start[warp + 1];
+  for (int t = key_start[warp]; t < t1; ++t) {
+    const int i = perm[t];
+    const float w = ch.mask ? ch.mask[i] : 1.0f;
+    const int b = ch.base ? ch.base[i] : 0;
+    const float* rrow = r + (size_t)ch.zmap[i] * k;
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) {
+      const int kk = lane + 32 * j;
+      if (kk < k) out[(size_t)(b + ch.stride * kk) * ch.kf + warp] += rrow[kk] * w;
     }
     __syncwarp();   // rows may repeat across tokens and lanes: keep token order
   }
@@ -276,16 +446,23 @@ static inline unsigned blocks_for(int warps) {
   return (unsigned)((warps + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK);
 }
 
-#define DISPATCH_KPL(k, KERNEL, GRID, STREAM, ...)                                \
-  switch (kpl_of(k)) {                                                            \
-    case 1: KERNEL<1><<<GRID, 32 * WARPS_PER_BLOCK, 0, STREAM>>>(__VA_ARGS__); break;   \
-    case 2: KERNEL<2><<<GRID, 32 * WARPS_PER_BLOCK, 0, STREAM>>>(__VA_ARGS__); break;   \
-    case 4: KERNEL<4><<<GRID, 32 * WARPS_PER_BLOCK, 0, STREAM>>>(__VA_ARGS__); break;   \
-    case 8: KERNEL<8><<<GRID, 32 * WARPS_PER_BLOCK, 0, STREAM>>>(__VA_ARGS__); break;   \
-    case 16: KERNEL<16><<<GRID, 32 * WARPS_PER_BLOCK, 0, STREAM>>>(__VA_ARGS__); break; \
-    case 32: KERNEL<32><<<GRID, 32 * WARPS_PER_BLOCK, 0, STREAM>>>(__VA_ARGS__); break; \
-    default: return (int)cudaErrorInvalidValue;                                   \
+// Call launch(std::integral_constant<int, KPL>()) with K's topics per lane;
+// returns the launch's error.
+template <typename F>
+static int dispatch_kpl(int k, F launch) {
+  switch (kpl_of(k)) {
+    case 1: launch(std::integral_constant<int, 1>()); break;
+    case 2: launch(std::integral_constant<int, 2>()); break;
+    case 4: launch(std::integral_constant<int, 4>()); break;
+    case 8: launch(std::integral_constant<int, 8>()); break;
+    case 16: launch(std::integral_constant<int, 16>()); break;
+    case 32: launch(std::integral_constant<int, 32>()); break;
+    default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+#define THREADS (32 * WARPS_PER_BLOCK)
 
 extern "C" {
 
@@ -299,18 +476,27 @@ int zstats_pieces(const void* args, int target, const void* perm, const void* pi
                   int n_pieces, void* partial, void* lse_part, void* stream) {
   const ZArgs a = *(const ZArgs*)args;
   if (n_pieces <= 0) return 0;
-  DISPATCH_KPL(a.k, pieces_kernel, blocks_for(n_pieces), (cudaStream_t)stream,
-               a, target, (const int*)perm, (const int*)piece_start, n_pieces,
-               (float*)partial, (float*)lse_part);
-  return (int)cudaGetLastError();
+  const unsigned grid = blocks_for(n_pieces);
+  cudaStream_t s = (cudaStream_t)stream;
+  return dispatch_kpl(a.k, [&](auto kpl) {
+    constexpr int KPL = decltype(kpl)::value;
+    if (a.extra)
+      pieces_kernel<KPL, true><<<grid, THREADS, 0, s>>>(
+          a, target, (const int*)perm, (const int*)piece_start, n_pieces, (float*)partial,
+          (float*)lse_part);
+    else
+      pieces_kernel<KPL, false><<<grid, THREADS, 0, s>>>(
+          a, target, (const int*)perm, (const int*)piece_start, n_pieces, (float*)partial,
+          (float*)lse_part);
+  });
 }
 
 int zstats_finish(const void* partial, const void* key_pieces, int n_keys, int k, void* out,
-                  long long stride_key, long long stride_k, void* stream) {
+                  long long stride_key, long long stride_k, int add, void* stream) {
   if (n_keys <= 0) return 0;
-  finish_kernel<<<blocks_for(n_keys), 32 * WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+  finish_kernel<<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)partial, (const int*)key_pieces, n_keys, k, (float*)out, stride_key,
-      stride_k);
+      stride_k, add);
   return (int)cudaGetLastError();
 }
 
@@ -318,9 +504,52 @@ int zstats_strided(const void* args, int target, const void* perm, const void* k
                    int n_keys, void* out, void* stream) {
   const ZArgs a = *(const ZArgs*)args;
   if (n_keys <= 0) return 0;
-  DISPATCH_KPL(a.k, strided_kernel, blocks_for(n_keys), (cudaStream_t)stream,
-               a, target, (const int*)perm, (const int*)key_start, n_keys, (float*)out);
-  return (int)cudaGetLastError();
+  const unsigned grid = blocks_for(n_keys);
+  cudaStream_t s = (cudaStream_t)stream;
+  return dispatch_kpl(a.k, [&](auto kpl) {
+    constexpr int KPL = decltype(kpl)::value;
+    if (a.extra)
+      strided_kernel<KPL, true><<<grid, THREADS, 0, s>>>(
+          a, target, (const int*)perm, (const int*)key_start, n_keys, (float*)out);
+    else
+      strided_kernel<KPL, false><<<grid, THREADS, 0, s>>>(
+          a, target, (const int*)perm, (const int*)key_start, n_keys, (float*)out);
+  });
+}
+
+int zmap_logits(const void* args, int target, const void* perm, const void* piece_start,
+                int n_pieces, void* partial, void* stream) {
+  const ZArgs a = *(const ZArgs*)args;
+  if (n_pieces <= 0) return 0;
+  return dispatch_kpl(a.k, [&](auto kpl) {
+    zmap_logits_kernel<decltype(kpl)::value>
+        <<<blocks_for(n_pieces), THREADS, 0, (cudaStream_t)stream>>>(
+            a, target, (const int*)perm, (const int*)piece_start, n_pieces, (float*)partial);
+  });
+}
+
+int zmap_stats(const void* args, int target, const void* r, const void* perm,
+               const void* piece_start, int n_pieces, void* partial, void* stream) {
+  const ZArgs a = *(const ZArgs*)args;
+  if (n_pieces <= 0) return 0;
+  return dispatch_kpl(a.k, [&](auto kpl) {
+    zmap_stats_kernel<decltype(kpl)::value>
+        <<<blocks_for(n_pieces), THREADS, 0, (cudaStream_t)stream>>>(
+            a, target, (const float*)r, (const int*)perm, (const int*)piece_start, n_pieces,
+            (float*)partial);
+  });
+}
+
+int zmap_strided(const void* args, int target, const void* r, const void* perm,
+                 const void* key_start, int n_keys, void* out, void* stream) {
+  const ZArgs a = *(const ZArgs*)args;
+  if (n_keys <= 0) return 0;
+  return dispatch_kpl(a.k, [&](auto kpl) {
+    zmap_strided_kernel<decltype(kpl)::value>
+        <<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
+            a, target, (const float*)r, (const int*)perm, (const int*)key_start, n_keys,
+            (float*)out);
+  });
 }
 
 int zstats_sum(const void* x, int n, void* out, void* stream) {

@@ -20,7 +20,8 @@ This module holds the three parts around it:
     source, and ``ctypes`` loads it.
   - :func:`zstats` — the wrapper, for CUDA tensors only: it launches the
     kernel or raises.  The plain version is ``ref.zstats``, which ``ops``
-    runs on the CPU.
+    runs on the CPU.  Its passes (:func:`launch_flat`) are also phase 2a of
+    the segment-latent kernel in ``fused_zmap``, which shares the library.
 
 The kernel reads f32 Elog tables, a specialized child's as (V, K) so that
 one token's K-vector message is contiguous.  The VMP step hands them over
@@ -117,13 +118,34 @@ class ZPlan:
     def to(self, device) -> "ZPlan":
         """A copy whose index arrays also live on ``device``."""
         device = torch.device(device)
-        tensors = {}
-        for name, g in [("prior", self.prior)] + [
-                (f"child{i}", g) for i, g in enumerate(self.children)]:
-            for field in dataclasses.fields(g):
-                tensors[name, field.name] = torch.from_numpy(
-                    getattr(g, field.name)).to(device)
-        return ZPlan(self.prior, self.children, device, tensors)
+        named = [("prior", self.prior)] + [
+            (f"child{i}", g) for i, g in enumerate(self.children)]
+        return ZPlan(self.prior, self.children, device,
+                     device_arrays(named, device))
+
+
+def device_arrays(named: list, device) -> dict:
+    """``{(name, field): tensor on device}`` for each named Grouping."""
+    return {(name, field.name): torch.from_numpy(getattr(g, field.name)).to(device)
+            for name, g in named for field in dataclasses.fields(g)}
+
+
+def host(a) -> np.ndarray:
+    """A tensor or array as a numpy array on the host."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def check_strided_rows(i: int, c, k: int):
+    """Raise unless a strided child's rows base + stride * k lie inside its
+    table."""
+    if c.specialized or not len(c.values):
+        return
+    gf = c.elog.shape[0]
+    base = host(c.base) if c.base is not None else np.zeros(1, np.int64)
+    lo, hi = int(base.min()), int(base.max()) + int(c.stride) * (k - 1)
+    if lo < 0 or hi >= gf:
+        raise ValueError(f"child {i}: rows base + stride * k span "
+                         f"[{lo}, {hi}], outside its table's {gf} rows")
 
 
 def build_plan(prior_rows, children, prior_shape: tuple,
@@ -132,20 +154,12 @@ def build_plan(prior_rows, children, prior_shape: tuple,
     ``prior_rows`` grouped over the (G, K) prior's G rows, and each child's
     ``values`` grouped over its parent table's value axis.  Raises on an
     index the kernel would read or write out of bounds."""
-    def host(a):
-        return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     g, k = prior_shape
     prior = group_tokens(host(prior_rows), g, piece)
     kids = []
     for i, c in enumerate(children):
-        gf, kf = c.elog.shape
-        kids.append(group_tokens(host(c.values), kf, piece))
-        if not c.specialized and len(c.values):
-            base = host(c.base) if c.base is not None else np.zeros(1, np.int64)
-            lo, hi = int(base.min()), int(base.max()) + int(c.stride) * (k - 1)
-            if lo < 0 or hi >= gf:
-                raise ValueError(f"child {i}: rows base + stride * k span "
-                                 f"[{lo}, {hi}], outside its table's {gf} rows")
+        kids.append(group_tokens(host(c.values), c.elog.shape[1], piece))
+        check_strided_rows(i, c, k)
     return ZPlan(prior, tuple(kids))
 
 
@@ -186,13 +200,15 @@ def build(verbose: bool = False) -> tuple[Path, str]:
 class _ChildArgs(ctypes.Structure):
     _fields_ = [("table", ctypes.c_void_p), ("values", ctypes.c_void_p),
                 ("base", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("zmap", ctypes.c_void_p),
                 ("stride", ctypes.c_int), ("kf", ctypes.c_int),
                 ("specialized", ctypes.c_int)]
 
 
 class _Args(ctypes.Structure):
     _fields_ = [("prior", ctypes.c_void_p), ("prior_rows", ctypes.c_void_p),
-                ("zmask", ctypes.c_void_p), ("k", ctypes.c_int),
+                ("zmask", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("r_out", ctypes.c_void_p), ("k", ctypes.c_int),
                 ("n_children", ctypes.c_int),
                 ("c", _ChildArgs * _MAX_CHILDREN)]
 
@@ -203,11 +219,15 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.zstats_pieces.argtypes = [p, i, p, p, i, p, p, p]
-    lib.zstats_finish.argtypes = [p, p, i, i, p, ll, ll, p]
+    lib.zstats_finish.argtypes = [p, p, i, i, p, ll, ll, i, p]
     lib.zstats_strided.argtypes = [p, i, p, p, i, p, p]
     lib.zstats_sum.argtypes = [p, i, p, p]
+    lib.zmap_logits.argtypes = [p, i, p, p, i, p, p]
+    lib.zmap_stats.argtypes = [p, i, p, p, p, i, p, p]
+    lib.zmap_strided.argtypes = [p, i, p, p, p, i, p, p]
     for fn in (lib.zstats_pieces, lib.zstats_finish, lib.zstats_strided,
-               lib.zstats_sum, lib.zstats_max_k, lib.zstats_max_children,
+               lib.zstats_sum, lib.zmap_logits, lib.zmap_stats,
+               lib.zmap_strided, lib.zstats_max_k, lib.zstats_max_children,
                lib.zstats_args_size):
         fn.restype = ctypes.c_int
     if lib.zstats_args_size() != ctypes.sizeof(_Args) or \
@@ -217,16 +237,46 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check_launch(err: int, what: str):
+def check_launch(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"zstats kernel {what} failed to launch: CUDA error {err}")
+
+
+def ptr(t: Optional[torch.Tensor]):
+    """A tensor's device address for ctypes, or None."""
+    return t.data_ptr() if t is not None else None
+
+
+def make_args(k: int, children, tabs, prior=None, prior_rows=None, zmask=None,
+              extra=None, r_out=None) -> _Args:
+    """The kernel's ZArgs: ``children`` with their f32 Elog ``tabs`` in the
+    kernel's layout, and the prior side where given."""
+    args = _Args(prior=ptr(prior), prior_rows=ptr(prior_rows),
+                 zmask=ptr(zmask), extra=ptr(extra), r_out=ptr(r_out), k=k,
+                 n_children=len(children))
+    for i, (c, tab) in enumerate(zip(children, tabs)):
+        args.c[i] = _ChildArgs(
+            table=tab.data_ptr(), values=c.values.data_ptr(), base=ptr(c.base),
+            mask=ptr(c.mask), zmap=ptr(c.zmap), stride=int(c.stride),
+            kf=c.elog.shape[1], specialized=int(c.specialized))
+    return args
+
+
+def finish(lib, partial, tensors, name, n_keys, k, out, stride_key, stride_k,
+           stream, add=False):
+    """Add each key's pieces of ``partial`` in order into its row or column
+    of ``out`` (``add``: onto what is there)."""
+    check_launch(lib.zstats_finish(
+        partial.data_ptr(), tensors[name, "key_pieces"].data_ptr(), n_keys, k,
+        out.data_ptr(), stride_key, stride_k, int(add), stream), "finish")
 
 
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
 
-def _check_inputs(table_prior, prior_rows, children, zmask):
+def check_inputs(table_prior, prior_rows, children, zmask):
+    """Raise on inputs the kernel does not take."""
     dev = table_prior.device
     k = table_prior.shape[1] if table_prior.ndim == 2 else -1
     if table_prior.ndim != 2 or not 1 <= k <= _MAX_K:
@@ -236,20 +286,35 @@ def _check_inputs(table_prior, prior_rows, children, zmask):
         raise ValueError(f"zstats kernel takes at most {_MAX_CHILDREN} "
                          f"children, got {len(children)}")
     n = prior_rows.shape[0]
-    # tables may come in any layout: _elog_tables lays them out for the
+    # tables may come in any layout: elog_tables lays them out for the
     # kernel (a no-op for one already in its layout)
     checks = [("prior table", table_prior, None, (torch.float32, torch.bfloat16)),
               ("prior_rows", prior_rows, (n,), (torch.int32,)),
               ("zmask", zmask, (n,), (torch.float32,))]
     for i, c in enumerate(children):
-        if c.elog.ndim != 2 or (c.specialized and c.elog.shape[0] != k):
-            raise ValueError(f"child {i}: table shape {tuple(c.elog.shape)} "
-                             f"does not fit K = {k}")
-        checks += [(f"child {i} table", c.elog, None,
-                    (torch.float32, torch.bfloat16)),
-                   (f"child {i} values", c.values, (n,), (torch.int32,)),
-                   (f"child {i} base", c.base, (n,), (torch.int32,)),
-                   (f"child {i} mask", c.mask, (n,), (torch.float32,))]
+        checks += child_checks(i, c, k, n)
+    check_tensors(checks, dev)
+
+
+def child_checks(i: int, c, k: int, n: int) -> list:
+    """The checks of one child's table and token streams: of length ``n``
+    (the latent instances), or, for a child with a zmap, of its own token
+    count."""
+    if c.elog.ndim != 2 or (c.specialized and c.elog.shape[0] != k):
+        raise ValueError(f"child {i}: table shape {tuple(c.elog.shape)} "
+                         f"does not fit K = {k}")
+    nt = (c.values.shape[0],) if c.zmap is not None else (n,)
+    return [(f"child {i} table", c.elog, None, (torch.float32, torch.bfloat16)),
+            (f"child {i} values", c.values, nt, (torch.int32,)),
+            (f"child {i} zmap", c.zmap, nt, (torch.int32,)),
+            (f"child {i} base", c.base, nt, (torch.int32,)),
+            (f"child {i} mask", c.mask, nt, (torch.float32,))]
+
+
+def check_tensors(checks: list, dev):
+    """Raise on a tensor off ``dev``, of another dtype or shape, or not
+    contiguous; ``checks`` holds ``(name, tensor or None, shape or None,
+    dtypes)``."""
     for name, t, shape, dtypes in checks:
         if t is None:
             continue
@@ -263,20 +328,24 @@ def _check_inputs(table_prior, prior_rows, children, zmask):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _elog_tables(table_prior, children, tables: str):
+def elog_table(table: torch.Tensor, tables: str, transpose: bool = False):
+    """One table as f32 Elog values, contiguous, transposed if asked: the
+    Triton ``dirichlet_expectation`` of concentrations (``"alpha"``), or the
+    table itself (``"elog"``)."""
+    if tables == "alpha":
+        return _de.dirichlet_expectation(table, transpose=transpose)
+    if tables != "elog":
+        raise ValueError(f"tables must be 'elog' or 'alpha', not {tables!r}")
+    return (table.float().T if transpose else table.float()).contiguous()
+
+
+def elog_tables(table_prior, children, tables: str):
     """f32 Elog tables in the kernel's layout: the prior (G, K), a
     specialized child (Kf, K), a strided child (Gf, Kf).  With ``"elog"`` a
     specialized child's table handed over as the transpose of a contiguous
     (Kf, K) one is read in place."""
-    if tables == "alpha":
-        return (_de.dirichlet_expectation(table_prior),
-                [_de.dirichlet_expectation(c.elog, transpose=c.specialized)
-                 for c in children])
-    if tables != "elog":
-        raise ValueError(f"tables must be 'elog' or 'alpha', not {tables!r}")
-    return (table_prior.float().contiguous(),
-            [(c.elog.float().T if c.specialized else c.elog.float()).contiguous()
-             for c in children])
+    return (elog_table(table_prior, tables),
+            [elog_table(c.elog, tables, c.specialized) for c in children])
 
 
 def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
@@ -287,62 +356,60 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     Arguments and results as ``ref.zstats``.  ``plan`` is the owner plan of
     these index streams (:func:`build_plan`), built here when not given.
     CUDA tensors only: the kernel runs or the call raises.  Segment latents
-    (a child with a ``zmap``) raise ``NotImplementedError``: they belong to
-    the ``fused_zmap`` kernel of a later slice.
+    (a child with a ``zmap``) belong to ``fused_zmap.zstats_zmap``.
     """
     global launches
     if any(c.zmap is not None for c in children):
-        raise NotImplementedError(
-            "the zstats kernel covers flat latents; a segment latent (a "
-            "child with a zmap, as in SLDA and naive Bayes) needs the "
-            "fused_zmap kernel, which arrives in a later slice of the port")
+        raise ValueError("a child with a zmap makes a segment latent; "
+                         "fused_zmap.zstats_zmap takes it")
     if table_prior.device.type != "cuda":
         raise ValueError(f"no kernel for device {table_prior.device}")
-    _check_inputs(table_prior, prior_rows, children, zmask)
-    dev = table_prior.device
+    check_inputs(table_prior, prior_rows, children, zmask)
     if plan is None:
         plan = build_plan(prior_rows, children, tuple(table_prior.shape))
+    eprior, etabs = elog_tables(table_prior, children, tables)
+    out = launch_flat(eprior, prior_rows, children, etabs, zmask, plan)
+    launches += 1
+    return out
+
+
+def launch_flat(eprior, prior_rows, children, etabs, zmask, plan: ZPlan,
+                extra=None, r_out=None):
+    """Launch the flat passes on f32 Elog tables in the kernel's layout:
+    the prior pass over the latent instances (adding ``extra`` (N, K)
+    logits after the prior row and writing r into ``r_out`` where given),
+    the lse sum, and each child's pass.  Returns ``(lse_sum, prior_stats,
+    child_stats)``."""
+    dev = eprior.device
     if plan.device != dev:
         plan = plan.to(dev)
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    g, k = table_prior.shape
-    eprior, etabs = _elog_tables(table_prior, children, tables)
-
-    args = _Args(prior=eprior.data_ptr(), prior_rows=prior_rows.data_ptr(),
-                 zmask=zmask.data_ptr() if zmask is not None else None,
-                 k=k, n_children=len(children))
-    for i, (c, tab) in enumerate(zip(children, etabs)):
-        args.c[i] = _ChildArgs(
-            table=tab.data_ptr(), values=c.values.data_ptr(),
-            base=c.base.data_ptr() if c.base is not None else None,
-            mask=c.mask.data_ptr() if c.mask is not None else None,
-            stride=int(c.stride), kf=c.elog.shape[1],
-            specialized=int(c.specialized))
+    g, k = eprior.shape
+    args = make_args(k, children, etabs, eprior, prior_rows, zmask, extra, r_out)
     pargs = ctypes.addressof(args)
+    t = plan.tensors
     f32 = dict(dtype=torch.float32, device=dev)
 
     def pieces_then_finish(target, name, out, stride_key, stride_k):
-        t = plan.tensors
         n_pieces = plan.prior.n_pieces if target < 0 else \
             plan.children[target].n_pieces
         n_keys = out.shape[0] if target < 0 else out.shape[1]
         partial = torch.empty((n_pieces, k), **f32)
         lse_part = torch.empty((n_pieces if target < 0 else 0,), **f32)
-        _check_launch(lib.zstats_pieces(
+        check_launch(lib.zstats_pieces(
             pargs, target, t[name, "perm"].data_ptr(),
             t[name, "piece_start"].data_ptr(), n_pieces, partial.data_ptr(),
             lse_part.data_ptr(), stream), "pieces")
-        _check_launch(lib.zstats_finish(
-            partial.data_ptr(), t[name, "key_pieces"].data_ptr(), n_keys, k,
-            out.data_ptr(), stride_key, stride_k, stream), "finish")
+        finish(lib, partial, t, name, n_keys, k, out, stride_key, stride_k,
+               stream)
         return lse_part
 
     pstats = torch.empty((g, k), **f32)
     lse_part = pieces_then_finish(-1, "prior", pstats, k, 1)
     lse_sum = torch.empty((), **f32)
-    _check_launch(lib.zstats_sum(lse_part.data_ptr(), lse_part.shape[0],
-                                 lse_sum.data_ptr(), stream), "sum")
+    check_launch(lib.zstats_sum(lse_part.data_ptr(), lse_part.shape[0],
+                                lse_sum.data_ptr(), stream), "sum")
     cstats = []
     for i, c in enumerate(children):
         gf, kf = c.elog.shape
@@ -351,10 +418,9 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
             pieces_then_finish(i, f"child{i}", cs, 1, kf)
         else:
             cs = torch.zeros((gf, kf), **f32)
-            _check_launch(lib.zstats_strided(
-                pargs, i, plan.tensors[f"child{i}", "perm"].data_ptr(),
-                plan.tensors[f"child{i}", "key_start"].data_ptr(), kf,
+            check_launch(lib.zstats_strided(
+                pargs, i, t[f"child{i}", "perm"].data_ptr(),
+                t[f"child{i}", "key_start"].data_ptr(), kf,
                 cs.data_ptr(), stream), "strided")
         cstats.append(cs)
-    launches += 1
     return lse_sum, pstats, tuple(cstats)

@@ -3,21 +3,20 @@
 Dispatch goes by the tensor's device, never by an environment variable, and
 this module is the one place that looks: a CPU tensor runs the plain PyTorch
 version from ``ref.py``, any other tensor goes to the Hopper kernel's
-wrapper (CUDA C++ for ``zstats``, Triton for ``dirichlet_expectation`` and
-``zstep``).  The wrappers take CUDA tensors only and raise on any other
-device, and a CUDA call that no kernel of this slice covers raises
-``NotImplementedError``: nothing on the card falls back to a plain version.
-Each kernel module keeps a plain integer count of its launches
-(``<module>.launches``).
+wrapper (CUDA C++ for ``zstats``, ``zstats_zmap`` and ``zmap_logits``,
+Triton for ``dirichlet_expectation`` and ``zstep``).  The wrappers take CUDA
+tensors only and raise on any other device: nothing on the card falls back
+to a plain version.  Each kernel module keeps a plain integer count of its
+launches (``<module>.launches``; ``fused_zmap.logits_launches`` for
+``zmap_logits``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from . import dirichlet_expectation as _de
+from . import fused_zmap as _fzm
 from . import fused_zstats as _fz
 from . import ref
 from . import vmp_zstep as _zs
@@ -49,15 +48,22 @@ def zstep(logits: torch.Tensor):
     return ref.zstep(logits) if _plain(logits) else _zs.zstep(logits)
 
 
-def zstats_plan(table_prior, prior_rows, children) -> Optional[_fz.ZPlan]:
-    """The ``zstats`` kernel's host-side owner plan for these static index
-    streams, on their device; ``None`` where no kernel runs (CPU tensors,
-    or segment latents, which the kernel does not take).  ``None`` is always
-    safe to pass back as ``zstats(..., plan=)``."""
-    if _plain(table_prior) or any(c.zmap is not None for c in children):
+def _segmented(children) -> bool:
+    """True for a segment latent: a child maps tokens to instances."""
+    return any(c.zmap is not None for c in children)
+
+
+def zstats_plan(table_prior, prior_rows, children):
+    """The kernel's host-side owner plan for these static index streams, on
+    their device: ``fused_zstats.ZPlan`` for a flat latent,
+    ``fused_zmap.ZmapPlan`` for a segment latent; ``None`` on the CPU, where
+    no kernel runs.  ``None`` is always safe to pass back as
+    ``zstats(..., plan=)``."""
+    if _plain(table_prior):
         return None
-    return _fz.build_plan(prior_rows, children,
-                          tuple(table_prior.shape)).to(table_prior.device)
+    build = _fzm.build_zmap_plan if _segmented(children) else _fz.build_plan
+    return build(prior_rows, children,
+                 tuple(table_prior.shape)).to(table_prior.device)
 
 
 def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
@@ -76,26 +82,44 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     :func:`zstats_plan` result, cached per program by ``core/vmp.py``.
 
     On the CPU this is ``ref.zstats`` (flat and segment latents).  On CUDA
-    flat latents run the ``csrc/zstats.cu`` kernel; segment latents raise
-    until the ``fused_zmap`` slice.
+    a flat latent runs the ``fused_zstats`` kernel and a segment latent
+    (a child with a ``zmap``) the ``fused_zmap`` kernel, both from
+    ``csrc/zstats.cu``.
     """
     if _plain(table_prior):
         return ref.zstats(table_prior, prior_rows, children, zmask,
                           tables=tables)
-    return _fz.zstats(table_prior, prior_rows, children, zmask,
-                      tables=tables, plan=plan)
+    run = _fzm.zstats_zmap if _segmented(children) else _fz.zstats
+    return run(table_prior, prior_rows, children, zmask, tables=tables,
+               plan=plan)
+
+
+def zmap_logits(children: tuple, n_latent: int, k: int, *,
+                tables: str = "elog", plan=None) -> torch.Tensor:
+    """A segment latent's logits from its children with a ``zmap``: the
+    ``(n_latent, K)`` float32 sum, over ``children`` in order, of each
+    token's masked message into row ``zmap[t]``.  ``plan`` — the latent's
+    :func:`zstats_plan` when ``children`` are all its children with a zmap,
+    or None.  On the CPU ``ref.zmap_logits``; on CUDA phase 1 of the
+    ``fused_zmap`` kernel."""
+    if _plain(children[0].elog):
+        return ref.zmap_logits(children, n_latent, k, tables=tables)
+    return _fzm.zmap_logits(children, n_latent, k, tables=tables, plan=plan)
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     _de.launches = _fz.launches = _zs.launches = 0
+    _fzm.launches = _fzm.logits_launches = 0
 
 
 def launch_counts() -> dict:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    return {"zstats": _fz.launches, "dirichlet_expectation": _de.launches,
-            "zstep": _zs.launches}
+    return {"zstats": _fz.launches, "zstats_zmap": _fzm.launches,
+            "zmap_logits": _fzm.logits_launches,
+            "dirichlet_expectation": _de.launches, "zstep": _zs.launches}
 
 
 __all__ = ["ZChild", "dirichlet_expectation", "zstep", "zstats",
-           "zstats_plan", "reset_launch_counts", "launch_counts"]
+           "zstats_plan", "zmap_logits", "reset_launch_counts",
+           "launch_counts"]

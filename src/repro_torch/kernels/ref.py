@@ -210,6 +210,34 @@ def _zstats_flat(elog_prior, prior_rows, children, zmask, chunk, k):
                                   for c, cs in zip(children, cstats))
 
 
+def _segment_messages(c: ZChild, nz: int, k: int, chunk: int) -> torch.Tensor:
+    """(nz, k) f32: a zmap child's masked messages summed into the rows of
+    their latent instances, token chunk by token chunk."""
+    def body(acc, xs):
+        e = _child_messages(c, xs["values0"], xs.get("base0"), xs.get("mask0"), k)
+        return acc.index_add_(0, xs["zmap0"].long(), e)
+
+    return _scan_chunks(_token_xs(c, 0), c.values.shape[0], chunk,
+                        torch.zeros((nz, k), dtype=torch.float32,
+                                    device=c.elog.device), body)
+
+
+def zmap_logits(children: tuple, n_latent: int, k: int,
+                chunk: int = ZSTATS_CHUNK, *, tables: str = "elog"):
+    """Phase 1 of a segment latent alone: the ``(n_latent, K)`` f32 sum,
+    over ``children`` (each with a ``zmap``) in order, of each token's
+    masked message into row ``zmap[t]``.  ``tables`` as in :func:`zstats`."""
+    if not children or any(c.zmap is None for c in children):
+        raise ValueError("zmap_logits takes children that all have a zmap")
+    if tables == "alpha":
+        children = tuple(c._replace(elog=dirichlet_expectation(c.elog.float()))
+                         for c in children)
+    out = _segment_messages(children[0], n_latent, k, chunk)
+    for c in children[1:]:
+        out = out + _segment_messages(c, n_latent, k, chunk)
+    return out
+
+
 def _zstats_segmented(elog_prior, prior_rows, children, zmask, chunk, k):
     """Segment latents: accumulate per-instance logits (cross-token
     reduction), then stream the child token plates against them."""
@@ -219,19 +247,11 @@ def _zstats_segmented(elog_prior, prior_rows, children, zmask, chunk, k):
     rows = prior_rows.long()
     logits = elog_prior[rows].float()
 
-    for i, c in enumerate(children):
+    for c in children:
         if c.zmap is None:
             logits = logits + _child_messages(c, c.values, c.base, c.mask, k)
-            continue
-
-        def msg_body(acc, xs, c=c, i=i):
-            e = _child_messages(c, xs[f"values{i}"], xs.get(f"base{i}"),
-                                xs.get(f"mask{i}"), k)
-            return acc.index_add_(0, xs[f"zmap{i}"].long(), e)
-
-        logits = logits + _scan_chunks(
-            _token_xs(c, i), c.values.shape[0], chunk,
-            torch.zeros((nz, k), dtype=torch.float32, device=dev), msg_body)
+        else:
+            logits = logits + _segment_messages(c, nz, k, chunk)
 
     r, lse = zstep(logits)
     if zmask is not None:

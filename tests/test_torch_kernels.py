@@ -326,24 +326,44 @@ def test_cpu_tensors_take_plain_versions_without_launches():
     tops.reset_launch_counts()
     data = _zcase(1, *ZSTATS_CASES[1])
     _run_torch(data, "alpha")
+    zdata = _zcase(2, *ZSTATS_CASES[9])
+    _run_torch(zdata, "elog")
+    zkids = _torch_children(zdata[2])
+    tops.zmap_logits(zkids, 40, 3)
     tops.dirichlet_expectation(torch.rand(3, 4) + 0.1)
     tops.zstep(torch.randn(5, 3))
-    assert tops.launch_counts() == {"zstats": 0, "dirichlet_expectation": 0,
-                                    "zstep": 0}
+    assert tops.launch_counts() == {"zstats": 0, "zstats_zmap": 0,
+                                    "zmap_logits": 0,
+                                    "dirichlet_expectation": 0, "zstep": 0}
     assert tops.zstats_plan(torch.zeros(2, 3), torch.zeros(4, dtype=torch.int32),
                             ()) is None
+    assert tops.zstats_plan(torch.zeros(10, 3), torch.from_numpy(zdata[1]),
+                            zkids) is None
 
 
-def test_zmap_latent_off_cpu_raises_not_implemented():
-    """Off the CPU a segment latent raises; it never reaches a plain
-    version (meta tensors stand in for CUDA ones here)."""
+def test_zmap_latent_off_cpu_raises_not_implemented(monkeypatch):
+    """Off the CPU a segment latent goes to the ``fused_zmap`` wrapper, which
+    refuses a device without a kernel; it never reaches a plain version
+    (meta tensors stand in for CUDA ones here)."""
+    from repro_torch.kernels import fused_zmap as tfzm
+    calls = []
+    orig = tfzm.zstats_zmap
+    monkeypatch.setattr(tfzm, "zstats_zmap",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    monkeypatch.setattr(tref, "zstats", None)        # no plain version
     meta = dict(device="meta")
     child = tref.ZChild(torch.empty(3, 15, **meta),
                         torch.empty(240, dtype=torch.int32, **meta),
                         zmap=torch.empty(240, dtype=torch.int32, **meta))
-    with pytest.raises(NotImplementedError, match="fused_zmap"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         tops.zstats(torch.empty(10, 3, **meta),
                     torch.empty(40, dtype=torch.int32, **meta), (child,))
+    assert calls == [1]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        tops.zmap_logits((child,), 40, 3)
+    with pytest.raises(ValueError, match="fused_zmap"):
+        tfz.zstats(torch.empty(10, 3, **meta),
+                   torch.empty(40, dtype=torch.int32, **meta), (child,))
 
 
 def test_wrappers_refuse_devices_without_kernels():
@@ -371,13 +391,20 @@ def test_wrappers_check_inputs(bad, error, match):
         tzs.zstep(x)
 
 
-@pytest.mark.parametrize("wrapper", ["zstats", "dirichlet_expectation",
-                                     "zstep"])
+@pytest.mark.parametrize("wrapper", ["zstats", "zstats_zmap", "zmap_logits",
+                                     "dirichlet_expectation", "zstep"])
 def test_kernel_wrappers_take_cuda_tensors_only(wrapper):
     """The kernel wrappers never run a plain version: ``ops`` alone sends a
     CPU tensor to ``ref``."""
+    from repro_torch.kernels import fused_zmap as tfzm
+    et, rows, children, zm = _zcase(3, *ZSTATS_CASES[9])
+    zkids = _torch_children(children)
     call = {"zstats": lambda: tfz.zstats(torch.rand(4, 3),
                                          torch.zeros(5, dtype=torch.int32), ()),
+            "zstats_zmap": lambda: tfzm.zstats_zmap(
+                torch.from_numpy(et), torch.from_numpy(rows), zkids,
+                torch.from_numpy(zm)),
+            "zmap_logits": lambda: tfzm.zmap_logits(zkids, len(rows), 3),
             "dirichlet_expectation": lambda: tde.dirichlet_expectation(
                 torch.rand(4, 3) + 0.1),
             "zstep": lambda: tzs.zstep(torch.rand(4, 3))}[wrapper]
