@@ -30,18 +30,25 @@ Phases, each of which exits non-zero on a failed check:
      cut into sentences of 7 tokens (about 1.44M sentences), through
      ``models.make("slda")`` -> ``observe`` + ``bind("sents")`` ->
      ``make_engine("vmp", steps=10).fit`` -> ``get_result("z")``, with the
-     same checks, two bitwise repeats and the times of ``zstats_zmap`` and
-     ``zmap_logits``; then naive Bayes at the 20 Newsgroups widths
-     (C = 20, V = 61,188, 18,774 documents of mean length 332), 5 steps,
-     the same checks.
+     same checks and two bitwise repeats; then naive Bayes at the 20
+     Newsgroups widths (C = 20, V = 61,188, 18,774 documents of mean length
+     332), 5 steps, the same checks.  On each path every kernel it runs
+     (``zstats_zmap``, ``zmap_logits``, ``dirichlet_expectation``,
+     ``zstep``) is held against its plain version on the path's own inputs
+     and timed beside its bound, with the path's launch counts.
 
-The last two lines are a ``{"kernels": [...]}`` JSON object and the
+Each path logs a sha256 of its final posteriors and ELBO trace, so that two
+trees can be shown to give the same output bit for bit.
+
+The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
+kernel and path, the path named in ``"path"``) and the
 ``{"ok": true, "device": {...}}`` JSON object.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.  The script imports the port only, never
 JAX nor the JAX package.
 """
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -225,6 +232,17 @@ def compare(name, label, got, want, tol):
         f"(rtol {tol['rtol']}, atol {tol['atol']}) {'ok' if ok else 'FAIL'}")
     check(ok, f"{name} {label} disagrees with its plain version")
     return ab
+
+
+def output_digest(posteriors, trace):
+    """sha256 of the posteriors' f32 bytes (in name order) and the ELBO
+    trace's f64 bytes: two runs with one digest gave the same output bit for
+    bit."""
+    h = hashlib.sha256()
+    for n in sorted(posteriors):
+        h.update(np.ascontiguousarray(posteriors[n], np.float32).tobytes())
+    h.update(np.asarray(trace, np.float64).tobytes())
+    return h.hexdigest()
 
 
 def bitwise(a, b):
@@ -422,8 +440,10 @@ def phase_main(args, report, corpus, m, prog):
     diffs = np.diff(trace)
     check(bool((diffs >= -1e-6 * scale).all()),
           f"ELBO not monotone within 1e-6 relative: {diffs.tolist()}")
-    theta = m["theta"].get_result().astype(np.float64)
-    phi = m["phi"].get_result().astype(np.float64)
+    posts = {n: m[n].get_result() for n in ("theta", "phi")}
+    digest = output_digest(posts, trace)
+    log(f"[main] sha256 of the final posteriors and ELBO trace: {digest}")
+    theta, phi = (posts[n].astype(np.float64) for n in ("theta", "phi"))
     sums = {"theta": theta.sum() - theta.size * ALPHA,
             "phi": phi.sum() - phi.size * BETA}
     for name, s in sums.items():
@@ -438,7 +458,7 @@ def phase_main(args, report, corpus, m, prog):
     tv = aligned_tv(phi / phi.sum(-1, keepdims=True), corpus["true_phi"])
     log(f"[main] aligned_tv(phi, planted) = {tv:.4f} after {steps} steps")
     report.update(elbo_trace=trace, launches=counts, aligned_tv=tv,
-                  infer_s=infer_s, stats_sums=sums, n_tokens=n)
+                  infer_s=infer_s, stats_sums=sums, n_tokens=n, digest=digest)
     return counts
 
 
@@ -532,8 +552,8 @@ def phase_repeat_and_time(args, report, m, prog, counts):
          "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp,
          bound(s_bytes, s_ops), zstep_err),
     ]:
-        kernels.append(kernel_entry(name, route, src, rep, counts[name], err,
-                                    ms, pms, bms, by))
+        kernels.append(kernel_entry("lda", name, route, src, rep, counts[name],
+                                    err, ms, pms, bms, by))
         log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
             f"{bms:8.4f} ms ({by})  launches {counts[name]} "
             f"({per_step[name]:.1f} per step)")
@@ -557,9 +577,12 @@ def bound(nbytes, nops):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def kernel_entry(name, route, src, replaces, launches, err, ms, plain_ms,
+def kernel_entry(path, name, route, src, replaces, launches, err, ms, plain_ms,
                  bound_ms, bound_by, library_ms=None):
-    return {"name": name, "route": route, "source": src, "replaces": replaces,
+    """One entry of the kernels line; ``path`` names the path (lda, slda,
+    naive_bayes) whose run gave ``launches`` and whose shapes were timed."""
+    return {"path": path, "name": name, "route": route, "source": src,
+            "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
@@ -698,76 +721,120 @@ def phase_segment(label, m, steps, latent, report):
     log(f"[{label}] 3 steps on bf16 concentration tables: ELBO within "
         f"{rel:.2e} of f32 (tol 2e-2, the tables' bf16 rounding)")
     check(rel <= 2e-2, f"{label}: bf16 tables move the ELBO by {rel:.2e}")
+    digest = output_digest(res.posteriors, trace)
+    log(f"[{label}] sha256 of the final posteriors and ELBO trace: {digest}")
     report[label] = dict(elbo_trace=trace, launches=counts, fit_s=fit_s,
-                         stats_sums=sums, n_tokens=n_tok, n_latent=n_inst)
+                         stats_sums=sums, n_tokens=n_tok, n_latent=n_inst,
+                         digest=digest)
     return counts
 
 
-def phase_segment_times(label, m, report, counts=None):
-    """The segment-latent step's ms and tokens/s; with ``counts`` (the
-    path's launches) also ``zstats_zmap`` and ``zmap_logits`` against their
-    plain versions on the path's own inputs: their agreement, times and
-    bounds, and the kernels line's entries."""
+def phase_segment_times(label, m, report, counts):
+    """Every kernel of a segment-latent path against its plain version on
+    the path's own inputs (``zstats_zmap``, ``zmap_logits``, the Elog pass
+    on each Dirichlet's table, ``zstep`` on the latent's logits), their
+    times and bounds, and the path's entries of the kernels line, with the
+    path's ``counts``; then the path's step in ms and tokens/s and its
+    trace."""
     from repro_torch.core import vmp
+    from repro_torch.kernels import dirichlet_expectation as de
     from repro_torch.kernels import fused_zmap as fzm
     from repro_torch.kernels import ref
+    from repro_torch.kernels import vmp_zstep as zs
     prog, state = m.compile(), m._state
     spec = prog.latents[0]
-    n_inst, n_tok = spec.n, len(spec.children[0].values)
+    n_inst, n_tok, k = spec.n, len(spec.children[0].values), spec.k
+    log(f"[kernels vs plain] {label} shapes")
+    arrays = vmp._program_arrays(prog, state.device)
+    tabs = vmp._elog_tables(prog, state)
+    children = vmp._latent_children(spec, tabs, arrays)
+    rows = arrays[spec.name]["prior_rows"]
+    plan = vmp._latent_plan(prog, spec, tabs, arrays, children)
+    prior = tabs[spec.prior_dir]
+    err = compare_zstats(f"{label} path", fzm.zstats_zmap(
+        prior, rows, children, plan=plan), ref.zstats(prior, rows, children),
+        name="zstats_zmap")
+    lerr = compare("zmap_logits", f"{label} path",
+                   fzm.zmap_logits(children, n_inst, k, plan=plan),
+                   ref.zmap_logits(children, n_inst, k),
+                   dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"]))
+    # the Elog pass as the step makes it: a specialized child's table as
+    # (V, K), the others as they are
+    child_dir = spec.children[0].dir_name
+    de_err = 0.0
+    for name, p in state.posteriors.items():
+        tr = name == child_dir
+        de_err = max(de_err, compare(
+            "dirichlet_expectation", f"{label} {name} {tuple(p.shape)}"
+            + (" as (V, K)" if tr else ""),
+            de.dirichlet_expectation(p, transpose=tr),
+            de_plain(p, transpose=tr), DE_TOL))
+    logits = vmp._messages_to_latent(prog, spec, tabs, arrays)
+    r, lse = zs.zstep(logits)
+    rp, lp = ref.zstep(logits)
+    zstep_err = max(compare("zstep", f"{label} r {tuple(logits.shape)}", r,
+                            rp, ZSTEP_TOL),
+                    compare("zstep", f"{label} lse", lse, lp,
+                            dict(rtol=1e-5, atol=1e-5)))
+    del r, lse, rp, lp
+    torch.cuda.synchronize()
+
+    phi = state.posteriors[child_dir]
+    t_z = time_ms(lambda: fzm.zstats_zmap(prior, rows, children, plan=plan),
+                  reps=10)
+    t_zp = time_ms(lambda: ref.zstats(prior, rows, children), reps=3)
+    t_l = time_ms(lambda: fzm.zmap_logits(children, n_inst, k, plan=plan),
+                  reps=10)
+    t_lp = time_ms(lambda: ref.zmap_logits(children, n_inst, k), reps=3)
+    t_de = time_ms(lambda: de.dirichlet_expectation(phi, transpose=True),
+                   reps=20)
+    t_dep = time_ms(lambda: de_plain(phi, transpose=True).contiguous(), reps=5)
+    t_s = time_ms(lambda: zs.zstep(logits), reps=5)
+    t_sp = time_ms(lambda: ref.zstep(logits), reps=3)
+    del logits
+    g = prior.shape[0]
+    v = children[0].elog.shape[1]
+    tables = (g * k + k * v) * 4
+    z_bytes = n_tok * 8 + n_inst * 4 + tables * 2 + 4
+    z_ops = 8 * n_inst * k + 4 * n_tok * k
+    # logits and r (f32), and the logits' per-piece partials (f64), each
+    # written and read once
+    n_parts = sum(g.n_pieces for g in plan.by_latent)
+    inter = 2 * (2 * n_inst * k * 4 + n_parts * k * 8)
+    l_bytes = n_tok * 8 + k * v * 4 + n_inst * k * 4
+    l_ops = 2 * n_tok * k
+    d_bytes, d_ops = phi.numel() * 8, DIGAMMA_OPS * phi.numel()
+    s_bytes, s_ops = n_inst * k * 8 + n_inst * 4, 5 * n_inst * k
     entries = []
-    if counts is not None:
-        log(f"[kernels vs plain] {label} shapes")
-        arrays = vmp._program_arrays(prog, state.device)
-        tabs = vmp._elog_tables(prog, state)
-        children = vmp._latent_children(spec, tabs, arrays)
-        rows = arrays[spec.name]["prior_rows"]
-        plan = vmp._latent_plan(prog, spec, tabs, arrays, children)
-        prior = tabs[spec.prior_dir]
-        err = compare_zstats(f"{label} path", fzm.zstats_zmap(
-            prior, rows, children, plan=plan), ref.zstats(prior, rows, children),
-            name="zstats_zmap")
-        k = spec.k
-        lerr = compare("zmap_logits", f"{label} path",
-                       fzm.zmap_logits(children, n_inst, k, plan=plan),
-                       ref.zmap_logits(children, n_inst, k),
-                       dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"]))
-        torch.cuda.synchronize()
-        t_z = time_ms(lambda: fzm.zstats_zmap(prior, rows, children, plan=plan),
-                      reps=10)
-        t_zp = time_ms(lambda: ref.zstats(prior, rows, children), reps=3)
-        t_l = time_ms(lambda: fzm.zmap_logits(children, n_inst, k, plan=plan),
-                      reps=10)
-        t_lp = time_ms(lambda: ref.zmap_logits(children, n_inst, k), reps=3)
-        g = prior.shape[0]
-        v = children[0].elog.shape[1]
-        tables = (g * k + k * v) * 4
-        z_bytes = n_tok * 8 + n_inst * 4 + tables * 2 + 4
-        z_ops = 8 * n_inst * k + 4 * n_tok * k
-        inter = 4 * n_inst * k * 4
-        l_bytes = n_tok * 8 + k * v * 4 + n_inst * k * 4
-        l_ops = 2 * n_tok * k
-        for name, rep, ms, pms, (bms, by), e in [
-            ("zstats_zmap", "src/repro/kernels/fused_zmap.py:236", t_z, t_zp,
-             bound(z_bytes, z_ops), err),
-            ("zmap_logits", "src/repro/kernels/fused_zmap.py:150", t_l, t_lp,
-             bound(l_bytes, l_ops), lerr),
-        ]:
-            entries.append(kernel_entry(
-                name, "cuda", "src/repro_torch/kernels/csrc/zstats.cu", rep,
-                counts[name], e, ms, pms, bms, by))
-            log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
-                f"{bms:8.4f} ms ({by})  launches {counts[name]}")
-        log(f"  zstats_zmap with its (n_latent, K) intermediates (logits, "
-            f"r, each written and read once): "
-            f"{(z_bytes + inter) / HBM_BYTES_PER_S * 1e3:.4f} ms of traffic")
-        report[label].update(zstats_zmap_ms=t_z, zmap_logits_ms=t_l,
-                             intermediate_bytes=inter)
+    for name, route, src, rep, ms, pms, (bms, by), e in [
+        ("zstats_zmap", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
+         "src/repro/kernels/fused_zmap.py:236", t_z, t_zp,
+         bound(z_bytes, z_ops), err),
+        ("zmap_logits", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
+         "src/repro/kernels/fused_zmap.py:150", t_l, t_lp,
+         bound(l_bytes, l_ops), lerr),
+        ("dirichlet_expectation", "triton",
+         "src/repro_torch/kernels/dirichlet_expectation.py",
+         "src/repro/kernels/dirichlet_expectation.py:52", t_de, t_dep,
+         bound(d_bytes, d_ops), de_err),
+        ("zstep", "triton", "src/repro_torch/kernels/vmp_zstep.py",
+         "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp,
+         bound(s_bytes, s_ops), zstep_err),
+    ]:
+        entries.append(kernel_entry(label, name, route, src, rep,
+                                    counts[name], e, ms, pms, bms, by))
+        log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
+            f"{bms:8.4f} ms ({by})  launches {counts[name]}")
+    log(f"  zstats_zmap with its intermediates (f32 logits and r, f64 "
+        f"partials of the logits, each written and read once): "
+        f"{(z_bytes + inter) / HBM_BYTES_PER_S * 1e3:.4f} ms of traffic")
     t_step, step, st = time_steps(prog, state)
     log(f"  {label} VMP step: {t_step:.2f} ms, {n_tok / t_step * 1e3:.4e} "
         f"tokens/s (N = {n_tok}, {n_inst} latent instances)")
-    report[label].update(step_ms=t_step, tokens_per_s=n_tok / t_step * 1e3)
-    if counts is not None:
-        report[label]["trace"] = phase_trace(step, st)
+    report[label].update(zstats_zmap_ms=t_z, zmap_logits_ms=t_l,
+                         intermediate_bytes=inter, step_ms=t_step,
+                         tokens_per_s=n_tok / t_step * 1e3,
+                         trace=phase_trace(step, st))
     return entries
 
 
@@ -838,8 +905,8 @@ def main(argv=None) -> int:
     kernels += phase_segment_times("slda", slda, report, counts)
     del slda
     nb = make_naive_bayes(args)
-    phase_segment("naive_bayes", nb, NB_STEPS, "c", report)
-    phase_segment_times("naive_bayes", nb, report)
+    counts = phase_segment("naive_bayes", nb, NB_STEPS, "c", report)
+    kernels += phase_segment_times("naive_bayes", nb, report, counts)
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))

@@ -11,9 +11,10 @@ This slice of the port runs full-batch VMP on one device.  ``device=None``
 means ``"cuda"``; the CPU runs only when asked for (``device="cpu"``).  The
 config keeps every field of the reference's, with its default, so that one
 config reads the same in both packages; what needs a later slice of the
-port (the SVI and Gibbs backends, held-out scoring, out-of-core and
-multi-host corpora, sessions, static analysis, freezing for the query
-layer) raises ``NotImplementedError`` naming that slice.
+port (the SVI and Gibbs backends and every knob they read, held-out
+scoring, out-of-core and multi-host corpora, sessions, static analysis,
+freezing for the query layer) raises ``NotImplementedError`` naming that
+slice when it is set away from its default.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from .vmp import resolve_device
 @dataclasses.dataclass
 class EngineConfig:
     """Backend selection + the union of backend knobs, as in the reference;
-    ``device`` is the port's own."""
+    ``device`` is the port's own.  A knob of a later slice raises in
+    ``fit`` unless it keeps its default."""
     backend: str = "vmp"            # vmp | svi | gibbs (this slice: vmp)
     steps: int = 50
     seed: int = 0
@@ -100,6 +102,22 @@ def _later_slice(what: str, slice_name: str):
                               f"of the port")
 
 
+# the config's knobs that a later slice reads, by field: fit raises when one
+# differs from its default, so that none is ignored quietly
+_SLICE_OF = {
+    **dict.fromkeys((
+        "corpus", "hosts", "batch_size", "kappa", "tau", "rho",
+        "local_iters", "pad_multiple", "holdout_frac", "holdout_every",
+        "holdout_local_iters", "prefetch", "growing", "capacity_docs",
+        "population_size"), "SVI"),
+    **dict.fromkeys(("checkpoint_dir", "checkpoint_every", "resume"),
+                    "checkpoint"),
+    **dict.fromkeys(("burnin", "thin"), "Gibbs"),
+    "validate": "analysis",
+}
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
+
+
 class VMPEngine:
     """Full-batch VMP (the paper's engine): deterministic, monotone ELBO,
     every step touches all N tokens.  ``fit(model)`` takes a
@@ -112,17 +130,11 @@ class VMPEngine:
 
     def fit(self, model) -> InferenceResult:
         cfg = self.cfg
-        if cfg.corpus is not None or cfg.hosts is not None:
-            _later_slice("an out-of-core or multi-host corpus (corpus=, "
-                         "hosts=)", "SVI")
-        if cfg.holdout_frac > 0:
-            _later_slice("held-out scoring (holdout_frac > 0), which runs "
-                         "through SVI,", "SVI")
-        if cfg.checkpoint_dir is not None or cfg.resume:
-            _later_slice("session checkpoints (checkpoint_dir=, resume=)",
-                         "checkpoint")
-        if cfg.validate:
-            _later_slice("static analysis (validate=True)", "analysis")
+        for name, slice_name in _SLICE_OF.items():
+            value, default = getattr(cfg, name), _DEFAULTS[name]
+            if value is not default and value != default:
+                _later_slice(f"{name}={value!r} (default {default!r})",
+                             slice_name)
         device = resolve_device(cfg.device)
         # every fit starts fresh: a model inferred before must not warm-start
         model.reset()

@@ -50,9 +50,9 @@
 // -> latent instance zmap[t]: an SLDA sentence, a naive Bayes document)
 // needs a cross-token sum before its softmax, so it runs in three phases:
 //   1. zmap_logits: the host groups each zmap child's tokens by instance;
-//      a warp per piece sums mask * message, and zstats_finish writes (or,
-//      for a later zmap child, adds) each instance's row of the (n_latent,
-//      K) logits, children in order;
+//      a warp per piece sums mask * message in f64, and zstats_finish64
+//      writes (or, for a later zmap child, adds) each instance's row of the
+//      (n_latent, K) f32 logits, rounded once, children in order;
 //   2a. the prior pass above over the latent instances, with those logits
 //      as `extra` after the prior row, writes each instance's r row once
 //      (`r_out`) besides the prior stats, the lse and the stats of any
@@ -63,11 +63,12 @@
 //      value column in token order).
 // Bound on the H100 at the SLDA main path (10M tokens, 1.44M sentences,
 // K = 100): operations, about 0.08 ms, just above the 0.06 ms that its
-// inputs and outputs take at 3.35 TB/s.  The (n_latent, K) logits, their
-// per-piece partials and r are intermediates of 0.58 GB each, written and
-// read once more (about 0.7 ms of traffic that a fused kernel would not
-// move); the design accepts that for owner passes without atomics, and
-// phase 1 and 2b gather only one K-row per token (the message, or r).
+// inputs and outputs take at 3.35 TB/s.  The (n_latent, K) logits and r
+// are intermediates of 0.58 GB each and the logits' f64 per-piece partials
+// 1.15 GB, written and read once more (about 1.4 ms of traffic that a fused
+// kernel would not move); the design accepts that for owner passes without
+// atomics, and phase 1 and 2b gather only one K-row per token (the message,
+// or r).
 //
 // Tables arrive as f32 Elog values (the wrapper's Triton pre-pass computes
 // them from f32 or bf16 concentrations); accumulation is f32.  K may be
@@ -123,6 +124,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Child ch's message for token i (lane's share, 0 past K), before its mask,
 // for the segment-latent passes: a specialized child's row v_i of its
 // (Kf, K) table, a strided child's column v_i at rows base_i + stride * k.
+// token_logits keeps its own copy of these gathers: calling this helper
+// there made LDA's flat owner passes 13% slower on the H100 (PERF.md).
 template <int KPL>
 __device__ __forceinline__ void child_message(const ZChildArgs& ch, int i, int lane, int k,
                                               float (&e)[KPL]) {
@@ -276,10 +279,11 @@ __global__ void pieces_kernel(ZArgs a, int target, const int* __restrict__ perm,
   if (target < 0 && lane == 0) lse_part[warp] = lse_acc;
 }
 
-// One warp per key: add the key's pieces in order; write out[key, kk] at
-// key * stride_key + kk * stride_k (add != 0: add to it).  Keys without
-// tokens write zeros (add nothing).
-__global__ void finish_kernel(const float* __restrict__ partial,
+// One warp per key: add the key's pieces in order, in T; write out[key, kk]
+// at key * stride_key + kk * stride_k, rounded once to f32 (add != 0: add
+// to it).  Keys without tokens write zeros (add nothing).
+template <typename T>
+__global__ void finish_kernel(const T* __restrict__ partial,
                               const int* __restrict__ key_pieces, int n_keys, int k,
                               float* __restrict__ out, long long stride_key,
                               long long stride_k, int add) {
@@ -288,10 +292,10 @@ __global__ void finish_kernel(const float* __restrict__ partial,
   if (warp >= n_keys) return;
   const int p0 = key_pieces[warp], p1 = key_pieces[warp + 1];
   for (int kk = lane; kk < k; kk += 32) {
-    float acc = 0.0f;
+    T acc = 0;
     for (int p = p0; p < p1; ++p) acc += partial[(size_t)p * k + kk];
     float* o = out + warp * stride_key + kk * stride_k;
-    *o = add ? *o + acc : acc;
+    *o = add ? (float)(*o + acc) : (float)acc;
   }
 }
 
@@ -328,18 +332,22 @@ __global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ perm
 
 // Phase 1, one warp per piece of child `target`'s tokens grouped by latent
 // instance: the piece's sum of mask * message, the instance's logits share.
+// The sum is f64, and so are the partials that zstats_finish64 adds: a naive
+// Bayes document's logits reach thousands of nats, where f32 sums of its
+// few hundred messages lose the hundredths of a nat that decide r for a
+// document near a tie between two classes.
 template <int KPL>
 __global__ void zmap_logits_kernel(ZArgs a, int target, const int* __restrict__ perm,
                                    const int* __restrict__ piece_start, int n_pieces,
-                                   float* __restrict__ partial) {
+                                   double* __restrict__ partial) {
   const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (warp >= n_pieces) return;
   const ZChildArgs& ch = a.c[target];
   const int k = a.k;
-  float acc[KPL];
+  double acc[KPL];
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < KPL; ++j) acc[j] = 0.0;
   const int t1 = piece_start[warp + 1];
   for (int t = piece_start[warp]; t < t1; ++t) {
     const int i = perm[t];
@@ -347,7 +355,7 @@ __global__ void zmap_logits_kernel(ZArgs a, int target, const int* __restrict__ 
     float e[KPL];
     child_message<KPL>(ch, i, lane, k, e);
 #pragma unroll
-    for (int j = 0; j < KPL; ++j) acc[j] += e[j] * mk;
+    for (int j = 0; j < KPL; ++j) acc[j] += (double)e[j] * mk;
   }
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
@@ -494,8 +502,19 @@ int zstats_pieces(const void* args, int target, const void* perm, const void* pi
 int zstats_finish(const void* partial, const void* key_pieces, int n_keys, int k, void* out,
                   long long stride_key, long long stride_k, int add, void* stream) {
   if (n_keys <= 0) return 0;
-  finish_kernel<<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
+  finish_kernel<float><<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)partial, (const int*)key_pieces, n_keys, k, (float*)out, stride_key,
+      stride_k, add);
+  return (int)cudaGetLastError();
+}
+
+// zstats_finish over f64 partials (phase 1 of a segment latent).
+int zstats_finish64(const void* partial, const void* key_pieces, int n_keys, int k,
+                    void* out, long long stride_key, long long stride_k, int add,
+                    void* stream) {
+  if (n_keys <= 0) return 0;
+  finish_kernel<double><<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
+      (const double*)partial, (const int*)key_pieces, n_keys, k, (float*)out, stride_key,
       stride_k, add);
   return (int)cudaGetLastError();
 }
@@ -524,7 +543,7 @@ int zmap_logits(const void* args, int target, const void* perm, const void* piec
   return dispatch_kpl(a.k, [&](auto kpl) {
     zmap_logits_kernel<decltype(kpl)::value>
         <<<blocks_for(n_pieces), THREADS, 0, (cudaStream_t)stream>>>(
-            a, target, (const int*)perm, (const int*)piece_start, n_pieces, (float*)partial);
+            a, target, (const int*)perm, (const int*)piece_start, n_pieces, (double*)partial);
   });
 }
 

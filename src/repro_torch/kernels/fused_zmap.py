@@ -11,7 +11,9 @@ source note says what bounds them on the H100):
 
   1. ``zmap_logits``: per zmap child, in child order, each instance's row of
      the ``(n_latent, K)`` logits sums ``mask[t] * message(t)`` over its
-     tokens;
+     tokens, in f64 rounded once to f32 (a naive Bayes document's logits
+     reach thousands of nats, where an f32 sum loses what decides r near a
+     tie);
   2a. the flat kernel's passes (``fused_zstats.launch_flat``) over the
      latent instances, with those logits added after the prior row: the
      softmax, lse, prior stats and any child without a zmap, writing r;
@@ -98,12 +100,13 @@ def _check_device(t: torch.Tensor):
 
 
 def _logits(lib, zargs, plan: ZmapPlan, n_latent: int, k: int, stream):
-    """Phase 1: the ``(n_latent, K)`` logits, zmap children in order."""
+    """Phase 1: the ``(n_latent, K)`` f32 logits, zmap children in order,
+    each summed over f64 piece partials."""
     dev = plan.device
     logits = torch.empty((n_latent, k), dtype=torch.float32, device=dev)
     for j, g in enumerate(plan.by_latent):
         name = f"latent{j}"
-        partial = torch.empty((g.n_pieces, k), dtype=torch.float32, device=dev)
+        partial = torch.empty((g.n_pieces, k), dtype=torch.float64, device=dev)
         _fz.check_launch(lib.zmap_logits(
             ctypes.addressof(zargs), j, plan.tensors[name, "perm"].data_ptr(),
             plan.tensors[name, "piece_start"].data_ptr(), g.n_pieces,

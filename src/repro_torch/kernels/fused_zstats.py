@@ -220,12 +220,14 @@ def library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.zstats_pieces.argtypes = [p, i, p, p, i, p, p, p]
     lib.zstats_finish.argtypes = [p, p, i, i, p, ll, ll, i, p]
+    lib.zstats_finish64.argtypes = [p, p, i, i, p, ll, ll, i, p]
     lib.zstats_strided.argtypes = [p, i, p, p, i, p, p]
     lib.zstats_sum.argtypes = [p, i, p, p]
     lib.zmap_logits.argtypes = [p, i, p, p, i, p, p]
     lib.zmap_stats.argtypes = [p, i, p, p, p, i, p, p]
     lib.zmap_strided.argtypes = [p, i, p, p, p, i, p, p]
-    for fn in (lib.zstats_pieces, lib.zstats_finish, lib.zstats_strided,
+    for fn in (lib.zstats_pieces, lib.zstats_finish, lib.zstats_finish64,
+               lib.zstats_strided,
                lib.zstats_sum, lib.zmap_logits, lib.zmap_stats,
                lib.zmap_strided, lib.zstats_max_k, lib.zstats_max_children,
                lib.zstats_args_size):
@@ -264,9 +266,12 @@ def make_args(k: int, children, tabs, prior=None, prior_rows=None, zmask=None,
 
 def finish(lib, partial, tensors, name, n_keys, k, out, stride_key, stride_k,
            stream, add=False):
-    """Add each key's pieces of ``partial`` in order into its row or column
-    of ``out`` (``add``: onto what is there)."""
-    check_launch(lib.zstats_finish(
+    """Add each key's pieces of ``partial`` (f32, or f64 for phase 1 of a
+    segment latent) in order into its row or column of ``out`` (``add``:
+    onto what is there), rounded once to f32."""
+    fn = lib.zstats_finish64 if partial.dtype == torch.float64 \
+        else lib.zstats_finish
+    check_launch(fn(
         partial.data_ptr(), tensors[name, "key_pieces"].data_ptr(), n_keys, k,
         out.data_ptr(), stride_key, stride_k, int(add), stream), "finish")
 

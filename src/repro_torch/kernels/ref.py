@@ -211,14 +211,17 @@ def _zstats_flat(elog_prior, prior_rows, children, zmask, chunk, k):
 
 
 def _segment_messages(c: ZChild, nz: int, k: int, chunk: int) -> torch.Tensor:
-    """(nz, k) f32: a zmap child's masked messages summed into the rows of
-    their latent instances, token chunk by token chunk."""
+    """(nz, k) f64: a zmap child's masked messages summed into the rows of
+    their latent instances, token chunk by token chunk.  The sum is f64: a
+    naive Bayes document's logits reach thousands of nats, where an f32 sum
+    of its few hundred messages loses the hundredths of a nat that decide r
+    for a document near a tie between two classes."""
     def body(acc, xs):
         e = _child_messages(c, xs["values0"], xs.get("base0"), xs.get("mask0"), k)
-        return acc.index_add_(0, xs["zmap0"].long(), e)
+        return acc.index_add_(0, xs["zmap0"].long(), e.double())
 
     return _scan_chunks(_token_xs(c, 0), c.values.shape[0], chunk,
-                        torch.zeros((nz, k), dtype=torch.float32,
+                        torch.zeros((nz, k), dtype=torch.float64,
                                     device=c.elog.device), body)
 
 
@@ -232,9 +235,9 @@ def zmap_logits(children: tuple, n_latent: int, k: int,
     if tables == "alpha":
         children = tuple(c._replace(elog=dirichlet_expectation(c.elog.float()))
                          for c in children)
-    out = _segment_messages(children[0], n_latent, k, chunk)
+    out = _segment_messages(children[0], n_latent, k, chunk).float()
     for c in children[1:]:
-        out = out + _segment_messages(c, n_latent, k, chunk)
+        out = (out + _segment_messages(c, n_latent, k, chunk)).float()
     return out
 
 
@@ -245,13 +248,12 @@ def _zstats_segmented(elog_prior, prior_rows, children, zmask, chunk, k):
     gp = elog_prior.shape[0]
     dev = elog_prior.device
     rows = prior_rows.long()
-    logits = elog_prior[rows].float()
-
+    # the prior row, the zmap children's f32 logits, then the other children
+    logits = elog_prior[rows].float() + zmap_logits(
+        tuple(c for c in children if c.zmap is not None), nz, k, chunk)
     for c in children:
         if c.zmap is None:
             logits = logits + _child_messages(c, c.values, c.base, c.mask, k)
-        else:
-            logits = logits + _segment_messages(c, nz, k, chunk)
 
     r, lse = zstep(logits)
     if zmask is not None:

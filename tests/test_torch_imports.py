@@ -1,6 +1,6 @@
-"""Import fence of the port: no module under ``src/repro_torch/``, and not
-``chip_smoke.py``, imports ``jax`` or the JAX package ``repro``; and
-importing the port leaves JAX unloaded."""
+"""Import fence of the port: no module under ``src/repro_torch/``, and
+neither ``chip_smoke.py`` nor ``scripts/torch_numerics.py``, imports ``jax``
+or the JAX package ``repro``; and importing the port leaves JAX unloaded."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_numerics.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -32,8 +32,9 @@ def _imports(path: Path):
 
 def test_fence_covers_the_port():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "vmp.py", "ops.py", "fused_zstats.py",
-            "dirichlet_expectation.py", "vmp_zstep.py"} <= names
+    assert {"chip_smoke.py", "torch_numerics.py", "vmp.py", "ops.py",
+            "fused_zstats.py", "dirichlet_expectation.py",
+            "vmp_zstep.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -12,6 +12,9 @@ Tolerances, each with its reason:
   rtol = atol = 1e-5, the f32 rounding of sums of a few hundred terms;
 - ``zmap_logits`` against ``jax.ops.segment_sum``: rtol = atol = 1e-5, one
   f32 segment sum in either order;
+- ``zmap_logits`` and ``zstats`` on long documents near a tie against the
+  same sums in f64: half an f32 ulp for the logits (one rounding of an f64
+  sum), the reference's zstats tolerance above for r and the stats;
 - the engine against ``Model.infer`` in the same package: bitwise.
 
 The CUDA kernels run only on the card, where ``chip_smoke.py`` holds them to
@@ -222,6 +225,62 @@ def test_zmap_logits_matches_jax_segment_sum(name):
     assert got.shape == (nz, k) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+def _long_documents(seed):
+    """Two naive-Bayes-like documents of 300 and 400 tokens over K = 2
+    classes whose messages are about -15 nats each: logits of thousands of
+    nats, the classes 0.5 nats apart in the first document."""
+    rng = np.random.default_rng(seed)
+    tab = (-15.0 + rng.normal(size=(2, 50))).astype(np.float32)
+    vals = rng.integers(0, 50, 700).astype(np.int32)
+    zmap = np.repeat(np.arange(2, dtype=np.int32), [300, 400])
+    exact = np.zeros((2, 2))
+    np.add.at(exact, zmap, tab[:, vals].T.astype(np.float64))
+    prior = np.zeros((1, 2), np.float32)
+    prior[0, 0] = np.float32(exact[0, 1] - exact[0, 0] + 0.5)
+    return tab, vals, zmap, exact, prior
+
+
+def test_zmap_logits_round_an_f64_sum_once():
+    """Phase 1 sums each instance's messages in f64 and rounds once (as the
+    kernel does): within half an f32 ulp of the exact sum, where a running
+    f32 sum of the same messages is off by more than a whole ulp.  The
+    exact sum is numpy's, in f64."""
+    tab, vals, zmap, exact, _ = _long_documents(7)
+    child = tref.ZChild(elog=torch.from_numpy(tab), values=torch.from_numpy(vals),
+                        zmap=torch.from_numpy(zmap))
+    got = tref.zmap_logits((child,), 2, 2).numpy().astype(np.float64)
+    ulp = np.spacing(np.abs(exact).astype(np.float32)).astype(np.float64)
+    assert np.all(np.abs(got - exact) <= 0.5 * ulp + 1e-9)
+    running = np.zeros((2, 2), np.float32)
+    for t in range(len(vals)):
+        running[zmap[t]] += tab[:, vals[t]]
+    assert np.abs(running - exact).max() > ulp.max()
+
+
+def test_zstats_near_a_tie_matches_f64():
+    """A document 0.5 nats from a tie between its two classes, with logits
+    of thousands of nats: the plain ``zstats`` (f64 phase 1, f32 softmax
+    and stats) against the same sums in f64, at the reference's zstats
+    tolerance (rtol = atol = 2e-4, lse rtol 2e-5)."""
+    tab, vals, zmap, exact, prior = _long_documents(7)
+    child = tref.ZChild(elog=torch.from_numpy(tab), values=torch.from_numpy(vals),
+                        zmap=torch.from_numpy(zmap))
+    rows = torch.zeros(2, dtype=torch.int32)
+    lse, pstats, (cstats,) = tref.zstats(torch.from_numpy(prior), rows, (child,))
+    logits = exact + prior.astype(np.float64)
+    r = np.exp(logits - logits.max(1, keepdims=True))
+    r /= r.sum(1, keepdims=True)
+    assert 0.3 < r[0].min()                 # the first document is near a tie
+    want_c = np.zeros((2, 50))
+    np.add.at(want_c.T, vals, r[zmap])
+    want_lse = (logits.max(1) + np.log(np.exp(
+        logits - logits.max(1, keepdims=True)).sum(1))).sum()
+    np.testing.assert_allclose(float(lse), want_lse, rtol=2e-5)
+    np.testing.assert_allclose(pstats.numpy(), r.sum(0, keepdims=True),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(cstats.numpy(), want_c, rtol=2e-4, atol=2e-4)
 
 
 def test_zmap_logits_alpha_tables_and_rejects_flat_children():
@@ -461,7 +520,13 @@ def test_topics_equal_jax_result_topics():
 @pytest.mark.parametrize("knob", [
     dict(backend="svi"), dict(backend="gibbs"), dict(holdout_frac=0.1),
     dict(corpus=object()), dict(hosts=object()),
-    dict(checkpoint_dir="ckpt"), dict(validate=True)])
+    dict(checkpoint_dir="ckpt"), dict(validate=True),
+    dict(batch_size=128), dict(kappa=0.5), dict(tau=1.0), dict(rho=0.1),
+    dict(local_iters=3), dict(pad_multiple=128), dict(holdout_every=5),
+    dict(holdout_local_iters=20), dict(prefetch=False), dict(growing=True),
+    dict(capacity_docs=10), dict(population_size=10),
+    dict(checkpoint_every=5), dict(resume=True), dict(burnin=3),
+    dict(thin=2)])
 def test_later_slice_knobs_raise(knob):
     m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
     with pytest.raises(NotImplementedError, match="slice of the port"):
