@@ -6,7 +6,8 @@
 Phases, each of which exits non-zero on a failed check:
 
   1. the card's name and power limit, as ``nvidia-smi`` reports them;
-  2. the ``nvcc`` build of ``src/repro_torch/kernels/csrc/zstats.cu``;
+  2. the ``nvcc`` builds of ``src/repro_torch/kernels/csrc/zstats.cu`` and
+     ``csrc/flash_attention.cu``, started together;
   3. every kernel (CUDA ``zstats``, ``zstats_zmap`` and ``zmap_logits``,
      Triton ``dirichlet_expectation`` and ``zstep``) against its plain
      PyTorch version on the card: the edge cases of the reference's kernel
@@ -35,13 +36,29 @@ Phases, each of which exits non-zero on a failed check:
      332), 5 steps, the same checks.  On each path every kernel it runs
      (``zstats_zmap``, ``zmap_logits``, ``dirichlet_expectation``,
      ``zstep``) is held against its plain version on the path's own inputs
-     and timed beside its bound, with the path's launch counts.
+     and timed beside its bound, with the path's launch counts;
+  8. the ``flash_attention`` kernel against ``ref.flash_attention``: the
+     reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
+     256, and the trainer's shape (BH = 64, S = 2,048, Dh = 128), each in
+     bf16 and f32; two launches bitwise; the autograd Function's gradients
+     bitwise those of the plain version for one cotangent; its time beside
+     its bound, the plain version's and SDPA's (a yardstick the port never
+     calls);
+  9. the LM trainer: olmo-1b at full width and depth through
+     ``launch.train.train`` (4 steps, batch 4 x 2,048 tokens, bf16 compute,
+     f32 parameters from the port's own initialisation, attention through
+     the kernel), with the kernel's launch count set to 0 just before and
+     read just after (16 layers x 4 forwards), finite losses near ln V,
+     every parameter moved, flash against dense attention on one batch,
+     ms per step, tokens/s, the model flops' share of the bf16 peak, peak
+     memory, and the device's idle share over 2 steps under the profiler.
 
-Each path logs a sha256 of its final posteriors and ELBO trace, so that two
+Each VMP path logs a sha256 of its final posteriors and ELBO trace, so that two
 trees can be shown to give the same output bit for bit.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
-kernel and path, the path named in ``"path"``) and the
+kernel and path, the path named in ``"path"``: lda, slda, naive_bayes,
+lm_train) and the
 ``{"ok": true, "device": {...}}`` JSON object.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.  The script imports the port only, never
 JAX nor the JAX package.
@@ -114,6 +131,27 @@ ZMAP_CASES = {
 }
 # the reference's ALPHA_CASES "zmap" (seed 24, concentration tables)
 ZMAP_ALPHA_CASE = (24, 240, 3, 10, [(3, 15, 1, False, True, True)], True, 40)
+# the LM trainer: olmo-1b (arXiv:2402.00838), the default --arch of the
+# trainer and the server, at full width and depth; batch 4 x 2,048 tokens
+LM_ARCH, LM_SEQ, LM_BATCH, LM_STEPS = "olmo-1b", 2048, 4, 4
+LM_BH = LM_BATCH * 16           # batch x heads: the flash kernel's batch dim
+DEV = "cuda"                    # the LM phases' device
+BF16_PEAK = 989e12              # H100 SXM dense bf16 tensor-core rate
+# the reference's flash kernel tolerance (tests/test_kernels.py): f32 sums
+# in another order
+FLASH_F32_TOL = dict(rtol=2e-4, atol=2e-5)
+# two bf16 ulps: the output is rounded to bf16 on both sides, and the kernel
+# rounds the softmax weights P to bf16 for the tensor cores' P v
+FLASH_BF16_TOL = dict(rtol=2**-7, atol=2**-7)
+# flash against dense attention on one batch, in nats: the dense path rounds
+# its scores and weights to bf16, the kernel keeps scores in f32; over 8,192
+# tokens the per-token differences average out to well under 1e-2
+LM_LOSS_TOL = 1e-2
+# a batch's loss against the chance level of its own logits, in nats: ten
+# times the spread of a mean over 8,192 tokens of per-token CEs of spread ~1
+CHANCE_TOL = 0.1
+# the reference's FLASH_SHAPES (bh, s, dh)
+FLASH_SHAPES = [(1, 32, 16), (2, 64, 16), (1, 100, 32), (3, 96, 8), (2, 48, 64)]
 SHAPES = [(1, 2), (3, 5), (7, 128), (33, 96), (128, 130), (257, 4),
           (64, 300), (1000, 3), (5, 102660), (70000, 16)]
 
@@ -269,20 +307,28 @@ def time_ms(fn, reps, warmup=1):
 # ---------------------------------------------------------------------------
 
 def phase_build(report):
-    from repro_torch.kernels import fused_zstats
+    """Build both CUDA libraries at once (one ``nvcc`` per source, started
+    together), print what ``-Xptxas -v`` says of each kernel, and load
+    them."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import flash_attention, fused_zstats
+    mods = (fused_zstats, flash_attention)
     t0 = time.perf_counter()
-    lib, out = fused_zstats.build(verbose=True)
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = [ex.submit(m.build, verbose=True) for m in mods]
+        built = [f.result() for f in futs]
     secs = time.perf_counter() - t0
-    log(f"[build] nvcc {fused_zstats._SRC.relative_to(ROOT)} -> "
-        f"{lib.name} in {secs:.2f} s")
-    entry = ""
-    for line in out.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif "registers" in line or " 0 bytes spill stores" not in line \
-                and "spill" in line:
-            log(f"  {entry[:48]:<48} {line.split(':', 1)[-1].strip()}")
-    fused_zstats.library()
+    for m, (lib, out) in zip(mods, built):
+        log(f"[build] nvcc {m._SRC.relative_to(ROOT)} -> {lib.name}")
+        entry = ""
+        for line in out.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line or " 0 bytes spill stores" not in line \
+                    and "spill" in line:
+                log(f"  {entry[:48]:<48} {line.split(':', 1)[-1].strip()}")
+        m.library()
+    log(f"[build] both libraries in {secs:.2f} s")
     report["build_s"] = secs
 
 
@@ -570,10 +616,12 @@ def phase_repeat_and_time(args, report, m, prog, counts):
     return kernels
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, peak=None):
     """(least ms on the card, "bytes" or "operations"): the larger of the
-    bytes over the memory rate and the f32 operations over the peak rate."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+    bytes over the memory rate and the operations over their peak rate (f32
+    outside the tensor cores unless ``peak`` is given)."""
+    peak = peak or F32_OPS_PER_S
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -841,13 +889,24 @@ def phase_segment_times(label, m, report, counts):
 def phase_trace(step, st, n_steps=2):
     """Device time by kernel over ``n_steps`` VMP steps (torch.profiler),
     and the device's idle share of the steps' wall time."""
+    def run():
+        nonlocal st
+        for _ in range(n_steps):
+            st, elbo = step(st)
+            float(elbo)
+    return profile_steps(run, n_steps)
+
+
+def profile_steps(run, n_steps, label="trace"):
+    """Run ``run()`` (``n_steps`` steps, each ending in a host read of its
+    result) under torch.profiler: device time by kernel per step and the
+    device's idle share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            st, elbo = step(st)
-            float(elbo)
+        run()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
     for ev in prof.key_averages():
@@ -861,13 +920,241 @@ def phase_trace(step, st, n_steps=2):
     busy_ms = sum(r[0] for r in rows)
     step_ms = wall_us / n_steps / 1e3
     idle = f"{1 - busy_ms / step_ms:.3f}" if rows else "not measured"
-    log(f"[trace] {n_steps} steps under torch.profiler: {step_ms:.3f} ms per "
+    log(f"[{label}] {n_steps} steps under torch.profiler: {step_ms:.3f} ms per "
         f"step, device busy {busy_ms:.3f} ms, idle share {idle}")
     for ms, cnt, key in rows[:12]:
         log(f"  {ms:9.4f} ms/step  x{cnt:<3} {key[:90]}")
     return {"step_ms": step_ms, "busy_ms": busy_ms,
             "kernels": [{"ms_per_step": ms, "calls_per_step": c, "name": k}
                         for ms, c, k in rows]}
+
+
+# ---------------------------------------------------------------------------
+# the LM trainer: olmo-1b at full width and depth, attention through the
+# flash_attention kernel
+# ---------------------------------------------------------------------------
+
+def flash_inputs(bh, sq, sk, dh, dtype, seed):
+    """q (bh, sq, dh) and k, v (bh, sk, dh) from a numpy seed, on the card."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(bh, n, dh)).astype(
+        np.float32)).to(DEV, dtype) for n in (sq, sk, sk))
+
+
+def flash_ops(bh, sq, sk, dh, causal):
+    """Flops of Q k^T and P v over the (query, key) pairs the mask keeps."""
+    if causal:
+        pairs = sum(min(i + 1, sk) for i in range(sq))
+    else:
+        pairs = sq * sk
+    return 4 * bh * dh * pairs
+
+
+def phase_flash(report):
+    """``flash_attention`` against ``ref.flash_attention`` on the card: the
+    reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
+    256, and the trainer's shape, in bf16 and f32; two launches bitwise; the
+    Function's gradients bitwise those of the plain version for one g; the
+    kernel, its plain version and SDPA timed at the trainer's shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    log("[flash] flash_attention against ref.flash_attention")
+    bh, s, dh = LM_BH, LM_SEQ, 128
+    cases = [(b, n, n, d, True) for b, n, d in FLASH_SHAPES] + [
+        (2, 48, 100, 32, True), (2, 100, 48, 16, True), (3, 70, 100, 32, False),
+        (2, 130, 130, 80, True), (2, 64, 96, 80, False), (2, 300, 300, 256, True),
+        (2, 100, 77, 256, False), (bh, s, s, dh, True)]
+    worst = {}
+    for i, (b, sq, sk, d, causal) in enumerate(cases):
+        for dt, tol in ((torch.bfloat16, FLASH_BF16_TOL),
+                        (torch.float32, FLASH_F32_TOL)):
+            q, k, v = flash_inputs(b, sq, sk, d, dt, 500 + i)
+            label = (f"({b},{sq},{sk},{d}) {'causal' if causal else 'full'} "
+                     f"{str(dt)[6:]}")
+            worst[label] = compare("flash_attention", label,
+                                   fa.flash_attention(q, k, v, causal=causal),
+                                   ref.flash_attention(q, k, v, causal=causal),
+                                   tol)
+            del q, k, v
+    q, k, v = flash_inputs(bh, s, s, dh, torch.bfloat16, 600)
+    a = fa.flash_attention(q, k, v)
+    check(torch.equal(a, fa.flash_attention(q, k, v)),
+          "two flash_attention launches on one input differ")
+    log("  two launches at the trainer's shape: bitwise equal")
+    for b, n, dt in ((bh, s, torch.bfloat16), (4, 256, torch.float32)):
+        qg, kg, vg = (t.requires_grad_() for t in flash_inputs(
+            b, n, n, dh, dt, 601))
+        g = torch.from_numpy(np.random.default_rng(602).normal(
+            size=(b, n, dh)).astype(np.float32)).to(DEV, dt)
+        got = torch.autograd.grad(fa.flash_attention(qg, kg, vg), (qg, kg, vg), g)
+        want = torch.autograd.grad(ref.flash_attention(qg, kg, vg),
+                                   (qg, kg, vg), g)
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"Function gradients at ({b},{n},{dh}) {dt} differ from ref's")
+        log(f"  Function gradients at ({b},{n},{n},{dh}) {str(dt)[6:]}: "
+            f"bitwise those of ref.flash_attention for one g")
+        del qg, kg, vg, g, got, want
+    torch.cuda.synchronize()
+
+    log("[times] flash_attention at the trainer's shape "
+        f"({bh}, {s}, {dh}) bf16, causal")
+    t_k = time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
+    t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=5)
+    q4, k4, v4 = (t.view(LM_BATCH, bh // LM_BATCH, s, dh) for t in (q, k, v))
+    t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), reps=20)
+    nbytes = 4 * bh * s * dh * 2
+    bms, by = bound(nbytes, flash_ops(bh, s, s, dh, True), BF16_PEAK)
+    log(f"  flash_attention {t_k:9.4f} ms  plain {t_p:9.4f} ms  SDPA "
+        f"{t_l:9.4f} ms  bound {bms:8.4f} ms ({by})")
+    err = worst[f"({bh},{s},{s},{dh}) causal bfloat16"]
+    report["flash"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
+                           bound_by=by, max_abs_err=err, cases=worst)
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
+                bound_by=by, err=err)
+
+
+def leaf_sums(module):
+    """Per parameter, the f64 sum and sum of squares: a change of any
+    element moves them."""
+    return [(float(p.detach().double().sum()),
+             float(p.detach().double().square().sum()))
+            for p in module.parameters()]
+
+
+def chance_level(params, cfg, run, batch):
+    """The model's expected CE on ``batch``'s positions under labels drawn
+    uniformly from the vocabulary: the mean of ``logsumexp(z) - mean(z)``
+    over the V real columns of its logits.  TokenStream's labels are
+    uniform, so the loss of parameters that have not seen them lies within
+    noise of this (0.01 nats at 8,192 tokens); a label that leaks from the
+    input scores far below it."""
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        x = T._embed(params, batch["tokens"], cfg, run)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        z = T._logits(params, T._apply_stack(params, x, cfg, run, pos), cfg,
+                      run)[..., :cfg.vocab]
+        return float((torch.logsumexp(z, -1) - z.mean(-1)).mean())
+
+
+def phase_lm_train(report, flash):
+    """olmo-1b at full width and depth through ``launch.train.train``: 4
+    steps at batch 4 x 2,048 tokens, bf16 compute, f32 parameters from the
+    port's own initialisation, attention through the flash kernel; the
+    launch count, the losses, the parameters' movement, flash against dense
+    attention on one batch, step time, tokens/s, the model flops' share of
+    the bf16 peak, peak memory, and a profile of two steps."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import batch_to, build_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import make_model
+    cfg = get_arch(LM_ARCH)
+    run = RunConfig(seq_len=LM_SEQ, global_batch=LM_BATCH, flash_kernel=True)
+    n_params = cfg.param_count()
+    log(f"[lm_train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab} (padded {cfg.vocab_padded}), {n_params / 1e9:.3f}B "
+        f"parameters; batch {LM_BATCH} x {LM_SEQ}, {run.dtype} compute")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, losses, tel = train(cfg, run, LM_STEPS, device=DEV,
+                                     log_every=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[lm_train] train(steps={LM_STEPS}) {train_s:.2f} s (init included); "
+        f"losses {losses}")
+    log(f"[lm_train] launches: {counts}")
+    want = cfg.n_layers * LM_STEPS
+    check(counts["flash_attention"] == want,
+          f"flash_attention launched {counts['flash_attention']} times, not "
+          f"{want} ({cfg.n_layers} layers x {LM_STEPS} forwards)")
+    check(opt["count"] == LM_STEPS, f"AdamW count {opt['count']}")
+    stream = TokenStream(vocab=cfg.vocab, seq_len=LM_SEQ, batch=LM_BATCH,
+                         seed=run.seed)
+    batch = batch_to(stream.batch_at(0), DEV)
+    # the initialisation again (one generator seed gives the same draws)
+    fresh = make_model(cfg)["init"](run, device=DEV)
+    moved = [a != b for a, b in zip(leaf_sums(params), leaf_sums(fresh))]
+    chance = chance_level(fresh, cfg, run, batch)
+    del fresh
+    check(all(moved), f"{moved.count(False)} of {len(moved)} parameters "
+                      f"unchanged after {LM_STEPS} steps")
+    log(f"[lm_train] all {len(moved)} parameters moved from the "
+        f"initialisation (the schedule gives lr 0 at step 0, so steps 1-3 "
+        f"moved them)")
+    ln_v = float(np.log(cfg.vocab))
+    log(f"[lm_train] chance level of the initial logits on batch 0: "
+        f"{chance:.4f} nats (ln V = {ln_v:.4f}: the tied embedding gives each "
+        f"input token a large logit of its own); step 0's loss lies "
+        f"{abs(losses[0] - chance):.2e} from it (tol {CHANCE_TOL})")
+    check(abs(losses[0] - chance) <= CHANCE_TOL,
+          f"step 0's loss {losses[0]} is not the chance level {chance} of "
+          f"its logits")
+    check(all(np.isfinite(losses)) and
+          all(abs(x - chance) <= 1.5 for x in losses),
+          f"losses {losses} not finite within 1.5 nats of the chance level "
+          f"{chance:.4f}")
+    log("[lm_train] every loss finite and within 1.5 nats of the chance level")
+
+    model = make_model(cfg)
+    with torch.no_grad():
+        l_flash = float(model["train_loss"](params, batch, run))
+        l_dense = float(model["train_loss"](
+            params, batch, dataclasses.replace(run, flash_kernel=False)))
+    log(f"[lm_train] batch 0 after training: loss {l_flash:.6f} through the "
+        f"flash kernel, {l_dense:.6f} through _sdpa_dense (|diff| "
+        f"{abs(l_flash - l_dense):.2e}, tol {LM_LOSS_TOL} nats)")
+    check(abs(l_flash - l_dense) <= LM_LOSS_TOL,
+          "flash and dense attention give losses more than "
+          f"{LM_LOSS_TOL} nats apart")
+
+    summ = tel.summary()
+    step_s = summ["mean_s"]
+    tokens = LM_BATCH * LM_SEQ
+    attn_flops = 3 * cfg.n_layers * flash_ops(LM_BH, LM_SEQ, LM_SEQ,
+                                              cfg.head_dim_, True)
+    model_flops = 6 * n_params * tokens + attn_flops
+    mfu = model_flops / step_s / BF16_PEAK
+    log(f"[lm_train] step {step_s * 1e3:.2f} ms (mean of steps 1-"
+        f"{LM_STEPS - 1}), {tokens / step_s:.4e} tokens/s; 6*N*tokens + "
+        f"attention = {model_flops:.4e} flops, {mfu:.4f} of the bf16 peak; "
+        f"peak memory {peak_gb:.2f} GB")
+    built = build_train_step(cfg, run, device=DEV)
+    nxt = [LM_STEPS]
+
+    def two_steps():
+        nonlocal params, opt
+        for _ in range(2):
+            b = batch_to(stream.batch_at(nxt[0]), DEV)
+            params, opt, m = built["fn"](params, opt, b, nxt[0])
+            float(m["loss"])
+            nxt[0] += 1
+    trace = profile_steps(two_steps, 2, label="lm_train trace")
+    report["lm_train"] = dict(
+        arch=cfg.name, seq=LM_SEQ, batch=LM_BATCH, steps=LM_STEPS,
+        losses=losses, launches=counts, train_s=train_s, step_ms=step_s * 1e3,
+        step_times_s=tel.times, tokens_per_s=tokens / step_s,
+        model_flops=model_flops, bf16_peak_share=mfu, peak_memory_gb=peak_gb,
+        loss_flash=l_flash, loss_dense=l_dense, chance_level=chance,
+        trace=trace)
+    del params, opt
+    torch.cuda.empty_cache()
+    return [kernel_entry(
+        "lm_train", "flash_attention", "cuda",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:106",
+        counts["flash_attention"], flash["err"], flash["ms"],
+        flash["plain_ms"], flash["bound_ms"], flash["bound_by"],
+        flash["library_ms"])]
 
 
 def main(argv=None) -> int:
@@ -907,6 +1194,8 @@ def main(argv=None) -> int:
     nb = make_naive_bayes(args)
     counts = phase_segment("naive_bayes", nb, NB_STEPS, "c", report)
     kernels += phase_segment_times("naive_bayes", nb, report, counts)
+    del nb
+    kernels += phase_lm_train(report, phase_flash(report))
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))

@@ -1,1 +1,1 @@
-from .pipeline import SyntheticCorpus  # noqa: F401
+from .pipeline import SyntheticCorpus, TokenStream  # noqa: F401

@@ -1,10 +1,13 @@
-"""Deterministic data generation: the port's copy of ``SyntheticCorpus``.
+"""Deterministic data generation: the port's copies of ``SyntheticCorpus``
+and ``TokenStream``.
 
 :class:`SyntheticCorpus` is a topic-mixture document generator (planted
-topics over a vocabulary, Poisson document lengths), copied op for op from
-``repro.data.pipeline`` so that the same seed gives the same corpus in both
-packages.  Everything is numpy on the host; device placement happens in the
-runtime.  The samplers and the sharded store arrive with the SVI slice.
+topics over a vocabulary, Poisson document lengths) and :class:`TokenStream`
+gives packed LM training batches, seekable by step.  Both are copied op for
+op from ``repro.data.pipeline`` so that the same seed gives the same corpus
+and the same batches, bit for bit, in both packages.  Everything is numpy on
+the host; device placement happens in the runtime and the trainer.  The
+samplers and the sharded store arrive with the SVI slice.
 """
 
 from __future__ import annotations
@@ -58,3 +61,36 @@ class SyntheticCorpus:
         tokens = np.minimum(tokens, self.vocab - 1)
         return {"tokens": tokens, "doc_ids": doc_ids, "lengths": lengths,
                 "true_phi": phi, "true_theta": theta, "z": z}
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Packed LM batches; ``batch_at`` is pure in (seed, step, shard).
+
+    ``batch_at(step)`` returns ``{"tokens", "labels"}``, each
+    ``(batch, seq_len) int32`` with ``labels`` the one-position shift of
+    ``tokens`` (next-token targets); shards draw disjoint streams.
+    """
+    vocab: int
+    seq_len: int
+    batch: int                      # per-shard batch
+    seed: int = 0
+    shard: int = 0
+    n_shards: int = 1
+    weights: np.ndarray | None = None   # per-domain sampling weights
+
+    def batch_at(self, step: int) -> dict:
+        # counter-based: a fresh generator keyed by (seed, shard, step)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.shard, step]))
+        toks = rng.integers(1, self.vocab, size=(self.batch, self.seq_len + 1),
+                            dtype=np.int64).astype(np.int32)
+        if self.weights is not None:
+            # domain-reweighted mixing: choose a domain per sequence and
+            # restrict its token range (a stand-in for real domain data)
+            k = len(self.weights)
+            dom = rng.choice(k, size=self.batch, p=self.weights)
+            lo = (dom * (self.vocab // k)).astype(np.int32)
+            toks = lo[:, None] + toks % (self.vocab // k)
+        return {"tokens": toks[:, :-1],
+                "labels": toks[:, 1:].astype(np.int32)}

@@ -17,7 +17,7 @@ This module holds the three parts around it:
   - the build: ``nvcc`` compiles ``csrc/zstats.cu`` into a shared library
     with a plain C interface under ``build/`` at the repo root (or
     ``$REPRO_TORCH_BUILD_DIR``) at the first launch, keyed by a hash of the
-    source, and ``ctypes`` loads it.
+    source (``build.build_library``), and ``ctypes`` loads it.
   - :func:`zstats` — the wrapper, for CUDA tensors only: it launches the
     kernel or raises.  The plain version is ``ref.zstats``, which ``ops``
     runs on the CPU.  Its passes (:func:`launch_flat`) are also phase 2a of
@@ -35,15 +35,13 @@ token bucketing by tile, and the stats carried across a sequential grid.
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from . import build as _build
 from . import dirichlet_expectation as _de
 
 #: calls that launched the kernel (one per wrapper call)
@@ -167,34 +165,10 @@ def build_plan(prior_rows, children, prior_shape: tuple,
 # build and bind
 # ---------------------------------------------------------------------------
 
-def build_dir() -> Path:
-    """Where the shared library is built: ``$REPRO_TORCH_BUILD_DIR`` or
-    ``build/`` at the repo root."""
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    return Path(env) if env else Path(__file__).resolve().parents[3] / "build"
-
-
 def build(verbose: bool = False) -> tuple[Path, str]:
     """Compile ``csrc/zstats.cu`` for ``sm_90a`` unless a library built from
     the same source exists; returns (library path, compiler output)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
-    out = build_dir() / f"libzstats-{tag}.so"
-    if out.exists() and not verbose:
-        return out, ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    cmd = [str(nvcc) if nvcc.exists() else "nvcc",
-           "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    return _build.build_library(_SRC, "zstats", verbose)
 
 
 class _ChildArgs(ctypes.Structure):

@@ -3,8 +3,8 @@
 Dispatch goes by the tensor's device, never by an environment variable, and
 this module is the one place that looks: a CPU tensor runs the plain PyTorch
 version from ``ref.py``, any other tensor goes to the Hopper kernel's
-wrapper (CUDA C++ for ``zstats``, ``zstats_zmap`` and ``zmap_logits``,
-Triton for ``dirichlet_expectation`` and ``zstep``).  The wrappers take CUDA
+wrapper (CUDA C++ for ``zstats``, ``zstats_zmap``, ``zmap_logits`` and
+``flash_attention``, Triton for ``dirichlet_expectation`` and ``zstep``).  The wrappers take CUDA
 tensors only and raise on any other device: nothing on the card falls back
 to a plain version.  Each kernel module keeps a plain integer count of its
 launches (``<module>.launches``; ``fused_zmap.logits_launches`` for
@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import dirichlet_expectation as _de
+from . import flash_attention as _fa
 from . import fused_zmap as _fzm
 from . import fused_zstats as _fz
 from . import ref
@@ -107,9 +108,23 @@ def zmap_logits(children: tuple, n_latent: int, k: int, *,
     return _fzm.zmap_logits(children, n_latent, k, tables=tables, plan=plan)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Tiled attention ``softmax(q k^T / sqrt(Dh)) v`` without the (S, S)
+    score matrix in device memory.  ``q`` is ``(BH, Sq, Dh)``, ``k``/``v``
+    ``(BH, Sk, Dh)`` (batch and heads flattened together), bf16 or f32;
+    returns ``q``'s shape and dtype.  ``causal`` applies the autoregressive
+    mask ``kpos <= qpos``.  Differentiable.  On the CPU
+    ``ref.flash_attention``; on CUDA the ``flash_attention`` kernel, whose
+    backward recomputes through the plain version."""
+    if _plain(q):
+        return ref.flash_attention(q, k, v, causal=causal)
+    return _fa.flash_attention(q, k, v, causal=causal)
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    _de.launches = _fz.launches = _zs.launches = 0
+    _de.launches = _fz.launches = _zs.launches = _fa.launches = 0
     _fzm.launches = _fzm.logits_launches = 0
 
 
@@ -117,9 +132,10 @@ def launch_counts() -> dict:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
     return {"zstats": _fz.launches, "zstats_zmap": _fzm.launches,
             "zmap_logits": _fzm.logits_launches,
-            "dirichlet_expectation": _de.launches, "zstep": _zs.launches}
+            "dirichlet_expectation": _de.launches, "zstep": _zs.launches,
+            "flash_attention": _fa.launches}
 
 
 __all__ = ["ZChild", "dirichlet_expectation", "zstep", "zstats",
-           "zstats_plan", "zmap_logits", "reset_launch_counts",
-           "launch_counts"]
+           "zstats_plan", "zmap_logits", "flash_attention",
+           "reset_launch_counts", "launch_counts"]

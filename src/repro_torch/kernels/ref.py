@@ -9,6 +9,7 @@ they are no yardstick of speed.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -18,6 +19,22 @@ def dirichlet_expectation(alpha: torch.Tensor) -> torch.Tensor:
     """E[log theta] rowwise: digamma(a) - digamma(a.sum(-1))."""
     return torch.special.digamma(alpha) - torch.special.digamma(
         alpha.sum(dim=-1, keepdim=True))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Plain version of the flash kernel: dense masked attention.
+    q: (BH, Sq, Dh); k/v: (BH, Sk, Dh).  Scores in f32, masked with -1e30
+    where ``kpos > qpos`` (both counted from 0), the result in q's dtype."""
+    dh = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(dh)
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        mask = torch.arange(sk, device=q.device)[None, :] <= \
+            torch.arange(sq, device=q.device)[:, None]
+        s = torch.where(mask, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
 
 
 def zstep(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,124 @@
+"""The port's LM trainer: ``repro.launch.train.train`` on one device.
+
+``train`` builds the step (``steps.build_train_step``), initialises the
+parameters (the port's own initialisation from ``run.seed``) or takes them
+from ``params=``, and runs ``steps`` steps over ``TokenStream`` batches,
+recording each step's host time (the loss's ``float`` ends each step, so the
+time covers the device's work).  A mesh and checkpoints belong to later
+slices of the port and raise.
+
+Usage (a reduced olmo on the CPU; on the card drop ``--device``):
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 \\
+      --d-model 64 --layers 2 --seq 32 --batch 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+
+from ..configs import RunConfig, get_arch
+from ..data import TokenStream
+from ..models import make_model
+from ..models.transformer import later_slice
+from ..optim import adamw_init
+from .steps import batch_to, build_train_step
+
+
+class StepTelemetry:
+    """Step-time tracker; flags outlier steps (the straggler signal that a
+    real cluster controller would act on)."""
+
+    def __init__(self, window: int = 50):
+        self.times: list[float] = []
+        self.window = window
+        self.stragglers = 0
+
+    def record(self, dt: float) -> bool:
+        self.times.append(dt)
+        hist = self.times[-self.window:-1]
+        if len(hist) >= 10 and dt > 3.0 * float(np.median(hist)):
+            self.stragglers += 1
+            return True
+        return False
+
+    def summary(self) -> dict:
+        arr = np.array(self.times[1:] or [0.0])
+        return {"steps": len(self.times),
+                "mean_s": float(arr.mean()),
+                "p50_s": float(np.percentile(arr, 50)),
+                "p95_s": float(np.percentile(arr, 95)),
+                "stragglers": self.stragglers}
+
+
+def train(cfg, run: RunConfig, steps: int, device=None, params=None,
+          mesh=None, checkpoint_dir: str | None = None,
+          checkpoint_every: int = 0, log_every: int = 10,
+          start_step: int | None = None):
+    """Returns ``(params, opt_state, losses, telemetry)``.  ``device=None``
+    means ``"cuda"``; ``params`` (a ``Decoder`` on that device, updated in
+    place) replaces the initialisation, so that a caller can start from a
+    given state."""
+    if mesh is not None:
+        later_slice("a mesh", "distributed")
+    if checkpoint_dir or checkpoint_every:
+        later_slice("checkpoint_dir / checkpoint_every", "LM checkpoint")
+    built = build_train_step(cfg, run, device)
+    device = built["device"]
+    stream = TokenStream(vocab=cfg.vocab, seq_len=run.seq_len,
+                         batch=run.global_batch, seed=run.seed)
+    if params is None:
+        params = make_model(cfg)["init"](run, device=device)
+    opt_state = adamw_init(list(params.parameters()))
+    first = start_step or 0
+
+    telemetry = StepTelemetry()
+    losses = []
+    for i in range(first, first + steps):
+        batch = batch_to(stream.batch_at(i), device)
+        t0 = time.time()
+        params, opt_state, metrics = built["fn"](params, opt_state, batch, i)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        straggle = telemetry.record(dt)
+        losses.append(loss)
+        if log_every and (i % log_every == 0 or straggle):
+            print(f"[train] step {i:5d} loss {loss:8.4f} "
+                  f"{dt*1e3:7.1f} ms{'  STRAGGLER' if straggle else ''}")
+    return params, opt_state, losses, telemetry
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--d-model", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch)
+    if args.layers or args.d_model:
+        cfg = dataclasses.replace(
+            cfg,
+            n_layers=args.layers or cfg.n_layers,
+            d_model=args.d_model or cfg.d_model,
+            n_heads=max(4, (args.d_model or cfg.d_model) // 64),
+            n_kv_heads=max(2, (args.d_model or cfg.d_model) // 128),
+            head_dim=64, d_ff=4 * (args.d_model or cfg.d_model),
+            vocab=min(cfg.vocab, 32000))
+    run = RunConfig(seq_len=args.seq, global_batch=args.batch,
+                    dtype="float32")
+    _, _, losses, tel = train(cfg, run, args.steps, device=args.device)
+    print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+    print(f"[train] telemetry {tel.summary()}")
+
+
+if __name__ == "__main__":
+    main()

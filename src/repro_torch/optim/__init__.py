@@ -1,0 +1,5 @@
+"""The port's optimizer: AdamW, clipping and the schedule of
+``repro.optim``."""
+
+from .adamw import (adamw_init, adamw_update,  # noqa: F401
+                    clip_by_global_norm, lr_schedule)

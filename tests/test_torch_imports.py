@@ -34,7 +34,9 @@ def test_fence_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "torch_numerics.py", "vmp.py", "ops.py",
             "fused_zstats.py", "dirichlet_expectation.py",
-            "vmp_zstep.py"} <= names
+            "vmp_zstep.py", "build.py", "flash_attention.py", "base.py",
+            "olmo_1b.py", "layers.py", "transformer.py", "registry.py",
+            "adamw.py", "steps.py", "train.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -53,6 +55,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.core.models\n"
             "import repro_torch.kernels.ops, repro_torch.data\n"
+            "import repro_torch.configs, repro_torch.models, repro_torch.optim\n"
+            "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"

@@ -332,9 +332,11 @@ def test_cpu_tensors_take_plain_versions_without_launches():
     tops.zmap_logits(zkids, 40, 3)
     tops.dirichlet_expectation(torch.rand(3, 4) + 0.1)
     tops.zstep(torch.randn(5, 3))
+    tops.flash_attention(*torch.randn(3, 2, 9, 8))
     assert tops.launch_counts() == {"zstats": 0, "zstats_zmap": 0,
                                     "zmap_logits": 0,
-                                    "dirichlet_expectation": 0, "zstep": 0}
+                                    "dirichlet_expectation": 0, "zstep": 0,
+                                    "flash_attention": 0}
     assert tops.zstats_plan(torch.zeros(2, 3), torch.zeros(4, dtype=torch.int32),
                             ()) is None
     assert tops.zstats_plan(torch.zeros(10, 3), torch.from_numpy(zdata[1]),

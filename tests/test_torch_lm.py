@@ -1,0 +1,453 @@
+"""The LM slice of the port on the CPU: configs, layers, the decoder's loss
+and gradients, the optimizer, ``TokenStream`` and three training steps, held
+to the JAX reference on the same numpy inputs and weights
+(``params_from_numpy``).
+
+Tolerances, each with its reason (all in f32, ``RunConfig(dtype="float32")``):
+
+- losses: rtol 1e-5, as ``tests/test_flash_integration.py`` holds the
+  reference's two attention paths to each other: f32 sums over the vocabulary
+  and the model width run in another order across frameworks;
+- gradients and parameters after training: rtol 2e-4, atol 2e-6, the same
+  file's gradient tolerance (a backward pass compounds those orders);
+- layers alone: rtol = atol = 1e-5, one layer's f32 rounding; bf16 score
+  blocks in ``_sdpa_flash``: rtol = atol = 2**-7, two bf16 ulps;
+- configs, ``TokenStream`` and the weight round trip: equal.
+
+The flash kernel's path runs here through its plain version (a CPU tensor);
+``chip_smoke.py`` runs the CUDA kernel on the card.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import optim as joptim
+from repro.configs import ARCHS as J_ARCHS
+from repro.configs import RunConfig as JRun
+from repro.data import TokenStream as JTokenStream
+from repro.models import layers as JL
+from repro.models import make_model as j_make_model
+from repro_torch import optim as toptim
+from repro_torch.configs import ARCHS, RunConfig, get_arch
+from repro_torch.data import TokenStream
+from repro_torch.launch import steps as tsteps
+from repro_torch.launch import train as ttrain
+from repro_torch.models import layers as TL
+from repro_torch.models import make_model, params_from_numpy, params_to_numpy
+
+LOSS_TOL = dict(rtol=1e-5)
+GRAD_TOL = dict(rtol=2e-4, atol=2e-6)
+LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
+RUNNABLE = ("olmo-1b", "phi3-medium-14b")
+
+
+def _cfg(name, layers=2):
+    return dataclasses.replace(get_arch(name).reduced(), n_layers=layers)
+
+
+def _jcfg(name, layers=2):
+    return dataclasses.replace(J_ARCHS[name].reduced(), n_layers=layers)
+
+
+def _runs(**kw):
+    kw = dict(dict(seq_len=16, global_batch=2, dtype="float32"), **kw)
+    return RunConfig(**kw), JRun(**kw)
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _jax_params(jcfg, jrun, seed=0):
+    """The reference's initial parameters as numpy, norms moved off their
+    identity so that the (1 + scale) and bias paths count."""
+    tree = _np_tree(j_make_model(jcfg)["init"](jrun, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed + 100)
+
+    def perturb(path, a):
+        key = getattr(path[-1], "key", None)
+        if key in ("scale", "bias"):
+            return (a + 0.1 * rng.normal(size=a.shape)).astype(np.float32)
+        return a
+    return jax.tree_util.tree_map_with_path(perturb, tree)
+
+
+def _batch(cfg, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    labels[0, :3] = -1                          # padding labels are masked
+    return {"tokens": toks, "labels": labels}
+
+
+def _assert_trees_close(got, want, **tol):
+    gl, gdef = jax.tree_util.tree_flatten(got)
+    wl, wdef = jax.tree_util.tree_flatten(want)
+    assert gdef == wdef
+    for a, b in zip(gl, wl):
+        np.testing.assert_allclose(a, b, **tol)
+
+
+# ---------------------------------------------------------------------------
+# configs and data
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(J_ARCHS))
+def test_configs_match_reference(name):
+    ours, ref = ARCHS[name], J_ARCHS[name]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(ours.reduced()) == dataclasses.asdict(ref.reduced())
+    assert ours.param_count() == ref.param_count()
+    assert ours.active_param_count() == ref.active_param_count()
+    assert ours.vocab_padded == ref.vocab_padded
+    assert ours.layer_kinds() == ref.layer_kinds()
+
+
+def test_run_config_defaults_match_reference():
+    assert dataclasses.asdict(RunConfig()) == dataclasses.asdict(JRun())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(vocab=512, seq_len=16, batch=3),
+    dict(vocab=50304, seq_len=64, batch=2, seed=7, shard=1, n_shards=2),
+    dict(vocab=1000, seq_len=8, batch=4, weights=np.array([0.2, 0.3, 0.5]))])
+def test_token_stream_matches_reference_bitwise(kw):
+    ours, ref = TokenStream(**kw), JTokenStream(**kw)
+    for step in (0, 1, 5):
+        a, b = ours.batch_at(step), ref.batch_at(step)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm", "nonparametric"])
+def test_norm_matches_reference(norm):
+    cfg = dataclasses.replace(_cfg("olmo-1b"), norm=norm)
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 5, cfg.d_model)).astype(np.float32)
+    p = {k: (rng.normal(size=cfg.d_model) * 0.1).astype(np.float32)
+         for k in ({"rmsnorm": ["scale"], "layernorm": ["scale", "bias"]}
+                   .get(norm, []))}
+    got = TL.apply_norm({k: _t(v) for k, v in p.items()}, _t(x), cfg)
+    want = JL.apply_norm({k: jnp.asarray(v) for k, v in p.items()},
+                         jnp.asarray(x), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+def test_rope_and_qk_norm_match_reference():
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 7, 3, 16)).astype(np.float32)
+    pos = np.arange(7)[None, :]
+    np.testing.assert_allclose(
+        TL.rope(_t(x), _t(pos), 10_000.0).numpy(),
+        np.asarray(JL.rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0)),
+        **LAYER_TOL)
+    scale = (rng.normal(size=16) * 0.1).astype(np.float32)
+    np.testing.assert_allclose(
+        TL._rms_head(_t(x), _t(scale)).numpy(),
+        np.asarray(JL._rms_head(jnp.asarray(x), jnp.asarray(scale))),
+        **LAYER_TOL)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
+def test_mlp_matches_reference(act):
+    cfg = dataclasses.replace(_cfg("olmo-1b"), act=act)
+    rng = np.random.default_rng(3)
+    gated = act != "gelu"
+    p = {"wi": rng.normal(size=(64, 256 if gated else 128)).astype(np.float32) / 8,
+         "wo": rng.normal(size=(128, 64)).astype(np.float32) / 11}
+    x = rng.normal(size=(2, 5, 64)).astype(np.float32)
+    run, jrun = _runs()
+    got = TL.mlp({k: _t(v) for k, v in p.items()}, _t(x), cfg, run)
+    want = JL.mlp({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+                  cfg, jrun)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+def _qkv_np(seed, b=2, s=32, h=4, kvh=2, dh=16, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, dh)).astype(dtype),
+            rng.normal(size=(b, s, kvh, dh)).astype(dtype),
+            rng.normal(size=(b, s, kvh, dh)).astype(dtype))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sdpa_dense_matches_reference(causal):
+    q, k, v = _qkv_np(4)
+    got = TL._sdpa_dense(_t(q), _t(k), _t(v), causal=causal)
+    want = JL._sdpa_dense(*map(jnp.asarray, (q, k, v)), causal=causal,
+                          window=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+@pytest.mark.parametrize("f32_scores,dtype", [(True, "float32"),
+                                              (False, "float32"),
+                                              (False, "bfloat16")])
+def test_sdpa_flash_matches_reference(f32_scores, dtype):
+    q, k, v = _qkv_np(5)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = TL._sdpa_flash(*(_t(a).to(tdt) for a in (q, k, v)), causal=True,
+                         chunk=8, f32_scores=f32_scores)
+    want = JL._sdpa_flash(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                          causal=True, chunk=8, f32_scores=f32_scores)
+    tol = LAYER_TOL if dtype == "float32" else dict(rtol=2**-7, atol=2**-7)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+def test_flash_kernel_gqa_matches_reference():
+    """The kv-broadcast wrapper (GQA, 4 heads over 2): ``repeat_interleave``
+    and the (B*H, S, Dh) layout, through the plain version on the CPU."""
+    q, k, v = _qkv_np(6)
+    got = TL._flash_kernel_gqa(_t(q), _t(k), _t(v))
+    want = JL._flash_kernel_gqa(*map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LAYER_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the decoder: loss and gradients from one state
+# ---------------------------------------------------------------------------
+
+def _grads_tree(cfg, module, grads):
+    """``grads`` (in ``module.parameters()`` order) as the reference's
+    tree, through a copy of the module that holds them as values."""
+    with torch.no_grad():
+        for p, g in zip(module.parameters(), grads):
+            p.copy_(g)
+    return params_to_numpy(cfg, module)
+
+
+# (arch, flash kernel, seq_len, attn_chunk, vocab): the dense path, the
+# flash kernel's path, a sequence long enough to take _sdpa_flash, and a
+# vocabulary of 500 padded to 512 (its padding columns masked)
+LOSS_CASES = [(name, flash, s, chunk, None) for name in RUNNABLE
+              for flash, s, chunk in [(False, 16, 1024), (True, 16, 1024),
+                                      (False, 32, 8)]] + \
+    [(name, True, 16, 1024, 500) for name in RUNNABLE]
+
+
+@pytest.mark.parametrize("name,flash,seq,chunk,vocab", LOSS_CASES)
+def test_train_loss_and_grads_match_reference(name, flash, seq, chunk, vocab):
+    run, jrun = _runs(seq_len=seq, flash_kernel=flash, attn_chunk=chunk)
+    cfg, jcfg = _cfg(name), _jcfg(name)
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab=vocab)
+        jcfg = dataclasses.replace(jcfg, vocab=vocab)
+        assert cfg.vocab_padded > vocab
+    tree = _jax_params(jcfg, jrun)
+    batch = _batch(cfg, 2, seq)
+    jmodel = j_make_model(jcfg)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jmodel["train_loss"](p, jbatch, jrun))(jparams)
+
+    module = params_from_numpy(cfg, tree, device="cpu")
+    tbatch = tsteps.batch_to(batch, "cpu")
+    loss = make_model(cfg)["train_loss"](module, tbatch, run)
+    grads = torch.autograd.grad(loss, list(module.parameters()))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **LOSS_TOL)
+    _assert_trees_close(_grads_tree(cfg, module, grads), _np_tree(jgrads),
+                        **GRAD_TOL)
+
+
+@pytest.mark.parametrize("name", RUNNABLE)
+def test_params_round_trip_is_bitwise(name):
+    _, jrun = _runs()
+    tree = _jax_params(_jcfg(name), jrun)
+    back = params_to_numpy(_cfg(name), params_from_numpy(_cfg(name), tree,
+                                                         device="cpu"))
+    gl, gdef = jax.tree_util.tree_flatten(back)
+    wl, wdef = jax.tree_util.tree_flatten(tree)
+    assert gdef == wdef
+    for a, b in zip(gl, wl):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", RUNNABLE)
+def test_port_init_has_the_reference_tree_and_scales(name):
+    """The port's own initialisation: the reference's tree of shapes, f32,
+    and its scales (1/sqrt(fan_in); wo at 1/sqrt(h*dh); embed 0.02)."""
+    cfg = dataclasses.replace(_cfg(name, layers=3), d_model=128, d_ff=256)
+    run, jrun = _runs()
+    gen = torch.Generator().manual_seed(0)
+    ours = params_to_numpy(cfg, make_model(cfg)["init"](run, gen, "cpu"))
+    ref = jax.eval_shape(lambda: j_make_model(cfg)["init"](
+        jrun, jax.random.PRNGKey(0)))
+    ol, odef = jax.tree_util.tree_flatten(ours)
+    rl, rdef = jax.tree_util.tree_flatten(ref)
+    assert odef == rdef
+    assert [a.shape for a in ol] == [tuple(s.shape) for s in rl]
+    h, dh = cfg.n_heads, cfg.head_dim_
+    np.testing.assert_allclose(ours["embed"].std(), 0.02, rtol=0.05)
+    attn = ours["blocks"]["scan"][0]["attn"]
+    np.testing.assert_allclose(attn["wq"].std(), cfg.d_model ** -0.5, rtol=0.05)
+    np.testing.assert_allclose(attn["wo"].std(), (h * dh) ** -0.5, rtol=0.05)
+    ffn = ours["blocks"]["scan"][0]["ffn"]
+    np.testing.assert_allclose(ffn["wo"].std(), cfg.d_ff ** -0.5, rtol=0.05)
+    for norm in [ours["final_norm"], ours["blocks"]["scan"][0]["norm1"]]:
+        for v in norm.values():
+            np.testing.assert_array_equal(v, np.zeros_like(v))  # rmsnorm 1+s
+    again = params_to_numpy(cfg, make_model(cfg)["init"](
+        run, torch.Generator().manual_seed(0), "cpu"))
+    np.testing.assert_array_equal(again["embed"], ours["embed"])
+
+
+# ---------------------------------------------------------------------------
+# optimizer and training
+# ---------------------------------------------------------------------------
+
+def test_lr_schedule_matches_reference():
+    for step in (0, 1, 7, 100, 101, 5000, 99_999, 100_000, 200_000):
+        for warmup in (0, 1, 100):
+            got = toptim.lr_schedule(step, 3e-4, warmup)
+            want = float(joptim.lr_schedule(jnp.int32(step), 3e-4, warmup))
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 100.0])
+def test_clip_and_adamw_match_reference(max_norm):
+    rng = np.random.default_rng(9)
+    shapes = [(5, 3), (7,), (2, 2, 4)]
+    ps = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    gs = [rng.normal(size=s).astype(np.float32) for s in shapes]
+    jg, jn = joptim.clip_by_global_norm([jnp.asarray(g) for g in gs], max_norm)
+    tg, tn = toptim.clip_by_global_norm([_t(g).clone() for g in gs], max_norm)
+    np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+    _assert_trees_close([g.numpy() for g in tg], _np_tree(jg), **LAYER_TOL)
+    jp, jstate = [jnp.asarray(p) for p in ps], joptim.adamw_init(
+        [jnp.asarray(p) for p in ps])
+    tp = [_t(p).clone() for p in ps]
+    tstate = toptim.adamw_init(tp)
+    for lr in (1e-2, 3e-3):
+        jp, jstate = joptim.adamw_update(jp, jg, jstate, lr=lr,
+                                         weight_decay=0.1)
+        tp, tstate = toptim.adamw_update(tp, tg, tstate, lr=lr,
+                                         weight_decay=0.1)
+    assert tstate["count"] == int(jstate["count"]) == 2
+    _assert_trees_close([p.numpy() for p in tp], _np_tree(jp), **LAYER_TOL)
+    _assert_trees_close([m.numpy() for m in tstate["mu"]],
+                        _np_tree(jstate["mu"]), **LAYER_TOL)
+    _assert_trees_close([m.numpy() for m in tstate["nu"]],
+                        _np_tree(jstate["nu"]), **LAYER_TOL)
+
+
+def _jax_train(cfg, run, tree, steps):
+    """The reference's three pieces around its model, as its
+    ``build_train_step`` composes them (no mesh)."""
+    model = j_make_model(cfg)
+    stream = JTokenStream(vocab=cfg.vocab, seq_len=run.seq_len,
+                          batch=run.global_batch, seed=run.seed)
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    opt = joptim.adamw_init(params)
+
+    @jax.jit
+    def step_fn(params, opt, batch, step):
+        loss, grads = jax.value_and_grad(
+            lambda p: model["train_loss"](p, batch, run))(params)
+        grads, _ = joptim.clip_by_global_norm(grads, run.grad_clip)
+        lr = joptim.lr_schedule(step, run.learning_rate, run.warmup)
+        params, opt = joptim.adamw_update(params, grads, opt, lr=lr,
+                                          weight_decay=run.weight_decay)
+        return params, opt, loss
+
+    losses = []
+    for i in range(steps):
+        batch = {k: jnp.asarray(v) for k, v in stream.batch_at(i).items()}
+        params, opt, loss = step_fn(params, opt, batch, jnp.int32(i))
+        losses.append(float(loss))
+    return _np_tree(params), losses
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_three_train_steps_match_reference(flash):
+    """Reduced olmo (GQA: 4 heads over 2 kv heads), 3 steps of ``train``
+    from one state; warmup 1 so that steps 1 and 2 move the weights (the
+    schedule gives 0 at step 0)."""
+    run, jrun = _runs(warmup=1, flash_kernel=flash)
+    cfg, jcfg = _cfg("olmo-1b"), _jcfg("olmo-1b")
+    tree = _jax_params(jcfg, jrun)
+    want_params, want_losses = _jax_train(jcfg, jrun, tree, 3)
+    params, opt, losses, tel = ttrain.train(
+        cfg, run, 3, device="cpu", params=params_from_numpy(cfg, tree, "cpu"),
+        log_every=0)
+    np.testing.assert_allclose(losses, want_losses, **LOSS_TOL)
+    assert losses[1] != losses[0] and opt["count"] == 3
+    assert tel.summary()["steps"] == 3
+    _assert_trees_close(params_to_numpy(cfg, params), want_params, **GRAD_TOL)
+    moved = params_to_numpy(cfg, params)["embed"] - tree["embed"]
+    assert np.abs(moved).max() > 1e-5
+
+
+# ---------------------------------------------------------------------------
+# what the slice does not run, and the device rule
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(set(ARCHS) - set(RUNNABLE)))
+def test_later_slice_archs_raise(name):
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        make_model(get_arch(name).reduced())
+
+
+@pytest.mark.parametrize("knob", [dict(remat="full"), dict(remat="dots"),
+                                  dict(microbatch=2), dict(fsdp=True),
+                                  dict(act_shard="seq"),
+                                  dict(param_dtype="bfloat16")])
+def test_later_slice_run_knobs_raise(knob):
+    run, _ = _runs(**knob)
+    cfg = _cfg("olmo-1b")
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        tsteps.build_train_step(cfg, run, device="cpu")
+    module = make_model(cfg)["init"](_runs()[0], device="cpu")
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        make_model(cfg)["train_loss"](module, tsteps.batch_to(
+            _batch(cfg, 1, 8), "cpu"), run)
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
+                                dict(checkpoint_dir="ckpt"),
+                                dict(checkpoint_every=5)])
+def test_later_slice_train_options_raise(kw):
+    run, _ = _runs()
+    with pytest.raises(NotImplementedError, match="slice of the port"):
+        ttrain.train(_cfg("olmo-1b"), run, 1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("entry", ["prefill", "init_cache", "decode_step"])
+def test_serving_entry_points_raise(entry):
+    with pytest.raises(NotImplementedError, match="serving"):
+        make_model(_cfg("olmo-1b"))[entry](None, None, None)
+
+
+def test_device_none_means_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run, _ = _runs()
+    cfg = _cfg("olmo-1b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.train(cfg, run, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_model(cfg)["init"](run)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy(cfg, {})
+
+
+def test_train_cli_runs_on_the_cpu(capsys):
+    ttrain.main(["--device", "cpu", "--steps", "2", "--d-model", "64",
+                 "--layers", "1", "--seq", "16", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "[train] first loss" in out and "telemetry" in out
