@@ -7,12 +7,15 @@ Phases, each of which exits non-zero on a failed check:
 
   1. the card's name and power limit, as ``nvidia-smi`` reports them;
   2. the ``nvcc`` builds of ``src/repro_torch/kernels/csrc/zstats.cu`` and
-     ``csrc/flash_attention.cu``, started together;
+     ``csrc/flash_attention.cu``, started together, with what ``-Xptxas
+     -v`` says of each kernel (registers, spills) and the wgmma flash
+     kernel's dynamic shared memory;
   3. every kernel (CUDA ``zstats``, ``zstats_zmap`` and ``zmap_logits``,
      Triton ``dirichlet_expectation`` and ``zstep``) against its plain
      PyTorch version on the card: the edge cases of the reference's kernel
      tests rebuilt from numpy seeds (K = 3, 130 and 2, strided with base,
-     masked, several children, the V = 33,000 child, the G = 70,000 prior;
+     masked, several children, the V = 33,000 child, the G = 70,000 prior,
+     and K = 100, 64 and 96 with masks, a strided child and long keys;
      for segment latents its ZMAP_KERNEL_CASES, its alpha "zmap" case, two
      zmap children, an unsorted zmap, an empty and an all-masked instance,
      instances of more than PIECE tokens, K = 1024), elog and alpha tables,
@@ -37,18 +40,22 @@ Phases, each of which exits non-zero on a failed check:
      (``zstats_zmap``, ``zmap_logits``, ``dirichlet_expectation``,
      ``zstep``) is held against its plain version on the path's own inputs
      and timed beside its bound, with the path's launch counts;
-  8. the ``flash_attention`` kernel against ``ref.flash_attention``: the
+  8. both ``flash_attention`` kernels against ``ref.flash_attention``: the
      reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
-     256, and the trainer's shape (BH = 64, S = 2,048, Dh = 128), each in
-     bf16 and f32; two launches bitwise; the autograd Function's gradients
-     bitwise those of the plain version for one cotangent; its time beside
-     its bound, the plain version's and SDPA's (a yardstick the port never
+     256, ragged and multi-tile cases at Dh 64 and 128, and the trainer's
+     shape (BH = 64, S = 2,048, Dh = 128), each in bf16 and f32 through the
+     route ``flash_attention.route`` gives it (checked), the bf16 cases at
+     Dh 64 and 128 also through the ``mma`` route; two launches of each
+     route bitwise; the autograd Function's gradients bitwise those of the
+     plain version for one cotangent; both routes timed in turns beside the
+     bound, the plain version's and SDPA's (a yardstick the port never
      calls);
   9. the LM trainer: olmo-1b at full width and depth through
      ``launch.train.train`` (4 steps, batch 4 x 2,048 tokens, bf16 compute,
      f32 parameters from the port's own initialisation, attention through
      the kernel), with the kernel's launch count set to 0 just before and
-     read just after (16 layers x 4 forwards), finite losses near ln V,
+     read just after (16 layers x 4 forwards, all on the wgmma route),
+     finite losses near ln V,
      every parameter moved, flash against dense attention on one batch,
      ms per step, tokens/s, the model flops' share of the bf16 peak, peak
      memory, and the device's idle share over 2 steps under the profiler.
@@ -58,7 +65,8 @@ trees can be shown to give the same output bit for bit.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, slda, naive_bayes,
-lm_train) and the
+lm_train; the flash entry's ``"variant"`` names the kernel the path took and
+``"mma_ms"`` is the other one's time in the same call) and the
 ``{"ok": true, "device": {...}}`` JSON object.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.  The script imports the port only, never
 JAX nor the JAX package.
@@ -114,6 +122,15 @@ ZSTATS_CASES = {
                      None),
     "prior-g70000": (4000, 16, 70000, [(16, 33, 1, False, False, False)], True,
                      None),
+    # K % 4 == 0 at the main path's lanes per token (4) and at 2: masks, a
+    # strided child beside a specialized one, keys of several pieces
+    "k100-masked": (300, 100, 20, [(100, 40, 1, False, True, False)], True,
+                    None),
+    "k100-multi": (250, 100, 9, [(100, 33, 1, False, False, False),
+                                 (300, 11, 2, True, True, False)], True, None),
+    "k64": (200, 64, 7, [(64, 21, 1, False, False, False)], False, None),
+    "k96-long-pieces": (3000, 96, 3, [(96, 5, 1, False, False, False)], False,
+                        None),
 }
 # segment latents: the reference's ZMAP_KERNEL_CASES (masked specialized,
 # strided with base, zmap child beside a flat child), two zmap children,
@@ -128,6 +145,8 @@ ZMAP_CASES = {
     "long-instances": (2000, 5, 1, [(5, 300, 1, False, True, True)], False, 4),
     "zmap-k1024": (3000, 1024, 9, [(1024, 50, 1, False, True, True)], True,
                    300),
+    "zmap-k100": (3000, 100, 9, [(100, 50, 1, False, True, True),
+                                 (300, 11, 2, True, True, False)], True, 300),
 }
 # the reference's ALPHA_CASES "zmap" (seed 24, concentration tables)
 ZMAP_ALPHA_CASE = (24, 240, 3, 10, [(3, 15, 1, False, True, True)], True, 40)
@@ -152,6 +171,12 @@ LM_LOSS_TOL = 1e-2
 CHANCE_TOL = 0.1
 # the reference's FLASH_SHAPES (bh, s, dh)
 FLASH_SHAPES = [(1, 32, 16), (2, 64, 16), (1, 100, 32), (3, 96, 8), (2, 48, 64)]
+# (bh, sq, sk, dh, causal) at the wgmma route's head dims: one row, a
+# ragged query tile, Sq < Sk and Sq > Sk across kv tiles, a non-causal
+# ragged Sk, several full tiles
+FLASH_WGMMA_CASES = [(1, 1, 1, 64, True), (2, 257, 257, 128, True),
+                     (2, 48, 300, 128, True), (2, 300, 200, 64, True),
+                     (3, 70, 333, 128, False), (2, 512, 512, 64, True)]
 SHAPES = [(1, 2), (3, 5), (7, 128), (33, 96), (128, 130), (257, 4),
           (64, 300), (1000, 3), (5, 102660), (70000, 16)]
 
@@ -328,6 +353,9 @@ def phase_build(report):
                     and "spill" in line:
                 log(f"  {entry[:48]:<48} {line.split(':', 1)[-1].strip()}")
         m.library()
+    for dh in flash_attention.WGMMA_DH:
+        log(f"  flash_wgmma_kernel<{dh}> dynamic shared memory "
+            f"{flash_attention.library().flash_attention_wgmma_smem(dh)} bytes")
     log(f"[build] both libraries in {secs:.2f} s")
     report["build_s"] = secs
 
@@ -953,9 +981,13 @@ def flash_ops(bh, sq, sk, dh, causal):
 def phase_flash(report):
     """``flash_attention`` against ``ref.flash_attention`` on the card: the
     reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
-    256, and the trainer's shape, in bf16 and f32; two launches bitwise; the
-    Function's gradients bitwise those of the plain version for one g; the
-    kernel, its plain version and SDPA timed at the trainer's shape."""
+    256, ragged and multi-tile cases at Dh 64 and 128, and the trainer's
+    shape, in bf16 and f32, each through the route ``route()`` gives it (and
+    checked to have taken it), and the bf16 cases at Dh 64 and 128 also
+    through the "mma" route; two launches of each route bitwise; the
+    Function's gradients bitwise those of the plain version for one g; both
+    routes timed in turns at the trainer's shape beside the bound, the plain
+    version and SDPA (a yardstick the port never calls)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     log("[flash] flash_attention against ref.flash_attention")
@@ -963,24 +995,36 @@ def phase_flash(report):
     cases = [(b, n, n, d, True) for b, n, d in FLASH_SHAPES] + [
         (2, 48, 100, 32, True), (2, 100, 48, 16, True), (3, 70, 100, 32, False),
         (2, 130, 130, 80, True), (2, 64, 96, 80, False), (2, 300, 300, 256, True),
-        (2, 100, 77, 256, False), (bh, s, s, dh, True)]
+        (2, 100, 77, 256, False)] + FLASH_WGMMA_CASES + [(bh, s, s, dh, True)]
     worst = {}
     for i, (b, sq, sk, d, causal) in enumerate(cases):
         for dt, tol in ((torch.bfloat16, FLASH_BF16_TOL),
                         (torch.float32, FLASH_F32_TOL)):
             q, k, v = flash_inputs(b, sq, sk, d, dt, 500 + i)
+            want = ref.flash_attention(q, k, v, causal=causal)
+            rt = fa.route(q, k, v)
             label = (f"({b},{sq},{sk},{d}) {'causal' if causal else 'full'} "
                      f"{str(dt)[6:]}")
-            worst[label] = compare("flash_attention", label,
-                                   fa.flash_attention(q, k, v, causal=causal),
-                                   ref.flash_attention(q, k, v, causal=causal),
-                                   tol)
-            del q, k, v
+            before = dict(fa.route_launches)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            check(fa.route_launches[rt] == before[rt] + 1 and
+                  sum(fa.route_launches.values()) == sum(before.values()) + 1,
+                  f"flash_attention {label} did not take route {rt}")
+            worst[label] = compare("flash_attention", f"{label} {rt}", got,
+                                   want, tol)
+            if rt == "wgmma":
+                worst[label + " mma"] = compare(
+                    "flash_attention", f"{label} mma",
+                    fa.launch(q, k, v, causal, route="mma"), want, tol)
+            del q, k, v, want, got
     q, k, v = flash_inputs(bh, s, s, dh, torch.bfloat16, 600)
-    a = fa.flash_attention(q, k, v)
-    check(torch.equal(a, fa.flash_attention(q, k, v)),
-          "two flash_attention launches on one input differ")
-    log("  two launches at the trainer's shape: bitwise equal")
+    check(fa.route(q, k, v) == "wgmma", "the trainer's shape is not on the "
+          "wgmma route")
+    for rt in ("wgmma", "mma"):
+        a = fa.launch(q, k, v, True, route=rt)
+        check(torch.equal(a, fa.launch(q, k, v, True, route=rt)),
+              f"two flash_attention launches ({rt}) on one input differ")
+    log("  two launches of each route at the trainer's shape: bitwise equal")
     for b, n, dt in ((bh, s, torch.bfloat16), (4, 256, torch.float32)):
         qg, kg, vg = (t.requires_grad_() for t in flash_inputs(
             b, n, n, dh, dt, 601))
@@ -997,21 +1041,32 @@ def phase_flash(report):
     torch.cuda.synchronize()
 
     log("[times] flash_attention at the trainer's shape "
-        f"({bh}, {s}, {dh}) bf16, causal")
-    t_k = time_ms(lambda: fa.flash_attention(q, k, v), reps=20)
+        f"({bh}, {s}, {dh}) bf16, causal; the two routes in turns")
+    turns = {"mma": [], "wgmma": []}
+    for rt in ("mma", "wgmma", "wgmma", "mma"):
+        turns[rt].append(time_ms(lambda: fa.launch(q, k, v, True, route=rt),
+                                 reps=20))
+    t_k, t_m = (sum(turns[r]) / 2 for r in ("wgmma", "mma"))
     t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=5)
     q4, k4, v4 = (t.view(LM_BATCH, bh // LM_BATCH, s, dh) for t in (q, k, v))
     t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), reps=20)
     nbytes = 4 * bh * s * dh * 2
-    bms, by = bound(nbytes, flash_ops(bh, s, s, dh, True), BF16_PEAK)
-    log(f"  flash_attention {t_k:9.4f} ms  plain {t_p:9.4f} ms  SDPA "
-        f"{t_l:9.4f} ms  bound {bms:8.4f} ms ({by})")
+    flops = flash_ops(bh, s, s, dh, True)
+    bms, by = bound(nbytes, flops, BF16_PEAK)
+    for name, t in (("wgmma", t_k), ("mma", t_m), ("SDPA", t_l)):
+        log(f"  {name:<6} {t:9.4f} ms  {flops / t / 1e9:8.1f} TFLOP/s  "
+            f"{bms / t:.3f} of the bound")
+    log(f"  turns (ms): mma {turns['mma']}, wgmma {turns['wgmma']}")
+    log(f"  plain {t_p:9.4f} ms  bound {bms:8.4f} ms ({by})")
+    check(t_k < t_m, f"the wgmma kernel ({t_k:.4f} ms) is not faster than "
+          f"the mma kernel ({t_m:.4f} ms)")
     err = worst[f"({bh},{s},{s},{dh}) causal bfloat16"]
-    report["flash"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
-                           bound_by=by, max_abs_err=err, cases=worst)
-    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
-                bound_by=by, err=err)
+    out = dict(ms=t_k, mma_ms=t_m, turns=turns, plain_ms=t_p, library_ms=t_l,
+               bound_ms=bms, bound_by=by, err=err, mma_err=worst[
+                   f"({bh},{s},{s},{dh}) causal bfloat16 mma"])
+    report["flash"] = dict(out, cases=worst)
+    return out
 
 
 def leaf_sums(module):
@@ -1048,6 +1103,7 @@ def phase_lm_train(report, flash):
     import dataclasses
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import batch_to, build_train_step
     from repro_torch.launch.train import train
@@ -1074,9 +1130,14 @@ def phase_lm_train(report, flash):
         f"losses {losses}")
     log(f"[lm_train] launches: {counts}")
     want = cfg.n_layers * LM_STEPS
+    routes = dict(fa.route_launches)
+    log(f"[lm_train] flash_attention launches by route: {routes}")
     check(counts["flash_attention"] == want,
           f"flash_attention launched {counts['flash_attention']} times, not "
           f"{want} ({cfg.n_layers} layers x {LM_STEPS} forwards)")
+    check(routes == {"wgmma": want, "mma": 0},
+          f"flash_attention's {want} launches did not all take the wgmma "
+          f"route: {routes}")
     check(opt["count"] == LM_STEPS, f"AdamW count {opt['count']}")
     stream = TokenStream(vocab=cfg.vocab, seq_len=LM_SEQ, batch=LM_BATCH,
                          seed=run.seed)
@@ -1148,13 +1209,16 @@ def phase_lm_train(report, flash):
         trace=trace)
     del params, opt
     torch.cuda.empty_cache()
-    return [kernel_entry(
+    entry = kernel_entry(
         "lm_train", "flash_attention", "cuda",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:106",
         counts["flash_attention"], flash["err"], flash["ms"],
         flash["plain_ms"], flash["bound_ms"], flash["bound_by"],
-        flash["library_ms"])]
+        flash["library_ms"])
+    # the kernel the path took, and the mma.sync kernel's time in this call
+    entry.update(variant="wgmma", mma_ms=flash["mma_ms"])
+    return [entry]
 
 
 def main(argv=None) -> int:

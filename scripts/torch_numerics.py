@@ -4,6 +4,8 @@
 
     python3 scripts/torch_numerics.py digest [TREE]
     python3 scripts/torch_numerics.py zmap-precision [TREE]
+    python3 scripts/torch_numerics.py ab-zstats PARENT
+    python3 scripts/torch_numerics.py ab-steps PARENT
 
 TREE is a checkout of the repo (by default the one holding this script)
 whose ``src/repro_torch`` runs; the inputs and the work come from this
@@ -19,12 +21,26 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
   worst error over its tolerance and the elements over it.  Also the
   logits' largest error, the documents within 8 nats of a tie, and an f32
   evaluation whose phase 1 is the f64 sum rounded once.
+- ``ab-zstats``: ``zstats`` at the LDA main path's inputs (after 2 VMP
+  steps), this checkout's kernel against the one of PARENT, a checkout of
+  an earlier commit (say a ``git archive`` unpacked under ``build/``),
+  loaded beside it as the package ``parent_repro_torch``.  The two are
+  timed with CUDA events in turns (parent, this, this, parent, 10 calls
+  each); it says whether their outputs are bitwise equal (a change of the
+  sums' order makes them differ).
+- ``ab-steps``: the VMP step of ``chip_smoke.py``'s three paths (LDA at the
+  NYTimes widths, SLDA over the same corpus, naive Bayes at the 20
+  Newsgroups widths), this checkout's package against PARENT's on one
+  corpus each, after one warm-up step, timed on the host clock (each step
+  ends in a host read of its ELBO, as ``chip_smoke.py`` times them) in
+  turns (parent, this, this, parent, 10 steps each).
 
 Imports the port only, never JAX nor the JAX package.
 """
 
 import argparse
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
@@ -43,6 +59,135 @@ def digest(cs):
     args = argparse.Namespace(docs=30000, steps=10)
     corpus, m, prog = cs.make_main_model(args)
     cs.phase_main(args, {}, corpus, m, prog)       # logs the sha256
+
+
+def _load_package(tree: Path, name: str):
+    """TREE's ``src/repro_torch`` imported as the package ``name`` (its
+    imports of itself are relative, so it runs beside this checkout's)."""
+    import importlib.util
+    src = tree.resolve() / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, src / "__init__.py", submodule_search_locations=[str(src)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ab_zstats(cs, parent: Path):
+    import importlib
+    import torch
+    from repro_torch.core import vmp
+    from repro_torch.kernels import dirichlet_expectation as de
+    from repro_torch.kernels import fused_zstats as fz
+    from repro_torch.kernels import ops
+    _load_package(parent, "parent_repro_torch")
+    pfz = importlib.import_module("parent_repro_torch.kernels.fused_zstats")
+    pref = importlib.import_module("parent_repro_torch.kernels.ref")
+    print(f"parent package: {Path(pfz.__file__).parents[1]}", flush=True)
+    args = argparse.Namespace(docs=30000, steps=2)
+    _, m, prog = cs.make_main_model(args)
+    m.infer(steps=args.steps, seed=cs.SEED, device="cuda")
+    state, spec = m._state, prog.latents[0]
+    arrays = vmp._program_arrays(prog, state.device)
+    rows = arrays[spec.name]["prior_rows"]
+    vals = arrays[spec.children[0].x_name]["values"]
+    e_theta = de.dirichlet_expectation(state.posteriors["theta"])
+    e_phi = de.dirichlet_expectation(state.posteriors["phi"], transpose=True).T
+    child = ops.ZChild(elog=e_phi, values=vals)
+    pchild = pref.ZChild(elog=e_phi, values=vals)
+    t0 = time.perf_counter()
+    plan = ops.zstats_plan(e_theta, rows, (child,))
+    t1 = time.perf_counter()
+    pplan = pfz.build_plan(rows, (pchild,), tuple(e_theta.shape)).to(
+        rows.device)
+    t2 = time.perf_counter()
+    print(f"[ab-zstats] owner plan built in {t1 - t0:.2f} s (this), "
+          f"{t2 - t1:.2f} s (parent)", flush=True)
+    runs = {"this": lambda: fz.zstats(e_theta, rows, (child,), plan=plan),
+            "parent": lambda: pfz.zstats(e_theta, rows, (pchild,),
+                                         plan=pplan)}
+    a, b = runs["this"](), runs["parent"]()
+    same = all(torch.equal(x, y) for x, y in
+               zip((a[0], a[1], *a[2]), (b[0], b[1], *b[2])))
+    times = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        times[who].append(cs.time_ms(runs[who], reps=10))
+    t_this, t_parent = (sum(times[w]) / 2 for w in ("this", "parent"))
+    print(f"[ab-zstats] {cs.device_line()}; N = {rows.shape[0]}, K = "
+          f"{e_theta.shape[1]}, V = {e_phi.shape[1]}")
+    print(f"[ab-zstats] turns (ms): parent {times['parent']}, this "
+          f"{times['this']}")
+    print(f"[ab-zstats] parent {t_parent:.4f} ms, this {t_this:.4f} ms per "
+          f"call: {t_parent / t_this:.2f}x; outputs bitwise equal: {same}",
+          flush=True)
+    return 0
+
+
+def _path_steps(pkg: str, cs, corpus, nb_corpus) -> dict:
+    """{path: [step, state]} of package ``pkg``'s three VMP paths, each
+    after one step of ``Model.infer`` (which builds the owner plan)."""
+    import importlib
+    models = importlib.import_module(pkg + ".core.models")
+    runtime = importlib.import_module(pkg + ".core.runtime")
+    vmp = importlib.import_module(pkg + ".core.vmp")
+    lda = models.make("lda", alpha=cs.ALPHA, beta=cs.BETA, K=cs.TOPICS,
+                      V=cs.VOCAB)
+    lda["x"].observe(corpus["tokens"], segment_ids=corpus["doc_ids"])
+    tok_sent, sent_doc = cs.sentences(corpus)
+    slda = models.make("slda", alpha=cs.ALPHA, beta=cs.BETA, K=cs.TOPICS,
+                       V=cs.VOCAB)
+    slda["x"].observe(corpus["tokens"], segment_ids=tok_sent)
+    slda.bind("sents", sent_doc)
+    nb = models.make("naive_bayes", alpha=cs.ALPHA, beta=cs.BETA,
+                     C=cs.NB_CLASSES, V=cs.NB_VOCAB)
+    nb["x"].observe(nb_corpus["tokens"], segment_ids=nb_corpus["doc_ids"])
+    out = {}
+    for name, m in (("lda", lda), ("slda", slda), ("naive_bayes", nb)):
+        prog = m.compile()
+        m.infer(steps=1, seed=cs.SEED, device="cuda")
+        posts, _ = vmp.state_to_numpy(m._state)
+        step = runtime.make_step(prog, device="cuda")
+        st, _ = step(vmp.state_from_numpy(posts, step=0, device="cuda"))
+        out[name] = [step, st]
+    return out
+
+
+def ab_steps(cs, parent: Path):
+    import torch
+    from repro_torch.data import SyntheticCorpus
+    _load_package(parent, "parent_repro_torch")
+    corpus = SyntheticCorpus(n_docs=30000, vocab=cs.VOCAB, n_topics=cs.TOPICS,
+                             alpha=cs.ALPHA, beta=cs.BETA,
+                             mean_len=cs.MEAN_LEN, seed=cs.SEED).generate()
+    nb_corpus = SyntheticCorpus(n_docs=cs.NB_DOCS, vocab=cs.NB_VOCAB,
+                                n_topics=cs.NB_CLASSES, alpha=cs.ALPHA,
+                                beta=cs.BETA, mean_len=cs.MEAN_LEN,
+                                seed=cs.SEED).generate()
+    trees = {who: _path_steps(pkg, cs, corpus, nb_corpus) for who, pkg in
+             (("parent", "parent_repro_torch"), ("this", "repro_torch"))}
+
+    def run(entry, reps=10):
+        step, st = entry
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            st, elbo = step(st)
+            float(elbo)
+        entry[1] = st
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    print(f"[ab-steps] {cs.device_line()}")
+    for path in ("lda", "slda", "naive_bayes"):
+        times = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            times[who].append(run(trees[who][path]))
+        t_this, t_parent = (sum(times[w]) / 2 for w in ("this", "parent"))
+        print(f"[ab-steps] {path}: parent {t_parent:.3f} ms, this "
+              f"{t_this:.3f} ms per step ({t_parent / t_this:.2f}x); turns "
+              f"(ms) parent {times['parent']}, this {times['this']}",
+              flush=True)
+    return 0
 
 
 def _worst(tag, got, want, tol):
@@ -113,14 +258,21 @@ def zmap_precision(cs):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("check", choices=["digest", "zmap-precision"])
+    p.add_argument("check", choices=["digest", "zmap-precision",
+                                      "ab-zstats", "ab-steps"])
     p.add_argument("tree", nargs="?", default=str(HERE),
-                   help="checkout whose src/repro_torch runs")
+                   help="checkout whose src/repro_torch runs (ab-zstats, "
+                        "ab-steps: the parent's, beside this checkout's)")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_numerics: no CUDA device", file=sys.stderr)
         return 2
+    if args.check in ("ab-zstats", "ab-steps"):
+        if Path(args.tree).resolve() == HERE:
+            p.error(f"{args.check} needs the parent's checkout")
+        run = ab_zstats if args.check == "ab-zstats" else ab_steps
+        return run(_setup(HERE), Path(args.tree))
     cs = _setup(Path(args.tree))
     (digest if args.check == "digest" else zmap_precision)(cs)
     return 0

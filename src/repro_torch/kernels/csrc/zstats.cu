@@ -21,27 +21,50 @@
 // stable argsort of the static index streams) and cuts each key's run into
 // pieces of at most a few hundred tokens, so one hot key does not serialise
 // the pass:
-//   - zstats_pieces: one warp per piece recomputes each token's logits and
-//     r in registers (lane l holds topics l, l+32, ...) and writes the
-//     piece's K-vector sum (and, for the prior pass, its lse sum).  The
-//     piece's key fixes one operand row (the prior row in the prior pass,
-//     the word's row in a child's pass), loaded once; the other rows are
-//     gathered per token;
+//   - zstats_pieces: one warp per piece rebuilds each token's logits in
+//     registers and writes the piece's K-vector sum of r (and, for the
+//     prior pass, its lse sum).  The piece's key fixes one operand row (the
+//     prior row in the prior pass, the word's row in a child's pass), loaded
+//     once; the other rows are gathered per token.  The prior pass runs
+//     first: it takes each token's softmax and stores the token's max and
+//     zmask / sum, 8 bytes, at the token's slot in the first child's order;
+//     the children's passes read them back and compute r = exp(x - max) *
+//     (zmask / sum) with no reduction: the same operations on the same
+//     values, so r is bitwise the prior pass's;
 //   - zstats_finish: one warp per key adds its pieces in order and writes
 //     the key's row (prior stats) or column (specialized child stats);
 //   - zstats_strided: one warp per value column of a strided child walks
 //     that column's tokens in order and adds r into rows base + stride*k
 //     (slow for a hot value; strided children are off the main path);
 //   - zstats_sum: one block adds the per-piece lse sums in a fixed order.
+// Each pass reads its token streams (prior rows, values, base, masks) in
+// its own piece order: the host gathers them through the grouping once per
+// program, so consecutive tokens of a piece read consecutive addresses and
+// no token waits on a load of its index before the load of its row; the
+// prior's grouping orders each key's tokens by the first child's value, so
+// a word's tokens in one document read its row once.  A token takes QL
+// lanes (16 at K <= 128; Lanes), so a warp works on 32 / QL tokens at once:
+// each lane holds a few chunks of 4 topics, read 16 bytes at a time, a
+// token's max and sum need log2(QL) shuffles, and its division and log are
+// shared by the warp's tokens instead of repeated on all 32 lanes.  A latent
+// with one specialized child and no masks (LDA) takes a SIMPLE instance of
+// the passes without the general children loop.  The sums run in a fixed
+// order: a lane adds its chunks' topics in order, a token's lanes meet in
+// a butterfly; a piece's token slots each add their tokens in order and
+// then meet in a butterfly.  exp, log and the division are the fast forms
+// (at most 2 ulp), far inside the plain version's tolerance.
 //
 // Bound on the H100: operations.  The call moves its token streams, tables
 // and stats once each (188 MB at the 10M-token main path, 0.06 ms at
 // 3.35 TB/s) but does about 8 f32 operations per token and topic (0.12 ms
-// at 67 TFLOP/s).  In practice a warp walks its tokens one at a time, so
-// the passes are bound by the issue of each token's two warp reductions and
-// the latency of its gathered rows.  The design keeps the gathered tables
-// f32 and small enough for the 50 MB L2, loads the owner key's row once per
-// piece rather than once per token, and spends one division per token.
+// at 67 TFLOP/s).  In practice the passes are bound by instruction issue
+// and by the latency of the gathered rows (N rows of 4K bytes per pass;
+// the prior's pass gathers from the 41 MB table of a 102,660-word
+// vocabulary, which the L2 does not hold with everything else).  The design
+// keeps the gathered tables f32, loads the owner key's row once per piece,
+// takes each softmax once, keeps the logits, the key's row and the sums of
+// a lane in few enough registers (40 to 60) for 32 or more warps an SM, and
+// writes what is read once (statistics, partials) as streaming data.
 //
 // Segment latents.  The same passes also replace the Pallas TPU kernel
 // repro/kernels/fused_zmap.py:zstats_zmap (_phase_logits/_logits_kernel,
@@ -72,7 +95,8 @@
 //
 // Tables arrive as f32 Elog values (the wrapper's Triton pre-pass computes
 // them from f32 or bf16 concentrations); accumulation is f32.  K may be
-// anything from 1 to 1024 (KPL = K per lane, a template parameter).
+// anything from 1 to 1024 (KPL, a template parameter: topics per lane of the
+// segment-latent passes, lanes per token of the flat ones).
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after its launch.
@@ -107,25 +131,20 @@ struct ZArgs {
   int k;
   int n_children;
   ZChildArgs c[MAX_CHILDREN];
+  // The flat passes read their token streams (prior_rows, zmask and the
+  // children's values, base and mask above) at position t of the pass's own
+  // piece order; these say where that token lies elsewhere:
+  const int* tok;           // (N,) its index in the call's order (extra, r_out), or null: t
+  const int* spos;          // (N,) its slot in `stats`, or null: t
+  float2* stats;            // (N,) (max, zmask / sum) of each token's softmax, written
+                            // by the prior pass and read by the children's, or null
+  int vec;                  // K % 4 == 0 and every K-row table 16-byte aligned:
+                            // the flat passes load 16 bytes at a time
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Child ch's message for token i (lane's share, 0 past K), before its mask,
 // for the segment-latent passes: a specialized child's row v_i of its
 // (Kf, K) table, a strided child's column v_i at rows base_i + stride * k.
-// token_logits keeps its own copy of these gathers: calling this helper
-// there made LDA's flat owner passes 13% slower on the H100 (PERF.md).
 template <int KPL>
 __device__ __forceinline__ void child_message(const ZChildArgs& ch, int i, int lane, int k,
                                               float (&e)[KPL]) {
@@ -147,136 +166,264 @@ __device__ __forceinline__ void child_message(const ZChildArgs& ch, int i, int l
   }
 }
 
-// Token i's logits (lane's share; lanes past K hold -inf): the prior row,
-// then (EXTRA, a segment latent's prior pass) the instance's row of the
-// extra logits, then each child's masked message.  The operand row of
-// `fixed` (-1: the prior, c >= 0: specialized child c) is `frow`, the row
-// the piece's owner key selects, loaded once per piece; every other row is
-// gathered.  fixed = -2 gathers every row.  The branches on `fixed` stay
-// outside the lane loops, so no row is fetched that is not used.  EXTRA is
-// a template parameter so that the flat latents' passes compile without it.
-template <int KPL, bool EXTRA>
-__device__ __forceinline__ void token_logits(const ZArgs& a, int i, int lane, int fixed,
-                                             const float (&frow)[KPL], float (&x)[KPL]) {
-  const int k = a.k;
-  if (fixed == -1) {
+// The flat passes' lane layout: a token takes QL lanes, so a warp holds
+// TPW = 32 / QL tokens at once (2 at K = 100).  Lane q of a token holds the
+// float4 chunks c = i * QL + q (i < CH) of its K-vector, topics 4c .. 4c + 3,
+// loaded as one 16-byte load when K % 4 == 0 and as 4 scalar loads
+// otherwise.  A token's max and sum take log2(QL) shuffles among its own
+// lanes, and its division and log are shared by the TPW tokens of one warp
+// instruction.  QL * CH * 4 >= 32 * KPL >= K.  Topics past K carry -inf
+// logits (the prior row is read with -inf past K, every other row with 0),
+// so the max, the exp and the sums need no test of the topic: exp(-inf)
+// adds 0.  A lane keeps CH * 4 logits, its row of the piece's key and its
+// sums in some 60 registers.
+template <int KPL>
+struct Lanes {
+  static constexpr int QL = KPL >= 8 ? 32 : 4 * KPL;   // lanes per token
+  static constexpr int CH = 32 * KPL / (4 * QL);       // float4 chunks per lane
+};
+#define FLAT_WARPS 4                   // warps per block of the flat passes
+
+// Row `row` of K floats into chunks (fill past K).  The loop skips a chunk
+// that no lane of the warp holds.
+template <int QL, int CH>
+__device__ __forceinline__ void load_row(const float* __restrict__ row, int q, int k, bool vec,
+                                         float fill, float (&r)[CH][4]) {
 #pragma unroll
-    for (int j = 0; j < KPL; ++j) x[j] = lane + 32 * j < k ? frow[j] : -INFINITY;
-  } else {
-    const float* prow = a.prior + (size_t)a.prior_rows[i] * k;
+  for (int i = 0; i < CH; ++i) {
+    const int c = i * QL + q;
+    if (4 * QL * i < k) {
+      if (vec) {
+        const float4 v = 4 * c < k ? *reinterpret_cast<const float4*>(row + 4 * c)
+                                   : make_float4(fill, fill, fill, fill);
+        r[i][0] = v.x; r[i][1] = v.y; r[i][2] = v.z; r[i][3] = v.w;
+      } else {
 #pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const int kk = lane + 32 * j;
-      x[j] = kk < k ? prow[kk] : -INFINITY;
+        for (int e = 0; e < 4; ++e) r[i][e] = 4 * c + e < k ? row[4 * c + e] : fill;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[i][e] = fill;
     }
   }
-  if constexpr (EXTRA) {
-    const float* erow = a.extra + (size_t)i * k;
+}
+
+// Topic index of chunk i, element e of lane q; below K where it is real.
+template <int QL>
+__device__ __forceinline__ int topic(int i, int q, int e) { return 4 * (i * QL + q) + e; }
+
+// Token t's logits (the lane's chunks; -inf past K): the prior row, then
+// (EXTRA, a segment latent's prior pass) the instance's row of the extra
+// logits, then each child's masked message, in that order.  The operand row
+// of `fixed` (-1: the prior, read with -inf past K; c >= 0: specialized
+// child c, read with 0 past K) is `frow`, the row the piece's owner key
+// selects, loaded once per piece; every other row is gathered.  fixed = -2
+// gathers every row.
+template <int QL, int CH, bool EXTRA, bool SIMPLE = false>
+__device__ __forceinline__ void token_logits(const ZArgs& a, int t, int q, bool vec, int fixed,
+                                             const float (&frow)[CH][4], float (&x)[CH][4]) {
+  const int k = a.k;
+  if constexpr (SIMPLE) {
+    // one specialized child without a mask: the prior row plus its row
+    float r[CH][4];
+    if (fixed == -1)
+      load_row<QL, CH>(a.c[0].table + (size_t)a.c[0].values[t] * k, q, k, vec, 0.0f, r);
+    else
+      load_row<QL, CH>(a.prior + (size_t)a.prior_rows[t] * k, q, k, vec, -INFINITY, r);
 #pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const int kk = lane + 32 * j;
-      if (kk < k) x[j] += erow[kk];
-    }
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][e] = fixed == -1 ? frow[i][e] + r[i][e] : r[i][e] + frow[i][e];
+    return;
+  }
+  if (fixed == -1) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][e] = frow[i][e];
+  } else {
+    load_row<QL, CH>(a.prior + (size_t)a.prior_rows[t] * k, q, k, vec, -INFINITY, x);
+  }
+  if constexpr (EXTRA) {
+    const int i0 = a.tok ? a.tok[t] : t;
+    float ex[CH][4];
+    load_row<QL, CH>(a.extra + (size_t)i0 * k, q, k, vec, 0.0f, ex);
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[i][e] += ex[i][e];
   }
   for (int c = 0; c < a.n_children; ++c) {
     const ZChildArgs& ch = a.c[c];
-    const int v = ch.values[i];
-    const float mk = ch.mask ? ch.mask[i] : 1.0f;
+    const float mk = ch.mask ? ch.mask[t] : 1.0f;
     if (c == fixed) {
 #pragma unroll
-      for (int j = 0; j < KPL; ++j)
-        if (lane + 32 * j < k) x[j] += frow[j] * mk;
+      for (int i = 0; i < CH; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[i][e] += frow[i][e] * mk;
     } else if (ch.specialized) {
-      const float* row = ch.table + (size_t)v * k;
-      float e[KPL];
+      float r[CH][4];
+      load_row<QL, CH>(ch.table + (size_t)ch.values[t] * k, q, k, vec, 0.0f, r);
 #pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int kk = lane + 32 * j;
-        e[j] = kk < k ? row[kk] : 0.0f;
-      }
+      for (int i = 0; i < CH; ++i)
 #pragma unroll
-      for (int j = 0; j < KPL; ++j)
-        if (lane + 32 * j < k) x[j] += e[j] * mk;
+        for (int e = 0; e < 4; ++e) x[i][e] += r[i][e] * mk;
     } else {
-      const int b = ch.base ? ch.base[i] : 0;
+      const int v = ch.values[t];
+      const int b = ch.base ? ch.base[t] : 0;
 #pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int kk = lane + 32 * j;
-        if (kk < k) x[j] += ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v] * mk;
-      }
+      for (int i = 0; i < CH; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = topic<QL>(i, q, e);
+          if (kk < k) x[i][e] += ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v] * mk;
+        }
     }
   }
 }
 
-// Logits -> responsibilities in place (times zm); returns the masked lse.
-// One division per token: the lanes multiply by zm / sum.
-template <int KPL>
-__device__ __forceinline__ float softmax_r(float (&x)[KPL], int lane, int k, float zm) {
-  float m = -INFINITY;
+// Sum (MAX: max) of v over the QL lanes of a token, butterfly order.
+template <int QL, bool MAX>
+__device__ __forceinline__ float token_reduce(float v) {
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) m = fmaxf(m, x[j]);
-  m = warp_max(m);
+  for (int o = QL / 2; o > 0; o >>= 1) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, o);
+    v = MAX ? fmaxf(v, w) : v + w;
+  }
+  return v;
+}
+
+// Logits -> responsibilities in place (times zm); sets the token's max and
+// sum (the same on all its lanes) and returns zm / sum.  r is rounded before
+// any sum takes it.  The fast exp and division (at most 2 ulp) keep the
+// outputs far inside the plain version's tolerance.
+template <int QL, int CH>
+__device__ __forceinline__ float token_softmax(float (&x)[CH][4], float zm, float& m,
+                                               float& sum) {
+  m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) m = fmaxf(m, x[i][e]);
+  m = token_reduce<QL, true>(m);
   float s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int kk = lane + 32 * j;
-    x[j] = kk < k ? expf(x[j] - m) : 0.0f;
-    s += x[j];
-  }
-  s = warp_sum(s);
-  const float scale = zm / s;
+  for (int i = 0; i < CH; ++i)
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) x[j] *= scale;
-  return (m + logf(s)) * zm;
+    for (int e = 0; e < 4; ++e) {
+      x[i][e] = __expf(x[i][e] - m);
+      s += x[i][e];
+    }
+  sum = token_reduce<QL, false>(s);
+  const float scale = __fdividef(zm, sum);
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = __fmul_rn(x[i][e], scale);
+  return scale;
 }
 
-// One warp per piece: the piece's sum of r (target < 0: the prior pass, which
-// also sums lse and, for a segment latent (EXTRA), writes each instance's r
-// row to r_out: every instance lies in exactly one piece of that pass) or of
-// mask_target * r (target >= 0: a specialized child).  All tokens of a piece
-// share the owner key, so its table row is loaded once.
-template <int KPL, bool EXTRA>
-__global__ void pieces_kernel(ZArgs a, int target, const int* __restrict__ perm,
+// Responsibilities from logits and the (max, zm / sum) the prior pass
+// stored: the same operations as token_softmax, no reduction, so r is
+// bitwise the prior pass's.
+template <int CH>
+__device__ __forceinline__ void token_reuse(float (&x)[CH][4], float2 st) {
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = __fmul_rn(__expf(x[i][e] - st.x), st.y);
+}
+
+// One warp per piece: the piece's sum of r (PRIOR: the prior's pass, which
+// also sums lse, stores each token's max and zm / sum for the children's
+// passes and, for a segment latent (EXTRA), writes each instance's r row to
+// r_out: every instance lies in exactly one piece of that pass) or of
+// mask_target * r (a specialized child's pass, r rebuilt from the stored
+// max and zm / sum).  All tokens of a piece share the owner key
+// piece_key[piece], so its table row is loaded once.  The piece's tokens
+// are stream positions piece_start[piece] .. piece_start[piece + 1] - 1;
+// token slot g of the warp takes t0 + g, t0 + g + TPW, ... and sums its own
+// tokens in that order, then the slots' sums meet in a butterfly.  What is
+// written once (the statistics, the partials) is stored as streaming data,
+// so that the gathered tables keep their place in L2.
+template <int KPL, bool EXTRA, bool PRIOR, bool SIMPLE>
+__global__ void pieces_kernel(ZArgs a, int target, const int* __restrict__ piece_key,
                               const int* __restrict__ piece_start, int n_pieces,
                               float* __restrict__ partial, float* __restrict__ lse_part) {
-  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
+  constexpr int QL = Lanes<KPL>::QL, CH = Lanes<KPL>::CH, TPW = 32 / QL;
+  const int warp = blockIdx.x * FLAT_WARPS + (threadIdx.x >> 5);
   if (warp >= n_pieces) return;
+  const int lane = threadIdx.x & 31, q = lane % QL, g = lane / QL;
   const int k = a.k;
+  const bool vec = a.vec != 0;
   const int t0 = piece_start[warp], t1 = piece_start[warp + 1];
-  const int i0 = perm[t0];
-  const float* fsrc = target < 0 ? a.prior + (size_t)a.prior_rows[i0] * k
-                                 : a.c[target].table + (size_t)a.c[target].values[i0] * k;
-  float frow[KPL], acc[KPL];
+  const int key = piece_key[warp];
+  float frow[CH][4], acc[CH][4];
+  if (PRIOR)
+    load_row<QL, CH>(a.prior + (size_t)key * k, q, k, vec, -INFINITY, frow);
+  else
+    load_row<QL, CH>(a.c[target].table + (size_t)key * k, q, k, vec, 0.0f, frow);
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int kk = lane + 32 * j;
-    frow[j] = kk < k ? fsrc[kk] : 0.0f;
-    acc[j] = 0.0f;
-  }
-  const float* wmask = target >= 0 ? a.c[target].mask : nullptr;
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  const float* wmask = PRIOR || SIMPLE ? nullptr : a.c[target].mask;
   float lse_acc = 0.0f;
-  for (int t = t0; t < t1; ++t) {
-    const int i = perm[t];
-    float x[KPL];
-    token_logits<KPL, EXTRA>(a, i, lane, target < 0 ? -1 : target, frow, x);
-    lse_acc += softmax_r<KPL>(x, lane, k, a.zmask ? a.zmask[i] : 1.0f);
-    if (EXTRA && target < 0) {
-      float* rrow = a.r_out + (size_t)i * k;
+  for (int tb = t0; tb < t1; tb += TPW) {
+    const bool live = tb + g < t1;
+    const int t = live ? tb + g : t0;  // an idle slot repeats t0 and drops it
+    float x[CH][4];
+    token_logits<QL, CH, EXTRA, SIMPLE>(a, t, q, vec, PRIOR ? -1 : target, frow, x);
+    if constexpr (PRIOR) {
+      const float zm = !SIMPLE && a.zmask ? a.zmask[t] : 1.0f;
+      float m, sum;
+      const float scale = token_softmax<QL, CH>(x, zm, m, sum);
+      if (live) {
+        lse_acc += (m + __logf(sum)) * zm;
+        if (a.stats && q == 0)
+          __stcs(a.stats + (a.spos ? a.spos[t] : t), make_float2(m, scale));
+        if (EXTRA) {
+          float* rrow = a.r_out + (size_t)(a.tok ? a.tok[t] : t) * k;
 #pragma unroll
-      for (int j = 0; j < KPL; ++j)
-        if (lane + 32 * j < k) rrow[lane + 32 * j] = x[j];
+          for (int i = 0; i < CH; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (topic<QL>(i, q, e) < k) __stcs(rrow + topic<QL>(i, q, e), x[i][e]);
+        }
+#pragma unroll
+        for (int i = 0; i < CH; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] += x[i][e];
+      }
+    } else {
+      token_reuse<CH>(x, a.stats[a.spos ? a.spos[t] : t]);
+      if (live) {
+        const float w = wmask ? wmask[t] : 1.0f;
+#pragma unroll
+        for (int i = 0; i < CH; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] += x[i][e] * w;
+      }
     }
-    const float w = wmask ? wmask[i] : 1.0f;
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) acc[j] += x[j] * w;
   }
+  // the token slots' sums meet in a butterfly
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int kk = lane + 32 * j;
-    if (kk < k) partial[(size_t)warp * k + kk] = acc[j];
+  for (int o = 16; o >= QL; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], o);
+    lse_acc += __shfl_xor_sync(0xffffffffu, lse_acc, o);
   }
-  if (target < 0 && lane == 0) lse_part[warp] = lse_acc;
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (topic<QL>(i, q, e) < k)
+          __stcs(partial + (size_t)warp * k + topic<QL>(i, q, e), acc[i][e]);
+  }
+  if (PRIOR && lane == 0) lse_part[warp] = lse_acc;
 }
 
 // One warp per key: add the key's pieces in order, in T; write out[key, kk]
@@ -293,37 +440,77 @@ __global__ void finish_kernel(const T* __restrict__ partial,
   const int p0 = key_pieces[warp], p1 = key_pieces[warp + 1];
   for (int kk = lane; kk < k; kk += 32) {
     T acc = 0;
-    for (int p = p0; p < p1; ++p) acc += partial[(size_t)p * k + kk];
+    for (int p = p0; p < p1; ++p) acc += __ldcs(partial + (size_t)p * k + kk);
     float* o = out + warp * stride_key + kk * stride_k;
     *o = add ? (float)(*o + acc) : (float)acc;
   }
 }
 
-// One warp per value column of a strided child: walk the column's tokens in
-// order and add mask * r into rows base + stride * k of out (zeroed).
+// The same sums for a column owner (out[kk * stride_k + key], a specialized
+// child's (K, V) stats): a block of 32 warps takes 32 keys, warp w adds key
+// w's pieces in order for 32 topics at a time, and the block writes the
+// (32 topics, 32 keys) tile through shared memory as rows of 32 consecutive
+// keys instead of one 4-byte store per (key, topic).
+__global__ void finish_cols_kernel(const float* __restrict__ partial,
+                                   const int* __restrict__ key_pieces, int n_keys, int k,
+                                   float* __restrict__ out, long long stride_k) {
+  __shared__ float tile[32][33];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int key0 = blockIdx.x * 32, key = key0 + w;
+  const int p0 = key < n_keys ? key_pieces[key] : 0;
+  const int p1 = key < n_keys ? key_pieces[key + 1] : 0;
+  for (int kk0 = 0; kk0 < k; kk0 += 32) {
+    float acc = 0.0f;
+    if (kk0 + lane < k)
+      for (int p = p0; p < p1; ++p) acc += __ldcs(partial + (size_t)p * k + kk0 + lane);
+    tile[w][lane] = acc;
+    __syncthreads();
+    const int kk = kk0 + w, col = key0 + lane;
+    if (kk < k && col < n_keys) out[kk * stride_k + col] = tile[lane][w];
+    __syncthreads();
+  }
+}
+
+// One warp per value column of a strided child: walk the column's tokens
+// (stream positions key_start[col] ..) TPW at a time and add, token after
+// token in order, mask * r into rows base + stride * k of out (zeroed); r is
+// rebuilt from the stored max and zm / sum.
 template <int KPL, bool EXTRA>
-__global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ perm,
-                               const int* __restrict__ key_start, int n_keys,
-                               float* __restrict__ out) {
-  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
+__global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ key_start,
+                               int n_keys, float* __restrict__ out) {
+  constexpr int QL = Lanes<KPL>::QL, CH = Lanes<KPL>::CH, TPW = 32 / QL;
+  const int warp = blockIdx.x * FLAT_WARPS + (threadIdx.x >> 5);
   if (warp >= n_keys) return;
+  const int lane = threadIdx.x & 31, q = lane % QL, g = lane / QL;
   const ZChildArgs& ch = a.c[target];
   const int k = a.k;
+  const bool vec = a.vec != 0;
   const int t1 = key_start[warp + 1];
-  for (int t = key_start[warp]; t < t1; ++t) {
-    const int i = perm[t];
-    float r[KPL];
-    token_logits<KPL, EXTRA>(a, i, lane, -2, r, r);   // no fixed row: the first r is unread
-    softmax_r<KPL>(r, lane, k, a.zmask ? a.zmask[i] : 1.0f);
-    const float w = ch.mask ? ch.mask[i] : 1.0f;
-    const int b = ch.base ? ch.base[i] : 0;
+  float none[CH][4];
 #pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const int kk = lane + 32 * j;
-      if (kk < k) out[(size_t)(b + ch.stride * kk) * ch.kf + warp] += r[j] * w;
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) none[i][e] = 0.0f;
+  for (int tb = key_start[warp]; tb < t1; tb += TPW) {
+    const bool live = tb + g < t1;
+    const int t = live ? tb + g : tb;
+    float r[CH][4];
+    token_logits<QL, CH, EXTRA>(a, t, q, vec, -2, none, r);
+    token_reuse<CH>(r, a.stats[a.spos ? a.spos[t] : t]);
+    const float w = ch.mask ? ch.mask[t] : 1.0f;
+    const int b = ch.base ? ch.base[t] : 0;
+    for (int u = 0; u < TPW && tb + u < t1; ++u) {
+      if (g == u) {
+#pragma unroll
+        for (int i = 0; i < CH; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kk = topic<QL>(i, q, e);
+            if (kk < k) out[(size_t)(b + ch.stride * kk) * ch.kf + warp] += r[i][e] * w;
+          }
+      }
+      __syncwarp();   // rows may repeat across tokens: keep token order
     }
-    __syncwarp();   // rows may repeat across tokens and lanes: keep token order
   }
 }
 
@@ -480,28 +667,44 @@ int zstats_max_children(void) { return MAX_CHILDREN; }
 
 int zstats_args_size(void) { return (int)sizeof(ZArgs); }
 
-int zstats_pieces(const void* args, int target, const void* perm, const void* piece_start,
-                  int n_pieces, void* partial, void* lse_part, void* stream) {
+int zstats_pieces(const void* args, int target, const void* piece_key,
+                  const void* piece_start, int n_pieces, void* partial, void* lse_part,
+                  void* stream) {
   const ZArgs a = *(const ZArgs*)args;
   if (n_pieces <= 0) return 0;
-  const unsigned grid = blocks_for(n_pieces);
+  const unsigned grid = (unsigned)((n_pieces + FLAT_WARPS - 1) / FLAT_WARPS);
   cudaStream_t s = (cudaStream_t)stream;
   return dispatch_kpl(a.k, [&](auto kpl) {
     constexpr int KPL = decltype(kpl)::value;
-    if (a.extra)
-      pieces_kernel<KPL, true><<<grid, THREADS, 0, s>>>(
-          a, target, (const int*)perm, (const int*)piece_start, n_pieces, (float*)partial,
-          (float*)lse_part);
-    else
-      pieces_kernel<KPL, false><<<grid, THREADS, 0, s>>>(
-          a, target, (const int*)perm, (const int*)piece_start, n_pieces, (float*)partial,
-          (float*)lse_part);
+    auto go = [&](auto kernel) {
+      kernel<<<grid, 32 * FLAT_WARPS, 0, s>>>(a, target, (const int*)piece_key,
+                                      (const int*)piece_start, n_pieces, (float*)partial,
+                                      (float*)lse_part);
+    };
+    // SIMPLE: one specialized child, no mask, no zmask, no extra logits
+    const bool simple = !a.extra && !a.zmask && a.n_children == 1 && a.c[0].specialized &&
+                        !a.c[0].mask;
+    if (a.extra) {
+      if (target < 0) go(pieces_kernel<KPL, true, true, false>);
+      else go(pieces_kernel<KPL, true, false, false>);
+    } else if (simple) {
+      if (target < 0) go(pieces_kernel<KPL, false, true, true>);
+      else go(pieces_kernel<KPL, false, false, true>);
+    } else {
+      if (target < 0) go(pieces_kernel<KPL, false, true, false>);
+      else go(pieces_kernel<KPL, false, false, false>);
+    }
   });
 }
 
 int zstats_finish(const void* partial, const void* key_pieces, int n_keys, int k, void* out,
                   long long stride_key, long long stride_k, int add, void* stream) {
   if (n_keys <= 0) return 0;
+  if (stride_key == 1 && !add) {       // columns: the tiled, coalesced writer
+    finish_cols_kernel<<<(unsigned)((n_keys + 31) / 32), 1024, 0, (cudaStream_t)stream>>>(
+        (const float*)partial, (const int*)key_pieces, n_keys, k, (float*)out, stride_k);
+    return (int)cudaGetLastError();
+  }
   finish_kernel<float><<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)partial, (const int*)key_pieces, n_keys, k, (float*)out, stride_key,
       stride_k, add);
@@ -519,20 +722,20 @@ int zstats_finish64(const void* partial, const void* key_pieces, int n_keys, int
   return (int)cudaGetLastError();
 }
 
-int zstats_strided(const void* args, int target, const void* perm, const void* key_start,
-                   int n_keys, void* out, void* stream) {
+int zstats_strided(const void* args, int target, const void* key_start, int n_keys,
+                   void* out, void* stream) {
   const ZArgs a = *(const ZArgs*)args;
   if (n_keys <= 0) return 0;
-  const unsigned grid = blocks_for(n_keys);
+  const unsigned grid = (unsigned)((n_keys + FLAT_WARPS - 1) / FLAT_WARPS);
   cudaStream_t s = (cudaStream_t)stream;
   return dispatch_kpl(a.k, [&](auto kpl) {
     constexpr int KPL = decltype(kpl)::value;
     if (a.extra)
-      strided_kernel<KPL, true><<<grid, THREADS, 0, s>>>(
-          a, target, (const int*)perm, (const int*)key_start, n_keys, (float*)out);
+      strided_kernel<KPL, true><<<grid, 32 * FLAT_WARPS, 0, s>>>(
+          a, target, (const int*)key_start, n_keys, (float*)out);
     else
-      strided_kernel<KPL, false><<<grid, THREADS, 0, s>>>(
-          a, target, (const int*)perm, (const int*)key_start, n_keys, (float*)out);
+      strided_kernel<KPL, false><<<grid, 32 * FLAT_WARPS, 0, s>>>(
+          a, target, (const int*)key_start, n_keys, (float*)out);
   });
 }
 

@@ -1,21 +1,29 @@
-"""CUDA kernel: flash attention, forward, with a recomputing backward.
+"""CUDA kernels: flash attention, forward, with a recomputing backward.
 
-Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
+Replace the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_kernel``, ``_flash_fwd_impl`` and its ``pallas_call``, and the
 ``_flash_vjp`` custom VJP).  The source is ``csrc/flash_attention.cu``; it
-says what bounds the kernel on the H100 and how one thread block per query
+says what bounds the kernels on the H100 and how one thread block per query
 tile keeps the softmax statistics on chip.  ``block_q``, ``block_k`` and
-``interpret`` were Pallas details and are gone: the kernel picks its own
-tiles and masks the ragged edge itself, so it takes every shape the plain
-version takes (bf16 or f32, ``Sq`` may differ from ``Sk``, any ``Dh`` that
-is a multiple of 8 up to 256).
+``interpret`` were Pallas details and are gone: the kernels pick their own
+tiles and mask the ragged edge themselves, so together they take every
+shape the plain version takes (bf16 or f32, ``Sq`` may differ from ``Sk``,
+any ``Dh`` that is a multiple of 8 up to 256).  Two kernels share the work,
+chosen by :func:`route` on dtype and ``Dh`` alone:
 
-This module holds the parts around it:
+  - ``"wgmma"``: bf16 at ``Dh`` 64 or 128 (the LM trainer's path), a
+    Hopper kernel with TMA loads, a producer warpgroup and two consumer
+    warpgroups running ``wgmma``;
+  - ``"mma"``: every other input (f32, other ``Dh``), an ``mma.sync``
+    kernel for bf16 and an FMA kernel for f32.
+
+This module holds the parts around them:
 
   - the build: ``nvcc`` compiles the source into ``libflash_attention-<hash>
     .so`` under ``build/`` (``build.build_library``), and ``ctypes`` loads it;
-  - :func:`launch`, which allocates the output and launches the kernel on
-    PyTorch's current stream, counting each launch in :data:`launches`;
+  - :func:`launch`, which allocates the output and launches the kernel of
+    the input's route on PyTorch's current stream, counting each launch in
+    :data:`launches` and in :data:`route_launches`;
   - :class:`FlashAttention`, the ``torch.autograd.Function``: its forward
     launches the kernel and saves only q, k and v; its backward recomputes
     attention through ``ref.flash_attention`` and returns the gradient of
@@ -37,10 +45,14 @@ from . import ref
 
 #: kernel launches (one per forward)
 launches = 0
+#: kernel launches by route
+route_launches = {"wgmma": 0, "mma": 0}
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 256
+#: head dims of the "wgmma" route (bf16 only)
+WGMMA_DH = (64, 128)
 
 
 def build(verbose: bool = False) -> tuple[Path, str]:
@@ -57,7 +69,22 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_fwd_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.flash_attention_fwd_wgmma.restype = ctypes.c_int
+    lib.flash_attention_wgmma_smem.argtypes = [i]
+    lib.flash_attention_wgmma_smem.restype = ctypes.c_int
     return lib
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these inputs, from dtype and ``Dh`` alone:
+    ``"wgmma"`` for bf16 at ``Dh`` 64 or 128, ``"mma"`` for the rest."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_DH:
+        return "wgmma"
+    return "mma"
+
+
+_route_of = route
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -90,19 +117,32 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> torch.Tensor:
-    """Launch the kernel on checked inputs: ``(BH, Sq, Dh)`` in q's dtype."""
+           causal: bool, route: str = None) -> torch.Tensor:
+    """Launch the kernel of the inputs' :func:`route` on checked inputs:
+    ``(BH, Sq, Dh)`` in q's dtype.  ``route`` forces one kernel, for timing
+    both on one input; one that cannot take the input raises."""
     global launches
+    want = _route_of(q, k, v)
+    route = route or want
+    if route not in route_launches or (route == "wgmma" and want != "wgmma"):
+        raise ValueError(f"route {route!r} does not take {q.dtype} at Dh "
+                         f"{q.shape[2]}")
     bh, sq, dh = q.shape
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = library().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-        k.shape[1], dh, int(causal), _DTYPES[q.dtype], stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if route == "wgmma":
+        err = library().flash_attention_fwd_wgmma(
+            *ptrs, bh, sq, k.shape[1], dh, int(causal), stream)
+    else:
+        err = library().flash_attention_fwd(
+            *ptrs, bh, sq, k.shape[1], dh, int(causal), _DTYPES[q.dtype],
+            stream)
     if err != 0:
-        raise RuntimeError(f"flash attention kernel failed to launch: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash attention kernel ({route}) failed to "
+                           f"launch: CUDA error {err}")
     launches += 1
+    route_launches[route] += 1
     return out
 
 

@@ -61,7 +61,7 @@ class ZmapPlan:
             [(f"value{i}", g) for i, g in enumerate(self.by_value)]
         flat = self.flat.to(device) if self.flat is not None else None
         return ZmapPlan(flat, self.by_latent, self.by_value, device,
-                        _fz.device_arrays(named, device))
+                        _fz.device_arrays(_fz.grouping_arrays(named), device))
 
 
 def _split(children):

@@ -11,9 +11,11 @@ This module holds the three parts around it:
 
   - :func:`group_tokens` / :func:`build_plan` — the host-side owner plan:
     the tokens grouped by key (the prior row, or a child's value) with a
-    numpy stable argsort, and each key's run cut into pieces of at most
-    :data:`PIECE` tokens.  It depends only on the program's static index
-    streams, so ``core/vmp.py`` builds it once per program.
+    numpy stable argsort, each key's run cut into pieces of at most
+    :data:`PIECE` tokens, each pass's token streams gathered into its piece
+    order, and each token's slot in the softmax statistics that the prior's
+    pass hands to the children's.  It depends only on the program's static
+    index streams, so ``core/vmp.py`` builds it once per program.
   - the build: ``nvcc`` compiles ``csrc/zstats.cu`` into a shared library
     with a plain C interface under ``build/`` at the repo root (or
     ``$REPRO_TORCH_BUILD_DIR``) at the first launch, keyed by a hash of the
@@ -63,14 +65,19 @@ _MAX_K = 1024
 class Grouping:
     """Tokens grouped by key, each key's run cut into pieces.
 
-    ``perm[key_start[s]:key_start[s+1]]`` are key ``s``'s tokens in their
-    original order; piece ``p`` is ``perm[piece_start[p]:piece_start[p+1]]``
-    and key ``s`` owns pieces ``key_pieces[s]:key_pieces[s+1]``.
+    ``perm[key_start[s]:key_start[s+1]]`` are key ``s``'s tokens (in their
+    original order, or by a secondary key: :func:`group_tokens`); piece
+    ``p`` is ``perm[piece_start[p]:piece_start[p+1]]``, of key
+    ``piece_key[p]``, and key ``s`` owns pieces
+    ``key_pieces[s]:key_pieces[s+1]``.  ``identity``: ``perm`` keeps the
+    original order.
     """
     perm: np.ndarray          # (N,) int32
     key_start: np.ndarray     # (n_keys + 1,) int32
     piece_start: np.ndarray   # (P + 1,) int32
     key_pieces: np.ndarray    # (n_keys + 1,) int32
+    piece_key: np.ndarray     # (P,) int32
+    identity: bool = False
 
     @property
     def n_keys(self) -> int:
@@ -80,17 +87,31 @@ class Grouping:
     def n_pieces(self) -> int:
         return len(self.piece_start) - 1
 
+    def arrays(self) -> dict:
+        """``{field: array}`` of the index arrays."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), np.ndarray)}
 
-def group_tokens(keys: np.ndarray, n_keys: int, piece: int = PIECE) -> Grouping:
-    """Group token indices by ``keys`` (stable) and cut each run into pieces
-    of at most ``piece`` tokens."""
+
+def group_tokens(keys: np.ndarray, n_keys: int, piece: int = PIECE,
+                 then: Optional[np.ndarray] = None) -> Grouping:
+    """Group token indices by ``keys`` and cut each run into pieces of at
+    most ``piece`` tokens.  A key's tokens keep their original order, or,
+    given ``then``, are ordered by ``then`` first (stable): the prior's
+    pass gathers the first child's rows, and a word's tokens next to each
+    other in a document read its row once."""
     keys = np.asarray(keys, np.int64)
     if len(keys) and (keys.min() < 0 or keys.max() >= n_keys):
         raise ValueError(f"keys outside [0, {n_keys})")
-    if np.all(keys[1:] >= keys[:-1]):
-        perm = np.arange(len(keys), dtype=np.int64)
+    if then is not None:
+        then = np.asarray(then, np.int64)
+        span = int(then.max()) + 1 if len(then) else 1
+        perm = np.argsort(keys * span + then, kind="stable")
+        identity = bool(np.array_equal(perm, np.arange(len(keys))))
     else:
-        perm = np.argsort(keys, kind="stable")
+        identity = bool(np.all(keys[1:] >= keys[:-1]))
+        perm = np.arange(len(keys), dtype=np.int64) if identity else \
+            np.argsort(keys, kind="stable")
     counts = np.bincount(keys, minlength=n_keys)
     key_start = np.zeros(n_keys + 1, np.int64)
     np.cumsum(counts, out=key_start[1:])
@@ -101,31 +122,45 @@ def group_tokens(keys: np.ndarray, n_keys: int, piece: int = PIECE) -> Grouping:
     j = np.arange(len(piece_key)) - key_pieces[piece_key]
     piece_start = np.append(key_start[piece_key] + j * piece, len(keys))
     i32 = lambda a: a.astype(np.int32)  # noqa: E731
-    return Grouping(i32(perm), i32(key_start), i32(piece_start), i32(key_pieces))
+    return Grouping(i32(perm), i32(key_start), i32(piece_start), i32(key_pieces),
+                    i32(piece_key), identity)
 
 
 @dataclasses.dataclass
 class ZPlan:
     """The owner plan of one ``zstats`` call: the prior's grouping by row
-    and each child's grouping by value, with their device copies."""
+    and each child's grouping by value, each pass's token streams gathered
+    into its piece order (``streams``), and each pass's slots in the
+    per-token softmax statistics that the prior pass hands to the
+    children's (``"spos"`` in ``streams``), with their device copies."""
     prior: Grouping
     children: tuple
+    streams: dict = dataclasses.field(default_factory=dict)
     device: Optional[torch.device] = None
     tensors: dict = dataclasses.field(default_factory=dict)
+
+    def passes(self) -> list:
+        """``[(name, grouping)]``: the prior's pass, then each child's."""
+        return [("prior", self.prior)] + [
+            (f"child{i}", g) for i, g in enumerate(self.children)]
 
     def to(self, device) -> "ZPlan":
         """A copy whose index arrays also live on ``device``."""
         device = torch.device(device)
-        named = [("prior", self.prior)] + [
-            (f"child{i}", g) for i, g in enumerate(self.children)]
-        return ZPlan(self.prior, self.children, device,
-                     device_arrays(named, device))
+        arrays = grouping_arrays(self.passes())
+        arrays.update(self.streams)
+        return ZPlan(self.prior, self.children, self.streams, device,
+                     device_arrays(arrays, device))
 
 
-def device_arrays(named: list, device) -> dict:
-    """``{(name, field): tensor on device}`` for each named Grouping."""
-    return {(name, field.name): torch.from_numpy(getattr(g, field.name)).to(device)
-            for name, g in named for field in dataclasses.fields(g)}
+def device_arrays(arrays: dict, device) -> dict:
+    """``{key: tensor on device}`` for ``{key: numpy array}``."""
+    return {key: torch.from_numpy(a).to(device) for key, a in arrays.items()}
+
+
+def grouping_arrays(named: list) -> dict:
+    """``{(name, field): array}`` for each named Grouping."""
+    return {(name, f): a for name, g in named for f, a in g.arrays().items()}
 
 
 def host(a) -> np.ndarray:
@@ -146,19 +181,69 @@ def check_strided_rows(i: int, c, k: int):
                          f"[{lo}, {hi}], outside its table's {gf} rows")
 
 
+def pass_streams(name: str, g: Grouping, prior_rows, children,
+                 target: Optional[int]) -> dict:
+    """``{(name, field): array}``: the token streams pass ``name`` (the
+    prior's, ``target`` None, or child ``target``'s) reads, gathered into
+    its piece order through ``g.perm``; nothing where ``g`` keeps the
+    original order, so the pass reads the call's own arrays.  A pass does
+    not read the stream of its own key (the prior rows in the prior's pass,
+    a specialized child's values in its own)."""
+    if g.identity:
+        return {}
+    out = {}
+    if target is not None:
+        out[name, "prior_rows"] = host(prior_rows)[g.perm]
+    for i, c in enumerate(children):
+        if i != target or not c.specialized:
+            out[name, f"values{i}"] = host(c.values)[g.perm]
+        for field in ("base", "mask"):
+            if getattr(c, field) is not None:
+                out[name, f"{field}{i}"] = host(getattr(c, field))[g.perm]
+    return out
+
+
+def stats_slots(plan_passes: list) -> dict:
+    """``{(name, "spos"): array}``: for each pass, the slot of its t-th token
+    in the softmax statistics, which lie in the first child's order (where
+    that pass reads them at t, with no ``spos``)."""
+    first = plan_passes[1][1]
+    n = len(first.perm)
+    inv = np.empty(n, np.int32)
+    inv[first.perm] = np.arange(n, dtype=np.int32)
+    out = {}
+    for name, g in plan_passes:
+        spos = inv[g.perm]
+        if not np.array_equal(spos, np.arange(n, dtype=np.int32)):
+            out[name, "spos"] = spos
+    return out
+
+
 def build_plan(prior_rows, children, prior_shape: tuple,
                piece: int = PIECE) -> ZPlan:
     """The owner plan from the static index streams (tensors or arrays):
-    ``prior_rows`` grouped over the (G, K) prior's G rows, and each child's
-    ``values`` grouped over its parent table's value axis.  Raises on an
-    index the kernel would read or write out of bounds."""
+    ``prior_rows`` grouped over the (G, K) prior's G rows, each row's
+    tokens ordered by the first specialized child's value, and each child's
+    ``values`` grouped over its parent table's value axis; each pass's
+    streams (the children's values, base and mask, the prior rows) in its
+    piece order.  Raises on an index the kernel would read or write out of
+    bounds."""
     g, k = prior_shape
-    prior = group_tokens(host(prior_rows), g, piece)
+    first = next((c for c in children if c.specialized), None)
+    prior = group_tokens(host(prior_rows), g, piece,
+                         host(first.values) if first is not None else None)
     kids = []
     for i, c in enumerate(children):
         kids.append(group_tokens(host(c.values), c.elog.shape[1], piece))
         check_strided_rows(i, c, k)
-    return ZPlan(prior, tuple(kids))
+    plan = ZPlan(prior, tuple(kids))
+    streams = pass_streams("prior", prior, prior_rows, children, None)
+    for i, gi in enumerate(kids):
+        streams.update(pass_streams(f"child{i}", gi, prior_rows, children, i))
+    if kids:
+        streams.update(stats_slots(plan.passes()))
+    plan.streams = streams
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +269,9 @@ class _Args(ctypes.Structure):
                 ("zmask", ctypes.c_void_p), ("extra", ctypes.c_void_p),
                 ("r_out", ctypes.c_void_p), ("k", ctypes.c_int),
                 ("n_children", ctypes.c_int),
-                ("c", _ChildArgs * _MAX_CHILDREN)]
+                ("c", _ChildArgs * _MAX_CHILDREN),
+                ("tok", ctypes.c_void_p), ("spos", ctypes.c_void_p),
+                ("stats", ctypes.c_void_p), ("vec", ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,7 +282,7 @@ def library() -> ctypes.CDLL:
     lib.zstats_pieces.argtypes = [p, i, p, p, i, p, p, p]
     lib.zstats_finish.argtypes = [p, p, i, i, p, ll, ll, i, p]
     lib.zstats_finish64.argtypes = [p, p, i, i, p, ll, ll, i, p]
-    lib.zstats_strided.argtypes = [p, i, p, p, i, p, p]
+    lib.zstats_strided.argtypes = [p, i, p, i, p, p]
     lib.zstats_sum.argtypes = [p, i, p, p]
     lib.zmap_logits.argtypes = [p, i, p, p, i, p, p]
     lib.zmap_stats.argtypes = [p, i, p, p, p, i, p, p]
@@ -235,6 +322,11 @@ def make_args(k: int, children, tabs, prior=None, prior_rows=None, zmask=None,
             table=tab.data_ptr(), values=c.values.data_ptr(), base=ptr(c.base),
             mask=ptr(c.mask), zmap=ptr(c.zmap), stride=int(c.stride),
             kf=c.elog.shape[1], specialized=int(c.specialized))
+    # 16-byte loads of K-rows need K % 4 == 0 and aligned tables
+    rows = [prior, extra, r_out] + [t for c, t in zip(children, tabs)
+                                    if c.specialized]
+    args.vec = int(k % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                      for t in rows if t is not None))
     return args
 
 
@@ -352,6 +444,28 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     return out
 
 
+def pass_args(base: _Args, plan: ZPlan, name: str, g: Grouping, n_children,
+              zmask, stats) -> _Args:
+    """The ZArgs of pass ``name``: ``base`` (the call's arrays) with the
+    pass's piece-ordered streams in their place, ``zmask`` in the pass's
+    order (the prior's pass; the children's read it folded into the
+    softmax statistics ``stats``), and the pass's slots in ``stats``."""
+    t = plan.tensors
+    a = _Args.from_buffer_copy(base)
+    if (name, "prior_rows") in t:
+        a.prior_rows = t[name, "prior_rows"].data_ptr()
+    for i in range(n_children):
+        for field in ("values", "base", "mask"):
+            if (name, f"{field}{i}") in t:
+                setattr(a.c[i], field, t[name, f"{field}{i}"].data_ptr())
+    a.zmask = ptr(zmask)
+    if base.extra and not g.identity:
+        a.tok = t[name, "perm"].data_ptr()
+    a.spos = ptr(t.get((name, "spos")))
+    a.stats = ptr(stats)
+    return a
+
+
 def launch_flat(eprior, prior_rows, children, etabs, zmask, plan: ZPlan,
                 extra=None, r_out=None):
     """Launch the flat passes on f32 Elog tables in the kernel's layout:
@@ -365,41 +479,48 @@ def launch_flat(eprior, prior_rows, children, etabs, zmask, plan: ZPlan,
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     g, k = eprior.shape
-    args = make_args(k, children, etabs, eprior, prior_rows, zmask, extra, r_out)
-    pargs = ctypes.addressof(args)
+    base = make_args(k, children, etabs, eprior, prior_rows, zmask, extra,
+                     r_out)
     t = plan.tensors
     f32 = dict(dtype=torch.float32, device=dev)
+    # each token's (max, zmask / sum), from the prior pass to the children's
+    stats = torch.empty((prior_rows.shape[0], 2), **f32) if children else None
+    # zmask is a call argument, not a stream of the plan: gathered here
+    # where the prior's pass leaves the call's order
+    if zmask is not None and not plan.prior.identity:
+        zmask = zmask[t["prior", "perm"].long()].contiguous()
 
-    def pieces_then_finish(target, name, out, stride_key, stride_k):
-        n_pieces = plan.prior.n_pieces if target < 0 else \
-            plan.children[target].n_pieces
+    def pieces_then_finish(target, name, grp, out, stride_key, stride_k):
         n_keys = out.shape[0] if target < 0 else out.shape[1]
-        partial = torch.empty((n_pieces, k), **f32)
-        lse_part = torch.empty((n_pieces if target < 0 else 0,), **f32)
+        partial = torch.empty((grp.n_pieces, k), **f32)
+        lse_part = torch.empty((grp.n_pieces if target < 0 else 0,), **f32)
+        args = pass_args(base, plan, name, grp, len(children),
+                         zmask if target < 0 else None, stats)
         check_launch(lib.zstats_pieces(
-            pargs, target, t[name, "perm"].data_ptr(),
-            t[name, "piece_start"].data_ptr(), n_pieces, partial.data_ptr(),
-            lse_part.data_ptr(), stream), "pieces")
+            ctypes.addressof(args), target, t[name, "piece_key"].data_ptr(),
+            t[name, "piece_start"].data_ptr(), grp.n_pieces,
+            partial.data_ptr(), lse_part.data_ptr(), stream), "pieces")
         finish(lib, partial, t, name, n_keys, k, out, stride_key, stride_k,
                stream)
         return lse_part
 
     pstats = torch.empty((g, k), **f32)
-    lse_part = pieces_then_finish(-1, "prior", pstats, k, 1)
+    lse_part = pieces_then_finish(-1, "prior", plan.prior, pstats, k, 1)
     lse_sum = torch.empty((), **f32)
     check_launch(lib.zstats_sum(lse_part.data_ptr(), lse_part.shape[0],
                                 lse_sum.data_ptr(), stream), "sum")
     cstats = []
-    for i, c in enumerate(children):
+    for i, (c, grp) in enumerate(zip(children, plan.children)):
         gf, kf = c.elog.shape
         if c.specialized:
             cs = torch.empty((gf, kf), **f32)
-            pieces_then_finish(i, f"child{i}", cs, 1, kf)
+            pieces_then_finish(i, f"child{i}", grp, cs, 1, kf)
         else:
             cs = torch.zeros((gf, kf), **f32)
+            args = pass_args(base, plan, f"child{i}", grp, len(children),
+                             None, stats)
             check_launch(lib.zstats_strided(
-                pargs, i, t[f"child{i}", "perm"].data_ptr(),
-                t[f"child{i}", "key_start"].data_ptr(), kf,
-                cs.data_ptr(), stream), "strided")
+                ctypes.addressof(args), i, t[f"child{i}", "key_start"].data_ptr(),
+                kf, cs.data_ptr(), stream), "strided")
         cstats.append(cs)
     return lse_sum, pstats, tuple(cstats)

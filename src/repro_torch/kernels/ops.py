@@ -123,8 +123,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 (flash attention's by route
+    too)."""
     _de.launches = _fz.launches = _zs.launches = _fa.launches = 0
+    _fa.route_launches.update(wgmma=0, mma=0)
     _fzm.launches = _fzm.logits_launches = 0
 
 

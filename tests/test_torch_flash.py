@@ -203,6 +203,66 @@ def test_ops_dispatch_by_device():
 
 
 # ---------------------------------------------------------------------------
+# the choice of kernel
+# ---------------------------------------------------------------------------
+
+def _meta(bh, sq, sk, dh, dtype):
+    return (torch.zeros(bh, sq, dh, dtype=dtype, device="meta"),
+            torch.zeros(bh, sk, dh, dtype=dtype, device="meta"),
+            torch.zeros(bh, sk, dh, dtype=dtype, device="meta"))
+
+
+@pytest.mark.parametrize("bh,sq,sk,dh", [
+    (64, 2048, 2048, 128), (64, 2048, 2048, 64),     # the trainer's shape
+    (2, 257, 257, 128), (2, 48, 300, 128),           # ragged Sq, Sq < Sk
+    (2, 300, 200, 64), (3, 70, 333, 128), (1, 1, 1, 64)])
+def test_route_takes_bf16_dh64_and_128_to_wgmma(bh, sq, sk, dh):
+    assert tfa.route(*_meta(bh, sq, sk, dh, torch.bfloat16)) == "wgmma"
+
+
+@pytest.mark.parametrize("bh,sq,sk,dh,dtype", [
+    (64, 2048, 2048, 128, torch.float32), (2, 48, 300, 64, torch.float32),
+    (2, 130, 130, 80, torch.bfloat16), (2, 300, 300, 256, torch.bfloat16),
+    (3, 96, 96, 8, torch.bfloat16), (2, 64, 96, 32, torch.bfloat16)])
+def test_route_takes_the_rest_to_mma(bh, sq, sk, dh, dtype):
+    assert tfa.route(*_meta(bh, sq, sk, dh, dtype)) == "mma"
+
+
+def test_route_answers_every_input_check_inputs_takes():
+    """``route`` decides on dtype and Dh alone and raises on nothing that
+    ``check_inputs`` lets through (here everything up to the device)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in range(8, tfa.MAX_DH + 1, 8):
+            for sq, sk in ((1, 1), (5, 300), (300, 5)):
+                q, k, v = (torch.zeros(1, n, dh, dtype=dtype)
+                           for n in (sq, sk, sk))
+                with pytest.raises(ValueError, match="no kernel for device"):
+                    tfa.check_inputs(q, k, v)
+                want = "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) \
+                    else "mma"
+                assert tfa.route(q, k, v) == want
+
+
+@pytest.mark.parametrize("dtype,dh,forced", [
+    (torch.float32, 128, "wgmma"), (torch.bfloat16, 80, "wgmma"),
+    (torch.bfloat16, 128, "tensor-cores")])
+def test_launch_refuses_a_route_that_cannot_take_the_input(dtype, dh, forced):
+    """A forced route must take the input; the refusal comes before any
+    library is built or kernel launched, and counts nothing."""
+    before = dict(tfa.route_launches)
+    q, k, v = (torch.zeros(2, 16, dh, dtype=dtype) for _ in range(3))
+    with pytest.raises(ValueError, match="does not take"):
+        tfa.launch(q, k, v, True, route=forced)
+    assert tfa.route_launches == before
+
+
+def test_reset_launch_counts_clears_the_route_counts():
+    tfa.route_launches["wgmma"] += 3
+    tops.reset_launch_counts()
+    assert tfa.route_launches == {"wgmma": 0, "mma": 0}
+
+
+# ---------------------------------------------------------------------------
 # the shared nvcc build helper
 # ---------------------------------------------------------------------------
 

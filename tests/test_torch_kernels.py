@@ -230,6 +230,33 @@ def test_group_tokens_exact_layout():
     np.testing.assert_array_equal(g.key_pieces, [0, 1, 2, 4])
 
 
+def test_group_tokens_orders_each_key_by_then():
+    """With ``then``, a key's tokens are ordered by it (ties in the original
+    order); the pieces and key runs are those of the plain grouping."""
+    keys = np.array([1, 0, 1, 0, 1, 1], np.int32)
+    then = np.array([5, 3, 2, 3, 2, 0], np.int32)
+    g = tfz.group_tokens(keys, 2, 2, then)
+    np.testing.assert_array_equal(g.perm, [1, 3, 5, 2, 4, 0])
+    plain = tfz.group_tokens(keys, 2, 2)
+    for f in ("key_start", "piece_start", "key_pieces", "piece_key"):
+        np.testing.assert_array_equal(getattr(g, f), getattr(plain, f))
+    assert not g.identity and not plain.identity
+    ordered = tfz.group_tokens(np.array([0, 0, 1], np.int32), 2, 4,
+                               np.array([1, 2, 0], np.int32))
+    assert ordered.identity
+
+
+def test_build_plan_orders_the_priors_tokens_by_the_first_child():
+    data = _zcase(1, *ZSTATS_CASES[1])
+    et, rows, children, _ = data
+    plan = tfz.build_plan(rows, _torch_children(children), et.shape)
+    g = plan.prior
+    for s in range(g.n_keys):
+        toks = g.perm[g.key_start[s]:g.key_start[s + 1]]
+        v = children[0]["values"][toks]
+        assert (rows[toks] == s).all() and (np.diff(v) >= 0).all()
+
+
 def test_group_tokens_sorted_keys_are_identity():
     keys = np.repeat(np.arange(50, dtype=np.int32), 7)
     g = tfz.group_tokens(keys, 50, 3)
@@ -296,6 +323,176 @@ def test_owner_plan_reproduces_zstats(case):
     got = _owner_emulation(data, piece=7)
     _assert_zstats_close(got, _run_torch(data, "elog", fn=tref.zstats),
                          rtol=1e-5, atol=1e-5)
+
+
+def _flat_plan(case, piece=7):
+    """The flat passes' plan of a case: ``build_plan``'s, or for a segment
+    latent the flat part of ``build_zmap_plan``'s (its children without a
+    zmap); with the flat children as dicts."""
+    from repro_torch.kernels import fused_zmap as tfzm
+    et, rows, children, _ = case
+    tkids = _torch_children(children)
+    flat = [c for c in children if c["zmap"] is None]
+    if len(flat) < len(children):
+        return tfzm.build_zmap_plan(rows, tkids, et.shape, piece).flat, flat
+    return tfz.build_plan(rows, tkids, et.shape, piece), flat
+
+
+def _specialized(c):
+    return c["base"] is None and c["stride"] == 1
+
+
+@pytest.mark.parametrize("case", range(len(ZSTATS_CASES)))
+def test_piece_ordered_streams_are_the_originals_through_perm(case):
+    """Each pass's streams are the call's arrays gathered through its
+    grouping's perm; a grouping that keeps the call's order has none; a pass
+    has no stream of its own key; the softmax statistics' slots map every
+    pass's token t to the slot of the same token in the first child's
+    order."""
+    data = _zcase(case, *ZSTATS_CASES[case])
+    plan, flat = _flat_plan(data)
+    rows = data[1]
+    originals = {"prior_rows": rows}
+    for i, c in enumerate(flat):
+        for field in ("values", "base", "mask"):
+            if c[field] is not None:
+                originals[f"{field}{i}"] = c[field]
+    seen = set()
+    for name, g in plan.passes():
+        target = None if name == "prior" else int(name[len("child"):])
+        for field, orig in originals.items():
+            key = (name, field)
+            own = (field == "prior_rows" and target is None) or (
+                target is not None and field == f"values{target}"
+                and _specialized(flat[target]))
+            if g.identity or own:
+                assert key not in plan.streams
+            else:
+                np.testing.assert_array_equal(plan.streams[key], orig[g.perm])
+                assert plan.streams[key].dtype == orig.dtype
+                seen.add(key)
+    assert seen == {k for k in plan.streams if k[1] != "spos"}
+    if flat:
+        first = plan.children[0].perm
+        for name, g in plan.passes():
+            spos = plan.streams.get((name, "spos"), np.arange(len(g.perm)))
+            np.testing.assert_array_equal(first[spos], g.perm)
+        assert ("child0", "spos") not in plan.streams
+    else:
+        assert not any(k[1] == "spos" for k in plan.streams)
+    on_dev = plan.to("cpu")
+    for key, a in plan.streams.items():
+        np.testing.assert_array_equal(on_dev.tensors[key].numpy(), a)
+
+
+def _stream_emulation(case, piece):
+    """The flat passes as the kernel runs them, in numpy.  Each pass walks
+    its pieces in order and reads its token streams at position t of its
+    own order: the plan's gathered stream, or the call's array where the
+    grouping keeps the call's order; the piece's key gives its own row.
+    The prior's pass takes each token's softmax in f32 and stores (max,
+    zmask / sum) at the token's slot; each child's pass rebuilds the logits
+    from its own streams and makes r from the stored pair.  Returns the
+    outputs (sums in f64, each owner's in plan order) and, per child pass,
+    its r beside the r of a softmax recomputed in that pass."""
+    et, rows, children, zm = case
+    plan = tfz.build_plan(rows, _torch_children(children), et.shape, piece)
+    k, n = et.shape[1], len(rows)
+    zm = zm if zm is not None else np.ones(n, np.float32)
+    one = np.ones(n, np.float32)
+
+    def stream(name, g, field, orig):
+        return plan.streams.get((name, field), orig if g.identity else None)
+
+    def logits(name, g, target, ts, key):
+        if target is None:
+            x = np.repeat(et[key][None, :], len(ts), 0)
+        else:
+            x = et[stream(name, g, "prior_rows", rows)[ts]]
+        for i, c in enumerate(children):
+            mk = stream(name, g, f"mask{i}", c["mask"])[ts] \
+                if c["mask"] is not None else one[ts]
+            if _specialized(c):
+                v = np.full(len(ts), key) if i == target else \
+                    stream(name, g, f"values{i}", c["values"])[ts]
+                e = c["table"][:, v].T
+            else:
+                v = stream(name, g, f"values{i}", c["values"])[ts]
+                b = stream(name, g, f"base{i}", c["base"])[ts][:, None] \
+                    if c["base"] is not None else 0
+                e = c["table"][b + c["stride"] * np.arange(k)[None, :],
+                               v[:, None]]
+            x = x + e * mk[:, None]
+        return x.astype(np.float32)
+
+    def softmax(x, zmv):
+        m = x.max(1)
+        ex = np.exp(x - m[:, None])
+        s = ex.sum(1, dtype=np.float32)
+        scale = (zmv / s).astype(np.float32)
+        return m, s, scale, ex * scale[:, None]
+
+    # the prior's pass
+    stats = np.zeros((n, 2), np.float32)
+    g = plan.prior
+    spos = plan.streams.get(("prior", "spos"), np.arange(n))
+    zms = zm[g.perm]
+    lse, ppart = 0.0, []
+    for p in range(g.n_pieces):
+        ts = np.arange(g.piece_start[p], g.piece_start[p + 1])
+        m, s, scale, r = softmax(logits("prior", g, None, ts, g.piece_key[p]),
+                                 zms[ts])
+        lse += float(((m + np.log(s)) * zms[ts]).astype(np.float64).sum())
+        stats[spos[ts]] = np.stack([m, scale], 1)
+        ppart.append(r.astype(np.float64).sum(0))
+    pstats = np.stack([np.sum(ppart[g.key_pieces[s]:g.key_pieces[s + 1]],
+                              0) if g.key_pieces[s + 1] > g.key_pieces[s]
+                       else np.zeros(k) for s in range(g.n_keys)])
+    # the children's passes
+    cstats, pairs = [], []
+    for i, (c, g) in enumerate(zip(children, plan.children)):
+        name = f"child{i}"
+        spos = plan.streams.get((name, "spos"), np.arange(n))
+        wm = stream(name, g, f"mask{i}", c["mask"]) \
+            if c["mask"] is not None else one
+        out = np.zeros(c["table"].shape)
+        for key in range(g.n_keys):
+            ts = np.arange(g.key_start[key], g.key_start[key + 1])
+            if not len(ts):
+                continue
+            x = logits(name, g, i, ts, key)
+            st = stats[spos[ts]]
+            r = np.exp(x - st[:, :1]) * st[:, 1:]
+            pairs.append((r, softmax(x, zm[g.perm[ts]])[3]))
+            w = (r * wm[ts][:, None]).astype(np.float64)
+            if _specialized(c):          # pieces in order, then their sum
+                parts = [w[a - ts[0]:b - ts[0]].sum(0) for a, b in zip(
+                    g.piece_start[g.key_pieces[key]:g.key_pieces[key + 1]],
+                    g.piece_start[g.key_pieces[key] + 1:
+                                  g.key_pieces[key + 1] + 1])]
+                out[:, key] = np.sum(parts, 0)
+            else:                         # the column's tokens in order
+                b = stream(name, g, f"base{i}", c["base"])[ts] \
+                    if c["base"] is not None else np.zeros(len(ts), int)
+                for j in range(len(ts)):
+                    out[b[j] + c["stride"] * np.arange(k), key] += w[j]
+        cstats.append(torch.from_numpy(out))
+    return (torch.tensor(lse), torch.from_numpy(pstats), tuple(cstats)), pairs
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_stream_emulation_reproduces_zstats(case):
+    """The kernel's passes over piece-ordered streams, the children's r made
+    from the prior pass's stored (max, zmask / sum), give ref.zstats; and
+    each child pass's r is bitwise the r of a softmax recomputed there:
+    the streams hand every pass the same logits."""
+    data = _zcase(case, *ZSTATS_CASES[case])
+    got, pairs = _stream_emulation(data, piece=7)
+    _assert_zstats_close(got, _run_torch(data, "elog", fn=tref.zstats),
+                         rtol=1e-5, atol=1e-5)
+    assert pairs
+    for reused, recomputed in pairs:
+        np.testing.assert_array_equal(reused, recomputed)
 
 
 def test_build_plan_rejects_rows_outside_strided_table():
