@@ -29,7 +29,9 @@ Phases, each of which exits non-zero on a failed check:
      ``get_result``, with the launch counts set to 0 just before and read
      just after;
   6. times (CUDA events) of each kernel, its plain version and its bound at
-     the main path's shapes, and the VMP step's ms and tokens/s;
+     the main path's shapes (the Elog pass on phi also by its two Triton
+     launches, row sums and elementwise), and the VMP step's ms and
+     tokens/s;
   7. the segment-latent path: SLDA at the same widths over the same corpus,
      cut into sentences of 7 tokens (about 1.44M sentences), through
      ``models.make("slda")`` -> ``observe`` + ``bind("sents")`` ->
@@ -55,8 +57,8 @@ Phases, each of which exits non-zero on a failed check:
      f32 parameters from the port's own initialisation, attention through
      the kernel), with the kernel's launch count set to 0 just before and
      read just after (16 layers x 4 forwards, all on the wgmma route),
-     finite losses near ln V,
-     every parameter moved, flash against dense attention on one batch,
+     step 0's loss at the chance level of the model's own initial logits
+     and every loss finite and within 1.5 nats of it, every parameter moved, flash against dense attention on one batch,
      ms per step, tokens/s, the model flops' share of the bf16 peak, peak
      memory, and the device's idle share over 2 steps under the profiler.
 
@@ -633,15 +635,54 @@ def phase_repeat_and_time(args, report, m, prog, counts):
             f"({per_step[name]:.1f} per step)")
     log(f"  dirichlet_expectation at theta's (D, K) = ({g}, {k}): "
         f"{t_de_theta:.4f} ms, bound {g * k * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    de_split = {"phi": de_passes("phi", phi), "theta": de_passes(
+        "theta", theta, transpose=False)}
     log(f"  torch.softmax beside zstep (not used by the port): "
         f"{t_softmax:.4f} ms")
     log(f"  VMP step: {t_step:.2f} ms, {n / t_step * 1e3:.4e} tokens/s "
         f"(N = {n})")
     report.update(kernels=kernels, step_ms=t_step,
                   tokens_per_s=n / t_step * 1e3, softmax_ms=t_softmax,
-                  de_theta_ms=t_de_theta, launches_per_step=per_step,
+                  de_theta_ms=t_de_theta, de_passes=de_split,
+                  launches_per_step=per_step,
                   trace=trace)
     return kernels
+
+
+def device_ms(fn, reps=20):
+    """Device time per call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, the graph's replays timed with CUDA events.  CUDA events around
+    back-to-back calls of a small kernel measure the host's launch cost
+    instead."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay, reps=3) / reps
+    del graph
+    return ms
+
+
+def de_passes(label, alpha, transpose=True):
+    """Log the Elog pass's two Triton launches on ``alpha`` timed apart
+    (the row sums into chunk partials, the elementwise pass), each by CUDA
+    events and by device time; returns them."""
+    from repro_torch.kernels import dirichlet_expectation as de
+    part = de.row_sums(alpha)
+    runs = {"rowsum": lambda: de.row_sums(alpha),
+            "elementwise": lambda: de.elog_from_sums(alpha, part, transpose)}
+    out = {"chunks": part.shape[1]}
+    for name, fn in runs.items():
+        out[f"{name}_ms"] = time_ms(fn, reps=20)
+        out[f"{name}_device_ms"] = device_ms(fn)
+    log(f"  dirichlet_expectation {label} {tuple(alpha.shape)} by launch "
+        f"(events / device): row sums ({part.shape[1]} chunks a row) "
+        f"{out['rowsum_ms']:.4f} / {out['rowsum_device_ms']:.4f} ms, "
+        f"elementwise{' (transposed)' if transpose else ''} "
+        f"{out['elementwise_ms']:.4f} / {out['elementwise_device_ms']:.4f} ms")
+    return out
 
 
 def bound(nbytes, nops, peak=None):
@@ -873,10 +914,14 @@ def phase_segment_times(label, m, report, counts):
     tables = (g * k + k * v) * 4
     z_bytes = n_tok * 8 + n_inst * 4 + tables * 2 + 4
     z_ops = 8 * n_inst * k + 4 * n_tok * k
-    # logits and r (f32), and the logits' per-piece partials (f64), each
-    # written and read once
-    n_parts = sum(g.n_pieces for g in plan.by_latent)
+    # logits and r (f32), and the f64 partials of the instances of several
+    # pieces (phase 1 writes a one-piece instance's row itself), each
+    # written and read once; the K-rows phases 1 and 2b gather, one each a
+    # token (the message, r[zmap]), beside them
+    n_parts = sum(int(plan.streams[f"latent{j}", "fstart"][-1])
+                  for j in range(len(plan.by_latent)))
     inter = 2 * (2 * n_inst * k * 4 + n_parts * k * 8)
+    gathered = 2 * n_tok * k * 4
     l_bytes = n_tok * 8 + k * v * 4 + n_inst * k * 4
     l_ops = 2 * n_tok * k
     d_bytes, d_ops = phi.numel() * 8, DIGAMMA_OPS * phi.numel()
@@ -901,14 +946,20 @@ def phase_segment_times(label, m, report, counts):
                                     counts[name], e, ms, pms, bms, by))
         log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
             f"{bms:8.4f} ms ({by})  launches {counts[name]}")
-    log(f"  zstats_zmap with its intermediates (f32 logits and r, f64 "
-        f"partials of the logits, each written and read once): "
-        f"{(z_bytes + inter) / HBM_BYTES_PER_S * 1e3:.4f} ms of traffic")
+    log(f"  zstats_zmap with its intermediates (f32 logits and r, "
+        f"{n_parts} f64 partial rows of the logits, each written and read "
+        f"once): {(z_bytes + inter) / HBM_BYTES_PER_S * 1e3:.4f} ms of "
+        f"traffic; the K-rows that phases 1 and 2b gather (2 N K 4 bytes, "
+        f"{gathered / 1e9:.2f} GB): "
+        f"{gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate")
+    de_split = de_passes(f"{label} {child_dir}", phi)
     t_step, step, st = time_steps(prog, state)
     log(f"  {label} VMP step: {t_step:.2f} ms, {n_tok / t_step * 1e3:.4e} "
         f"tokens/s (N = {n_tok}, {n_inst} latent instances)")
     report[label].update(zstats_zmap_ms=t_z, zmap_logits_ms=t_l,
-                         intermediate_bytes=inter, step_ms=t_step,
+                         intermediate_bytes=inter, gathered_bytes=gathered,
+                         partial_rows=n_parts, de_passes=de_split,
+                         step_ms=t_step,
                          tokens_per_s=n_tok / t_step * 1e3,
                          trace=phase_trace(step, st))
     return entries

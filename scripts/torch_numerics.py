@@ -6,6 +6,8 @@
     python3 scripts/torch_numerics.py zmap-precision [TREE]
     python3 scripts/torch_numerics.py ab-zstats PARENT
     python3 scripts/torch_numerics.py ab-steps PARENT
+    python3 scripts/torch_numerics.py ab-zmap PARENT [TREE ...]
+    python3 scripts/torch_numerics.py de-sweep
 
 TREE is a checkout of the repo (by default the one holding this script)
 whose ``src/repro_torch`` runs; the inputs and the work come from this
@@ -34,6 +36,21 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
   corpus each, after one warm-up step, timed on the host clock (each step
   ends in a host read of its ELBO, as ``chip_smoke.py`` times them) in
   turns (parent, this, this, parent, 10 steps each).
+- ``ab-zmap``: the segment-latent kernels and the Elog pass, this
+  checkout's against PARENT's (and, for the segment-latent kernels, against
+  each further checkout given after it, say variants of this one) on the
+  same inputs: ``zstats_zmap`` and
+  ``zmap_logits`` at the SLDA and naive Bayes inputs of ``chip_smoke.py``
+  (after 2 VMP steps), and ``dirichlet_expectation`` on phi as (V, K) (the
+  SLDA path's phi, also its two Triton passes timed apart in each tree).
+  Timed with CUDA events in turns (parent, this, this, parent), each output
+  said bitwise equal to the parent's or not; the Elog passes also by device
+  time (``chip_smoke.device_ms``).
+- ``de-sweep``: the Elog pass's two launches on phi's shape (100 x
+  102,660, as (V, K)) and theta's (30,000 x 100), by device time, over
+  the module's knobs: the row-sum programs per SM (and so the chunks a
+  row), and the transposed pass's tile (elements, columns, warps) or its
+  strided 2-D tiles; each output held to the plain version at DE_TOL.
 
 Imports the port only, never JAX nor the JAX package.
 """
@@ -121,6 +138,191 @@ def ab_zstats(cs, parent: Path):
     print(f"[ab-zstats] parent {t_parent:.4f} ms, this {t_this:.4f} ms per "
           f"call: {t_parent / t_this:.2f}x; outputs bitwise equal: {same}",
           flush=True)
+    return 0
+
+
+def _ab(cs, label, runs, reps=10):
+    """Time ``runs["parent"]`` and ``runs["this"]`` in turns (parent, this,
+    this, parent) after one call of each, and say whether their outputs (a
+    tensor or a tuple of tensors, nested) are bitwise equal."""
+    import torch
+
+    def flat(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        return [t for y in x for t in flat(y)]
+    a, b = flat(runs["this"]()), flat(runs["parent"]())
+    same = len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    times = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        times[who].append(cs.time_ms(runs[who], reps=reps))
+    t_this, t_parent = (sum(times[w]) / 2 for w in ("this", "parent"))
+    print(f"[ab-zmap] {label}: parent {t_parent:.4f} ms, this {t_this:.4f} ms "
+          f"per call ({t_parent / t_this:.2f}x); outputs bitwise equal: "
+          f"{same}; turns (ms) parent {times['parent']}, this "
+          f"{times['this']}", flush=True)
+    return t_this, t_parent, same
+
+
+def _parent_de_passes(pde, alpha):
+    """The parent's two Elog passes on ``alpha`` transposed, launched as its
+    wrapper launches them: (row sums, elementwise) callables."""
+    import torch
+    import triton
+    rowsum_digamma, elog = pde._kernels()
+    g, k = alpha.shape
+    bk = min(triton.next_power_of_2(k), pde._MAX_BLOCK_K)
+    br = pde._MAX_BLOCK_K // bk
+    dg = torch.empty((g,), dtype=torch.float32, device=alpha.device)
+    out = torch.empty((k, g), dtype=torch.float32, device=alpha.device)
+    return (lambda: rowsum_digamma[(triton.cdiv(g, br),)](
+                alpha, dg, g, k, alpha.stride(0), BLOCK_R=br, BLOCK_K=bk),
+            lambda: elog[(triton.cdiv(g, 32), triton.cdiv(k, 64))](
+                alpha, dg, out, g, k, alpha.stride(0), 1, g, BLOCK_R=32,
+                BLOCK_K=64))
+
+
+def _segment_inputs(pkg: str, m, tabs=None):
+    """Package ``pkg``'s kernel inputs of model ``m``'s segment latent:
+    (prior table, prior rows, children, plan, n_latent, K), on the Elog
+    tables ``tabs`` (made by this checkout's step when None)."""
+    import importlib
+    vmp = importlib.import_module(pkg + ".core.vmp")
+    kops = importlib.import_module(pkg + ".kernels.ops")
+    prog, state = m.compile(), m._state
+    spec = prog.latents[0]
+    arrays = vmp._program_arrays(prog, state.device)
+    tabs = tabs if tabs is not None else vmp._elog_tables(prog, state)
+    children = vmp._latent_children(spec, tabs, arrays)
+    rows = arrays[spec.name]["prior_rows"]
+    prior = tabs[spec.prior_dir]
+    plan = kops.zstats_plan(prior, rows, children)
+    return prior, rows, children, plan, spec.n, spec.k, tabs
+
+
+def ab_zmap(cs, parent: Path, more=()):
+    import importlib
+    import torch
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.kernels import dirichlet_expectation as de
+    trees = {"parent": parent}
+    trees.update({f"tree{i}": Path(t) for i, t in enumerate(more, 1)})
+    mods = {"this": {n: importlib.import_module(f"repro_torch.kernels.{n}")
+                     for n in ("fused_zmap", "dirichlet_expectation")}}
+    for who, tree in trees.items():
+        _load_package(tree, f"{who}_repro_torch")
+        mods[who] = {n: importlib.import_module(
+            f"{who}_repro_torch.kernels.{n}")
+            for n in ("fused_zmap", "dirichlet_expectation")}
+        print(f"[ab-zmap] {who}: {tree}", flush=True)
+    print(f"[ab-zmap] {cs.device_line()}", flush=True)
+    corpus = SyntheticCorpus(n_docs=30000, vocab=cs.VOCAB, n_topics=cs.TOPICS,
+                             alpha=cs.ALPHA, beta=cs.BETA,
+                             mean_len=cs.MEAN_LEN, seed=cs.SEED).generate()
+    models = (("slda", cs.make_slda(corpus)),
+              ("naive_bayes", cs.make_naive_bayes(
+                  argparse.Namespace(docs=30000))))
+    del corpus
+    phi = None
+    for label, m in models:
+        m.infer(steps=2, seed=cs.SEED, device="cuda")
+        inputs = {"this": _segment_inputs("repro_torch", m)}
+        for who in trees:
+            inputs[who] = _segment_inputs(f"{who}_repro_torch", m,
+                                          inputs["this"][-1])
+        a = inputs["this"]
+        print(f"[ab-zmap] {label}: {a[4]} instances, K = {a[5]}, N = "
+              f"{len(a[2][0].values)}", flush=True)
+        for who in trees:
+            tag = "" if who == "parent" else f" against {who}"
+            runs = {w: (lambda f=mods[k]["fused_zmap"], a=inputs[k]:
+                        f.zstats_zmap(*a[:3], plan=a[3]))
+                    for w, k in (("this", "this"), ("parent", who))}
+            _ab(cs, f"zstats_zmap {label}{tag}", runs)
+            runs = {w: (lambda f=mods[k]["fused_zmap"], a=inputs[k]:
+                        f.zmap_logits(a[2], a[4], a[5], plan=a[3]))
+                    for w, k in (("this", "this"), ("parent", who))}
+            _ab(cs, f"zmap_logits {label}{tag}", runs)
+        if label == "slda":
+            child_dir = m.compile().latents[0].children[0].dir_name
+            phi = m._state.posteriors[child_dir]
+        del inputs, runs
+        torch.cuda.empty_cache()
+    pde = mods["parent"]["dirichlet_expectation"]
+    runs = {"this": lambda: de.dirichlet_expectation(phi, transpose=True),
+            "parent": lambda: pde.dirichlet_expectation(phi, transpose=True)}
+    _ab(cs, f"dirichlet_expectation phi {tuple(phi.shape)} as (V, K)", runs,
+        reps=20)
+    part = de.row_sums(phi)
+    pr, pe = _parent_de_passes(pde, phi)
+    for name, this_fn, parent_fn in (
+            ("whole call", runs["this"], runs["parent"]),
+            ("row sums", lambda: de.row_sums(phi), pr),
+            ("elementwise", lambda: de.elog_from_sums(phi, part, True), pe)):
+        t = {"parent": [], "this": []}
+        d = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            fn = this_fn if who == "this" else parent_fn
+            t[who].append(cs.time_ms(fn, reps=20))
+            d[who].append(cs.device_ms(fn))
+        print(f"[ab-zmap] dirichlet_expectation phi, {name}: parent "
+              f"{sum(t['parent']) / 2:.4f} ms (device "
+              f"{sum(d['parent']) / 2:.4f}), this {sum(t['this']) / 2:.4f} "
+              f"ms (device {sum(d['this']) / 2:.4f}); turns (ms) parent "
+              f"{t['parent']}, this {t['this']}; device {d['parent']}, "
+              f"{d['this']}", flush=True)
+    return 0
+
+
+def de_sweep(cs):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dirichlet_expectation as de
+    print(f"[de-sweep] {cs.device_line()}", flush=True)
+    rng = np.random.default_rng(0)
+    knobs = ("_WAVES", "_MAX_T_ROWS", "_T_TILE", "_T_COLS", "_T_WARPS",
+             "_S_TILE", "_FAST_DIGAMMA")
+    default = {n: getattr(de, n) for n in knobs}
+    for shape, transpose in (((100, 102660), True), ((30000, 100), False)):
+        a = torch.from_numpy((rng.gamma(1.0, 1.0, size=shape) + 1e-2)
+                             .astype(np.float32)).cuda()
+        want = cs.de_plain(a, transpose)
+        variants = [dict(_WAVES=w) for w in (2, 8, 32)]
+        variants += [dict(_FAST_DIGAMMA=f) for f in (0, 1, 2)]
+        if transpose:
+            for fast in (0, 1, 2):
+                variants += [dict(_FAST_DIGAMMA=fast, _T_TILE=t, _T_COLS=c,
+                                  _T_WARPS=w)
+                             for t, c, w in ((8192, 128, 8), (4096, 128, 8),
+                                             (4096, 32, 4), (2048, 16, 4))]
+                variants += [dict(_FAST_DIGAMMA=fast, _MAX_T_ROWS=0,
+                                  _S_TILE=st)
+                             for st in ((32, 64), (64, 64), (16, 128),
+                                        (128, 32))]
+        for v in variants:
+            for n in knobs:
+                setattr(de, n, v.get(n, default[n]))
+            try:
+                got = de.dirichlet_expectation(a, transpose)
+                err = cs.errors(got, want)[0]
+                ok = cs.within(got, want, **cs.DE_TOL)
+                part = de.row_sums(a)
+                t_rows = cs.device_ms(lambda: de.row_sums(a))
+                t_elem = cs.device_ms(lambda: de.elog_from_sums(
+                    a, part, transpose))
+                t_call = cs.time_ms(lambda: de.dirichlet_expectation(
+                    a, transpose), reps=20)
+            except Exception as exc:        # a variant that does not compile
+                print(f"[de-sweep] {shape} {v}: failed: {exc!r}"[:400],
+                      flush=True)
+                continue
+            print(f"[de-sweep] {shape}{' as (K, G)' if transpose else ''} "
+                  f"{v}: {part.shape[1]} chunks; device ms row sums "
+                  f"{t_rows:.4f}, elementwise {t_elem:.4f}, sum "
+                  f"{t_rows + t_elem:.4f}; call (events) {t_call:.4f}; "
+                  f"max_abs {err:.3e}, within DE_TOL: {ok}", flush=True)
+    for n in knobs:
+        setattr(de, n, default[n])
     return 0
 
 
@@ -259,21 +461,30 @@ def zmap_precision(cs):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("check", choices=["digest", "zmap-precision",
-                                      "ab-zstats", "ab-steps"])
+                                      "ab-zstats", "ab-steps", "ab-zmap",
+                                      "de-sweep"])
     p.add_argument("tree", nargs="?", default=str(HERE),
                    help="checkout whose src/repro_torch runs (ab-zstats, "
-                        "ab-steps: the parent's, beside this checkout's)")
+                        "ab-steps, ab-zmap: the parent's, beside this "
+                        "checkout's)")
+    p.add_argument("more", nargs="*",
+                   help="ab-zmap: further checkouts (variants), each timed "
+                        "against this one")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_numerics: no CUDA device", file=sys.stderr)
         return 2
-    if args.check in ("ab-zstats", "ab-steps"):
+    ab = {"ab-zstats": ab_zstats, "ab-steps": ab_steps, "ab-zmap": ab_zmap}
+    if args.check in ab:
         if Path(args.tree).resolve() == HERE:
             p.error(f"{args.check} needs the parent's checkout")
-        run = ab_zstats if args.check == "ab-zstats" else ab_steps
-        return run(_setup(HERE), Path(args.tree))
+        if args.check == "ab-zmap":
+            return ab_zmap(_setup(HERE), Path(args.tree), args.more)
+        return ab[args.check](_setup(HERE), Path(args.tree))
     cs = _setup(Path(args.tree))
+    if args.check == "de-sweep":
+        return de_sweep(cs)
     (digest if args.check == "digest" else zmap_precision)(cs)
     return 0
 

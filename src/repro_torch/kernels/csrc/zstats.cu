@@ -73,30 +73,34 @@
 // -> latent instance zmap[t]: an SLDA sentence, a naive Bayes document)
 // needs a cross-token sum before its softmax, so it runs in three phases:
 //   1. zmap_logits: the host groups each zmap child's tokens by instance;
-//      a warp per piece sums mask * message in f64, and zstats_finish64
-//      writes (or, for a later zmap child, adds) each instance's row of the
-//      (n_latent, K) f32 logits, rounded once, children in order;
+//      a few lanes per piece sum mask * message in f64, tokens in order.
+//      An instance of one piece (an SLDA sentence) has its row of the
+//      (n_latent, K) f32 logits written by that piece, rounded once; an
+//      instance of several (a naive Bayes document) gets f64 partials that
+//      zstats_finish64 adds in order; children in order, a later one adding
+//      to the row;
 //   2a. the prior pass above over the latent instances, with those logits
 //      as `extra` after the prior row, writes each instance's r row once
 //      (`r_out`) besides the prior stats, the lse and the stats of any
 //      child without a zmap;
 //   2b. zmap_stats: the host groups each zmap child's tokens by value; a
-//      warp per piece sums mask * r[zmap] and zstats_finish writes the
+//      few lanes per piece sum mask * r[zmap] and zstats_finish writes the
 //      value's column of the stats (zmap_strided walks a strided child's
 //      value column in token order).
 // Bound on the H100 at the SLDA main path (10M tokens, 1.44M sentences,
 // K = 100): operations, about 0.08 ms, just above the 0.06 ms that its
 // inputs and outputs take at 3.35 TB/s.  The (n_latent, K) logits and r
-// are intermediates of 0.58 GB each and the logits' f64 per-piece partials
-// 1.15 GB, written and read once more (about 1.4 ms of traffic that a fused
-// kernel would not move); the design accepts that for owner passes without
-// atomics, and phase 1 and 2b gather only one K-row per token (the message,
-// or r).
+// are intermediates of 0.58 GB each, written and read once more, and phase
+// 1 and 2b each gather a K-row per token (the message from a 41 MB table, r
+// from a 574 MB one: 4 GB each, about 1.2 ms at 3.35 TB/s for r, which the
+// L2 does not hold); the design accepts that for owner passes without
+// atomics, and keeps several gathered rows per piece in flight.
 //
 // Tables arrive as f32 Elog values (the wrapper's Triton pre-pass computes
 // them from f32 or bf16 concentrations); accumulation is f32.  K may be
-// anything from 1 to 1024 (KPL, a template parameter: topics per lane of the
-// segment-latent passes, lanes per token of the flat ones).
+// anything from 1 to 1024 (KPL, a template parameter: it sets the lanes per
+// token of the flat passes and per piece of the segment ones, Lanes; the
+// strided segment pass keeps KPL topics a lane).
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after its launch.
@@ -142,30 +146,6 @@ struct ZArgs {
                             // the flat passes load 16 bytes at a time
 };
 
-// Child ch's message for token i (lane's share, 0 past K), before its mask,
-// for the segment-latent passes: a specialized child's row v_i of its
-// (Kf, K) table, a strided child's column v_i at rows base_i + stride * k.
-template <int KPL>
-__device__ __forceinline__ void child_message(const ZChildArgs& ch, int i, int lane, int k,
-                                              float (&e)[KPL]) {
-  const int v = ch.values[i];
-  if (ch.specialized) {
-    const float* row = ch.table + (size_t)v * k;
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const int kk = lane + 32 * j;
-      e[j] = kk < k ? row[kk] : 0.0f;
-    }
-  } else {
-    const int b = ch.base ? ch.base[i] : 0;
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const int kk = lane + 32 * j;
-      e[j] = kk < k ? ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v] : 0.0f;
-    }
-  }
-}
-
 // The flat passes' lane layout: a token takes QL lanes, so a warp holds
 // TPW = 32 / QL tokens at once (2 at K = 100).  Lane q of a token holds the
 // float4 chunks c = i * QL + q (i < CH) of its K-vector, topics 4c .. 4c + 3,
@@ -182,7 +162,7 @@ struct Lanes {
   static constexpr int QL = KPL >= 8 ? 32 : 4 * KPL;   // lanes per token
   static constexpr int CH = 32 * KPL / (4 * QL);       // float4 chunks per lane
 };
-#define FLAT_WARPS 4                   // warps per block of the flat passes
+#define FLAT_WARPS 4                   // warps per block of the flat and segment passes
 
 // Row `row` of K floats into chunks (fill past K).  The loop skips a chunk
 // that no lane of the warp holds.
@@ -426,22 +406,24 @@ __global__ void pieces_kernel(ZArgs a, int target, const int* __restrict__ piece
   if (PRIOR && lane == 0) lse_part[warp] = lse_acc;
 }
 
-// One warp per key: add the key's pieces in order, in T; write out[key, kk]
-// at key * stride_key + kk * stride_k, rounded once to f32 (add != 0: add
-// to it).  Keys without tokens write zeros (add nothing).
+// One warp per listed key w (key keys[w], or w where keys is null): add its
+// pieces key_pieces[w] .. key_pieces[w + 1] - 1 in order, in T; write
+// out[key, kk] at key * stride_key + kk * stride_k, rounded once to f32
+// (add != 0: add to it).  Keys without pieces write zeros (add nothing).
 template <typename T>
-__global__ void finish_kernel(const T* __restrict__ partial,
+__global__ void finish_kernel(const T* __restrict__ partial, const int* __restrict__ keys,
                               const int* __restrict__ key_pieces, int n_keys, int k,
                               float* __restrict__ out, long long stride_key,
                               long long stride_k, int add) {
   const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (warp >= n_keys) return;
+  const long long key = keys ? keys[warp] : warp;
   const int p0 = key_pieces[warp], p1 = key_pieces[warp + 1];
   for (int kk = lane; kk < k; kk += 32) {
     T acc = 0;
     for (int p = p0; p < p1; ++p) acc += __ldcs(partial + (size_t)p * k + kk);
-    float* o = out + warp * stride_key + kk * stride_k;
+    float* o = out + key * stride_key + kk * stride_k;
     *o = add ? (float)(*o + acc) : (float)acc;
   }
 }
@@ -515,81 +497,307 @@ __global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ key_
 }
 
 // --- segment latents (a child with a zmap: SLDA sentences, naive Bayes
-// documents).  The ZArgs of these passes hold the zmap children only.
+// documents).  The ZArgs of these passes hold the zmap children only, and
+// each pass reads child `target`'s token streams (values, base, mask, zmap)
+// at position t of its own piece order: the host gathers them through the
+// pass's grouping once per program (the call's arrays where the grouping
+// keeps the call's order), so no pass reads a permutation.
+//
+// Phase 1 and phase 2b share one walk.  A piece takes QL lanes, the flat
+// passes' token layout (Lanes: 16 at K = 100, two float4 chunks a lane), so
+// a warp owns PPW = 32 / QL pieces (2 at K = 100) and every lane of a piece
+// holds the same topics for the piece's whole run.  A lane loads its
+// piece's bounds, and its route where there is one, at the start, all at
+// once.  The piece's tokens come in batches of B: lane q loads the stream
+// entries of tokens q, q + QL, .. of the batch (coalesced, streaming loads;
+// SEG_PREFETCH: the next batch's while the piece gathers the rows of this
+// one), then the piece takes U tokens at a time, each lane gathering its
+// chunks of U rows before it adds any (U rows per piece in flight).  The
+// adds run in token order, one accumulator per topic, so each (piece,
+// topic) sum has the order of a walk one token at a time.  The pieces of a
+// warp run as many steps as the longest of them (its shuffles need the
+// whole warp); a step past a piece's own end loads and adds nothing.
+#ifndef SEG_ROWS
+#define SEG_ROWS 4       // U at K <= 128 (two chunks a lane): rows in flight per piece
+#endif
+#ifndef SEG_BATCH
+#define SEG_BATCH 1      // least tokens a batch (a batch is at least QL tokens)
+#endif
+#ifndef SEG_PREFETCH
+#define SEG_PREFETCH 0   // load the next batch's entries during this one's gathers
+#endif
+#ifndef SEG_MIN_BLOCKS
+#define SEG_MIN_BLOCKS 0 // __launch_bounds__ blocks an SM for the segment passes (0: none)
+#endif
+#if SEG_MIN_BLOCKS > 0
+#define SEG_BOUNDS __launch_bounds__(32 * 4, SEG_MIN_BLOCKS)
+#else
+#define SEG_BOUNDS
+#endif
 
-// Phase 1, one warp per piece of child `target`'s tokens grouped by latent
-// instance: the piece's sum of mask * message, the instance's logits share.
-// The sum is f64, and so are the partials that zstats_finish64 adds: a naive
-// Bayes document's logits reach thousands of nats, where f32 sums of its
-// few hundred messages lose the hundredths of a nat that decide r for a
-// document near a tie between two classes.
-template <int KPL>
-__global__ void zmap_logits_kernel(ZArgs a, int target, const int* __restrict__ perm,
-                                   const int* __restrict__ piece_start, int n_pieces,
-                                   double* __restrict__ partial) {
-  const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_pieces) return;
-  const ZChildArgs& ch = a.c[target];
-  const int k = a.k;
-  double acc[KPL];
+template <int QL, int CH>
+struct SegWalk {
+  static constexpr int U = CH <= 2 ? SEG_ROWS : (CH == 4 ? 2 : 1);   // rows in flight
+  static constexpr int B = QL > SEG_BATCH ? QL : SEG_BATCH;          // tokens a batch
+  static constexpr int E = B / QL;                                   // entries a lane
+};
+
+// One batch's stream entries of a lane: token tb + e * QL + q of the piece
+// (t0, len) for e < E; past the piece's end an index of 0 (a row that
+// exists), base 0 and weight 1.
+template <int E>
+struct Entries {
+  int idx[E], base[E];
+  float w[E];
+};
+
+template <int E, int QL>
+__device__ __forceinline__ void load_entries(const int* __restrict__ idx,
+                                             const int* __restrict__ base,
+                                             const float* __restrict__ w, int t0, int len,
+                                             int tb, int q, Entries<E>& out) {
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) acc[j] = 0.0;
-  const int t1 = piece_start[warp + 1];
-  for (int t = piece_start[warp]; t < t1; ++t) {
-    const int i = perm[t];
-    const float mk = ch.mask ? ch.mask[i] : 1.0f;
-    float e[KPL];
-    child_message<KPL>(ch, i, lane, k, e);
-#pragma unroll
-    for (int j = 0; j < KPL; ++j) acc[j] += (double)e[j] * mk;
-  }
-#pragma unroll
-  for (int j = 0; j < KPL; ++j) {
-    const int kk = lane + 32 * j;
-    if (kk < k) partial[(size_t)warp * k + kk] = acc[j];
+  for (int e = 0; e < E; ++e) {
+    const int j = tb + e * QL + q;
+    const bool mine = j < len;
+    out.idx[e] = mine ? __ldcs(idx + t0 + j) : 0;
+    out.base[e] = mine && base ? __ldcs(base + t0 + j) : 0;
+    out.w[e] = mine && w ? __ldcs(w + t0 + j) : 1.0f;
   }
 }
 
-// Phase 2b, one warp per piece of a specialized child's tokens grouped by
-// value: the piece's sum of mask * r[zmap], the value column's share.
+// Largest v over the PPW pieces of a warp (lanes QL apart).
+template <int QL>
+__device__ __forceinline__ int pieces_max(int v) {
+#pragma unroll
+  for (int o = QL; o < 32; o <<= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// A strided child's message row for value v at rows b + stride * k (the
+// lane's chunks; 0 past K).
+template <int QL, int CH>
+__device__ __forceinline__ void strided_row(const ZChildArgs& ch, int v, int b, int q, int k,
+                                            float (&x)[CH][4]) {
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = topic<QL>(i, q, e);
+      x[i][e] = kk < k ? ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v] : 0.0f;
+    }
+}
+
+// The walk of one piece (t0, len; `most` the warp's longest): for each of
+// its tokens in order, ROW(x, idx, base) gathers the token's row into the
+// lane's chunks and ADD(x, w) adds it.  A macro, so each kernel keeps its
+// own accumulators and row gather inline.
+#define SEG_WALK(IDX, BASE, W, ROW, ADD)                                            \
+  {                                                                                 \
+    using Walk = SegWalk<QL, CH>;                                                   \
+    Entries<Walk::E> next;                                                          \
+    if (SEG_PREFETCH) load_entries<Walk::E, QL>(IDX, BASE, W, t0, len, 0, q, next); \
+    for (int tb = 0; tb < most; tb += Walk::B) {                                    \
+      Entries<Walk::E> cur;                                                         \
+      if (SEG_PREFETCH) {                                                           \
+        cur = next;                                                                 \
+        if (tb + Walk::B < most)                                                    \
+          load_entries<Walk::E, QL>(IDX, BASE, W, t0, len, tb + Walk::B, q, next);  \
+      } else {                                                                      \
+        load_entries<Walk::E, QL>(IDX, BASE, W, t0, len, tb, q, cur);               \
+      }                                                                             \
+      _Pragma("unroll") for (int u0 = 0; u0 < Walk::B; u0 += Walk::U) {             \
+        if (tb + u0 >= most) break;                                                 \
+        float x[Walk::U][CH][4];                                                    \
+        _Pragma("unroll") for (int u = 0; u < Walk::U; ++u) {                       \
+          const int j = u0 + u;                                                     \
+          const int iu = __shfl_sync(0xffffffffu, cur.idx[j / QL], j % QL, QL);     \
+          const int bu = __shfl_sync(0xffffffffu, cur.base[j / QL], j % QL, QL);    \
+          if (tb + j < len) { ROW(x[u], iu, bu); }                                  \
+        }                                                                           \
+        _Pragma("unroll") for (int u = 0; u < Walk::U; ++u) {                       \
+          const int j = u0 + u;                                                     \
+          const float wu = __shfl_sync(0xffffffffu, cur.w[j / QL], j % QL, QL);     \
+          if (tb + j < len) { ADD(x[u], wu); }                                      \
+        }                                                                           \
+      }                                                                             \
+    }                                                                               \
+  }
+
+// Phase 1, one lane group per piece of child `target`'s tokens grouped by
+// latent instance (piece_key: the instance): the piece's sum of mask *
+// message, in f64, tokens in order.  A naive Bayes document's logits reach
+// thousands of nats, where f32 sums of its few hundred messages lose the
+// hundredths of a nat that decide r for a document near a tie between two
+// classes.  A piece that is its instance's only piece (slot < 0: every SLDA
+// sentence) writes the instance's f32 logits row itself, (float)sum, or
+// (float)(row + sum) for a later zmap child (add): what zstats_finish64
+// would write from its one partial, bit for bit.  The piece of an instance
+// of several pieces writes its f64 partial at row `slot`, and
+// zstats_finish64 adds that instance's partials in order.
 template <int KPL>
-__global__ void zmap_stats_kernel(ZArgs a, int target, const float* __restrict__ r,
-                                  const int* __restrict__ perm,
-                                  const int* __restrict__ piece_start, int n_pieces,
-                                  float* __restrict__ partial) {
+__global__ void SEG_BOUNDS zmap_logits_kernel(ZArgs a, int target, const int* __restrict__ piece_key,
+                                   const int* __restrict__ piece_start,
+                                   const int* __restrict__ slot, int n_pieces,
+                                   double* __restrict__ partial, float* __restrict__ out,
+                                   int add) {
+  constexpr int QL = Lanes<KPL>::QL, CH = Lanes<KPL>::CH, PPW = 32 / QL;
+  const int warp = blockIdx.x * FLAT_WARPS + (threadIdx.x >> 5);
+  if (warp * PPW >= n_pieces) return;
+  const int lane = threadIdx.x & 31, q = lane % QL, p = warp * PPW + lane / QL;
+  const bool own = p < n_pieces;
+  const ZChildArgs& ch = a.c[target];
+  const int k = a.k;
+  const bool vec = a.vec != 0;
+  const int t0 = own ? piece_start[p] : 0;
+  const int len = own ? piece_start[p + 1] - t0 : 0;
+  const int s = own ? slot[p] : 0;
+  const int key = own ? piece_key[p] : 0;
+  const int most = pieces_max<QL>(len);
+  double acc[CH][4];
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0;
+#define LOGITS_ROW(X, V, B)                                                   \
+  if (ch.specialized) load_row<QL, CH>(ch.table + (size_t)(V) * k, q, k, vec, 0.0f, X); \
+  else strided_row<QL, CH>(ch, V, B, q, k, X)
+#define LOGITS_ADD(X, M)                                                      \
+  _Pragma("unroll") for (int i = 0; i < CH; ++i)                              \
+    _Pragma("unroll") for (int e = 0; e < 4; ++e) acc[i][e] += (double)X[i][e] * (M)
+  SEG_WALK(ch.values, ch.base, ch.mask, LOGITS_ROW, LOGITS_ADD)
+#undef LOGITS_ROW
+#undef LOGITS_ADD
+  if (!own) return;
+  if (s >= 0) {
+    double* d = partial + (size_t)s * k;
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (topic<QL>(i, q, e) < k) d[topic<QL>(i, q, e)] = acc[i][e];
+    return;
+  }
+  float* o = out + (size_t)key * k;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = i * QL + q;
+    if (4 * c >= k) continue;
+    if (vec) {
+      float4 w = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (add) w = *reinterpret_cast<const float4*>(o + 4 * c);
+      w.x = add ? (float)(w.x + acc[i][0]) : (float)acc[i][0];
+      w.y = add ? (float)(w.y + acc[i][1]) : (float)acc[i][1];
+      w.z = add ? (float)(w.z + acc[i][2]) : (float)acc[i][2];
+      w.w = add ? (float)(w.w + acc[i][3]) : (float)acc[i][3];
+      __stcs(reinterpret_cast<float4*>(o + 4 * c), w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * c + e < k) o[4 * c + e] = add ? (float)(o[4 * c + e] + acc[i][e]) : (float)acc[i][e];
+    }
+  }
+}
+
+// Phase 1 with one warp per piece, the lanes over topics (lane + 32 j, KPL
+// topics a lane) and the tokens one at a time: the same sums, route and
+// writes as zmap_logits_kernel, for pieces too long for a lane group to
+// walk alone (naive Bayes documents of a few hundred tokens at K = 20).
+template <int KPL>
+__global__ void zmap_logits_warp_kernel(ZArgs a, int target, const int* __restrict__ piece_key,
+                                        const int* __restrict__ piece_start,
+                                        const int* __restrict__ slot, int n_pieces,
+                                        double* __restrict__ partial, float* __restrict__ out,
+                                        int add) {
   const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (warp >= n_pieces) return;
   const ZChildArgs& ch = a.c[target];
   const int k = a.k;
-  float acc[KPL];
+  const int t1 = piece_start[warp + 1], s = slot[warp], key = piece_key[warp];
+  double acc[KPL];
 #pragma unroll
-  for (int j = 0; j < KPL; ++j) acc[j] = 0.0f;
-  const int t1 = piece_start[warp + 1];
+  for (int j = 0; j < KPL; ++j) acc[j] = 0.0;
   for (int t = piece_start[warp]; t < t1; ++t) {
-    const int i = perm[t];
-    const float w = ch.mask ? ch.mask[i] : 1.0f;
-    const float* rrow = r + (size_t)ch.zmap[i] * k;
+    const int v = ch.values[t];
+    const float mk = ch.mask ? ch.mask[t] : 1.0f;
+    const int b = ch.base ? ch.base[t] : 0;
 #pragma unroll
     for (int j = 0; j < KPL; ++j) {
       const int kk = lane + 32 * j;
-      if (kk < k) acc[j] += rrow[kk] * w;
+      float e = 0.0f;
+      if (kk < k)
+        e = ch.specialized ? ch.table[(size_t)v * k + kk]
+                           : ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v];
+      acc[j] += (double)e * mk;
     }
   }
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
     const int kk = lane + 32 * j;
-    if (kk < k) partial[(size_t)warp * k + kk] = acc[j];
+    if (kk >= k) continue;
+    if (s >= 0) {
+      partial[(size_t)s * k + kk] = acc[j];
+    } else {
+      float* o = out + (size_t)key * k + kk;
+      *o = add ? (float)(*o + acc[j]) : (float)acc[j];
+    }
+  }
+}
+
+// Phase 2b, one lane group per piece of a specialized child's tokens grouped
+// by value: the piece's sum of mask * r[zmap], f32, tokens in order.  Each
+// token gathers one K-row of r from the (n_latent, K) table, which the L2
+// does not hold at SLDA's 1.44M sentences: the pass is bound by the gathered
+// bytes, and the walk keeps U rows per piece in flight, the next batch's
+// instance indices loading meanwhile (vec: 16 bytes a load).
+template <int KPL>
+__global__ void SEG_BOUNDS zmap_stats_kernel(ZArgs a, int target, const float* __restrict__ r,
+                                  const int* __restrict__ piece_start, int n_pieces,
+                                  float* __restrict__ partial, int vec) {
+  constexpr int QL = Lanes<KPL>::QL, CH = Lanes<KPL>::CH, PPW = 32 / QL;
+  const int warp = blockIdx.x * FLAT_WARPS + (threadIdx.x >> 5);
+  if (warp * PPW >= n_pieces) return;
+  const int lane = threadIdx.x & 31, q = lane % QL, p = warp * PPW + lane / QL;
+  const bool own = p < n_pieces;
+  const ZChildArgs& ch = a.c[target];
+  const int k = a.k;
+  const int t0 = own ? piece_start[p] : 0;
+  const int len = own ? piece_start[p + 1] - t0 : 0;
+  const int most = pieces_max<QL>(len);
+  float acc[CH][4];
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+#define STATS_ROW(X, Z, B) load_row<QL, CH>(r + (size_t)(Z) * k, q, k, vec != 0, 0.0f, X)
+#define STATS_ADD(X, W)                                                       \
+  _Pragma("unroll") for (int i = 0; i < CH; ++i)                              \
+    _Pragma("unroll") for (int e = 0; e < 4; ++e) acc[i][e] += X[i][e] * (W)
+  SEG_WALK(ch.zmap, (const int*)nullptr, ch.mask, STATS_ROW, STATS_ADD)
+#undef STATS_ROW
+#undef STATS_ADD
+  if (!own) return;
+  float* d = partial + (size_t)p * k;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    const int c = i * QL + q;
+    if (4 * c >= k) continue;
+    if (vec) {
+      *reinterpret_cast<float4*>(d + 4 * c) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * c + e < k) d[4 * c + e] = acc[i][e];
+    }
   }
 }
 
 // Phase 2b of a strided child: one warp per value column walks the column's
 // tokens in order and adds mask * r[zmap] into rows base + stride * k of out
-// (zeroed).
+// (zeroed).  Off every path at full size; it reads the pass's streams.
 template <int KPL>
 __global__ void zmap_strided_kernel(ZArgs a, int target, const float* __restrict__ r,
-                                    const int* __restrict__ perm,
                                     const int* __restrict__ key_start, int n_keys,
                                     float* __restrict__ out) {
   const int warp = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
@@ -599,10 +807,9 @@ __global__ void zmap_strided_kernel(ZArgs a, int target, const float* __restrict
   const int k = a.k;
   const int t1 = key_start[warp + 1];
   for (int t = key_start[warp]; t < t1; ++t) {
-    const int i = perm[t];
-    const float w = ch.mask ? ch.mask[i] : 1.0f;
-    const int b = ch.base ? ch.base[i] : 0;
-    const float* rrow = r + (size_t)ch.zmap[i] * k;
+    const float w = ch.mask ? ch.mask[t] : 1.0f;
+    const int b = ch.base ? ch.base[t] : 0;
+    const float* rrow = r + (size_t)ch.zmap[t] * k;
 #pragma unroll
     for (int j = 0; j < KPL; ++j) {
       const int kk = lane + 32 * j;
@@ -635,6 +842,12 @@ static int kpl_of(int k) {
   if (k <= 512) return 16;
   if (k <= 1024) return 32;
   return 0;
+}
+
+// Lanes per token (flat passes) or per piece (segment passes) at K.
+static int kpl_lanes(int k) {
+  const int kpl = kpl_of(k);
+  return kpl >= 8 ? 32 : 4 * kpl;
 }
 
 static inline unsigned blocks_for(int warps) {
@@ -706,19 +919,21 @@ int zstats_finish(const void* partial, const void* key_pieces, int n_keys, int k
     return (int)cudaGetLastError();
   }
   finish_kernel<float><<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)partial, (const int*)key_pieces, n_keys, k, (float*)out, stride_key,
-      stride_k, add);
+      (const float*)partial, nullptr, (const int*)key_pieces, n_keys, k, (float*)out,
+      stride_key, stride_k, add);
   return (int)cudaGetLastError();
 }
 
-// zstats_finish over f64 partials (phase 1 of a segment latent).
-int zstats_finish64(const void* partial, const void* key_pieces, int n_keys, int k,
-                    void* out, long long stride_key, long long stride_k, int add,
+// The finish of phase 1 over f64 partials, for the n_keys instances `keys`
+// (those of several pieces, or of none): key keys[w] adds partial rows
+// key_pieces[w] .. key_pieces[w + 1] - 1.
+int zstats_finish64(const void* partial, const void* keys, const void* key_pieces, int n_keys,
+                    int k, void* out, long long stride_key, long long stride_k, int add,
                     void* stream) {
   if (n_keys <= 0) return 0;
   finish_kernel<double><<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
-      (const double*)partial, (const int*)key_pieces, n_keys, k, (float*)out, stride_key,
-      stride_k, add);
+      (const double*)partial, (const int*)keys, (const int*)key_pieces, n_keys, k, (float*)out,
+      stride_key, stride_k, add);
   return (int)cudaGetLastError();
 }
 
@@ -739,38 +954,57 @@ int zstats_strided(const void* args, int target, const void* key_start, int n_ke
   });
 }
 
-int zmap_logits(const void* args, int target, const void* perm, const void* piece_start,
-                int n_pieces, void* partial, void* stream) {
-  const ZArgs a = *(const ZArgs*)args;
+// Blocks of the segment passes for n_pieces pieces, PPW to a warp.
+static unsigned seg_blocks(int n_pieces, int k) {
+  const int ppw = 32 / kpl_lanes(k);
+  const int warps = (n_pieces + ppw - 1) / ppw;
+  return (unsigned)((warps + FLAT_WARPS - 1) / FLAT_WARPS);
+}
+
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// warp != 0: zmap_logits_warp_kernel, a warp per piece.
+int zmap_logits(const void* args, int target, const void* piece_key, const void* piece_start,
+                const void* slot, int n_pieces, void* partial, void* out, int add, int warp,
+                void* stream) {
+  ZArgs a = *(const ZArgs*)args;
   if (n_pieces <= 0) return 0;
+  a.vec = a.vec && aligned16(out);
+  cudaStream_t s = (cudaStream_t)stream;
   return dispatch_kpl(a.k, [&](auto kpl) {
-    zmap_logits_kernel<decltype(kpl)::value>
-        <<<blocks_for(n_pieces), THREADS, 0, (cudaStream_t)stream>>>(
-            a, target, (const int*)perm, (const int*)piece_start, n_pieces, (double*)partial);
+    constexpr int KPL = decltype(kpl)::value;
+    if (warp)
+      zmap_logits_warp_kernel<KPL><<<blocks_for(n_pieces), THREADS, 0, s>>>(
+          a, target, (const int*)piece_key, (const int*)piece_start, (const int*)slot,
+          n_pieces, (double*)partial, (float*)out, add);
+    else
+      zmap_logits_kernel<KPL><<<seg_blocks(n_pieces, a.k), 32 * FLAT_WARPS, 0, s>>>(
+          a, target, (const int*)piece_key, (const int*)piece_start, (const int*)slot,
+          n_pieces, (double*)partial, (float*)out, add);
   });
 }
 
-int zmap_stats(const void* args, int target, const void* r, const void* perm,
-               const void* piece_start, int n_pieces, void* partial, void* stream) {
+int zmap_stats(const void* args, int target, const void* r, const void* piece_start,
+               int n_pieces, void* partial, void* stream) {
   const ZArgs a = *(const ZArgs*)args;
   if (n_pieces <= 0) return 0;
+  const int vec = a.k % 4 == 0 && aligned16(r) && aligned16(partial);
   return dispatch_kpl(a.k, [&](auto kpl) {
     zmap_stats_kernel<decltype(kpl)::value>
-        <<<blocks_for(n_pieces), THREADS, 0, (cudaStream_t)stream>>>(
-            a, target, (const float*)r, (const int*)perm, (const int*)piece_start, n_pieces,
-            (float*)partial);
+        <<<seg_blocks(n_pieces, a.k), 32 * FLAT_WARPS, 0, (cudaStream_t)stream>>>(
+            a, target, (const float*)r, (const int*)piece_start, n_pieces, (float*)partial,
+            vec);
   });
 }
 
-int zmap_strided(const void* args, int target, const void* r, const void* perm,
-                 const void* key_start, int n_keys, void* out, void* stream) {
+int zmap_strided(const void* args, int target, const void* r, const void* key_start,
+                 int n_keys, void* out, void* stream) {
   const ZArgs a = *(const ZArgs*)args;
   if (n_keys <= 0) return 0;
   return dispatch_kpl(a.k, [&](auto kpl) {
     zmap_strided_kernel<decltype(kpl)::value>
         <<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
-            a, target, (const float*)r, (const int*)perm, (const int*)key_start, n_keys,
-            (float*)out);
+            a, target, (const float*)r, (const int*)key_start, n_keys, (float*)out);
   });
 }
 

@@ -15,21 +15,24 @@ Bound on the H100: bytes.  Each element is read once and written once
 ratio of operations to bytes, so the least time is the table's traffic over
 3.35 TB/s.  Design:
 
-  - a row-sum pass then an elementwise pass.  The row-sum pass gives a
-    program a block of whole rows and loops over column blocks, so a row of
-    any length (phi's V = 102,660) sums in a fixed order; the elementwise
-    pass subtracts the row's digamma over 2-D tiles.  For theta's short rows
-    (K = 100) both passes take blocks of 8 rows.  The TPU's 128-lane padding
-    with 1.0 and its row-sum correction are gone: lanes past K are masked
-    in the kernel.
-  - the output is written through strides, so the same pass can emit a
-    table transposed — the VMP step asks for phi as (V, K), the layout the
-    ``zstats`` kernel reads, which puts one token's K-vector message in
-    contiguous memory.
+  - a row-sum pass then an elementwise pass.  The row-sum pass cuts each
+    row into chunks of whole column blocks (:func:`row_chunks`) and gives
+    a program a block of rows and one chunk, so that a few long rows (phi's
+    100 rows of V = 102,660) still fill the card; each program sums its
+    chunk in a fixed order and writes one partial per row.  The
+    elementwise pass adds a row's chunk partials in a fixed order (a tree
+    over the padded partials), takes its digamma and subtracts it over its
+    tile, so repeated calls are bitwise equal.  For theta's short rows
+    (K = 100) a row is one chunk and both passes take blocks of 8 rows.
+    The TPU's 128-lane padding with 1.0 and its row-sum correction are gone:
+    lanes past K are masked in the kernel.
+  - a table of at most 256 rows is emitted transposed as the VMP step asks
+    for phi, (V, K), the layout the ``zstats`` kernel reads: a program
+    takes every row (padded to a power of two) of a block of columns and
+    stores the transposed tile as contiguous output rows.  Any other table
+    is written through strides over 2-D tiles.
   - digamma is the TPU kernel's recurrence: shift by 8, then the asymptotic
     series, valid for x > 0 (concentrations always are).
-  - sums run in a fixed order per program, so repeated calls are bitwise
-    equal.
 
 Input f32 or bf16, output f32 (narrow tables are upcast in registers).
 """
@@ -42,6 +45,41 @@ import torch
 launches = 0
 
 _MAX_BLOCK_K = 1024
+#: row-sum programs to aim for, per SM
+_WAVES = 8
+#: most chunks a row is cut into (the elementwise pass loads them all)
+_MAX_CHUNKS = 64
+#: most rows of a table emitted transposed with contiguous stores
+_MAX_T_ROWS = 256
+#: elements of one transposed tile, its most columns, and its warps
+_T_TILE, _T_COLS, _T_WARPS = 8192, 128, 8
+#: (rows, columns) of a strided tile of a transposed table
+_S_TILE = (32, 64)
+#: digamma's divisions: 0 IEEE, 1 approximate, 2 approximate in pairs
+_FAST_DIGAMMA = 0
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def _blocks(k: int) -> tuple:
+    """(rows, columns) of a row-sum program's block for rows of length k."""
+    bk = min(_next_pow2(k), _MAX_BLOCK_K)
+    return _MAX_BLOCK_K // bk, bk
+
+
+def row_chunks(g: int, k: int, n_sm: int = 132) -> tuple:
+    """``(chunks, chunk columns)`` of the row-sum pass over a (g, k) table:
+    each row is cut into ``chunks`` runs of ``chunk columns`` (whole column
+    blocks; the last run shorter), the shortest runs that keep the count
+    within the chunks that give ``_WAVES`` programs per SM over the card's
+    ``n_sm`` SMs, and within ``_MAX_CHUNKS``."""
+    br, bk = _blocks(k)
+    blocks = -(-k // bk)
+    want = -(-_WAVES * n_sm // -(-g // br))
+    per = -(-blocks // max(1, min(want, blocks, _MAX_CHUNKS)))
+    return -(-blocks // per), per * bk
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,51 +87,99 @@ def _kernels():
     """Import Triton and define the kernels, at the first launch: the CPU
     build of the port has no Triton.  Triton looks the names a kernel uses
     up in its module's globals when it compiles, so the imports bind there."""
-    global triton, tl, _digamma
+    global triton, tl, _digamma, _row_digamma
     import triton
     import triton.language as tl
 
     @triton.jit
-    def _digamma(x):
+    def _digamma(x, FAST: tl.constexpr):
+        # FAST 0: IEEE divisions; 1: approximate divisions (2 ulp); 2: the
+        # shift's eight reciprocals as four pairs, 1/a + 1/b = (a+b)/(ab),
+        # approximate
         acc = tl.zeros_like(x)
-        for _ in tl.static_range(8):
-            acc = acc + 1.0 / x
-            x = x + 1.0
-        inv = 1.0 / x
+        if FAST == 2:
+            for _ in tl.static_range(4):
+                y = x + 1.0
+                acc = acc + tl.fdiv(x + y, x * y, ieee_rounding=False)
+                x = y + 1.0
+        else:
+            for _ in tl.static_range(8):
+                if FAST == 1:
+                    acc = acc + tl.fdiv(1.0, x, ieee_rounding=False)
+                else:
+                    acc = acc + 1.0 / x
+                x = x + 1.0
+        if FAST == 0:
+            inv = 1.0 / x
+        else:
+            inv = tl.fdiv(1.0, x, ieee_rounding=False)
         inv2 = inv * inv
         series = (tl.log(x) - 0.5 * inv
                   - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0)))
         return series - acc
 
     @triton.jit
-    def rowsum_digamma(a_ptr, dg_ptr, G, K, stride_ag,
-                       BLOCK_R: tl.constexpr, BLOCK_K: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_K)
-        rmask = rows < G
-        # lane-wise partial sums in the loop, one tree reduction after it
-        acc = tl.zeros((BLOCK_R, BLOCK_K), dtype=tl.float32)
-        for k0 in range(0, K, BLOCK_K):
-            c = k0 + cols
-            m = rmask[:, None] & (c < K)[None, :]
-            acc += tl.load(a_ptr + rows[:, None] * stride_ag + c[None, :],
-                           mask=m, other=0.0).to(tl.float32)
-        tl.store(dg_ptr + rows, _digamma(tl.sum(acc, axis=1)), mask=rmask)
+    def _row_digamma(part_ptr, rows, rmask, C, CP: tl.constexpr,
+                     FAST: tl.constexpr):
+        # digamma of each row's sum: its C chunk partials added by one tree
+        # over the CP (>= C, zero-padded) slots, the same in every program
+        c = tl.arange(0, CP)
+        p = tl.load(part_ptr + rows[:, None] * C + c[None, :],
+                    mask=rmask[:, None] & (c < C)[None, :], other=0.0)
+        return _digamma(tl.sum(p, axis=1), FAST)
 
     @triton.jit
-    def elog(a_ptr, dg_ptr, out_ptr, G, K, stride_ag, stride_og, stride_ok,
-             BLOCK_R: tl.constexpr, BLOCK_K: tl.constexpr):
+    def rowsum(a_ptr, part_ptr, G, K, stride_ag, C, CHUNK,
+               BLOCK_R: tl.constexpr, BLOCK_K: tl.constexpr):
+        # rows of program axis 0, columns CHUNK * c .. of chunk c (axis 1)
+        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
+        chunk = tl.program_id(1)
+        cols = tl.arange(0, BLOCK_K)
+        rmask = rows < G
+        lo = chunk * CHUNK
+        hi = tl.minimum(lo + CHUNK, K)
+        # lane-wise partial sums in the loop, one tree reduction after it
+        acc = tl.zeros((BLOCK_R, BLOCK_K), dtype=tl.float32)
+        for k0 in range(lo, hi, BLOCK_K):
+            c = k0 + cols
+            m = rmask[:, None] & (c < hi)[None, :]
+            acc += tl.load(a_ptr + rows[:, None] * stride_ag + c[None, :],
+                           mask=m, other=0.0).to(tl.float32)
+        tl.store(part_ptr + rows * C + chunk, tl.sum(acc, axis=1), mask=rmask)
+
+    @triton.jit
+    def elog(a_ptr, part_ptr, out_ptr, G, K, stride_ag, stride_og, stride_ok,
+             C, CP: tl.constexpr, FAST: tl.constexpr, BLOCK_R: tl.constexpr,
+             BLOCK_K: tl.constexpr):
         rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
         cols = tl.program_id(1) * BLOCK_K + tl.arange(0, BLOCK_K)
-        m = (rows < G)[:, None] & (cols < K)[None, :]
+        rmask = rows < G
+        m = rmask[:, None] & (cols < K)[None, :]
         a = tl.load(a_ptr + rows[:, None] * stride_ag + cols[None, :],
                     mask=m, other=1.0).to(tl.float32)
-        dg = tl.load(dg_ptr + rows, mask=rows < G, other=0.0)
-        out = _digamma(a) - dg[:, None]
+        dg = _row_digamma(part_ptr, rows, rmask, C, CP, FAST)
+        out = _digamma(a, FAST) - dg[:, None]
         tl.store(out_ptr + rows[:, None] * stride_og + cols[None, :] * stride_ok,
                  out, mask=m)
 
-    return rowsum_digamma, elog
+    @triton.jit
+    def elog_t(a_ptr, part_ptr, out_ptr, G, K, stride_ag, C,
+               CP: tl.constexpr, FAST: tl.constexpr, BLOCK_G: tl.constexpr,
+               BLOCK_K: tl.constexpr):
+        # every row of a block of columns; the (columns, rows) tile is the
+        # contiguous run out[col0 * G : (col0 + BLOCK_K) * G]
+        rows = tl.arange(0, BLOCK_G)
+        cols = tl.program_id(0) * BLOCK_K + tl.arange(0, BLOCK_K)
+        rmask = rows < G
+        m = rmask[:, None] & (cols < K)[None, :]
+        a = tl.load(a_ptr + rows[:, None] * stride_ag + cols[None, :],
+                    mask=m, other=1.0).to(tl.float32)
+        dg = _row_digamma(part_ptr, rows, rmask, C, CP, FAST)
+        out = _digamma(a, FAST) - dg[:, None]
+        tl.store(out_ptr + cols[:, None] * G + rows[None, :], tl.trans(out),
+                 mask=(cols < K)[:, None] & rmask[None, :])
+
+    return rowsum, elog, elog_t
 
 
 def _check(alpha: torch.Tensor):
@@ -103,6 +189,49 @@ def _check(alpha: torch.Tensor):
         raise TypeError(f"expected float32 or bfloat16, got {alpha.dtype}")
     if not alpha.is_contiguous():
         raise ValueError("expected a contiguous table")
+
+
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def row_sums(alpha: torch.Tensor) -> torch.Tensor:
+    """The row-sum pass: the (G, chunks) f32 chunk partials of each row of a
+    non-empty (G, K) table on the card (:func:`row_chunks`)."""
+    rowsum = _kernels()[0]
+    g, k = alpha.shape
+    c, chunk = row_chunks(g, k, _n_sm(alpha.device))
+    br, bk = _blocks(k)
+    part = torch.empty((g, c), dtype=torch.float32, device=alpha.device)
+    rowsum[(-(-g // br), c)](alpha, part, g, k, alpha.stride(0), c, chunk,
+                             BLOCK_R=br, BLOCK_K=bk)
+    return part
+
+
+def elog_from_sums(alpha: torch.Tensor, part: torch.Tensor,
+                   transpose: bool = False) -> torch.Tensor:
+    """The elementwise pass: E[log theta] of a non-empty (G, K) table from
+    its :func:`row_sums` partials, as (G, K) or, ``transpose``, (K, G)."""
+    _, elog, elog_t = _kernels()
+    g, k = alpha.shape
+    c = part.shape[1]
+    cp = max(2, _next_pow2(c))
+    out = torch.empty((k, g) if transpose else (g, k), dtype=torch.float32,
+                      device=alpha.device)
+    if transpose and g <= _MAX_T_ROWS:
+        bg = max(16, _next_pow2(g))
+        bk = min(_T_TILE // bg, _T_COLS)
+        elog_t[(-(-k // bk),)](alpha, part, out, g, k, alpha.stride(0), c,
+                               CP=cp, FAST=_FAST_DIGAMMA, BLOCK_G=bg,
+                               BLOCK_K=bk, num_warps=_T_WARPS)
+        return out
+    br, bk = _blocks(k)
+    so_g, so_k = (1, g) if transpose else (k, 1)
+    er, ek = _S_TILE if transpose else (br, bk)
+    elog[(-(-g // er), -(-k // ek))](
+        alpha, part, out, g, k, alpha.stride(0), so_g, so_k, c, CP=cp,
+        FAST=_FAST_DIGAMMA, BLOCK_R=er, BLOCK_K=ek)
+    return out
 
 
 def dirichlet_expectation(alpha: torch.Tensor,
@@ -115,22 +244,10 @@ def dirichlet_expectation(alpha: torch.Tensor,
     _check(alpha)
     if alpha.device.type != "cuda":
         raise ValueError(f"no kernel for device {alpha.device}")
-    import triton
-    rowsum_digamma, elog = _kernels()
     g, k = alpha.shape
-    out = torch.empty((k, g) if transpose else (g, k), dtype=torch.float32,
-                      device=alpha.device)
     if g == 0 or k == 0:
-        return out
-    so_g, so_k = (1, g) if transpose else (k, 1)
-    bk = min(triton.next_power_of_2(k), _MAX_BLOCK_K)
-    br = _MAX_BLOCK_K // bk
-    dg = torch.empty((g,), dtype=torch.float32, device=alpha.device)
-    rowsum_digamma[(triton.cdiv(g, br),)](alpha, dg, g, k, alpha.stride(0),
-                                          BLOCK_R=br, BLOCK_K=bk)
-    er, ek = (32, 64) if transpose else (br, bk)
-    elog[(triton.cdiv(g, er), triton.cdiv(k, ek))](
-        alpha, dg, out, g, k, alpha.stride(0), so_g, so_k,
-        BLOCK_R=er, BLOCK_K=ek)
+        return torch.empty((k, g) if transpose else (g, k),
+                           dtype=torch.float32, device=alpha.device)
+    out = elog_from_sums(alpha, row_sums(alpha), transpose)
     launches += 1
     return out

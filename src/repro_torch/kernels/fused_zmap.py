@@ -23,7 +23,12 @@ source note says what bounds them on the H100):
 Owner passes, as in ``fused_zstats``: the host groups each zmap child's
 tokens by instance (phase 1) and by value (phase 2b) once per program
 (:func:`build_zmap_plan`), so no float atomics run and two calls are
-bitwise equal.  What the TPU kernel did only for the TPU is gone: the
+bitwise equal.  The plan also holds each pass's token streams gathered into
+its piece order (:func:`zmap_streams`), so no pass reads a permutation, and
+routes phase 1 (:func:`latent_route`): an instance of one piece (an SLDA
+sentence) gets its logits row from that piece, an instance of several (a
+naive Bayes document) from f64 partials that a finishing pass adds in
+order.  What the TPU kernel did only for the TPU is gone: the
 8 MiB budget that sent SLDA at NYTimes widths to the chunked oracle
 (``fusable_zmap``), the one-hot matmuls and the padding.  The plain version
 is ``ref.zstats`` (its segmented path); ``ops`` runs it on the CPU.
@@ -33,6 +38,7 @@ import ctypes
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import fused_zstats as _fz
@@ -42,26 +48,35 @@ launches = 0
 #: ``zmap_logits`` calls that launched phase 1 alone
 logits_launches = 0
 
+#: phase 1's kernel: "group" (a few lanes a piece) or "warp" (a warp a
+#: piece); None picks by the plan (:func:`logits_route`)
+_LOGITS_ROUTE = None
+
 
 @dataclasses.dataclass
 class ZmapPlan:
     """The owner plan of one segment latent: phase 2a's flat plan (the
-    prior rows over the latent instances, the children without a zmap), and
-    per zmap child its tokens grouped by instance and by value."""
+    prior rows over the latent instances, the children without a zmap), per
+    zmap child its tokens grouped by instance and by value, and
+    :func:`zmap_streams`' arrays (each pass's streams in its piece order,
+    phase 1's routes)."""
     flat: Optional[_fz.ZPlan]
     by_latent: tuple
     by_value: tuple
     device: Optional[torch.device] = None
     tensors: dict = dataclasses.field(default_factory=dict)
+    streams: dict = dataclasses.field(default_factory=dict)
 
     def to(self, device) -> "ZmapPlan":
         """A copy whose index arrays also live on ``device``."""
         device = torch.device(device)
         named = [(f"latent{i}", g) for i, g in enumerate(self.by_latent)] + \
             [(f"value{i}", g) for i, g in enumerate(self.by_value)]
+        arrays = _fz.grouping_arrays(named)
+        arrays.update(self.streams)
         flat = self.flat.to(device) if self.flat is not None else None
         return ZmapPlan(flat, self.by_latent, self.by_value, device,
-                        _fz.device_arrays(_fz.grouping_arrays(named), device))
+                        _fz.device_arrays(arrays, device), self.streams)
 
 
 def _split(children):
@@ -73,6 +88,48 @@ def _split(children):
 def _by_latent(zkids, n_latent: int, piece: int) -> tuple:
     return tuple(_fz.group_tokens(_fz.host(c.zmap), n_latent, piece)
                  for c in zkids)
+
+
+def latent_route(g: _fz.Grouping) -> dict:
+    """Phase 1's route through a grouping by instance: ``slot`` (per piece:
+    -1 where the piece is its instance's only one and writes the logits row
+    itself, else its row of the f64 partials, consecutive per instance),
+    ``fkeys`` (the instances the finishing pass writes: those of several
+    pieces, and those of none, whose row is zero) and ``fstart`` (instance
+    ``fkeys[m]`` adds partial rows ``fstart[m]:fstart[m + 1]``)."""
+    n_per = np.diff(g.key_pieces)
+    multi = n_per != 1
+    in_multi = multi[g.piece_key]
+    slot = np.where(in_multi, np.cumsum(in_multi) - 1, -1)
+    fstart = np.zeros(int(multi.sum()) + 1, np.int64)
+    np.cumsum(n_per[multi], out=fstart[1:])
+    i32 = lambda a: np.asarray(a, np.int32)  # noqa: E731
+    return {"slot": i32(slot), "fkeys": i32(np.flatnonzero(multi)),
+            "fstart": i32(fstart)}
+
+
+def _gathered(name: str, g: _fz.Grouping, c, fields) -> dict:
+    """``{(name, field): array}``: child ``c``'s token streams ``fields``
+    gathered into ``g``'s piece order; nothing where ``g`` keeps the
+    call's order, so the pass reads the call's own arrays."""
+    if g.identity:
+        return {}
+    return {(name, f): _fz.host(getattr(c, f))[g.perm] for f in fields
+            if getattr(c, f) is not None}
+
+
+def zmap_streams(zkids, by_latent, by_value) -> dict:
+    """``{(pass, field): array}`` for the segment passes: phase 1's
+    (``latent{j}``) values, base and mask of zmap child j in its grouping by
+    instance, and its :func:`latent_route`; phase 2b's (``value{j}``) zmap,
+    base and mask in its grouping by value."""
+    out = {}
+    for j, (c, g) in enumerate(zip(zkids, by_latent)):
+        out.update(_gathered(f"latent{j}", g, c, ("values", "base", "mask")))
+        out.update({(f"latent{j}", f): a for f, a in latent_route(g).items()})
+    for j, (c, g) in enumerate(zip(zkids, by_value)):
+        out.update(_gathered(f"value{j}", g, c, ("zmap", "base", "mask")))
+    return out
 
 
 def build_zmap_plan(prior_rows, children, prior_shape: tuple,
@@ -87,11 +144,12 @@ def build_zmap_plan(prior_rows, children, prior_shape: tuple,
     k = prior_shape[1]
     for i, c in enumerate(zkids):
         _fz.check_strided_rows(i, c, k)
-    return ZmapPlan(
-        _fz.build_plan(prior_rows, flat, prior_shape, piece),
-        _by_latent(zkids, len(prior_rows), piece),
-        tuple(_fz.group_tokens(_fz.host(c.values), c.elog.shape[1], piece)
-              for c in zkids))
+    by_latent = _by_latent(zkids, len(prior_rows), piece)
+    by_value = tuple(_fz.group_tokens(_fz.host(c.values), c.elog.shape[1],
+                                      piece) for c in zkids)
+    return ZmapPlan(_fz.build_plan(prior_rows, flat, prior_shape, piece),
+                    by_latent, by_value,
+                    streams=zmap_streams(zkids, by_latent, by_value))
 
 
 def _check_device(t: torch.Tensor):
@@ -99,20 +157,46 @@ def _check_device(t: torch.Tensor):
         raise ValueError(f"no kernel for device {t.device}")
 
 
+def _pass_args(base, plan: ZmapPlan, name: str, j: int):
+    """The ZArgs of segment pass ``name`` over zmap child ``j``: ``base``
+    with the child's streams in the pass's piece order in their place."""
+    a = _fz._Args.from_buffer_copy(base)
+    for f in ("values", "base", "mask", "zmap"):
+        if (name, f) in plan.tensors:
+            setattr(a.c[j], f, plan.tensors[name, f].data_ptr())
+    return a
+
+
+def logits_route(g: _fz.Grouping) -> str:
+    """Phase 1's kernel for a grouping by instance: "warp" where its
+    instances are cut into several pieces (long documents), else "group"."""
+    if _LOGITS_ROUTE is not None:
+        return _LOGITS_ROUTE
+    return "warp" if g.n_pieces > g.n_keys else "group"
+
+
 def _logits(lib, zargs, plan: ZmapPlan, n_latent: int, k: int, stream):
     """Phase 1: the ``(n_latent, K)`` f32 logits, zmap children in order,
-    each summed over f64 piece partials."""
+    each instance's row written by its one piece or by the finish of its
+    f64 partials."""
     dev = plan.device
+    t = plan.tensors
     logits = torch.empty((n_latent, k), dtype=torch.float32, device=dev)
     for j, g in enumerate(plan.by_latent):
         name = f"latent{j}"
-        partial = torch.empty((g.n_pieces, k), dtype=torch.float64, device=dev)
+        fkeys = plan.streams[name, "fkeys"]
+        partial = torch.empty((int(plan.streams[name, "fstart"][-1]), k),
+                              dtype=torch.float64, device=dev)
+        args = _pass_args(zargs, plan, name, j)
         _fz.check_launch(lib.zmap_logits(
-            ctypes.addressof(zargs), j, plan.tensors[name, "perm"].data_ptr(),
-            plan.tensors[name, "piece_start"].data_ptr(), g.n_pieces,
-            partial.data_ptr(), stream), "zmap_logits")
-        _fz.finish(lib, partial, plan.tensors, name, n_latent, k, logits, k, 1,
-                   stream, add=j > 0)
+            ctypes.addressof(args), j, t[name, "piece_key"].data_ptr(),
+            t[name, "piece_start"].data_ptr(), t[name, "slot"].data_ptr(),
+            g.n_pieces, partial.data_ptr(), logits.data_ptr(), int(j > 0),
+            int(logits_route(g) == "warp"), stream), "zmap_logits")
+        _fz.check_launch(lib.zstats_finish64(
+            partial.data_ptr(), t[name, "fkeys"].data_ptr(),
+            t[name, "fstart"].data_ptr(), len(fkeys), k, logits.data_ptr(), k,
+            1, int(j > 0), stream), "finish64")
     return logits
 
 
@@ -154,25 +238,26 @@ def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     del logits
 
     zout = []
+    t = plan.tensors
     for j, (c, g) in enumerate(zip(zkids, plan.by_value)):
         gf, kf = c.elog.shape
-        t = plan.tensors
         name = f"value{j}"
+        args = _pass_args(zargs, plan, name, j)
         if c.specialized:
             cs = torch.empty((gf, kf), dtype=torch.float32, device=dev)
             partial = torch.empty((g.n_pieces, k), dtype=torch.float32,
                                   device=dev)
             _fz.check_launch(lib.zmap_stats(
-                ctypes.addressof(zargs), j, r.data_ptr(),
-                t[name, "perm"].data_ptr(), t[name, "piece_start"].data_ptr(),
-                g.n_pieces, partial.data_ptr(), stream), "zmap_stats")
+                ctypes.addressof(args), j, r.data_ptr(),
+                t[name, "piece_start"].data_ptr(), g.n_pieces,
+                partial.data_ptr(), stream), "zmap_stats")
             _fz.finish(lib, partial, t, name, kf, k, cs, 1, kf, stream)
         else:
             cs = torch.zeros((gf, kf), dtype=torch.float32, device=dev)
             _fz.check_launch(lib.zmap_strided(
-                ctypes.addressof(zargs), j, r.data_ptr(),
-                t[name, "perm"].data_ptr(), t[name, "key_start"].data_ptr(),
-                kf, cs.data_ptr(), stream), "zmap_strided")
+                ctypes.addressof(args), j, r.data_ptr(),
+                t[name, "key_start"].data_ptr(), kf, cs.data_ptr(), stream),
+                "zmap_strided")
         zout.append(cs)
     zit, fit = iter(zout), iter(fstats)
     cstats = tuple(next(zit) if c.zmap is not None else next(fit)
@@ -203,7 +288,9 @@ def zmap_logits(children: tuple, n_latent: int, k: int, *,
     if plan is None:
         for i, c in enumerate(children):
             _fz.check_strided_rows(i, c, k)
-        plan = ZmapPlan(None, _by_latent(children, n_latent, _fz.PIECE), ())
+        by_latent = _by_latent(children, n_latent, _fz.PIECE)
+        plan = ZmapPlan(None, by_latent, (),
+                        streams=zmap_streams(children, by_latent, ()))
     if plan.device != dev:
         plan = plan.to(dev)
     tabs = [_fz.elog_table(c.elog, tables, c.specialized) for c in children]

@@ -281,12 +281,12 @@ def library() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.zstats_pieces.argtypes = [p, i, p, p, i, p, p, p]
     lib.zstats_finish.argtypes = [p, p, i, i, p, ll, ll, i, p]
-    lib.zstats_finish64.argtypes = [p, p, i, i, p, ll, ll, i, p]
+    lib.zstats_finish64.argtypes = [p, p, p, i, i, p, ll, ll, i, p]
     lib.zstats_strided.argtypes = [p, i, p, i, p, p]
     lib.zstats_sum.argtypes = [p, i, p, p]
-    lib.zmap_logits.argtypes = [p, i, p, p, i, p, p]
-    lib.zmap_stats.argtypes = [p, i, p, p, p, i, p, p]
-    lib.zmap_strided.argtypes = [p, i, p, p, p, i, p, p]
+    lib.zmap_logits.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
+    lib.zmap_stats.argtypes = [p, i, p, p, i, p, p]
+    lib.zmap_strided.argtypes = [p, i, p, p, i, p, p]
     for fn in (lib.zstats_pieces, lib.zstats_finish, lib.zstats_finish64,
                lib.zstats_strided,
                lib.zstats_sum, lib.zmap_logits, lib.zmap_stats,
@@ -331,15 +331,12 @@ def make_args(k: int, children, tabs, prior=None, prior_rows=None, zmask=None,
 
 
 def finish(lib, partial, tensors, name, n_keys, k, out, stride_key, stride_k,
-           stream, add=False):
-    """Add each key's pieces of ``partial`` (f32, or f64 for phase 1 of a
-    segment latent) in order into its row or column of ``out`` (``add``:
-    onto what is there), rounded once to f32."""
-    fn = lib.zstats_finish64 if partial.dtype == torch.float64 \
-        else lib.zstats_finish
-    check_launch(fn(
+           stream):
+    """Add each key's f32 pieces of ``partial`` in order into its row or
+    column of ``out``."""
+    check_launch(lib.zstats_finish(
         partial.data_ptr(), tensors[name, "key_pieces"].data_ptr(), n_keys, k,
-        out.data_ptr(), stride_key, stride_k, int(add), stream), "finish")
+        out.data_ptr(), stride_key, stride_k, 0, stream), "finish")
 
 
 # ---------------------------------------------------------------------------

@@ -179,6 +179,65 @@ def test_dirichlet_expectation_matches_jax(shape):
     np.testing.assert_array_equal(got_t.numpy(), got.numpy().T)
 
 
+def _chunked_elog(a: torch.Tensor, n_sm: int = 132) -> torch.Tensor:
+    """The Elog pass's sums in torch, in the kernels' fixed structure: each
+    row cut into ``row_chunks`` chunks of whole column blocks; a chunk's
+    lanes add their columns block after block, then meet in one sum; a
+    row's chunk partials meet in one more; digamma of that, subtracted."""
+    g, k = a.shape
+    c, chunk = tde.row_chunks(g, k, n_sm)
+    _, bk = tde._blocks(k)
+    pad = torch.zeros((g, c * chunk), dtype=torch.float32)
+    pad[:, :k] = a
+    lanes = pad.view(g, c, chunk // bk, bk)
+    acc = lanes[:, :, 0]
+    for b in range(1, chunk // bk):
+        acc = acc + lanes[:, :, b]
+    part = acc.sum(-1)
+    return torch.special.digamma(a) - torch.special.digamma(
+        part.sum(-1, keepdim=True))
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(5, 102660), (100, 102660),
+                                            (20, 61188)])
+def test_chunked_row_sums_match_jax(shape):
+    """The Elog pass's chunked row sums, emulated in their fixed order at
+    each shape's chunk count, give the reference's E[log theta] within
+    chip_smoke.py's DE_TOL (rtol = atol = 2e-4): f32 sums in another
+    order."""
+    rng = np.random.default_rng(sum(shape) + 2)
+    a = (rng.gamma(1.0, 1.0, size=shape) + 1e-2).astype(np.float32)
+    want = np.asarray(jref.dirichlet_expectation(jnp.asarray(a)))
+    got = _chunked_elog(torch.from_numpy(a))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("g,k,n_sm", [(100, 102660, 132), (30000, 100, 132),
+                                      (5, 102660, 132), (20, 61188, 132),
+                                      (1, 2, 132), (100, 102660, 114),
+                                      (1, 10 ** 6, 132), (7, 1025, 8)])
+def test_row_chunks_cover_each_row_in_whole_blocks(g, k, n_sm):
+    """Each row is cut into chunks of whole column blocks that cover it
+    once (the last one shorter): the shortest chunks that keep their count
+    within the count that gives _WAVES programs an SM and within
+    _MAX_CHUNKS."""
+    c, chunk = tde.row_chunks(g, k, n_sm)
+    br, bk = tde._blocks(k)
+    blocks, per = -(-k // bk), chunk // bk
+    limit = min(-(-tde._WAVES * n_sm // -(-g // br)), blocks, tde._MAX_CHUNKS)
+    assert chunk % bk == 0 and 1 <= c <= limit
+    assert (c - 1) * chunk < k <= c * chunk
+    assert c == -(-blocks // per)
+    assert per == 1 or -(-blocks // (per - 1)) > limit
+
+
+def test_row_chunks_at_the_paths_shapes():
+    """phi at the NYTimes widths gets 11 chunks of 10 blocks (1,100
+    row-sum programs for its 100 rows); theta's rows of K = 100 stay whole."""
+    assert tde.row_chunks(100, 102660) == (11, 10240)
+    assert tde.row_chunks(30000, 100) == (1, 128)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_zstep_matches_jax(shape):
     rng = np.random.default_rng(sum(shape) + 1)

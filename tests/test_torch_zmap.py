@@ -21,6 +21,8 @@ The CUDA kernels run only on the card, where ``chip_smoke.py`` holds them to
 these plain versions.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -331,19 +333,68 @@ def _column_walk(c, g, w, k):
     return out
 
 
+def _stream(plan, name, g, c, field):
+    """Pass ``name``'s stream of ``field`` in its piece order: the plan's
+    gathered array, or the call's own where the grouping keeps its order."""
+    if (name, field) in plan.streams:
+        return plan.streams[name, field]
+    assert g.identity
+    return c[field]
+
+
+def _phase1_emulation(plan, zkids, n_latent, k):
+    """Phase 1 as the kernel runs it, driven by the plan alone: each piece
+    sums its tokens' f64 masked messages in stream order (from a zero, one
+    token at a time); a one-piece instance writes its f32 row (a later
+    child adds to it), the others go through f64 partials that the finish
+    adds in order."""
+    logits = np.zeros((n_latent, k), np.float32)
+    for j, (c, g) in enumerate(zip(zkids, plan.by_latent)):
+        name = f"latent{j}"
+        route = {f: plan.streams[name, f] for f in ("slot", "fkeys", "fstart")}
+        vals = _stream(plan, name, g, c, "values")
+        mask = _stream(plan, name, g, c, "mask") if c["mask"] is not None \
+            else np.ones(len(vals), np.float32)
+        base = _stream(plan, name, g, c, "base") if c["base"] is not None \
+            else np.zeros(len(vals), np.int32)
+        if c["base"] is None and c["stride"] == 1:
+            msg = c["table"][:, vals].T
+        else:
+            msg = c["table"][base[:, None] + c["stride"] * np.arange(k)[None, :],
+                             vals[:, None]]
+        terms = msg.astype(np.float64) * mask.astype(np.float64)[:, None]
+        partial = np.zeros((int(route["fstart"][-1]), k))
+        for p in range(g.n_pieces):
+            ts = slice(g.piece_start[p], g.piece_start[p + 1])
+            acc = np.cumsum(np.concatenate([np.zeros((1, k)), terms[ts]]),
+                            axis=0)[-1]
+            key, s = g.piece_key[p], route["slot"][p]
+            if s >= 0:
+                partial[s] = acc
+            else:
+                logits[key] = (logits[key] + acc if j else acc).astype(np.float32)
+        for m, key in enumerate(route["fkeys"]):
+            acc = np.cumsum(np.concatenate(
+                [np.zeros((1, k)),
+                 partial[route["fstart"][m]:route["fstart"][m + 1]]]),
+                axis=0)[-1]
+            logits[key] = (logits[key] + acc if j else acc).astype(np.float32)
+    return logits
+
+
 def _zmap_owner_emulation(case, piece):
     """The kernel's three phases in numpy, driven only by the plan: phase 1
-    sums each instance's pieces of messages, phase 2a the prior pass over
-    the instances, phase 2b each value's pieces of mask * r[zmap]."""
+    as :func:`_phase1_emulation`, phase 2a the prior pass over the
+    instances, phase 2b each value's pieces of mask * r[zmap] over the
+    pass's own streams.  Returns the outputs and phase 1's f32 logits."""
     et, rows, children, zm = case
     plan = tfzm.build_zmap_plan(rows, _torch_children(children), et.shape,
                                 piece)
     k = et.shape[1]
     zkids = [c for c in children if c["zmap"] is not None]
     flat = [c for c in children if c["zmap"] is None]
-    logits = et[rows].astype(np.float64)
-    for c, g in zip(zkids, plan.by_latent):
-        logits = logits + _owner(g, _messages(c, k))
+    zlogits = _phase1_emulation(plan, zkids, len(rows), k)
+    logits = et[rows].astype(np.float64) + zlogits
     for c in flat:
         logits = logits + _messages(c, k)
     m = logits.max(1, keepdims=True)
@@ -358,17 +409,30 @@ def _zmap_owner_emulation(case, piece):
             return _owner(g, w).T.copy()
         return _column_walk(c, g, w, k)
 
+    def zstats(j, c, g):
+        """Phase 2b: each piece's tokens in the pass's stream order."""
+        name = f"value{j}"
+        zs = _stream(plan, name, g, c, "zmap")
+        w = r[zs] * (_stream(plan, name, g, c, "mask")[:, None]
+                     if c["mask"] is not None else 1.0)
+        ident = dataclasses.replace(g, perm=np.arange(len(zs), dtype=np.int32))
+        if c["base"] is None and c["stride"] == 1:
+            return _owner(ident, w).T.copy()
+        walk = dict(c, base=_stream(plan, name, g, c, "base")
+                    if c["base"] is not None else None)
+        return _column_walk(walk, ident, w, k)
+
     out, zi, fi = [], iter(range(len(zkids))), iter(range(len(flat)))
     for c in children:
-        mask = c["mask"][:, None] if c["mask"] is not None else 1.0
         if c["zmap"] is not None:
             j = next(zi)
-            out.append(stats(c, plan.by_value[j], r[c["zmap"]] * mask))
+            out.append(zstats(j, c, plan.by_value[j]))
         else:
             j = next(fi)
+            mask = c["mask"][:, None] if c["mask"] is not None else 1.0
             out.append(stats(c, plan.flat.children[j], r * mask))
     return (torch.tensor(lse.sum()), torch.from_numpy(pstats),
-            tuple(torch.from_numpy(s) for s in out))
+            tuple(torch.from_numpy(s) for s in out)), zlogits
 
 
 CASES_AND_VARIANTS = [(n, lambda s, n=n: _zcase(s, *ZMAP_CASES[n]))
@@ -380,10 +444,99 @@ CASES_AND_VARIANTS = [(n, lambda s, n=n: _zcase(s, *ZMAP_CASES[n]))
 def test_zmap_plan_reproduces_zstats(name, make):
     """Summing by the plan's owners gives the plain version: every token
     reaches one piece of its instance (phase 1) and of its value (phase
-    2b), every instance one piece of its prior row (phase 2a)."""
+    2b), every instance one piece of its prior row (phase 2a).  Phase 1,
+    routed as the kernel routes it (one-piece instances written directly,
+    the others through f64 partials), is bitwise the plain ``zmap_logits``:
+    both add f64 terms in token order and round once."""
     data = make(90)
-    got = _zmap_owner_emulation(data, piece=7)
+    got, zlogits = _zmap_owner_emulation(data, piece=7)
     _assert_zstats_close(got, _run_torch(data), rtol=1e-5, atol=1e-5)
+    et, rows, children, _ = data
+    zkids = [c for c in children if c["zmap"] is not None]
+    want = tops.zmap_logits(_torch_children(zkids), len(rows), et.shape[1])
+    np.testing.assert_array_equal(zlogits, want.numpy())
+
+
+@pytest.mark.parametrize("name,make", CASES_AND_VARIANTS,
+                         ids=[n for n, _ in CASES_AND_VARIANTS])
+def test_zmap_streams_are_the_originals_through_perm(name, make):
+    """Phase 1's streams (values, base, mask of each zmap child) and phase
+    2b's (zmap, base, mask) are the call's arrays gathered through the
+    pass's grouping; a grouping that keeps the call's order has none; the
+    plan holds no other stream, and its device copy holds them all."""
+    et, rows, children, _ = make(95)
+    plan = tfzm.build_zmap_plan(rows, _torch_children(children), et.shape, 7)
+    zkids = [c for c in children if c["zmap"] is not None]
+    seen = set()
+    for kind, groups, fields in (("latent", plan.by_latent,
+                                  ("values", "base", "mask")),
+                                 ("value", plan.by_value,
+                                  ("zmap", "base", "mask"))):
+        for j, (c, g) in enumerate(zip(zkids, groups)):
+            for f in fields:
+                key = (f"{kind}{j}", f)
+                if g.identity or c[f] is None:
+                    assert key not in plan.streams
+                    continue
+                np.testing.assert_array_equal(plan.streams[key], c[f][g.perm])
+                assert plan.streams[key].dtype == c[f].dtype
+                seen.add(key)
+    routes = {k for k in plan.streams if k[1] in ("slot", "fkeys", "fstart")}
+    assert routes == {(f"latent{j}", f) for j in range(len(zkids))
+                      for f in ("slot", "fkeys", "fstart")}
+    assert set(plan.streams) == seen | routes
+    on_dev = plan.to("cpu")
+    for key, a in plan.streams.items():
+        np.testing.assert_array_equal(on_dev.tensors[key].numpy(), a)
+
+
+@pytest.mark.parametrize("name,piece", [("masked", 7), ("long-instances", 256),
+                                        ("long-instances", 7),
+                                        ("empty-and-masked", 3)])
+def test_latent_route_sends_one_piece_instances_straight(name, piece):
+    """Phase 1's route: a piece that is its instance's only one has slot -1
+    (it writes the row); the pieces of an instance of several take
+    consecutive partial rows in piece order, and the finish lists exactly
+    the instances of several pieces or of none, with their row ranges."""
+    make = dict(CASES_AND_VARIANTS)[name]
+    et, rows, children, _ = make(96)
+    plan = tfzm.build_zmap_plan(rows, _torch_children(children), et.shape,
+                                piece)
+    g = plan.by_latent[0]
+    route = tfzm.latent_route(g)
+    n_per = np.diff(g.key_pieces)
+    np.testing.assert_array_equal(route["fkeys"], np.flatnonzero(n_per != 1))
+    np.testing.assert_array_equal(np.diff(route["fstart"]),
+                                  n_per[route["fkeys"]])
+    single = n_per[g.piece_key] == 1
+    assert (route["slot"][single] == -1).all()
+    for m, key in enumerate(route["fkeys"]):
+        pieces = np.arange(g.key_pieces[key], g.key_pieces[key + 1])
+        np.testing.assert_array_equal(
+            route["slot"][pieces],
+            np.arange(route["fstart"][m], route["fstart"][m + 1]))
+    for f in ("slot", "fkeys", "fstart"):
+        assert route[f].dtype == np.int32
+        np.testing.assert_array_equal(plan.streams["latent0", f], route[f])
+    if name == "empty-and-masked":
+        assert 0 in route["fkeys"]            # instance 0 has no token
+    if name == "long-instances" and piece == 256:
+        assert len(route["fkeys"]) == 4 and not single.any()
+    if name == "masked" and piece == 7:
+        assert single.any()
+
+
+@pytest.mark.parametrize("name,want", [("masked", "group"),
+                                       ("long-instances", "warp")])
+def test_logits_route_gives_long_instances_a_warp(name, want, monkeypatch):
+    """Phase 1 takes its lane-group kernel where every instance is one piece
+    (SLDA's sentences) and a warp a piece where instances take several
+    (naive Bayes' documents); the module's knob overrides the rule."""
+    et, rows, children, _ = _zcase(97, *ZMAP_CASES[name])
+    plan = tfzm.build_zmap_plan(rows, _torch_children(children), et.shape)
+    assert tfzm.logits_route(plan.by_latent[0]) == want
+    monkeypatch.setattr(tfzm, "_LOGITS_ROUTE", "group")
+    assert tfzm.logits_route(plan.by_latent[0]) == "group"
 
 
 def test_zmap_plan_cuts_long_instances_into_pieces():
