@@ -68,7 +68,10 @@ trees can be shown to give the same output bit for bit.
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, slda, naive_bayes,
 lm_train; the flash entry's ``"variant"`` names the kernel the path took and
-``"mma_ms"`` is the other one's time in the same call) and the
+``"mma_ms"`` is the other one's time in the same call; each
+``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
+graph, where ``"ms"``, CUDA events around back-to-back calls, times the
+host's launches of so small a kernel) and the
 ``{"ok": true, "device": {...}}`` JSON object.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.  The script imports the port only, never
 JAX nor the JAX package.
@@ -600,6 +603,7 @@ def phase_repeat_and_time(args, report, m, prog, counts):
     z_bytes = n * 8 + (g * k + k * v) * 4 * 2 + 4
     z_ops = 8 * n * k
     t_de = time_ms(lambda: de.dirichlet_expectation(phi, transpose=True), reps=20)
+    t_de_dev = device_ms(lambda: de.dirichlet_expectation(phi, transpose=True))
     t_dep = time_ms(lambda: de_plain(phi, transpose=True).contiguous(), reps=5)
     d_bytes = k * v * 8
     d_ops = DIGAMMA_OPS * k * v
@@ -633,6 +637,12 @@ def phase_repeat_and_time(args, report, m, prog, counts):
         log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
             f"{bms:8.4f} ms ({by})  launches {counts[name]} "
             f"({per_step[name]:.1f} per step)")
+    # the Elog pass is small enough that CUDA events around its calls time
+    # the host's launches: its entry also carries its device time
+    next(e for e in kernels if e["name"] == "dirichlet_expectation")[
+        "device_ms"] = t_de_dev
+    log(f"  dirichlet_expectation on phi as (V, K): device time {t_de_dev:.4f} "
+        f"ms a call (CUDA graph of 20 calls)")
     log(f"  dirichlet_expectation at theta's (D, K) = ({g}, {k}): "
         f"{t_de_theta:.4f} ms, bound {g * k * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms")
     de_split = {"phi": de_passes("phi", phi), "theta": de_passes(
@@ -905,6 +915,7 @@ def phase_segment_times(label, m, report, counts):
     t_lp = time_ms(lambda: ref.zmap_logits(children, n_inst, k), reps=3)
     t_de = time_ms(lambda: de.dirichlet_expectation(phi, transpose=True),
                    reps=20)
+    t_de_dev = device_ms(lambda: de.dirichlet_expectation(phi, transpose=True))
     t_dep = time_ms(lambda: de_plain(phi, transpose=True).contiguous(), reps=5)
     t_s = time_ms(lambda: zs.zstep(logits), reps=5)
     t_sp = time_ms(lambda: ref.zstep(logits), reps=3)
@@ -946,6 +957,10 @@ def phase_segment_times(label, m, report, counts):
                                     counts[name], e, ms, pms, bms, by))
         log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
             f"{bms:8.4f} ms ({by})  launches {counts[name]}")
+    next(e for e in entries if e["name"] == "dirichlet_expectation")[
+        "device_ms"] = t_de_dev
+    log(f"  dirichlet_expectation on {child_dir} as (V, K): device time "
+        f"{t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
     log(f"  zstats_zmap with its intermediates (f32 logits and r, "
         f"{n_parts} f64 partial rows of the logits, each written and read "
         f"once): {(z_bytes + inter) / HBM_BYTES_PER_S * 1e3:.4f} ms of "

@@ -49,8 +49,8 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
 - ``de-sweep``: the Elog pass's two launches on phi's shape (100 x
   102,660, as (V, K)) and theta's (30,000 x 100), by device time, over
   the module's knobs: the row-sum programs per SM (and so the chunks a
-  row), and the transposed pass's tile (elements, columns, warps) or its
-  strided 2-D tiles; each output held to the plain version at DE_TOL.
+  row), and the transposed pass's tile and warps; each output held to the
+  plain version at DE_TOL.
 
 Imports the port only, never JAX nor the JAX package.
 """
@@ -169,6 +169,10 @@ def _parent_de_passes(pde, alpha):
     wrapper launches them: (row sums, elementwise) callables."""
     import torch
     import triton
+    if hasattr(pde, "row_sums"):
+        part = pde.row_sums(alpha)
+        return (lambda: pde.row_sums(alpha),
+                lambda: pde.elog_from_sums(alpha, part, True))
     rowsum_digamma, elog = pde._kernels()
     g, k = alpha.shape
     bk = min(triton.next_power_of_2(k), pde._MAX_BLOCK_K)
@@ -280,25 +284,19 @@ def de_sweep(cs):
     from repro_torch.kernels import dirichlet_expectation as de
     print(f"[de-sweep] {cs.device_line()}", flush=True)
     rng = np.random.default_rng(0)
-    knobs = ("_WAVES", "_MAX_T_ROWS", "_T_TILE", "_T_COLS", "_T_WARPS",
-             "_S_TILE", "_FAST_DIGAMMA")
+    knobs = ("_WAVES", "_T_TILE", "_T_WARPS")
     default = {n: getattr(de, n) for n in knobs}
     for shape, transpose in (((100, 102660), True), ((30000, 100), False)):
         a = torch.from_numpy((rng.gamma(1.0, 1.0, size=shape) + 1e-2)
                              .astype(np.float32)).cuda()
         want = cs.de_plain(a, transpose)
-        variants = [dict(_WAVES=w) for w in (2, 8, 32)]
-        variants += [dict(_FAST_DIGAMMA=f) for f in (0, 1, 2)]
+        variants = [dict(_WAVES=w) for w in (4, 8, 16)]
         if transpose:
-            for fast in (0, 1, 2):
-                variants += [dict(_FAST_DIGAMMA=fast, _T_TILE=t, _T_COLS=c,
-                                  _T_WARPS=w)
-                             for t, c, w in ((8192, 128, 8), (4096, 128, 8),
-                                             (4096, 32, 4), (2048, 16, 4))]
-                variants += [dict(_FAST_DIGAMMA=fast, _MAX_T_ROWS=0,
-                                  _S_TILE=st)
-                             for st in ((32, 64), (64, 64), (16, 128),
-                                        (128, 32))]
+            variants += [dict(_T_TILE=t, _T_WARPS=w)
+                         for t, w in (((8, 256), 4), ((8, 256), 2),
+                                      ((8, 512), 4), ((8, 512), 8),
+                                      ((16, 128), 4), ((8, 128), 4),
+                                      ((16, 256), 8), ((32, 64), 4))]
         for v in variants:
             for n in knobs:
                 setattr(de, n, v.get(n, default[n]))

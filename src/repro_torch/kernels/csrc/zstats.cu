@@ -508,62 +508,35 @@ __global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ key_
 // a warp owns PPW = 32 / QL pieces (2 at K = 100) and every lane of a piece
 // holds the same topics for the piece's whole run.  A lane loads its
 // piece's bounds, and its route where there is one, at the start, all at
-// once.  The piece's tokens come in batches of B: lane q loads the stream
-// entries of tokens q, q + QL, .. of the batch (coalesced, streaming loads;
-// SEG_PREFETCH: the next batch's while the piece gathers the rows of this
-// one), then the piece takes U tokens at a time, each lane gathering its
-// chunks of U rows before it adds any (U rows per piece in flight).  The
-// adds run in token order, one accumulator per topic, so each (piece,
-// topic) sum has the order of a walk one token at a time.  The pieces of a
-// warp run as many steps as the longest of them (its shuffles need the
-// whole warp); a step past a piece's own end loads and adds nothing.
-#ifndef SEG_ROWS
-#define SEG_ROWS 4       // U at K <= 128 (two chunks a lane): rows in flight per piece
-#endif
-#ifndef SEG_BATCH
-#define SEG_BATCH 1      // least tokens a batch (a batch is at least QL tokens)
-#endif
-#ifndef SEG_PREFETCH
-#define SEG_PREFETCH 0   // load the next batch's entries during this one's gathers
-#endif
-#ifndef SEG_MIN_BLOCKS
-#define SEG_MIN_BLOCKS 0 // __launch_bounds__ blocks an SM for the segment passes (0: none)
-#endif
-#if SEG_MIN_BLOCKS > 0
-#define SEG_BOUNDS __launch_bounds__(32 * 4, SEG_MIN_BLOCKS)
-#else
-#define SEG_BOUNDS
-#endif
-
-template <int QL, int CH>
-struct SegWalk {
-  static constexpr int U = CH <= 2 ? SEG_ROWS : (CH == 4 ? 2 : 1);   // rows in flight
-  static constexpr int B = QL > SEG_BATCH ? QL : SEG_BATCH;          // tokens a batch
-  static constexpr int E = B / QL;                                   // entries a lane
+// once.  The piece's tokens come QL at a time: lane q loads token q's
+// stream entries (coalesced, streaming loads), then the piece takes
+// U = SegRows tokens at a time, each lane gathering its chunks of those rows
+// before it adds any.  The adds run in token order, one accumulator per
+// topic, so each (piece, topic) sum has the order of a walk one token at a
+// time.  The pieces of a warp run as many steps as the longest of them (its
+// shuffles need the whole warp); a step past a piece's own end loads and
+// adds nothing.  Registers rule the design: SLDA's sentences are 7 tokens,
+// so a piece is a short chain of dependent loads and the pass lives on
+// warps in flight; 2 rows in flight (64 registers at K = 100) beat 1 and 4.
+template <int CH>
+struct SegRows {   // rows in flight per piece
+  static constexpr int value = CH <= 4 ? 2 : 1;
 };
 
-// One batch's stream entries of a lane: token tb + e * QL + q of the piece
-// (t0, len) for e < E; past the piece's end an index of 0 (a row that
-// exists), base 0 and weight 1.
-template <int E>
-struct Entries {
-  int idx[E], base[E];
-  float w[E];
+// A lane's stream entries for token t of a piece of `len` tokens at t0:
+// past the piece's end an index of 0 (a row that exists), base 0, weight 1.
+struct Entry {
+  int idx, base;
+  float w;
 };
 
-template <int E, int QL>
-__device__ __forceinline__ void load_entries(const int* __restrict__ idx,
-                                             const int* __restrict__ base,
-                                             const float* __restrict__ w, int t0, int len,
-                                             int tb, int q, Entries<E>& out) {
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int j = tb + e * QL + q;
-    const bool mine = j < len;
-    out.idx[e] = mine ? __ldcs(idx + t0 + j) : 0;
-    out.base[e] = mine && base ? __ldcs(base + t0 + j) : 0;
-    out.w[e] = mine && w ? __ldcs(w + t0 + j) : 1.0f;
-  }
+__device__ __forceinline__ Entry load_entry(const int* __restrict__ idx,
+                                            const int* __restrict__ base,
+                                            const float* __restrict__ w, int t0, int len,
+                                            int t) {
+  const bool mine = t < len;
+  return {mine ? __ldcs(idx + t0 + t) : 0, mine && base ? __ldcs(base + t0 + t) : 0,
+          mine && w ? __ldcs(w + t0 + t) : 1.0f};
 }
 
 // Largest v over the PPW pieces of a warp (lanes QL apart).
@@ -594,31 +567,20 @@ __device__ __forceinline__ void strided_row(const ZChildArgs& ch, int v, int b, 
 // own accumulators and row gather inline.
 #define SEG_WALK(IDX, BASE, W, ROW, ADD)                                            \
   {                                                                                 \
-    using Walk = SegWalk<QL, CH>;                                                   \
-    Entries<Walk::E> next;                                                          \
-    if (SEG_PREFETCH) load_entries<Walk::E, QL>(IDX, BASE, W, t0, len, 0, q, next); \
-    for (int tb = 0; tb < most; tb += Walk::B) {                                    \
-      Entries<Walk::E> cur;                                                         \
-      if (SEG_PREFETCH) {                                                           \
-        cur = next;                                                                 \
-        if (tb + Walk::B < most)                                                    \
-          load_entries<Walk::E, QL>(IDX, BASE, W, t0, len, tb + Walk::B, q, next);  \
-      } else {                                                                      \
-        load_entries<Walk::E, QL>(IDX, BASE, W, t0, len, tb, q, cur);               \
-      }                                                                             \
-      _Pragma("unroll") for (int u0 = 0; u0 < Walk::B; u0 += Walk::U) {             \
+    constexpr int U = SegRows<CH>::value;                                           \
+    for (int tb = 0; tb < most; tb += QL) {                                         \
+      const Entry cur = load_entry(IDX, BASE, W, t0, len, tb + q);                  \
+      _Pragma("unroll") for (int u0 = 0; u0 < QL; u0 += U) {                        \
         if (tb + u0 >= most) break;                                                 \
-        float x[Walk::U][CH][4];                                                    \
-        _Pragma("unroll") for (int u = 0; u < Walk::U; ++u) {                       \
-          const int j = u0 + u;                                                     \
-          const int iu = __shfl_sync(0xffffffffu, cur.idx[j / QL], j % QL, QL);     \
-          const int bu = __shfl_sync(0xffffffffu, cur.base[j / QL], j % QL, QL);    \
-          if (tb + j < len) { ROW(x[u], iu, bu); }                                  \
+        float x[U][CH][4];                                                          \
+        _Pragma("unroll") for (int u = 0; u < U; ++u) {                             \
+          const int iu = __shfl_sync(0xffffffffu, cur.idx, u0 + u, QL);             \
+          const int bu = __shfl_sync(0xffffffffu, cur.base, u0 + u, QL);            \
+          if (tb + u0 + u < len) { ROW(x[u], iu, bu); }                             \
         }                                                                           \
-        _Pragma("unroll") for (int u = 0; u < Walk::U; ++u) {                       \
-          const int j = u0 + u;                                                     \
-          const float wu = __shfl_sync(0xffffffffu, cur.w[j / QL], j % QL, QL);     \
-          if (tb + j < len) { ADD(x[u], wu); }                                      \
+        _Pragma("unroll") for (int u = 0; u < U; ++u) {                             \
+          const float wu = __shfl_sync(0xffffffffu, cur.w, u0 + u, QL);             \
+          if (tb + u0 + u < len) { ADD(x[u], wu); }                                 \
         }                                                                           \
       }                                                                             \
     }                                                                               \
@@ -636,7 +598,7 @@ __device__ __forceinline__ void strided_row(const ZChildArgs& ch, int v, int b, 
 // of several pieces writes its f64 partial at row `slot`, and
 // zstats_finish64 adds that instance's partials in order.
 template <int KPL>
-__global__ void SEG_BOUNDS zmap_logits_kernel(ZArgs a, int target, const int* __restrict__ piece_key,
+__global__ void zmap_logits_kernel(ZArgs a, int target, const int* __restrict__ piece_key,
                                    const int* __restrict__ piece_start,
                                    const int* __restrict__ slot, int n_pieces,
                                    double* __restrict__ partial, float* __restrict__ out,
@@ -701,8 +663,10 @@ __global__ void SEG_BOUNDS zmap_logits_kernel(ZArgs a, int target, const int* __
 
 // Phase 1 with one warp per piece, the lanes over topics (lane + 32 j, KPL
 // topics a lane) and the tokens one at a time: the same sums, route and
-// writes as zmap_logits_kernel, for pieces too long for a lane group to
-// walk alone (naive Bayes documents of a few hundred tokens at K = 20).
+// writes as zmap_logits_kernel, for instances of several pieces (naive Bayes
+// documents of a few hundred tokens, K = 20).  There a lane group of 4
+// walks 256 tokens in a row beside the short last piece of a document, and
+// a warp a piece keeps 8 times as many pieces going.
 template <int KPL>
 __global__ void zmap_logits_warp_kernel(ZArgs a, int target, const int* __restrict__ piece_key,
                                         const int* __restrict__ piece_start,
@@ -721,16 +685,21 @@ __global__ void zmap_logits_warp_kernel(ZArgs a, int target, const int* __restri
   for (int t = piece_start[warp]; t < t1; ++t) {
     const int v = ch.values[t];
     const float mk = ch.mask ? ch.mask[t] : 1.0f;
-    const int b = ch.base ? ch.base[t] : 0;
+    float e[KPL];
+    if (ch.specialized) {
+      const float* row = ch.table + (size_t)v * k;
 #pragma unroll
-    for (int j = 0; j < KPL; ++j) {
-      const int kk = lane + 32 * j;
-      float e = 0.0f;
-      if (kk < k)
-        e = ch.specialized ? ch.table[(size_t)v * k + kk]
-                           : ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v];
-      acc[j] += (double)e * mk;
+      for (int j = 0; j < KPL; ++j) e[j] = lane + 32 * j < k ? row[lane + 32 * j] : 0.0f;
+    } else {
+      const int b = ch.base ? ch.base[t] : 0;
+#pragma unroll
+      for (int j = 0; j < KPL; ++j) {
+        const int kk = lane + 32 * j;
+        e[j] = kk < k ? ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v] : 0.0f;
+      }
     }
+#pragma unroll
+    for (int j = 0; j < KPL; ++j) acc[j] += (double)e[j] * mk;
   }
 #pragma unroll
   for (int j = 0; j < KPL; ++j) {
@@ -749,10 +718,10 @@ __global__ void zmap_logits_warp_kernel(ZArgs a, int target, const int* __restri
 // by value: the piece's sum of mask * r[zmap], f32, tokens in order.  Each
 // token gathers one K-row of r from the (n_latent, K) table, which the L2
 // does not hold at SLDA's 1.44M sentences: the pass is bound by the gathered
-// bytes, and the walk keeps U rows per piece in flight, the next batch's
-// instance indices loading meanwhile (vec: 16 bytes a load).
+// bytes; the walk reads the piece's instance indices QL at a time and
+// gathers the rows 16 bytes a load (vec).
 template <int KPL>
-__global__ void SEG_BOUNDS zmap_stats_kernel(ZArgs a, int target, const float* __restrict__ r,
+__global__ void zmap_stats_kernel(ZArgs a, int target, const float* __restrict__ r,
                                   const int* __restrict__ piece_start, int n_pieces,
                                   float* __restrict__ partial, int vec) {
   constexpr int QL = Lanes<KPL>::QL, CH = Lanes<KPL>::CH, PPW = 32 / QL;

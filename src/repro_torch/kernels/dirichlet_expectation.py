@@ -26,13 +26,15 @@ ratio of operations to bytes, so the least time is the table's traffic over
     (K = 100) a row is one chunk and both passes take blocks of 8 rows.
     The TPU's 128-lane padding with 1.0 and its row-sum correction are gone:
     lanes past K are masked in the kernel.
-  - a table of at most 256 rows is emitted transposed as the VMP step asks
-    for phi, (V, K), the layout the ``zstats`` kernel reads: a program
-    takes every row (padded to a power of two) of a block of columns and
-    stores the transposed tile as contiguous output rows.  Any other table
-    is written through strides over 2-D tiles.
+  - the output is written through strides, so the same pass can emit a
+    table transposed, as the VMP step asks for phi: (V, K), the layout the
+    ``zstats`` kernel reads.  A transposed tile is 8 rows by 256 columns,
+    so each column's 8 outputs are one 32-byte run.
   - digamma is the TPU kernel's recurrence: shift by 8, then the asymptotic
-    series, valid for x > 0 (concentrations always are).
+    series, valid for x > 0 (concentrations always are).  The shift's eight
+    reciprocals are taken as four pairs, 1/x + 1/(x+1) = (2x+1)/(x(x+1)),
+    each an approximate division (2 ulp): the elementwise pass is bound by
+    its instructions as much as by its bytes.
 
 Input f32 or bf16, output f32 (narrow tables are upcast in registers).
 """
@@ -47,16 +49,12 @@ launches = 0
 _MAX_BLOCK_K = 1024
 #: row-sum programs to aim for, per SM
 _WAVES = 8
-#: most chunks a row is cut into (the elementwise pass loads them all)
-_MAX_CHUNKS = 64
-#: most rows of a table emitted transposed with contiguous stores
-_MAX_T_ROWS = 256
-#: elements of one transposed tile, its most columns, and its warps
-_T_TILE, _T_COLS, _T_WARPS = 8192, 128, 8
-#: (rows, columns) of a strided tile of a transposed table
-_S_TILE = (32, 64)
-#: digamma's divisions: 0 IEEE, 1 approximate, 2 approximate in pairs
-_FAST_DIGAMMA = 0
+#: most chunks a row is cut into: every program of the elementwise pass
+#: loads its rows' partials padded to a power of two, and with 64 a row
+#: that pass ran some 25 times slower on phi (PERF.md)
+_MAX_CHUNKS = 16
+#: (rows, columns) and warps of a tile of a transposed table
+_T_TILE, _T_WARPS = (8, 256), 4
 
 
 def _next_pow2(n: int) -> int:
@@ -92,41 +90,26 @@ def _kernels():
     import triton.language as tl
 
     @triton.jit
-    def _digamma(x, FAST: tl.constexpr):
-        # FAST 0: IEEE divisions; 1: approximate divisions (2 ulp); 2: the
-        # shift's eight reciprocals as four pairs, 1/a + 1/b = (a+b)/(ab),
-        # approximate
+    def _digamma(x):
         acc = tl.zeros_like(x)
-        if FAST == 2:
-            for _ in tl.static_range(4):
-                y = x + 1.0
-                acc = acc + tl.fdiv(x + y, x * y, ieee_rounding=False)
-                x = y + 1.0
-        else:
-            for _ in tl.static_range(8):
-                if FAST == 1:
-                    acc = acc + tl.fdiv(1.0, x, ieee_rounding=False)
-                else:
-                    acc = acc + 1.0 / x
-                x = x + 1.0
-        if FAST == 0:
-            inv = 1.0 / x
-        else:
-            inv = tl.fdiv(1.0, x, ieee_rounding=False)
+        for _ in tl.static_range(4):
+            y = x + 1.0
+            acc = acc + tl.fdiv(x + y, x * y, ieee_rounding=False)
+            x = y + 1.0
+        inv = tl.fdiv(1.0, x, ieee_rounding=False)
         inv2 = inv * inv
         series = (tl.log(x) - 0.5 * inv
                   - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0)))
         return series - acc
 
     @triton.jit
-    def _row_digamma(part_ptr, rows, rmask, C, CP: tl.constexpr,
-                     FAST: tl.constexpr):
+    def _row_digamma(part_ptr, rows, rmask, C, CP: tl.constexpr):
         # digamma of each row's sum: its C chunk partials added by one tree
         # over the CP (>= C, zero-padded) slots, the same in every program
         c = tl.arange(0, CP)
         p = tl.load(part_ptr + rows[:, None] * C + c[None, :],
                     mask=rmask[:, None] & (c < C)[None, :], other=0.0)
-        return _digamma(tl.sum(p, axis=1), FAST)
+        return _digamma(tl.sum(p, axis=1))
 
     @triton.jit
     def rowsum(a_ptr, part_ptr, G, K, stride_ag, C, CHUNK,
@@ -149,7 +132,7 @@ def _kernels():
 
     @triton.jit
     def elog(a_ptr, part_ptr, out_ptr, G, K, stride_ag, stride_og, stride_ok,
-             C, CP: tl.constexpr, FAST: tl.constexpr, BLOCK_R: tl.constexpr,
+             C, CP: tl.constexpr, BLOCK_R: tl.constexpr,
              BLOCK_K: tl.constexpr):
         rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
         cols = tl.program_id(1) * BLOCK_K + tl.arange(0, BLOCK_K)
@@ -157,29 +140,12 @@ def _kernels():
         m = rmask[:, None] & (cols < K)[None, :]
         a = tl.load(a_ptr + rows[:, None] * stride_ag + cols[None, :],
                     mask=m, other=1.0).to(tl.float32)
-        dg = _row_digamma(part_ptr, rows, rmask, C, CP, FAST)
-        out = _digamma(a, FAST) - dg[:, None]
+        dg = _row_digamma(part_ptr, rows, rmask, C, CP)
+        out = _digamma(a) - dg[:, None]
         tl.store(out_ptr + rows[:, None] * stride_og + cols[None, :] * stride_ok,
                  out, mask=m)
 
-    @triton.jit
-    def elog_t(a_ptr, part_ptr, out_ptr, G, K, stride_ag, C,
-               CP: tl.constexpr, FAST: tl.constexpr, BLOCK_G: tl.constexpr,
-               BLOCK_K: tl.constexpr):
-        # every row of a block of columns; the (columns, rows) tile is the
-        # contiguous run out[col0 * G : (col0 + BLOCK_K) * G]
-        rows = tl.arange(0, BLOCK_G)
-        cols = tl.program_id(0) * BLOCK_K + tl.arange(0, BLOCK_K)
-        rmask = rows < G
-        m = rmask[:, None] & (cols < K)[None, :]
-        a = tl.load(a_ptr + rows[:, None] * stride_ag + cols[None, :],
-                    mask=m, other=1.0).to(tl.float32)
-        dg = _row_digamma(part_ptr, rows, rmask, C, CP, FAST)
-        out = _digamma(a, FAST) - dg[:, None]
-        tl.store(out_ptr + cols[:, None] * G + rows[None, :], tl.trans(out),
-                 mask=(cols < K)[:, None] & rmask[None, :])
-
-    return rowsum, elog, elog_t
+    return rowsum, elog
 
 
 def _check(alpha: torch.Tensor):
@@ -212,25 +178,16 @@ def elog_from_sums(alpha: torch.Tensor, part: torch.Tensor,
                    transpose: bool = False) -> torch.Tensor:
     """The elementwise pass: E[log theta] of a non-empty (G, K) table from
     its :func:`row_sums` partials, as (G, K) or, ``transpose``, (K, G)."""
-    _, elog, elog_t = _kernels()
+    elog = _kernels()[1]
     g, k = alpha.shape
     c = part.shape[1]
-    cp = max(2, _next_pow2(c))
     out = torch.empty((k, g) if transpose else (g, k), dtype=torch.float32,
                       device=alpha.device)
-    if transpose and g <= _MAX_T_ROWS:
-        bg = max(16, _next_pow2(g))
-        bk = min(_T_TILE // bg, _T_COLS)
-        elog_t[(-(-k // bk),)](alpha, part, out, g, k, alpha.stride(0), c,
-                               CP=cp, FAST=_FAST_DIGAMMA, BLOCK_G=bg,
-                               BLOCK_K=bk, num_warps=_T_WARPS)
-        return out
-    br, bk = _blocks(k)
+    (er, ek), warps = (_T_TILE, _T_WARPS) if transpose else (_blocks(k), 4)
     so_g, so_k = (1, g) if transpose else (k, 1)
-    er, ek = _S_TILE if transpose else (br, bk)
     elog[(-(-g // er), -(-k // ek))](
-        alpha, part, out, g, k, alpha.stride(0), so_g, so_k, c, CP=cp,
-        FAST=_FAST_DIGAMMA, BLOCK_R=er, BLOCK_K=ek)
+        alpha, part, out, g, k, alpha.stride(0), so_g, so_k, c,
+        CP=max(2, _next_pow2(c)), BLOCK_R=er, BLOCK_K=ek, num_warps=warps)
     return out
 
 

@@ -48,10 +48,6 @@ launches = 0
 #: ``zmap_logits`` calls that launched phase 1 alone
 logits_launches = 0
 
-#: phase 1's kernel: "group" (a few lanes a piece) or "warp" (a warp a
-#: piece); None picks by the plan (:func:`logits_route`)
-_LOGITS_ROUTE = None
-
 
 @dataclasses.dataclass
 class ZmapPlan:
@@ -168,10 +164,9 @@ def _pass_args(base, plan: ZmapPlan, name: str, j: int):
 
 
 def logits_route(g: _fz.Grouping) -> str:
-    """Phase 1's kernel for a grouping by instance: "warp" where its
-    instances are cut into several pieces (long documents), else "group"."""
-    if _LOGITS_ROUTE is not None:
-        return _LOGITS_ROUTE
+    """Phase 1's kernel for a grouping by instance: "warp" (a warp a piece)
+    where instances are cut into several pieces (naive Bayes' documents),
+    else "group" (a few lanes a piece: SLDA's sentences)."""
     return "warp" if g.n_pieces > g.n_keys else "group"
 
 

@@ -179,11 +179,28 @@ def test_dirichlet_expectation_matches_jax(shape):
     np.testing.assert_array_equal(got_t.numpy(), got.numpy().T)
 
 
+def _pairs_digamma(x: torch.Tensor) -> torch.Tensor:
+    """The Triton kernels' digamma in f32 torch: the shift by 8 with its
+    reciprocals taken in pairs, 1/x + 1/(x+1) = (2x+1)/(x(x+1)), then the
+    asymptotic series (the kernel's divisions are approximate, 2 ulp)."""
+    acc = torch.zeros_like(x)
+    for _ in range(4):
+        y = x + 1.0
+        acc = acc + (x + y) / (x * y)
+        x = y + 1.0
+    inv = 1.0 / x
+    inv2 = inv * inv
+    series = (torch.log(x) - 0.5 * inv
+              - inv2 * (1.0 / 12.0 - inv2 * (1.0 / 120.0 - inv2 / 252.0)))
+    return series - acc
+
+
 def _chunked_elog(a: torch.Tensor, n_sm: int = 132) -> torch.Tensor:
-    """The Elog pass's sums in torch, in the kernels' fixed structure: each
-    row cut into ``row_chunks`` chunks of whole column blocks; a chunk's
-    lanes add their columns block after block, then meet in one sum; a
-    row's chunk partials meet in one more; digamma of that, subtracted."""
+    """The Elog pass in torch, in the kernels' fixed structure: each row cut
+    into ``row_chunks`` chunks of whole column blocks; a chunk's lanes add
+    their columns block after block, then meet in one sum; a row's chunk
+    partials meet in one more; the kernels' digamma of that, subtracted
+    from theirs of each element."""
     g, k = a.shape
     c, chunk = tde.row_chunks(g, k, n_sm)
     _, bk = tde._blocks(k)
@@ -194,17 +211,16 @@ def _chunked_elog(a: torch.Tensor, n_sm: int = 132) -> torch.Tensor:
     for b in range(1, chunk // bk):
         acc = acc + lanes[:, :, b]
     part = acc.sum(-1)
-    return torch.special.digamma(a) - torch.special.digamma(
-        part.sum(-1, keepdim=True))
+    return _pairs_digamma(a) - _pairs_digamma(part.sum(-1, keepdim=True))
 
 
 @pytest.mark.parametrize("shape", SHAPES + [(5, 102660), (100, 102660),
                                             (20, 61188)])
 def test_chunked_row_sums_match_jax(shape):
     """The Elog pass's chunked row sums, emulated in their fixed order at
-    each shape's chunk count, give the reference's E[log theta] within
-    chip_smoke.py's DE_TOL (rtol = atol = 2e-4): f32 sums in another
-    order."""
+    each shape's chunk count, with the kernels' digamma, give the
+    reference's E[log theta] within chip_smoke.py's DE_TOL (rtol = atol =
+    2e-4): f32 sums in another order, the shift's reciprocals in pairs."""
     rng = np.random.default_rng(sum(shape) + 2)
     a = (rng.gamma(1.0, 1.0, size=shape) + 1e-2).astype(np.float32)
     want = np.asarray(jref.dirichlet_expectation(jnp.asarray(a)))

@@ -528,15 +528,13 @@ def test_latent_route_sends_one_piece_instances_straight(name, piece):
 
 @pytest.mark.parametrize("name,want", [("masked", "group"),
                                        ("long-instances", "warp")])
-def test_logits_route_gives_long_instances_a_warp(name, want, monkeypatch):
+def test_logits_route_gives_long_instances_a_warp(name, want):
     """Phase 1 takes its lane-group kernel where every instance is one piece
     (SLDA's sentences) and a warp a piece where instances take several
-    (naive Bayes' documents); the module's knob overrides the rule."""
+    (naive Bayes' documents)."""
     et, rows, children, _ = _zcase(97, *ZMAP_CASES[name])
     plan = tfzm.build_zmap_plan(rows, _torch_children(children), et.shape)
     assert tfzm.logits_route(plan.by_latent[0]) == want
-    monkeypatch.setattr(tfzm, "_LOGITS_ROUTE", "group")
-    assert tfzm.logits_route(plan.by_latent[0]) == "group"
 
 
 def test_zmap_plan_cuts_long_instances_into_pieces():
