@@ -32,7 +32,24 @@ Phases, each of which exits non-zero on a failed check:
      the main path's shapes (the Elog pass on phi also by its two Triton
      launches, row sums and elementwise), and the VMP step's ms and
      tokens/s;
-  7. the segment-latent path: SLDA at the same widths over the same corpus,
+  7. SVI (``core/svi.py``) over the main path's program, run after phase 6
+     while it exists, with Hoffman et al.'s defaults (batches of 1,024
+     documents, kappa 0.7, tau 10, padding to 256, 5% held out, evaluated
+     every 10 steps with 10 local passes): one step at |B| = G, exact caps
+     and rho = 1 bitwise one VMP step; a batch padded to 256 within 2e-5 of
+     it at exact caps (the masked kernel route against the unmasked one);
+     the documents outside a batch keep their theta rows bitwise; two
+     5-step runs bitwise; the 30-step fit (launch counts set to 0 just
+     before and read just after: ``zstats`` once a step and 11 times an
+     evaluation), every ELBO finite and the held-out ELBO rising;
+     ``zstats`` (masked) and the Elog pass at one batch's inputs against
+     their plain versions; per step the host clock, tokens/s, the
+     ``slice_arrays``, owner-plan and host-to-device ms, device ms and idle
+     share under the profiler, and the held-out evaluation's ms.  SLDA and
+     naive Bayes (after their VMP phases) each run 5 padded SVI steps with
+     a held-out evaluation through ``zstats_zmap``; naive Bayes first holds
+     one step at |B| = G bitwise against VMP;
+  8. the segment-latent path: SLDA at the same widths over the same corpus,
      cut into sentences of 7 tokens (about 1.44M sentences), through
      ``models.make("slda")`` -> ``observe`` + ``bind("sents")`` ->
      ``make_engine("vmp", steps=10).fit`` -> ``get_result("z")``, with the
@@ -42,7 +59,7 @@ Phases, each of which exits non-zero on a failed check:
      (``zstats_zmap``, ``zmap_logits``, ``dirichlet_expectation``,
      ``zstep``) is held against its plain version on the path's own inputs
      and timed beside its bound, with the path's launch counts;
-  8. both ``flash_attention`` kernels against ``ref.flash_attention``: the
+  9. both ``flash_attention`` kernels against ``ref.flash_attention``: the
      reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
      256, ragged and multi-tile cases at Dh 64 and 128, and the trainer's
      shape (BH = 64, S = 2,048, Dh = 128), each in bf16 and f32 through the
@@ -52,7 +69,7 @@ Phases, each of which exits non-zero on a failed check:
      plain version for one cotangent; both routes timed in turns beside the
      bound, the plain version's and SDPA's (a yardstick the port never
      calls);
-  9. the LM trainer: olmo-1b at full width and depth through
+  10. the LM trainer: olmo-1b at full width and depth through
      ``launch.train.train`` (4 steps, batch 4 x 2,048 tokens, bf16 compute,
      f32 parameters from the port's own initialisation, attention through
      the kernel), with the kernel's launch count set to 0 just before and
@@ -62,12 +79,13 @@ Phases, each of which exits non-zero on a failed check:
      ms per step, tokens/s, the model flops' share of the bf16 peak, peak
      memory, and the device's idle share over 2 steps under the profiler.
 
-Each VMP path logs a sha256 of its final posteriors and ELBO trace, so that two
-trees can be shown to give the same output bit for bit.
+Each VMP path, and the SVI fit, logs a sha256 of its final posteriors and
+ELBO trace, so that two trees can be shown to give the same output bit for
+bit.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
-kernel and path, the path named in ``"path"``: lda, slda, naive_bayes,
-lm_train; the flash entry's ``"variant"`` names the kernel the path took and
+kernel and path, the path named in ``"path"``: lda, lda_svi, slda,
+naive_bayes, lm_train; the flash entry's ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
 graph, where ``"ms"``, CUDA events around back-to-back calls, times the
@@ -1024,6 +1042,324 @@ def profile_steps(run, n_steps, label="trace"):
 
 
 # ---------------------------------------------------------------------------
+# SVI: minibatches of the main path's program, and of SLDA's and naive Bayes'
+# ---------------------------------------------------------------------------
+
+# Hoffman et al. (JMLR 2013)'s defaults, as the reference's SVIConfig carries
+# them, at a batch of 1,024 documents (about 340k of the main path's tokens);
+# 30 steps are about one epoch of the 28,500 training documents
+SVI_BATCH, SVI_STEPS, SVI_REPEAT_STEPS, SVI_SEGMENT_STEPS = 1024, 30, 5, 5
+SVI_TIMED_STEPS = 5
+# padding leaves the update unchanged up to the order of f32 sums (the
+# reference's own bound, tests/test_svi.py)
+SVI_PAD_TOL = dict(rtol=2e-5, atol=2e-5, elbo_rtol=1e-5)
+
+
+def svi_config(**kw):
+    from repro_torch.core.svi import SVIConfig
+    return SVIConfig(**{**dict(batch_size=SVI_BATCH, kappa=0.7, tau=10.0,
+                               pad_multiple=256, holdout_frac=0.05,
+                               holdout_every=10, holdout_local_iters=10,
+                               seed=SEED), **kw})
+
+
+def svi_equals_vmp(label, prog):
+    """One SVI step at |B| = G, exact caps, rho = 1 and the documents in
+    order, from the path's initial state, against one full-batch VMP step
+    (``runtime.make_step``): every posterior and the ELBO, bitwise."""
+    from repro_torch.core import runtime, vmp
+    from repro_torch.core.svi import SVI
+    g = prog.meta["pstar_size"]
+    s0 = vmp.init_state(prog, SEED, device="cuda")
+    want, e_want = runtime.make_step(prog, device="cuda")(s0)
+    svi = SVI(prog, svi_config(batch_size=g, rho=1.0, pad_multiple=0,
+                               shuffle=False, holdout_frac=0.0),
+              device="cuda")
+    got, e_got = svi.step(0, s0)
+    ok = float(e_got) == float(e_want) and all(
+        torch.equal(got.posteriors[n], want.posteriors[n])
+        for n in want.posteriors)
+    log(f"[{label}] one SVI step at |B| = G = {g}, rho = 1, exact caps, "
+        f"against one VMP step: {'bitwise equal' if ok else 'DIFFERENT'} "
+        f"(ELBO {float(e_got):.9e} / {float(e_want):.9e})")
+    check(ok, f"{label}: SVI at |B| = G, rho = 1 is not bitwise VMP")
+
+
+def svi_fit_checks(label, cfg, hist, counts, latent_kernel, steps):
+    """Every batch ELBO finite, every held-out ELBO finite, and the latent's
+    kernel launched ``local_iters`` times a step and ``holdout_local_iters
+    + 1`` times an evaluation."""
+    evals = len(hist["heldout"])
+    want = steps * cfg.local_iters + evals * (cfg.holdout_local_iters + 1)
+    log(f"[{label}] batch ELBO {hist['elbo'][0]:.6e} -> "
+        f"{hist['elbo'][-1]:.6e}; held-out per token "
+        f"{[round(v, 6) for _, v in hist['heldout']]} at steps "
+        f"{[t for t, _ in hist['heldout']]}")
+    log(f"[{label}] launches: {counts}")
+    check(len(hist["elbo"]) == steps and np.isfinite(hist["elbo"]).all(),
+          f"{label}: a batch ELBO is not finite")
+    check(evals > 0 and np.isfinite([v for _, v in hist["heldout"]]).all(),
+          f"{label}: a held-out ELBO is not finite")
+    check(counts[latent_kernel] == want,
+          f"{label}: {latent_kernel} launched {counts[latent_kernel]} times, "
+          f"not {want} ({steps} steps, {evals} held-out evaluations)")
+    check(counts["dirichlet_expectation"] > 0,
+          f"{label}: the Elog pass did not launch")
+
+
+def svi_batch_inputs(fit, state, t):
+    """The ``zstats`` inputs of one SVI batch as the step hands them over:
+    the batch's slice, owner plan and masks on the card, the batch's theta
+    rows gathered from ``state`` (padding rows at the prior) and both Elog
+    tables.  Returns (n_tokens, theta rows, (args of zstats), plan)."""
+    from repro_torch.core import compiler, vmp
+    from repro_torch.core import svi as svi_mod
+    prog = fit.program
+    hb, caps, n_tok, _ = fit._load_groups(fit.sampler.batch_at(t))
+    batch = svi_mod.device_put_batch(hb, "cuda")
+    shadow = compiler.sliced_shadow(prog, caps)
+    d = prog.dirichlets["theta"]
+    rows = batch["dirs"]["theta"]["rows"].long()
+    rmask = batch["dirs"]["theta"]["mask"]
+    prior = torch.from_numpy(d.prior).cuda()[None, :]
+    theta = torch.where(rmask[:, None] > 0,
+                        state.posteriors["theta"][rows.clamp(0, d.g - 1)],
+                        prior)
+    tabs = vmp._elog_tables(shadow, vmp.VMPState(
+        {"theta": theta, "phi": state.posteriors["phi"]}, 0))
+    spec = shadow.latents[0]
+    a = batch["arrays"]
+    args = (tabs[spec.prior_dir], a[spec.name]["prior_rows"],
+            vmp._latent_children(spec, tabs, a), a[spec.name]["mask"])
+    return n_tok, theta, args, batch["plans"][spec.name]
+
+
+def phase_lda_svi(report, prog):
+    """SVI over the main path's program: bitwise VMP at |B| = G, padding
+    invariance, untouched rows, two bitwise 5-step runs, the 30-step fit
+    with its launch counts, ``zstats`` (masked route) and the Elog pass
+    against their plain versions at one batch's inputs, and the step's time
+    split between the host (slicing, owner plan, copy) and the card."""
+    from repro_torch.core import compiler, vmp
+    from repro_torch.core import svi as svi_mod
+    from repro_torch.kernels import dirichlet_expectation as de
+    from repro_torch.kernels import fused_zstats as fz
+    from repro_torch.kernels import ops, ref
+    label = "lda_svi"
+    out = report[label] = {}
+    svi_equals_vmp(label, prog)
+    g = prog.meta["pstar_size"]
+    s0 = vmp.init_state(prog, SEED, device="cuda")
+    cfg = svi_config()
+    fit = svi_mod.SVI(prog, cfg, device="cuda")
+
+    groups = fit.sampler.batch_at(0)
+    stepped = {}
+    for kind, caps_fn in (("exact", None), ("padded", fit._caps_fn)):
+        batch, caps, n_tok = svi_mod.device_batch(prog, groups, caps_fn,
+                                                  "cuda")
+        stepped[kind] = svi_mod.make_svi_step(prog, caps)(s0, batch, 0.5, 2.0)
+    (se, ee), (sp, ep) = stepped["exact"], stepped["padded"]
+    tol = SVI_PAD_TOL
+    ok = abs(float(ep) - float(ee)) <= tol["elbo_rtol"] * abs(float(ee))
+    worst = 0.0
+    for n in se.posteriors:
+        ok &= within(sp.posteriors[n], se.posteriors[n], tol["rtol"],
+                     tol["atol"])
+        worst = max(worst, errors(sp.posteriors[n], se.posteriors[n])[0])
+    log(f"[{label}] batch 0 ({len(groups)} documents, {n_tok} tokens) padded "
+        f"to {caps['x']} tokens against exact caps, rho 0.5, scale 2: "
+        f"posteriors max_abs {worst:.3e}, ELBO {float(ep):.9e} / "
+        f"{float(ee):.9e} (rtol {tol['rtol']}, atol {tol['atol']}, ELBO rtol "
+        f"{tol['elbo_rtol']}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: padding changes the update")
+    rest = torch.from_numpy(np.setdiff1d(np.arange(g), groups)).cuda()
+    mine = torch.from_numpy(groups).cuda()
+    theta0, theta1 = s0.posteriors["theta"], sp.posteriors["theta"]
+    ok = torch.equal(theta1[rest], theta0[rest]) \
+        and not torch.equal(theta1[mine], theta0[mine])
+    log(f"[{label}] the {len(rest)} documents outside the batch keep their "
+        f"theta rows bitwise, the batch's move: {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: a step wrote theta rows outside its batch")
+    del stepped, se, sp
+
+    digests = []
+    for _ in range(2):
+        st, hist = svi_mod.SVI(prog, cfg, device="cuda").fit(
+            SVI_REPEAT_STEPS, state=s0)
+        digests.append(output_digest(vmp.state_to_numpy(st)[0],
+                                     hist["elbo"] + [v for _, v in
+                                                     hist["heldout"]]))
+    log(f"[{label}] two {SVI_REPEAT_STEPS}-step runs from one state: sha256 "
+        f"{digests[0]} / {digests[1]}")
+    check(digests[0] == digests[1], f"{label}: two runs from one state differ")
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = fit.fit(SVI_STEPS, state=s0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    svi_fit_checks(label, cfg, hist, counts, "zstats", SVI_STEPS)
+    held = [v for _, v in hist["heldout"]]
+    log(f"[{label}] fit({SVI_STEPS}) {fit_s:.2f} s; held-out per-token ELBO "
+        f"{held[0]:.6f} -> {held[-1]:.6f}")
+    check(held[-1] > held[0], f"{label}: the held-out ELBO did not rise")
+    digest = output_digest(vmp.state_to_numpy(state)[0], hist["elbo"] + held)
+    log(f"[{label}] sha256 of the final posteriors, batch and held-out ELBO "
+        f"traces: {digest}")
+
+    log(f"[kernels vs plain] {label}: one batch's inputs (padded, masked)")
+    n_tok, theta_b, args, plan = svi_batch_inputs(fit, state, SVI_STEPS)
+    zerr = compare_zstats(f"{label} batch", fz.zstats(*args, plan=plan),
+                          ref.zstats(*args))
+    de_err = compare("dirichlet_expectation", f"{label} theta rows "
+                     f"{tuple(theta_b.shape)}",
+                     de.dirichlet_expectation(theta_b), de_plain(theta_b),
+                     DE_TOL)
+    t_z = time_ms(lambda: fz.zstats(*args, plan=plan), reps=20)
+    t_zp = time_ms(lambda: ref.zstats(*args), reps=3)
+    t_de = time_ms(lambda: de.dirichlet_expectation(theta_b), reps=20)
+    t_de_dev = device_ms(lambda: de.dirichlet_expectation(theta_b))
+    t_dep = time_ms(lambda: de_plain(theta_b).contiguous(), reps=5)
+    cap, k = args[1].shape[0], theta_b.shape[1]
+    v = args[2][0].elog.shape[1]
+    # the prior rows, values, zmask and token mask each read once, both
+    # tables read and both stats written once; the work of the batch's
+    # real tokens
+    z_bytes = cap * 16 + (theta_b.shape[0] * k + k * v) * 4 * 2 + 4
+    z_ops = 8 * n_tok * k
+    d_bytes, d_ops = theta_b.numel() * 8, DIGAMMA_OPS * theta_b.numel()
+    entries = []
+    for name, route, src, rep, ms, pms, (bms, by), e in [
+        ("zstats", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
+         "src/repro/kernels/fused_zstats.py:685", t_z, t_zp,
+         bound(z_bytes, z_ops), zerr),
+        ("dirichlet_expectation", "triton",
+         "src/repro_torch/kernels/dirichlet_expectation.py",
+         "src/repro/kernels/dirichlet_expectation.py:52", t_de, t_dep,
+         bound(d_bytes, d_ops), de_err),
+    ]:
+        entries.append(kernel_entry(label, name, route, src, rep,
+                                    counts[name], e, ms, pms, bms, by))
+        log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
+            f"{bms:8.4f} ms ({by})  launches {counts[name]}")
+    entries[-1]["device_ms"] = t_de_dev
+    log(f"  dirichlet_expectation on the batch's theta rows: device time "
+        f"{t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
+    del args, plan, theta_b
+
+    out.update(svi_step_times(label, fit, state, report["device"]))
+    out.update(elbo_trace=hist["elbo"], heldout=hist["heldout"],
+               launches=counts, fit_s=fit_s, digest=digest,
+               repeat_digests=digests, pad_max_abs=worst)
+    return entries
+
+
+def svi_step_times(label, fit, state, dev_line):
+    """Per step, over SVI_TIMED_STEPS steps after the fit: host-clock ms of
+    ``SVI.step`` (each ending in the ELBO's ``float``) and tokens/s; the
+    same batches' ``slice_arrays``, owner-plan and host-to-device ms
+    apart; device ms and idle share under torch.profiler; the held-out
+    evaluation's ms, cold (slice and plan) and cached."""
+    from repro_torch.core import compiler
+    from repro_torch.core import svi as svi_mod
+    prog = fit.program
+    t_first = SVI_STEPS
+    steps = range(t_first, t_first + SVI_TIMED_STEPS)
+    parts = {"slice": [], "plan": [], "h2d": []}
+    n_tok = []
+    for t in steps:
+        t0 = time.perf_counter()
+        arrays, dirs, caps, n = compiler.slice_arrays(
+            prog, fit.sampler.batch_at(t), fit._caps_fn)
+        t1 = time.perf_counter()
+        plans = svi_mod.batch_plans(prog, caps, arrays)
+        t2 = time.perf_counter()
+        svi_mod.device_put_batch({"arrays": arrays, "dirs": dirs,
+                                  "plans": plans}, "cuda")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, a, b in (("slice", t0, t1), ("plan", t1, t2),
+                          ("h2d", t2, t3)):
+            parts[key].append((b - a) * 1e3)
+        n_tok.append(n)
+    st = state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in steps:
+        st, elbo = fit.step(t, st)
+        float(elbo)
+    step_ms = (time.perf_counter() - t0) / len(steps) * 1e3
+    tokens = float(np.mean(n_tok))
+    st2 = st
+
+    def run():
+        nonlocal st2
+        for t in range(t_first + SVI_TIMED_STEPS,
+                       t_first + 2 * SVI_TIMED_STEPS):
+            st2, elbo = fit.step(t, st2)
+            float(elbo)
+    trace = profile_steps(run, SVI_TIMED_STEPS, label=f"{label} trace")
+    t0 = time.perf_counter()
+    svi_mod.heldout_elbo(prog, st, fit.holdout, fit.cfg.holdout_local_iters,
+                         cache={})
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    fit.heldout_elbo(st)
+    t0 = time.perf_counter()
+    fit.heldout_elbo(st)
+    held_ms = (time.perf_counter() - t0) * 1e3
+    ms = {k: float(np.mean(v)) for k, v in parts.items()}
+    host = ms["slice"] + ms["plan"] + ms["h2d"]
+    idle = (f"{1 - trace['busy_ms'] / trace['step_ms']:.3f}"
+            if trace["busy_ms"] > 0 else "not measured")
+    log(f"[{label} times] {dev_line}: per step over {len(steps)} steps of "
+        f"{tokens:.0f} tokens: {step_ms:.2f} ms host clock, "
+        f"{tokens / step_ms * 1e3:.4e} tokens/s; slice_arrays "
+        f"{ms['slice']:.2f} ms, owner plan {ms['plan']:.2f} ms, H2D "
+        f"{ms['h2d']:.2f} ms ({host:.2f} ms of host work before the "
+        f"kernels); device {trace['busy_ms']:.3f} ms a step, idle share "
+        f"{idle}; held-out "
+        f"evaluation ({len(fit.holdout)} documents, "
+        f"{fit.cfg.holdout_local_iters + 1} step bodies) {held_ms:.2f} ms "
+        f"cached, {cold_ms:.2f} ms cold")
+    return dict(step_ms=step_ms, tokens_per_step=tokens,
+                tokens_per_s=tokens / step_ms * 1e3, slice_ms=ms["slice"],
+                plan_ms=ms["plan"], h2d_ms=ms["h2d"], heldout_ms=held_ms,
+                heldout_cold_ms=cold_ms, trace=trace)
+
+
+def phase_segment_svi(label, m, report, bitwise_vmp):
+    """SVI_SEGMENT_STEPS padded SVI steps of a segment-latent path with a
+    held-out evaluation (the reference's ``test_slda_minibatch_runs`` at
+    the path's widths): ``zstats_zmap`` on masked batches whose padding
+    tokens map to instance 0; with ``bitwise_vmp`` first one step at
+    |B| = G against VMP."""
+    from repro_torch.core.svi import SVI
+    from repro_torch.kernels import ops
+    prog = m.compile()
+    name = f"{label}_svi"
+    if bitwise_vmp:
+        svi_equals_vmp(name, prog)
+    cfg = svi_config(holdout_every=SVI_SEGMENT_STEPS)
+    svi = SVI(prog, cfg, device="cuda")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = svi.fit(SVI_SEGMENT_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    log(f"[{name}] fit({SVI_SEGMENT_STEPS}) of batches of "
+        f"{svi.sampler.batch_size} documents: {fit_s:.2f} s")
+    svi_fit_checks(name, cfg, hist, counts, "zstats_zmap", SVI_SEGMENT_STEPS)
+    check(counts["zstats"] == 0, f"{name}: the flat zstats launched")
+    report[name] = dict(elbo_trace=hist["elbo"], heldout=hist["heldout"],
+                        launches=counts, fit_s=fit_s)
+
+
+# ---------------------------------------------------------------------------
 # the LM trainer: olmo-1b at full width and depth, attention through the
 # flash_attention kernel
 # ---------------------------------------------------------------------------
@@ -1315,15 +1651,18 @@ def main(argv=None) -> int:
     corpus, m, prog = make_main_model(args)
     counts = phase_main(args, report, corpus, m, prog)
     kernels = phase_repeat_and_time(args, report, m, prog, counts)
+    kernels += phase_lda_svi(report, prog)
     del m, prog
     slda = make_slda(corpus)
     del corpus
     counts = phase_segment("slda", slda, args.steps, "z", report)
     kernels += phase_segment_times("slda", slda, report, counts)
+    phase_segment_svi("slda", slda, report, bitwise_vmp=False)
     del slda
     nb = make_naive_bayes(args)
     counts = phase_segment("naive_bayes", nb, NB_STEPS, "c", report)
     kernels += phase_segment_times("naive_bayes", nb, report, counts)
+    phase_segment_svi("naive_bayes", nb, report, bitwise_vmp=True)
     del nb
     kernels += phase_lm_train(report, phase_flash(report))
     report["seconds"] = time.perf_counter() - t_start

@@ -12,9 +12,9 @@ paper's *metadata collection* and *code generation* stages (sections
     most one latent selector (the supported mixture class),
   - emit a :class:`VMPProgram` that ``vmp.py`` runs one update step at a time.
 
-Everything here is numpy; tensors and devices begin in ``vmp.py``.
-Minibatch slicing (``slice_arrays``, ``sliced_shadow``) arrives with the
-SVI engine.
+Minibatch slicing (``slice_arrays``, ``sliced_shadow``), the SVI
+engine's view of a program, is copied the same way.  Everything here is
+numpy; tensors and devices begin in ``vmp.py`` and ``svi.py``.
 """
 
 from __future__ import annotations
@@ -355,3 +355,178 @@ def compile_program(net: BayesianNetwork, observations: dict,
             "pstar_size": pl.flat[id(pstar)] if pstar is not None else None}
     return VMPProgram(net.name, net, dirichlets, latents, statics,
                       layout, plate_sizes, meta)
+
+
+# ---------------------------------------------------------------------------
+# minibatch slicing (the SVI engine's view of a program)
+# ---------------------------------------------------------------------------
+#
+# A minibatch is a subset B of the partition-plate groups (documents).  The
+# message-passing graph decomposes into independent trees over those groups
+# (paper section 4.4), so the batch's slice of the program is closed: the
+# latent rows whose group is in B, the child/static factors of those rows
+# (zmaps re-indexed to batch-local latent positions), the batch rows of every
+# LOCAL Dirichlet (re-indexed likewise), and the full arrays of every GLOBAL
+# Dirichlet.  ``caps`` optionally pads each sliced axis to a fixed capacity
+# (masked), so a step built at one cap signature serves every batch.
+
+def local_dirichlets(program: VMPProgram) -> frozenset:
+    """Dirichlets rooted at the partition plate: sliced per batch; all
+    others are global (natural-gradient targets under SVI)."""
+    return frozenset(n for n, d in program.dirichlets.items()
+                     if d.group_rows is not None)
+
+
+def _padded(a: np.ndarray, cap: int, fill=0):
+    """Pad ``a``'s leading axis to ``cap`` with ``fill`` — shared by the
+    resident slicer below and the out-of-core slicer of a later slice
+    (whose bitwise-equality contract depends on this exact convention)."""
+    out = np.full((cap,) + a.shape[1:], fill, a.dtype)
+    out[:len(a)] = a
+    return out
+
+
+def _slice_mask(cap: int, n: int, always_mask: bool):
+    """(cap,) float32 validity mask with ``n`` ones, or None for an
+    exactly-full axis when no padding policy is active — shared with the
+    out-of-core slicer like :func:`_padded`."""
+    if cap == n and not always_mask:
+        return None
+    out = np.zeros(cap, np.float32)
+    out[:n] = 1.0
+    return out
+
+
+def slice_arrays(program: VMPProgram, groups, caps_fn=None):
+    """Build one minibatch's device-ready index arrays.
+
+    ``groups`` — partition-plate group ids in the batch (document ids).
+    ``caps_fn(name, n) -> cap`` — optional padding policy per sliced axis
+    (identity when None: exact shapes, masks omitted).
+
+    Returns ``(arrays, dir_rows, caps, n_tokens)``:
+      - ``arrays`` — the ``_step_body`` array dict for the sliced program,
+      - ``dir_rows`` — per local Dirichlet: global row index of each sliced
+        row (padding rows carry the sentinel ``g`` so scatters drop them)
+        plus a row mask,
+      - ``caps`` — the realized capacity of every sliced axis (the static
+        shape signature a step is built at),
+      - ``n_tokens`` — unpadded observed-instance count in the batch.
+    """
+    if program.meta.get("pstar") is None:
+        raise ValueError(f"model {program.name} has no '?' partition plate; "
+                         f"minibatch slicing needs one")
+    n_groups = program.meta["pstar_size"]
+    groups = np.asarray(groups, np.int64)
+    member = np.zeros(n_groups, bool)
+    member[groups] = True
+    cap_of = caps_fn if caps_fn is not None else (lambda name, n: n)
+    # under a padding policy, emit masks even for exactly-full axes so every
+    # batch (and every shard of a stacked batch) has one pytree structure
+    always_mask = caps_fn is not None
+
+    def _mask(cap, n):
+        return _slice_mask(cap, n, always_mask)
+
+    arrays: dict[str, dict] = {}
+    dir_rows: dict[str, dict] = {}
+    caps: dict[str, int] = {}
+    rowmap: dict[str, np.ndarray] = {}
+
+    for name, d in program.dirichlets.items():
+        if d.group_rows is None:
+            continue
+        sel = np.flatnonzero(member[d.group_rows])
+        g_b = len(sel)
+        cap = max(int(cap_of(name, g_b)), 1)
+        rm = np.full(d.g, -1, np.int64)
+        rm[sel] = np.arange(g_b)
+        rowmap[name] = rm
+        rows = np.full(cap, d.g, np.int32)        # sentinel: out-of-range
+        rows[:g_b] = sel
+        mask = np.zeros(cap, np.float32)
+        mask[:g_b] = 1.0
+        dir_rows[name] = {"rows": rows, "mask": mask}
+        caps[name] = cap
+
+    n_tokens = 0
+    for spec in program.latents:
+        if spec.group is None:
+            raise ValueError(f"latent {spec.name} is not under the partition "
+                             f"plate; minibatch slicing unsupported")
+        selz = np.flatnonzero(member[spec.group])
+        nz = len(selz)
+        capz = max(int(cap_of(spec.name, nz)), 1)
+        caps[spec.name] = capz
+        zloc = np.full(spec.n, -1, np.int64)
+        zloc[selz] = np.arange(nz)
+        pr = spec.prior_rows[selz]
+        if spec.prior_dir in rowmap:
+            pr = rowmap[spec.prior_dir][pr]
+        arrays[spec.name] = {"prior_rows": _padded(pr.astype(np.int32), capz),
+                             "mask": _mask(capz, nz)}
+        for f in spec.children:
+            if f.zmap is None:             # token plate == latent plate
+                selt, capt = selz, capz
+            else:
+                selt = np.flatnonzero(member[spec.group[f.zmap]])
+                capt = max(int(cap_of(f.x_name, len(selt))), 1)
+            nt = len(selt)
+            n_tokens += nt
+            caps[f.x_name] = capt
+            tmask = _mask(capt, nt)
+            zm = None
+            if f.zmap is not None:
+                zm = _padded(zloc[f.zmap[selt]].astype(np.int32), capt)
+            base = None
+            if f.base is not None:
+                b = f.base[selt].astype(np.int64)
+                if f.dir_name in rowmap:
+                    b = rowmap[f.dir_name][b]
+                base = _padded(b.astype(np.int32), capt)
+            arrays[f.x_name] = {
+                "values": _padded(f.values[selt].astype(np.int32), capt),
+                "zmap": zm, "base": base, "mask": tmask}
+
+    for s in program.statics:
+        if s.group is None:
+            raise ValueError(f"static factor {s.x_name} is not under the "
+                             f"partition plate; minibatch slicing unsupported")
+        sel = np.flatnonzero(member[s.group])
+        ns = len(sel)
+        n_tokens += ns
+        cap = max(int(cap_of(s.x_name, ns)), 1)
+        caps[s.x_name] = cap
+        rows = s.rows[sel].astype(np.int64)
+        if s.dir_name in rowmap:
+            rows = rowmap[s.dir_name][rows]
+        arrays[s.x_name] = {"rows": _padded(rows.astype(np.int32), cap),
+                            "values": _padded(s.values[sel].astype(np.int32), cap),
+                            "mask": _mask(cap, ns)}
+
+    return arrays, dir_rows, caps, n_tokens
+
+
+def sliced_shadow(program: VMPProgram, caps: dict[str, int]) -> VMPProgram:
+    """The program with every sliced axis resized to its cap — the static
+    metadata a minibatch step is built against.  Depends only on the cap
+    signature, so one shadow serves every batch padded to the same caps."""
+    dc = dataclasses
+    new_dirs = {name: (dc.replace(d, g=caps[name], group_rows=None)
+                       if d.group_rows is not None else d)
+                for name, d in program.dirichlets.items()}
+    new_lats = []
+    for spec in program.latents:
+        capz = caps[spec.name]
+        children = [dc.replace(f, n_z=capz) for f in spec.children]
+        new_lats.append(dc.replace(spec, n=capz,
+                                   prior_rows=np.zeros(capz, np.int32),
+                                   children=children, group=None))
+    meta = dict(program.meta)
+    meta["slice_of"] = program.name
+    # the full-batch path's owner plans (``vmp._latent_plan``) hold the
+    # program's own token streams and must not leak into the shadow through
+    # the shallow meta copy: a batch brings its own (``svi.host_batch``)
+    meta.pop("_zstats_plan", None)
+    return dc.replace(program, dirichlets=new_dirs, latents=new_lats,
+                      meta=meta)

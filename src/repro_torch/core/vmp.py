@@ -14,9 +14,11 @@ contribution collapses to ``sum_i logsumexp_k(logits_i)``.
 
 The state lives on one device.  On CUDA each latent's token plate is one
 call of the ``zstats`` kernel (``fused_zmap`` for a segment latent), whose
-owner plan is built on the host once per program and cached in
-``program.meta``; every reduction on the card runs in a fixed order, so two
-runs from the same state are bitwise equal.
+owner plan is built on the host: once per program and cached in
+``program.meta`` on the full-batch path, once per minibatch under SVI
+(``svi.host_batch`` hands it to :func:`_step_body`).  Every reduction on the
+card runs in a fixed order, so two runs from the same state are bitwise
+equal.
 """
 
 from __future__ import annotations
@@ -144,10 +146,11 @@ def _latent_children(spec, tabs: dict, arrays: dict) -> tuple:
 
 def _latent_plan(program: VMPProgram, spec, tabs: dict, arrays: dict,
                  children: tuple):
-    """The kernel's owner plan of one latent (``kops.zstats_plan``).  It
-    depends only on the program's static index streams, so it is built once
-    on the host and cached on the program, keyed per (latent name, instance
-    count, device)."""
+    """The kernel's owner plan of one latent (``kops.zstats_plan``) for the
+    full-batch path.  It depends only on the program's static index streams,
+    so it is built once on the host and cached on the program, keyed per
+    (latent name, instance count, device).  Minibatches share that key and
+    not their streams: the SVI path never comes here."""
     rows = arrays[spec.name]["prior_rows"]
     pcache = program.meta.setdefault("_zstats_plan", {})
     pkey = (spec.name, rows.shape[0], str(rows.device))
@@ -179,7 +182,7 @@ def _program_arrays(program: VMPProgram, device) -> dict:
 
 
 def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
-               elog_dtype=None):
+               elog_dtype=None, plans: dict | None = None):
     """One VMP iteration: ``(new_state, elbo)``, the ELBO a 0-d f32 tensor.
 
     Each Dirichlet's Elog table is made once (:func:`_elog_tables`) and read
@@ -191,6 +194,11 @@ def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
     the token plate the posterior *concentrations* narrowed to that type
     (``tables="alpha"``), while the digamma, softmax, stats and the Dirichlet
     ELBO terms stay f32.
+
+    ``plans`` — ``{latent name: owner plan}`` built from these ``arrays``
+    (a minibatch's, ``svi.host_batch``; a missing entry has the kernel
+    build its own).  ``None`` takes the program's cached plans
+    (:func:`_latent_plan`), for arrays that never change.
     """
 
     device = state.device
@@ -206,10 +214,11 @@ def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
 
     for spec in program.latents:
         children = _latent_children(spec, tabs, arrays)
+        plan = _latent_plan(program, spec, tabs, arrays, children) \
+            if plans is None else plans.get(spec.name)
         lse_sum, pstats, cstats = kops.zstats(
             tabs[spec.prior_dir], arrays[spec.name]["prior_rows"], children,
-            zmask=arrays[spec.name].get("mask"), tables=tables,
-            plan=_latent_plan(program, spec, tabs, arrays, children))
+            zmask=arrays[spec.name].get("mask"), tables=tables, plan=plan)
         elbo = elbo + lse_sum
         # prior-factor stats (theta <- z)
         stats[spec.prior_dir] = stats[spec.prior_dir] + pstats

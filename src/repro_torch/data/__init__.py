@@ -1,1 +1,3 @@
-from .pipeline import SyntheticCorpus, TokenStream  # noqa: F401
+from .pipeline import (GrowingMinibatchSampler,  # noqa: F401
+                       MinibatchSampler, SyntheticCorpus,
+                       TokenStream, holdout_split)

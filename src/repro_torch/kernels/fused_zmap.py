@@ -65,7 +65,7 @@ class ZmapPlan:
 
     def to(self, device) -> "ZmapPlan":
         """A copy whose index arrays also live on ``device``."""
-        device = torch.device(device)
+        device = _fz.placed(device)
         named = [(f"latent{i}", g) for i, g in enumerate(self.by_latent)] + \
             [(f"value{i}", g) for i, g in enumerate(self.by_value)]
         arrays = _fz.grouping_arrays(named)

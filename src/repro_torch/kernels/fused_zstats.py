@@ -146,11 +146,22 @@ class ZPlan:
 
     def to(self, device) -> "ZPlan":
         """A copy whose index arrays also live on ``device``."""
-        device = torch.device(device)
+        device = placed(device)
         arrays = grouping_arrays(self.passes())
         arrays.update(self.streams)
         return ZPlan(self.prior, self.children, self.streams, device,
                      device_arrays(arrays, device))
+
+
+def placed(device) -> torch.device:
+    """``device`` as a tensor placed there reports it: ``"cuda"`` names the
+    current card (``cuda:0``).  A plan's device is compared with its call's
+    tables' (:func:`launch_flat`), and a plan that compared unequal would be
+    copied to the card again at every call."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def device_arrays(arrays: dict, device) -> dict:

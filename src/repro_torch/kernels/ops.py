@@ -54,17 +54,25 @@ def _segmented(children) -> bool:
     return any(c.zmap is not None for c in children)
 
 
+def host_plan(prior_shape: tuple, prior_rows, children):
+    """The kernel's owner plan for these index streams, built on the host:
+    ``fused_zstats.ZPlan`` for a flat latent, ``fused_zmap.ZmapPlan`` for a
+    segment latent, its ``.to(device)`` not yet taken.  The streams may be
+    numpy arrays or tensors; of the tables (``prior_shape`` and each child's
+    ``elog``) it reads only the shapes, so a child may carry a stand-in of
+    its table's shape (``svi.batch_plans``)."""
+    build = _fzm.build_zmap_plan if _segmented(children) else _fz.build_plan
+    return build(prior_rows, children, tuple(prior_shape))
+
+
 def zstats_plan(table_prior, prior_rows, children):
-    """The kernel's host-side owner plan for these static index streams, on
-    their device: ``fused_zstats.ZPlan`` for a flat latent,
-    ``fused_zmap.ZmapPlan`` for a segment latent; ``None`` on the CPU, where
-    no kernel runs.  ``None`` is always safe to pass back as
-    ``zstats(..., plan=)``."""
+    """The kernel's owner plan for these index streams (:func:`host_plan`),
+    on their device; ``None`` on the CPU, where no kernel runs.  ``None`` is
+    always safe to pass back as ``zstats(..., plan=)``."""
     if _plain(table_prior):
         return None
-    build = _fzm.build_zmap_plan if _segmented(children) else _fz.build_plan
-    return build(prior_rows, children,
-                 tuple(table_prior.shape)).to(table_prior.device)
+    return host_plan(table_prior.shape, prior_rows,
+                     children).to(table_prior.device)
 
 
 def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
@@ -80,7 +88,8 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     computed first.  Returns the scalar float32 sum of per-instance
     logsumexp, the ``(G, K)`` float32 prior stats, and per child a
     ``(Gc, Kc)`` float32 stats table.  ``plan`` — an optional
-    :func:`zstats_plan` result, cached per program by ``core/vmp.py``.
+    :func:`zstats_plan` result for exactly these index streams: cached per
+    program by ``core/vmp.py``, built per minibatch by ``core/svi.py``.
 
     On the CPU this is ``ref.zstats`` (flat and segment latents).  On CUDA
     a flat latent runs the ``fused_zstats`` kernel and a segment latent
@@ -139,5 +148,5 @@ def launch_counts() -> dict:
 
 
 __all__ = ["ZChild", "dirichlet_expectation", "zstep", "zstats",
-           "zstats_plan", "zmap_logits", "flash_attention",
+           "host_plan", "zstats_plan", "zmap_logits", "flash_attention",
            "reset_launch_counts", "launch_counts"]

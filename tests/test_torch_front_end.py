@@ -245,4 +245,4 @@ def test_vmp_program_init_state_on_cpu():
     s = prog.init_state(seed=1, device="cpu")
     assert s.step == 0 and set(s.posteriors) == {"theta", "phi"}
     assert isinstance(prog, tcomp.VMPProgram)
-    assert not hasattr(tcomp, "slice_arrays") and hasattr(jcomp, "slice_arrays")
+    assert hasattr(tcomp, "slice_arrays") and hasattr(jcomp, "slice_arrays")

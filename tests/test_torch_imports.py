@@ -36,7 +36,8 @@ def test_fence_covers_the_port():
             "fused_zstats.py", "dirichlet_expectation.py",
             "vmp_zstep.py", "build.py", "flash_attention.py", "base.py",
             "olmo_1b.py", "layers.py", "transformer.py", "registry.py",
-            "adamw.py", "steps.py", "train.py"} <= names
+            "adamw.py", "steps.py", "train.py", "svi.py", "engine.py",
+            "pipeline.py", "compiler.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

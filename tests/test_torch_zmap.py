@@ -669,12 +669,9 @@ def test_topics_equal_jax_result_topics():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(backend="svi"), dict(backend="gibbs"), dict(holdout_frac=0.1),
-    dict(corpus=object()), dict(hosts=object()),
+    dict(backend="gibbs"), dict(hosts=object()),
     dict(checkpoint_dir="ckpt"), dict(validate=True),
-    dict(batch_size=128), dict(kappa=0.5), dict(tau=1.0), dict(rho=0.1),
-    dict(local_iters=3), dict(pad_multiple=128), dict(holdout_every=5),
-    dict(holdout_local_iters=20), dict(prefetch=False), dict(growing=True),
+    dict(prefetch=False), dict(growing=True),
     dict(capacity_docs=10), dict(population_size=10),
     dict(checkpoint_every=5), dict(resume=True), dict(burnin=3),
     dict(thin=2)])
