@@ -43,12 +43,16 @@ Phases, each of which exits non-zero on a failed check:
      before and read just after: ``zstats`` once a step and 11 times an
      evaluation), every ELBO finite and the held-out ELBO rising;
      ``zstats`` (masked) and the Elog pass at one batch's inputs against
-     their plain versions; per step the host clock, tokens/s, the
-     ``slice_arrays``, owner-plan and host-to-device ms, device ms and idle
-     share under the profiler, and the held-out evaluation's ms.  SLDA and
-     naive Bayes (after their VMP phases) each run 5 padded SVI steps with
-     a held-out evaluation through ``zstats_zmap``; naive Bayes first holds
-     one step at |B| = G bitwise against VMP;
+     their plain versions; per step the host clock, tokens/s, and inside
+     the same steps the ``slice_arrays``, owner-plan and host-to-device ms,
+     device ms and idle share under the profiler, and the held-out
+     evaluation's ms.  SLDA and naive Bayes (after their VMP phases) each
+     hold batch 0 padded against exact caps within 2e-5 and run 5 padded
+     SVI steps with a held-out evaluation through ``zstats_zmap`` (launch
+     counts set to 0 just before and read just after), then hold
+     ``zstats_zmap`` and ``zmap_logits`` against their plain versions at
+     one padded batch's inputs; naive Bayes first holds one step at
+     |B| = G bitwise against VMP;
   8. the segment-latent path: SLDA at the same widths over the same corpus,
      cut into sentences of 7 tokens (about 1.44M sentences), through
      ``models.make("slda")`` -> ``observe`` + ``bind("sents")`` ->
@@ -894,7 +898,7 @@ def phase_segment_times(label, m, report, counts):
     tabs = vmp._elog_tables(prog, state)
     children = vmp._latent_children(spec, tabs, arrays)
     rows = arrays[spec.name]["prior_rows"]
-    plan = vmp._latent_plan(prog, spec, tabs, arrays, children)
+    plan = vmp.program_plans(prog, arrays)[spec.name]
     prior = tabs[spec.prior_dir]
     err = compare_zstats(f"{label} path", fzm.zstats_zmap(
         prior, rows, children, plan=plan), ref.zstats(prior, rows, children),
@@ -1108,51 +1112,33 @@ def svi_fit_checks(label, cfg, hist, counts, latent_kernel, steps):
 
 
 def svi_batch_inputs(fit, state, t):
-    """The ``zstats`` inputs of one SVI batch as the step hands them over:
-    the batch's slice, owner plan and masks on the card, the batch's theta
-    rows gathered from ``state`` (padding rows at the prior) and both Elog
-    tables.  Returns (n_tokens, theta rows, (args of zstats), plan)."""
+    """The inputs the step hands its latent's kernel on batch ``t``: the
+    batch's slice, owner plan and masks on the card, the step's own sliced
+    state (``svi.sliced_state``: the batch's local rows, padding rows at the
+    prior) and its Elog tables.  Returns (n_tokens, sliced state, (args of
+    zstats), plan, the shadow's latent)."""
     from repro_torch.core import compiler, vmp
     from repro_torch.core import svi as svi_mod
     prog = fit.program
     hb, caps, n_tok, _ = fit._load_groups(fit.sampler.batch_at(t))
     batch = svi_mod.device_put_batch(hb, "cuda")
     shadow = compiler.sliced_shadow(prog, caps)
-    d = prog.dirichlets["theta"]
-    rows = batch["dirs"]["theta"]["rows"].long()
-    rmask = batch["dirs"]["theta"]["mask"]
-    prior = torch.from_numpy(d.prior).cuda()[None, :]
-    theta = torch.where(rmask[:, None] > 0,
-                        state.posteriors["theta"][rows.clamp(0, d.g - 1)],
-                        prior)
-    tabs = vmp._elog_tables(shadow, vmp.VMPState(
-        {"theta": theta, "phi": state.posteriors["phi"]}, 0))
+    st = svi_mod.sliced_state(prog, state, batch)
+    tabs = vmp._elog_tables(shadow, st)
     spec = shadow.latents[0]
     a = batch["arrays"]
     args = (tabs[spec.prior_dir], a[spec.name]["prior_rows"],
             vmp._latent_children(spec, tabs, a), a[spec.name]["mask"])
-    return n_tok, theta, args, batch["plans"][spec.name]
+    return n_tok, st, args, batch["plans"][spec.name], spec
 
 
-def phase_lda_svi(report, prog):
-    """SVI over the main path's program: bitwise VMP at |B| = G, padding
-    invariance, untouched rows, two bitwise 5-step runs, the 30-step fit
-    with its launch counts, ``zstats`` (masked route) and the Elog pass
-    against their plain versions at one batch's inputs, and the step's time
-    split between the host (slicing, owner plan, copy) and the card."""
-    from repro_torch.core import compiler, vmp
+def svi_pad_check(label, prog, fit, s0):
+    """Batch 0 of ``fit`` at exact caps against the same batch padded to
+    the fit's caps (the masked kernel route against the unmasked one), one
+    step at rho 0.5 and scale 2 from ``s0``: every posterior within
+    SVI_PAD_TOL and the ELBO within its rtol.  Returns (the batch's groups,
+    the padded step's state, the largest posterior difference)."""
     from repro_torch.core import svi as svi_mod
-    from repro_torch.kernels import dirichlet_expectation as de
-    from repro_torch.kernels import fused_zstats as fz
-    from repro_torch.kernels import ops, ref
-    label = "lda_svi"
-    out = report[label] = {}
-    svi_equals_vmp(label, prog)
-    g = prog.meta["pstar_size"]
-    s0 = vmp.init_state(prog, SEED, device="cuda")
-    cfg = svi_config()
-    fit = svi_mod.SVI(prog, cfg, device="cuda")
-
     groups = fit.sampler.batch_at(0)
     stepped = {}
     for kind, caps_fn in (("exact", None), ("padded", fit._caps_fn)):
@@ -1168,11 +1154,34 @@ def phase_lda_svi(report, prog):
                      tol["atol"])
         worst = max(worst, errors(sp.posteriors[n], se.posteriors[n])[0])
     log(f"[{label}] batch 0 ({len(groups)} documents, {n_tok} tokens) padded "
-        f"to {caps['x']} tokens against exact caps, rho 0.5, scale 2: "
-        f"posteriors max_abs {worst:.3e}, ELBO {float(ep):.9e} / "
-        f"{float(ee):.9e} (rtol {tol['rtol']}, atol {tol['atol']}, ELBO rtol "
-        f"{tol['elbo_rtol']}) {'ok' if ok else 'FAIL'}")
+        f"to caps {caps} against exact caps, rho 0.5, scale 2: posteriors "
+        f"max_abs {worst:.3e}, ELBO {float(ep):.9e} / {float(ee):.9e} (rtol "
+        f"{tol['rtol']}, atol {tol['atol']}, ELBO rtol {tol['elbo_rtol']}) "
+        f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{label}: padding changes the update")
+    return groups, sp, worst
+
+
+def phase_lda_svi(report, prog):
+    """SVI over the main path's program: bitwise VMP at |B| = G, padding
+    invariance, untouched rows, two bitwise 5-step runs, the 30-step fit
+    with its launch counts, ``zstats`` (masked route) and the Elog pass
+    against their plain versions at one batch's inputs, and the step's time
+    split between the host (slicing, owner plan, copy) and the card."""
+    from repro_torch.core import vmp
+    from repro_torch.core import svi as svi_mod
+    from repro_torch.kernels import dirichlet_expectation as de
+    from repro_torch.kernels import fused_zstats as fz
+    from repro_torch.kernels import ops, ref
+    label = "lda_svi"
+    out = report[label] = {}
+    svi_equals_vmp(label, prog)
+    g = prog.meta["pstar_size"]
+    s0 = vmp.init_state(prog, SEED, device="cuda")
+    cfg = svi_config()
+    fit = svi_mod.SVI(prog, cfg, device="cuda")
+
+    groups, sp, worst = svi_pad_check(label, prog, fit, s0)
     rest = torch.from_numpy(np.setdiff1d(np.arange(g), groups)).cuda()
     mine = torch.from_numpy(groups).cuda()
     theta0, theta1 = s0.posteriors["theta"], sp.posteriors["theta"]
@@ -1181,7 +1190,7 @@ def phase_lda_svi(report, prog):
     log(f"[{label}] the {len(rest)} documents outside the batch keep their "
         f"theta rows bitwise, the batch's move: {'ok' if ok else 'FAIL'}")
     check(ok, f"{label}: a step wrote theta rows outside its batch")
-    del stepped, se, sp
+    del sp
 
     digests = []
     for _ in range(2):
@@ -1211,7 +1220,8 @@ def phase_lda_svi(report, prog):
         f"traces: {digest}")
 
     log(f"[kernels vs plain] {label}: one batch's inputs (padded, masked)")
-    n_tok, theta_b, args, plan = svi_batch_inputs(fit, state, SVI_STEPS)
+    n_tok, st_b, args, plan, _ = svi_batch_inputs(fit, state, SVI_STEPS)
+    theta_b = st_b.posteriors["theta"]
     zerr = compare_zstats(f"{label} batch", fz.zstats(*args, plan=plan),
                           ref.zstats(*args))
     de_err = compare("dirichlet_expectation", f"{label} theta rows "
@@ -1248,7 +1258,7 @@ def phase_lda_svi(report, prog):
     entries[-1]["device_ms"] = t_de_dev
     log(f"  dirichlet_expectation on the batch's theta rows: device time "
         f"{t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
-    del args, plan, theta_b
+    del args, plan, theta_b, st_b
 
     out.update(svi_step_times(label, fit, state, report["device"]))
     out.update(elbo_trace=hist["elbo"], heldout=hist["heldout"],
@@ -1259,40 +1269,28 @@ def phase_lda_svi(report, prog):
 
 def svi_step_times(label, fit, state, dev_line):
     """Per step, over SVI_TIMED_STEPS steps after the fit: host-clock ms of
-    ``SVI.step`` (each ending in the ELBO's ``float``) and tokens/s; the
-    same batches' ``slice_arrays``, owner-plan and host-to-device ms
-    apart; device ms and idle share under torch.profiler; the held-out
-    evaluation's ms, cold (slice and plan) and cached."""
-    from repro_torch.core import compiler
+    ``SVI.step`` (each ending in the ELBO's ``float``) and tokens/s, and
+    inside those same steps the host ms of ``slice_arrays``, of the owner
+    plans and of the host-to-device copy (``SVI.host_ms``); device ms and
+    idle share under torch.profiler over the next SVI_TIMED_STEPS steps;
+    the held-out evaluation's ms, cold (slice and plan) and cached."""
     from repro_torch.core import svi as svi_mod
     prog = fit.program
     t_first = SVI_STEPS
     steps = range(t_first, t_first + SVI_TIMED_STEPS)
-    parts = {"slice": [], "plan": [], "h2d": []}
-    n_tok = []
-    for t in steps:
-        t0 = time.perf_counter()
-        arrays, dirs, caps, n = compiler.slice_arrays(
-            prog, fit.sampler.batch_at(t), fit._caps_fn)
-        t1 = time.perf_counter()
-        plans = svi_mod.batch_plans(prog, caps, arrays)
-        t2 = time.perf_counter()
-        svi_mod.device_put_batch({"arrays": arrays, "dirs": dirs,
-                                  "plans": plans}, "cuda")
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for key, a, b in (("slice", t0, t1), ("plan", t1, t2),
-                          ("h2d", t2, t3)):
-            parts[key].append((b - a) * 1e3)
-        n_tok.append(n)
+    tokens = float(np.mean([fit._weights[fit.sampler.batch_at(t)].sum()
+                            for t in steps]))
     st = state
+    fit.host_ms = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for t in steps:
         st, elbo = fit.step(t, st)
         float(elbo)
     step_ms = (time.perf_counter() - t0) / len(steps) * 1e3
-    tokens = float(np.mean(n_tok))
+    parts, fit.host_ms = fit.host_ms, None
+    ms = {k: float(np.mean([p[k] for p in parts]))
+          for k in ("slice", "plan", "h2d")}
     st2 = st
 
     def run():
@@ -1310,44 +1308,50 @@ def svi_step_times(label, fit, state, dev_line):
     t0 = time.perf_counter()
     fit.heldout_elbo(st)
     held_ms = (time.perf_counter() - t0) * 1e3
-    ms = {k: float(np.mean(v)) for k, v in parts.items()}
     host = ms["slice"] + ms["plan"] + ms["h2d"]
     idle = (f"{1 - trace['busy_ms'] / trace['step_ms']:.3f}"
             if trace["busy_ms"] > 0 else "not measured")
     log(f"[{label} times] {dev_line}: per step over {len(steps)} steps of "
         f"{tokens:.0f} tokens: {step_ms:.2f} ms host clock, "
-        f"{tokens / step_ms * 1e3:.4e} tokens/s; slice_arrays "
-        f"{ms['slice']:.2f} ms, owner plan {ms['plan']:.2f} ms, H2D "
-        f"{ms['h2d']:.2f} ms ({host:.2f} ms of host work before the "
-        f"kernels); device {trace['busy_ms']:.3f} ms a step, idle share "
-        f"{idle}; held-out "
+        f"{tokens / step_ms * 1e3:.4e} tokens/s; inside those steps "
+        f"slice_arrays {ms['slice']:.2f} ms, owner plan {ms['plan']:.2f} ms, "
+        f"H2D {ms['h2d']:.2f} ms ({host:.2f} ms of host work before the "
+        f"kernels, {step_ms - host:.2f} ms the rest); device "
+        f"{trace['busy_ms']:.3f} ms a step, idle share {idle}; held-out "
         f"evaluation ({len(fit.holdout)} documents, "
         f"{fit.cfg.holdout_local_iters + 1} step bodies) {held_ms:.2f} ms "
         f"cached, {cold_ms:.2f} ms cold")
     return dict(step_ms=step_ms, tokens_per_step=tokens,
                 tokens_per_s=tokens / step_ms * 1e3, slice_ms=ms["slice"],
-                plan_ms=ms["plan"], h2d_ms=ms["h2d"], heldout_ms=held_ms,
-                heldout_cold_ms=cold_ms, trace=trace)
+                plan_ms=ms["plan"], h2d_ms=ms["h2d"], host_parts=parts,
+                heldout_ms=held_ms, heldout_cold_ms=cold_ms, trace=trace)
 
 
 def phase_segment_svi(label, m, report, bitwise_vmp):
-    """SVI_SEGMENT_STEPS padded SVI steps of a segment-latent path with a
-    held-out evaluation (the reference's ``test_slda_minibatch_runs`` at
-    the path's widths): ``zstats_zmap`` on masked batches whose padding
-    tokens map to instance 0; with ``bitwise_vmp`` first one step at
-    |B| = G against VMP."""
+    """SVI of a segment-latent path: with ``bitwise_vmp`` first one step at
+    |B| = G against VMP; padding invariance on batch 0; SVI_SEGMENT_STEPS
+    padded steps with a held-out evaluation (the reference's
+    ``test_slda_minibatch_runs`` at the path's widths), their launch counts
+    set to 0 just before and read just after; then ``zstats_zmap`` and its
+    phase 1 alone (``zmap_logits``) against their plain versions at one
+    padded batch's inputs, whose padding tokens map to instance 0 and whose
+    padding instances hold no tokens.  Returns the path's kernels entry."""
+    from repro_torch.core import vmp
     from repro_torch.core.svi import SVI
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import fused_zmap as fzm
+    from repro_torch.kernels import ops, ref
     prog = m.compile()
     name = f"{label}_svi"
     if bitwise_vmp:
         svi_equals_vmp(name, prog)
     cfg = svi_config(holdout_every=SVI_SEGMENT_STEPS)
     svi = SVI(prog, cfg, device="cuda")
+    s0 = vmp.init_state(prog, SEED, device="cuda")
+    _, _, worst = svi_pad_check(name, prog, svi, s0)
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, hist = svi.fit(SVI_SEGMENT_STEPS)
+    state, hist = svi.fit(SVI_SEGMENT_STEPS, state=s0)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1355,8 +1359,50 @@ def phase_segment_svi(label, m, report, bitwise_vmp):
         f"{svi.sampler.batch_size} documents: {fit_s:.2f} s")
     svi_fit_checks(name, cfg, hist, counts, "zstats_zmap", SVI_SEGMENT_STEPS)
     check(counts["zstats"] == 0, f"{name}: the flat zstats launched")
+
+    log(f"[kernels vs plain] {name}: one batch's inputs (padded, masked)")
+    n_tok, _, args, plan, spec = svi_batch_inputs(svi, state,
+                                                  SVI_SEGMENT_STEPS)
+    prior, _, children, zmask = args
+    check(all(c.zmap is not None for c in children),
+          f"{name}: a child of the segment latent has no zmap")
+    n_z, k = spec.n, spec.k
+    n_real = int(zmask.sum())
+    n_parts = sum(int(plan.streams[f"latent{j}", "fstart"][-1])
+                  for j in range(len(plan.by_latent)))
+    err = compare_zstats(f"{name} batch", fzm.zstats_zmap(*args, plan=plan),
+                         ref.zstats(*args), name="zstats_zmap")
+    lerr = compare("zmap_logits", f"{name} batch",
+                   fzm.zmap_logits(children, n_z, k, plan=plan),
+                   ref.zmap_logits(children, n_z, k),
+                   dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"]))
+    t_z = time_ms(lambda: fzm.zstats_zmap(*args, plan=plan), reps=20)
+    t_zp = time_ms(lambda: ref.zstats(*args), reps=3)
+    # the prior rows and zmask, each child's token streams (values, zmap,
+    # mask, base) each read once; every table read and its stats written
+    # once; the work of the batch's real instances and tokens
+    streams = sum(len(c.values) * 4 * sum(
+        a is not None for a in (c.values, c.zmap, c.mask, c.base))
+        for c in children)
+    tables = (prior.numel() + sum(c.elog.numel() for c in children)) * 4
+    z_bytes = n_z * 8 + streams + tables * 2 + 4
+    z_ops = 8 * n_real * k + 4 * n_tok * k
+    bms, by = bound(z_bytes, z_ops)
+    entry = kernel_entry(name, "zstats_zmap", "cuda",
+                         "src/repro_torch/kernels/csrc/zstats.cu",
+                         "src/repro/kernels/fused_zmap.py:236",
+                         counts["zstats_zmap"], err, t_z, t_zp, bms, by)
+    log(f"  zstats_zmap            {t_z:9.4f} ms  plain {t_zp:9.4f} ms  "
+        f"bound {bms:8.4f} ms ({by})  launches {counts['zstats_zmap']} "
+        f"({n_real} of {n_z} instances real, {n_tok} tokens, {n_parts} "
+        f"partial rows); zmap_logits at the same inputs max_abs {lerr:.3e} "
+        f"(the step does not launch it apart)")
+    del args, plan, children, prior
     report[name] = dict(elbo_trace=hist["elbo"], heldout=hist["heldout"],
-                        launches=counts, fit_s=fit_s)
+                        launches=counts, fit_s=fit_s, pad_max_abs=worst,
+                        zstats_zmap_ms=t_z, zmap_logits_max_abs=lerr,
+                        partial_rows=n_parts)
+    return [entry]
 
 
 # ---------------------------------------------------------------------------
@@ -1645,30 +1691,43 @@ def main(argv=None) -> int:
     log(f"[device] {dev_line}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     report = {"device": dev_line, "args": vars(args)}
+    svi_s = report["svi_phase_s"] = {}
+
+    def svi_phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        svi_s[name] = time.perf_counter() - t0
+        return out
+
     phase_build(report)
     phase_kernels_vs_plain(report)
     report["zmap_edge_max_abs"] = phase_zmap_kernels()
     corpus, m, prog = make_main_model(args)
     counts = phase_main(args, report, corpus, m, prog)
     kernels = phase_repeat_and_time(args, report, m, prog, counts)
-    kernels += phase_lda_svi(report, prog)
+    kernels += svi_phase("lda_svi", phase_lda_svi, report, prog)
     del m, prog
     slda = make_slda(corpus)
     del corpus
     counts = phase_segment("slda", slda, args.steps, "z", report)
     kernels += phase_segment_times("slda", slda, report, counts)
-    phase_segment_svi("slda", slda, report, bitwise_vmp=False)
+    kernels += svi_phase("slda_svi", phase_segment_svi, "slda", slda, report,
+                         bitwise_vmp=False)
     del slda
     nb = make_naive_bayes(args)
     counts = phase_segment("naive_bayes", nb, NB_STEPS, "c", report)
     kernels += phase_segment_times("naive_bayes", nb, report, counts)
-    phase_segment_svi("naive_bayes", nb, report, bitwise_vmp=True)
+    kernels += svi_phase("naive_bayes_svi", phase_segment_svi, "naive_bayes",
+                         nb, report, bitwise_vmp=True)
     del nb
     kernels += phase_lm_train(report, phase_flash(report))
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))
-    log(f"[done] {report['seconds']:.1f} s; report in {REPORT}")
+    log(f"[done] {report['seconds']:.1f} s (kernel builds "
+        f"{report['build_s']:.1f} s, SVI phases {sum(svi_s.values()):.1f} s: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in svi_s.items())}); report in "
+        f"{REPORT}")
     print(dev_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -416,7 +416,7 @@ def zmap_precision(cs):
     tabs = vmp._elog_tables(prog, state)
     children = vmp._latent_children(spec, tabs, arrays)
     rows = arrays[spec.name]["prior_rows"].long()
-    plan = vmp._latent_plan(prog, spec, tabs, arrays, children)
+    plan = vmp.program_plans(prog, arrays)[spec.name]
     prior, ch = tabs[spec.prior_dir], children[0]
     dev = prior.device
     kern = fzm.zstats_zmap(prior, rows.int(), children, plan=plan)

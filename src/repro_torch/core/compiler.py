@@ -524,7 +524,7 @@ def sliced_shadow(program: VMPProgram, caps: dict[str, int]) -> VMPProgram:
                                    children=children, group=None))
     meta = dict(program.meta)
     meta["slice_of"] = program.name
-    # the full-batch path's owner plans (``vmp._latent_plan``) hold the
+    # the full-batch path's owner plans (``vmp.program_plans``) hold the
     # program's own token streams and must not leak into the shadow through
     # the shallow meta copy: a batch brings its own (``svi.host_batch``)
     meta.pop("_zstats_plan", None)

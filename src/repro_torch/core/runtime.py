@@ -14,7 +14,8 @@ from typing import Callable, Optional
 import torch
 
 from .compiler import VMPProgram
-from .vmp import VMPState, _program_arrays, _step_body, init_state, resolve_device
+from .vmp import (VMPState, _program_arrays, _step_body, init_state,
+                  program_plans, resolve_device)
 
 
 def _resolve_elog_dtype(elog_dtype):
@@ -32,10 +33,12 @@ def make_step(program: VMPProgram, elog_dtype=None, device=None):
     ``"cuda"``).  ``elog_dtype`` narrows the concentration tables the token
     plate reads — see ``vmp._step_body``."""
     arrays = _program_arrays(program, resolve_device(device))
+    plans = program_plans(program, arrays)
     elog_dtype = _resolve_elog_dtype(elog_dtype)
 
     def step(state: VMPState):
-        return _step_body(program, arrays, state, elog_dtype=elog_dtype)
+        return _step_body(program, arrays, state, elog_dtype=elog_dtype,
+                          plans=plans)
 
     return step
 

@@ -18,7 +18,7 @@ rho = 1 one SVI step IS one full-batch VMP step.
 
 Each batch is sliced on the host (``compiler.slice_arrays``), and on CUDA
 its kernels' owner plans are built there too, from the batch's own token
-streams (:func:`batch_plans`): the plan holds copies of those streams, and
+streams (``vmp.owner_plans``): the plan holds copies of those streams, and
 batches padded to the same caps share every shape, so a plan kept across
 batches would feed one batch's kernel another batch's tokens.
 
@@ -32,18 +32,18 @@ resume_from=)``), the static pre-flight (``validate=True``) and fold-in
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..data.pipeline import MinibatchSampler, holdout_split
-from ..kernels import ops as kops
 from . import dists
 from .compiler import (VMPProgram, local_dirichlets, slice_arrays,
                        sliced_shadow)
 from .runtime import _resolve_elog_dtype
-from .vmp import (VMPState, _latent_children, _step_body, init_state,
+from .vmp import (VMPState, _step_body, init_state, owner_plans,
                   resolve_device)
 
 
@@ -119,6 +119,29 @@ def _scalar(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def sliced_state(program: VMPProgram, state: VMPState, batch: dict,
+                 priors: Optional[dict] = None) -> VMPState:
+    """The state a batch's step starts from: each local Dirichlet's rows of
+    the batch gathered from ``state`` (``batch["dirs"]``, on the state's
+    device), its padding rows (the sentinel row g) exactly at the prior so
+    that their ELBO terms and stats are zero; the global Dirichlets as they
+    are.  ``priors`` — :func:`_priors` on the state's device, or None to
+    make them here."""
+    if priors is None:
+        priors = _priors(program, state.device)
+    local = local_dirichlets(program)
+    sliced = {}
+    for name, d in program.dirichlets.items():
+        if name in local:
+            rows = batch["dirs"][name]["rows"].long()
+            mask = batch["dirs"][name]["mask"]
+            got = state.posteriors[name][rows.clamp(0, d.g - 1)]
+            sliced[name] = torch.where(mask[:, None] > 0, got, priors[name])
+        else:
+            sliced[name] = state.posteriors[name]
+    return VMPState(sliced, state.step)
+
+
 def make_svi_step(program: VMPProgram, caps: dict[str, int],
                   local_iters: int = 1, elog_dtype=None):
     """Build ``step(state, batch, rho, scale) -> (state', batch_elbo)`` for
@@ -127,8 +150,8 @@ def make_svi_step(program: VMPProgram, caps: dict[str, int],
     ``batch`` is the output of :func:`device_batch`; ``rho`` the step size;
     ``scale`` the stochastic-stats multiplier G/|B| (floats or 0-d tensors,
     taken as f32 on the state's device).  The batch's owner plans
-    (``batch["plans"]``) go to every ``_step_body`` of the step; the
-    program's cached plans are never read.
+    (``batch["plans"]``, empty off CUDA) go to every ``_step_body`` of the
+    step; the program's cached plans are never read.
     """
     local = local_dirichlets(program)
     shadow = sliced_shadow(program, caps)
@@ -141,21 +164,9 @@ def make_svi_step(program: VMPProgram, caps: dict[str, int],
             priors_on[device] = _priors(program, device)
         priors = priors_on[device]
         rho, scale = _scalar(rho, device), _scalar(scale, device)
-        plans = batch.get("plans") or {}
-        # gather the batch's local rows; padding rows (the sentinel row g)
-        # sit exactly at the prior so their ELBO terms and stats are zero
-        sliced = {}
-        for name, d in program.dirichlets.items():
-            if name in local:
-                rows = batch["dirs"][name]["rows"].long()
-                mask = batch["dirs"][name]["mask"]
-                got = state.posteriors[name][rows.clamp(0, d.g - 1)]
-                sliced[name] = torch.where(mask[:, None] > 0, got,
-                                           priors[name])
-            else:
-                sliced[name] = state.posteriors[name]
-
-        st = VMPState(sliced, state.step)
+        plans = batch["plans"]
+        st = sliced_state(program, state, batch, priors)
+        sliced = st.posteriors
         for _ in range(max(local_iters - 1, 0)):     # local refinement only
             ref, _ = _step_body(shadow, batch["arrays"], st,
                                 elog_dtype=elog_dtype, plans=plans)
@@ -194,38 +205,31 @@ def make_svi_step(program: VMPProgram, caps: dict[str, int],
 # one batch, from the host to the device
 # ---------------------------------------------------------------------------
 
-def batch_plans(program: VMPProgram, caps: dict[str, int],
-                arrays: dict) -> dict:
-    """``{latent name: owner plan}`` of one sliced batch, built on the host
-    from the batch's own numpy ``arrays`` (``kops.host_plan``).  A plan
-    reads only its tables' shapes: a local Dirichlet has ``caps[name]``
-    rows in the batch, a global one its own, so each table is a zero-byte
-    stand-in of that shape."""
-    tabs = {n: np.broadcast_to(np.float32(0), (caps.get(n, d.g), d.k))
-            for n, d in program.dirichlets.items()}
-    return {spec.name: kops.host_plan(
-                tabs[spec.prior_dir].shape, arrays[spec.name]["prior_rows"],
-                _latent_children(spec, tabs, arrays))
-            for spec in program.latents}
-
-
 def host_batch(program: VMPProgram, groups, caps_fn=None, plan=None, *,
-               owner_plans: bool = False):
-    """Build one minibatch's host-side (numpy) arrays.
+               device=None, times: Optional[dict] = None):
+    """Build one minibatch's host-side (numpy) arrays for ``device``
+    (``None`` means ``"cuda"``; no card is needed, as nothing is placed).
 
-    Returns ``(batch, caps, n_tokens)`` where ``batch = {"arrays", "dirs"}``
-    holds numpy leaves (``compiler.slice_arrays``), and with
-    ``owner_plans`` also ``"plans"``, the batch's kernel owner plans
-    (:func:`batch_plans`), which only CUDA reads.  Pure host work:
-    :func:`device_put_batch` places the result on a device.  ``plan`` (a
-    sharding plan) belongs to the distributed slice.
+    Returns ``(batch, caps, n_tokens)`` where ``batch = {"arrays", "dirs",
+    "plans"}``: numpy leaves (``compiler.slice_arrays``) and the batch's
+    kernel owner plans, built from its own streams (``vmp.owner_plans``,
+    empty unless ``device`` is CUDA).  Pure host work:
+    :func:`device_put_batch` places the result on a device.  ``times`` (a
+    dict) gets the host ms of the slicing and of the plans under
+    ``"slice"`` and ``"plan"``.  ``plan`` (a sharding plan) belongs to the
+    distributed slice.
     """
     if plan is not None:
         later_slice("a sharded batch (plan=)", "distributed")
+    device = torch.device("cuda" if device is None else device)
+    t0 = time.perf_counter()
     arrays, dirs, caps, n_tok = slice_arrays(program, groups, caps_fn)
-    batch = {"arrays": arrays, "dirs": dirs}
-    if owner_plans:
-        batch["plans"] = batch_plans(program, caps, arrays)
+    t1 = time.perf_counter()
+    batch = {"arrays": arrays, "dirs": dirs,
+             "plans": owner_plans(program, arrays, device, caps)}
+    if times is not None:
+        times.update(slice=(t1 - t0) * 1e3,
+                     plan=(time.perf_counter() - t1) * 1e3)
     return batch, caps, n_tok
 
 
@@ -240,19 +244,17 @@ def device_put_batch(batch: dict, device) -> dict:
     out = {part: {k: {kk: _put(vv, device) for kk, vv in v.items()}
                   for k, v in batch[part].items()}
            for part in ("arrays", "dirs")}
-    if "plans" in batch:
-        out["plans"] = {n: p.to(device) for n, p in batch["plans"].items()}
+    out["plans"] = {n: p.to(device) for n, p in batch["plans"].items()}
     return out
 
 
 def device_batch(program: VMPProgram, groups, caps_fn=None, device=None):
     """Slice one minibatch and place it on ``device`` (``None`` means
-    ``"cuda"``), with its owner plans where the device is CUDA:
+    ``"cuda"``), with its owner plans:
     :func:`host_batch` + :func:`device_put_batch`.  Returns ``(batch, caps,
     n_tokens)``."""
     device = resolve_device(device)
-    batch, caps, n_tok = host_batch(program, groups, caps_fn,
-                                    owner_plans=device.type == "cuda")
+    batch, caps, n_tok = host_batch(program, groups, caps_fn, device=device)
     return device_put_batch(batch, device), caps, n_tok
 
 
@@ -264,13 +266,13 @@ def build_local_scorer(program: VMPProgram, caps: dict[str, int],
                        inner_iters: int, *, extras: bool = False,
                        n_seg: int = 0):
     """The frozen-globals local-inference evaluator ``fn(posteriors,
-    arrays, plans=None) -> elbo`` (a 0-d f32 tensor): fresh local
+    arrays, plans) -> elbo`` (a 0-d f32 tensor): fresh local
     posteriors start at the prior, take ``inner_iters`` coordinate-ascent
     passes with the global Dirichlets frozen at the caller's values, and
     the global Dirichlets' KL terms (training-objective bookkeeping, not
     predictive quality) are excluded from the score.  ``posteriors`` need
     only hold the global Dirichlets; ``plans`` are the arrays' owner plans
-    (:func:`batch_plans`), as in ``_step_body``.  ``extras=True`` (the
+    (:func:`host_batch`), as in ``_step_body``.  ``extras=True`` (the
     fold-in path) belongs to the query slice.
     """
     if extras:
@@ -278,8 +280,7 @@ def build_local_scorer(program: VMPProgram, caps: dict[str, int],
     local = local_dirichlets(program)
     shadow = sliced_shadow(program, caps)
 
-    def fn(posteriors, arrays, plans=None):
-        plans = plans or {}
+    def fn(posteriors, arrays, plans):
         device = next(iter(posteriors.values())).device
         priors = _priors(program, device)
         posts = {name: (priors[name].expand(caps[name], d.k).contiguous()
@@ -316,15 +317,12 @@ def heldout_elbo(program: VMPProgram, state: VMPState, groups,
     key = (groups.tobytes(), inner_iters, str(device))
     entry = cache.get(key) if cache is not None else None
     if entry is None:
-        arrays, _, caps, n_tok = slice_arrays(program, groups)
+        batch, caps, n_tok = host_batch(program, groups, device=device)
         entry = (None, None, None, 0)
         if n_tok:
-            batch = {"arrays": arrays, "dirs": {}}
-            if device.type == "cuda":
-                batch["plans"] = batch_plans(program, caps, arrays)
             batch = device_put_batch(batch, device)
             entry = (build_local_scorer(program, caps, inner_iters),
-                     batch["arrays"], batch.get("plans"), n_tok)
+                     batch["arrays"], batch["plans"], n_tok)
         if cache is not None:
             cache[key] = entry
     fn, arrays, plans, n_tok = entry
@@ -382,6 +380,9 @@ class SVI:
         self._weights = self._group_token_weights()
         self._steps: dict = {}
         self._heldout_cache: dict = {}
+        # a list to record, per step, the host ms of its slicing, owner
+        # plans and host-to-device copy ({"slice", "plan", "h2d"})
+        self.host_ms: Optional[list] = None
 
     def _group_token_weights(self) -> np.ndarray:
         """Per-group observed-token counts ``(pstar_size,) int64``: the
@@ -401,17 +402,23 @@ class SVI:
         m = self.cfg.pad_multiple
         return n if not m else -(-max(n, 1) // m) * m
 
-    def _load_groups(self, groups):
-        """Host batch of one group set, with its owner plans on CUDA.
-        Returns ``(batch, caps, n_tokens, n_groups)``."""
+    def _load_groups(self, groups, times: Optional[dict] = None):
+        """Host batch of one group set for the engine's device (``times``:
+        as :func:`host_batch`'s).  Returns ``(batch, caps, n_tokens,
+        n_groups)``."""
         hb, caps, n_tok = host_batch(self.program, groups, self._caps_fn,
-                                     owner_plans=self.device.type == "cuda")
+                                     device=self.device, times=times)
         return hb, caps, n_tok, len(groups)
 
     def step(self, t: int, state: VMPState):
         """One SVI step at schedule position ``t``; returns (state', elbo)."""
-        hb, caps, _, n_b = self._load_groups(self.sampler.batch_at(t))
+        times = {} if self.host_ms is not None else None
+        hb, caps, _, n_b = self._load_groups(self.sampler.batch_at(t), times)
+        t0 = time.perf_counter()
         batch = device_put_batch(hb, self.device)
+        if times is not None:
+            times["h2d"] = (time.perf_counter() - t0) * 1e3
+            self.host_ms.append(times)
         sig = tuple(sorted(caps.items()))
         if sig not in self._steps:
             self._steps[sig] = make_svi_step(

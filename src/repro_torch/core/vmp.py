@@ -14,9 +14,10 @@ contribution collapses to ``sum_i logsumexp_k(logits_i)``.
 
 The state lives on one device.  On CUDA each latent's token plate is one
 call of the ``zstats`` kernel (``fused_zmap`` for a segment latent), whose
-owner plan is built on the host: once per program and cached in
-``program.meta`` on the full-batch path, once per minibatch under SVI
-(``svi.host_batch`` hands it to :func:`_step_body`).  Every reduction on the
+owner plan is built on the host (:func:`owner_plans`): once per program and
+cached in ``program.meta`` on the full-batch path (:func:`program_plans`),
+once per minibatch under SVI (``svi.host_batch``).  :func:`_step_body`
+takes the plans from its caller.  Every reduction on the
 card runs in a fixed order, so two runs from the same state are bitwise
 equal.
 """
@@ -118,7 +119,7 @@ def _messages_to_latent(program, spec, elog, arrays):
     children = _latent_children(spec, elog, arrays)
     zkids = tuple(c for c in children if c.zmap is not None)
     if zkids:
-        plan = _latent_plan(program, spec, elog, arrays, children)
+        plan = program_plans(program, arrays).get(spec.name)
         logits = logits + kops.zmap_logits(zkids, spec.n, spec.k, plan=plan)
     return logits.contiguous()
 
@@ -144,19 +145,42 @@ def _latent_children(spec, tabs: dict, arrays: dict) -> tuple:
         for f in spec.children)
 
 
-def _latent_plan(program: VMPProgram, spec, tabs: dict, arrays: dict,
-                 children: tuple):
-    """The kernel's owner plan of one latent (``kops.zstats_plan``) for the
-    full-batch path.  It depends only on the program's static index streams,
-    so it is built once on the host and cached on the program, keyed per
-    (latent name, instance count, device).  Minibatches share that key and
-    not their streams: the SVI path never comes here."""
-    rows = arrays[spec.name]["prior_rows"]
-    pcache = program.meta.setdefault("_zstats_plan", {})
-    pkey = (spec.name, rows.shape[0], str(rows.device))
-    if pkey not in pcache:
-        pcache[pkey] = kops.zstats_plan(tabs[spec.prior_dir], rows, children)
-    return pcache[pkey]
+def owner_plans(program: VMPProgram, arrays: dict, device,
+                caps: dict | None = None) -> dict:
+    """``{latent name: owner plan}`` of the ``zstats`` kernels for these
+    ``arrays``' index streams (numpy arrays or tensors), built on the host
+    (``kops.host_plan``) and not yet moved to ``device``.  This is the one
+    place that decides whether a step gets plans: off CUDA no kernel reads
+    one, and the result is ``{}``.  A plan reads only its tables' shapes: a
+    Dirichlet has ``caps[name]`` rows where ``caps`` names it (a minibatch's
+    local one), else its own ``g``, so each table is a zero-byte stand-in of
+    that shape."""
+    if torch.device(device).type != "cuda":
+        return {}
+    caps = caps or {}
+    tabs = {n: np.broadcast_to(np.float32(0), (caps.get(n, d.g), d.k))
+            for n, d in program.dirichlets.items()}
+    return {spec.name: kops.host_plan(
+                tabs[spec.prior_dir].shape, arrays[spec.name]["prior_rows"],
+                _latent_children(spec, tabs, arrays))
+            for spec in program.latents}
+
+
+def program_plans(program: VMPProgram, arrays: dict) -> dict:
+    """The full-batch path's owner plans (:func:`owner_plans`) for the
+    program's own arrays (:func:`_program_arrays`), on their device.  They
+    depend only on the program's static index streams, so they are built
+    once and cached on the program, per device.  Minibatches share the
+    program and not its streams: the SVI path never comes here, and
+    ``compiler.sliced_shadow`` drops the cache from the shadow's meta."""
+    if not program.latents:
+        return {}
+    device = arrays[program.latents[0].name]["prior_rows"].device
+    cache = program.meta.setdefault("_zstats_plan", {})
+    if str(device) not in cache:
+        cache[str(device)] = {n: p.to(device) for n, p in owner_plans(
+            program, arrays, device).items()}
+    return cache[str(device)]
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +206,7 @@ def _program_arrays(program: VMPProgram, device) -> dict:
 
 
 def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
-               elog_dtype=None, plans: dict | None = None):
+               elog_dtype=None, *, plans: dict):
     """One VMP iteration: ``(new_state, elbo)``, the ELBO a 0-d f32 tensor.
 
     Each Dirichlet's Elog table is made once (:func:`_elog_tables`) and read
@@ -195,10 +219,11 @@ def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
     (``tables="alpha"``), while the digamma, softmax, stats and the Dirichlet
     ELBO terms stay f32.
 
-    ``plans`` — ``{latent name: owner plan}`` built from these ``arrays``
-    (a minibatch's, ``svi.host_batch``; a missing entry has the kernel
-    build its own).  ``None`` takes the program's cached plans
-    (:func:`_latent_plan`), for arrays that never change.
+    ``plans`` — ``{latent name: owner plan}`` for exactly these ``arrays``
+    (:func:`owner_plans`): the program's cached ones (:func:`program_plans`)
+    on the full-batch path, a minibatch's own under SVI
+    (``svi.host_batch``).  On CUDA every latent needs its plan; elsewhere
+    the mapping is empty.
     """
 
     device = state.device
@@ -214,8 +239,10 @@ def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
 
     for spec in program.latents:
         children = _latent_children(spec, tabs, arrays)
-        plan = _latent_plan(program, spec, tabs, arrays, children) \
-            if plans is None else plans.get(spec.name)
+        plan = plans.get(spec.name)
+        if plan is None and device.type == "cuda":
+            raise ValueError(f"no owner plan for latent {spec.name!r}: pass "
+                             f"the step's plans (vmp.owner_plans)")
         lse_sum, pstats, cstats = kops.zstats(
             tabs[spec.prior_dir], arrays[spec.name]["prior_rows"], children,
             zmask=arrays[spec.name].get("mask"), tables=tables, plan=plan)
@@ -271,5 +298,6 @@ def latent_responsibilities(program: VMPProgram, state: VMPState, name: str):
 def full_elbo(program: VMPProgram, state: VMPState) -> float:
     """ELBO at the current posteriors with optimal responsibilities."""
     arrays = _program_arrays(program, state.device)
-    _, elbo = _step_body(program, arrays, state)
+    _, elbo = _step_body(program, arrays, state,
+                         plans=program_plans(program, arrays))
     return float(elbo)

@@ -60,7 +60,7 @@ def host_plan(prior_shape: tuple, prior_rows, children):
     segment latent, its ``.to(device)`` not yet taken.  The streams may be
     numpy arrays or tensors; of the tables (``prior_shape`` and each child's
     ``elog``) it reads only the shapes, so a child may carry a stand-in of
-    its table's shape (``svi.batch_plans``)."""
+    its table's shape (``vmp.owner_plans``)."""
     build = _fzm.build_zmap_plan if _segmented(children) else _fz.build_plan
     return build(prior_rows, children, tuple(prior_shape))
 

@@ -390,13 +390,13 @@ def test_heldout_elbo_matches_reference(corpus):
 
 def _two_batches(tprog):
     """Two disjoint batches of five documents, padded to equal caps."""
-    a = tsvi.host_batch(tprog, np.arange(0, 5), _pad64, owner_plans=True)
-    b = tsvi.host_batch(tprog, np.arange(5, 10), _pad64, owner_plans=True)
+    a = tsvi.host_batch(tprog, np.arange(0, 5), _pad64, device="cuda")
+    b = tsvi.host_batch(tprog, np.arange(5, 10), _pad64, device="cuda")
     assert a[1] == b[1]                   # the same caps: one cache key
     return a[0], b[0]
 
 
-@pytest.mark.parametrize("name", ["lda", "slda"])
+@pytest.mark.parametrize("name", list(MODELS))
 def test_equal_caps_batches_get_different_plans(corpus, name):
     """Two batches of equal caps give the same key to a per-program plan
     cache but different plans: each plan holds its own batch's streams."""
@@ -418,7 +418,7 @@ def test_equal_caps_batches_get_different_plans(corpus, name):
         build = tfzm.build_zmap_plan if f.zmap is not None else tfz.build_plan
         plans.append(build(arr[spec.name]["prior_rows"], (child,), shape))
     pa, pb = plans
-    if name == "slda":      # by value: the streams phase 2b reads
+    if f.zmap is not None:  # by value: the streams phase 2b reads
         assert not np.array_equal(pa.by_value[0].perm, pb.by_value[0].perm)
         pa, pb = pa.streams, pb.streams
         key = ("value0", "zmap")
@@ -426,12 +426,58 @@ def test_equal_caps_batches_get_different_plans(corpus, name):
         pa, pb = pa.streams, pb.streams
         key = ("prior", "values0")
     assert key in pa and not np.array_equal(pa[key], pb[key])
-    # batch_plans builds the same plans from the batch's arrays
+    # host_batch builds the same plans from the batch's arrays
     for batch, want in zip((a, b), plans):
         got = batch["plans"][spec.name]
         assert got.streams.keys() == want.streams.keys()
         for k in want.streams:
             np.testing.assert_array_equal(got.streams[k], want.streams[k])
+
+
+def _plan_arrays(plan) -> dict:
+    """Every index array of an owner plan: its groupings' and its streams,
+    a segment plan's flat plan's among them."""
+    if isinstance(plan, tfzm.ZmapPlan):
+        named = [(f"latent{i}", g) for i, g in enumerate(plan.by_latent)] + \
+            [(f"value{i}", g) for i, g in enumerate(plan.by_value)]
+        out = {**tfz.grouping_arrays(named), **plan.streams}
+        if plan.flat is not None:
+            out.update({("flat",) + k: a
+                        for k, a in _plan_arrays(plan.flat).items()})
+        return out
+    return {**tfz.grouping_arrays(plan.passes()), **plan.streams}
+
+
+@pytest.mark.parametrize("caps", ["full"] + list(CAPS))
+@pytest.mark.parametrize("name", list(MODELS))
+def test_owner_plans_match_plans_from_real_tables(corpus, name, caps):
+    """``vmp.owner_plans`` builds each plan from zero-byte stand-in tables
+    of the program's shapes (a batch's local rows at its caps); the plan is
+    the one ``kops.host_plan`` builds from the step's real Elog tables: the
+    full program's, or a batch's from its sliced state on the shadow."""
+    _, tprog, posts0 = _pair(name, corpus)
+    state = _state(posts0)
+    if caps == "full":
+        prog, arrays = tprog, tvmp._program_arrays(tprog, CPU)
+        plans = tvmp.owner_plans(tprog, arrays, "cuda")
+    else:
+        batch, bcaps, _ = tsvi.host_batch(tprog, np.arange(3, 11),
+                                          CAPS[caps], device="cuda")
+        plans = batch["plans"]
+        batch = tsvi.device_put_batch(batch, CPU)
+        prog, arrays = tcomp.sliced_shadow(tprog, bcaps), batch["arrays"]
+        state = tsvi.sliced_state(tprog, state, batch)
+    tabs = tvmp._elog_tables(prog, state)
+    assert plans.keys() == {spec.name for spec in prog.latents}
+    for spec in prog.latents:
+        want = _plan_arrays(tops.host_plan(
+            tabs[spec.prior_dir].shape, arrays[spec.name]["prior_rows"],
+            tvmp._latent_children(spec, tabs, arrays)))
+        got = _plan_arrays(plans[spec.name])
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
+    assert tvmp.owner_plans(prog, arrays, CPU) == {}
 
 
 def test_sliced_shadow_and_steps_leave_the_plan_cache_alone(corpus,
@@ -506,7 +552,7 @@ def test_plan_on_cuda_names_the_card(corpus, name, monkeypatch):
     monkeypatch.setattr(tfz, "device_arrays", lambda arrays, device: {})
     _, tprog, _ = _pair(name, corpus)
     batch, _, _ = tsvi.host_batch(tprog, np.arange(4), _pad64,
-                                  owner_plans=True)
+                                  device="cuda")
     plan = batch["plans"][tprog.latents[0].name].to("cuda")
     assert plan.device == torch.device("cuda", 0)
     if name == "slda":
