@@ -52,7 +52,24 @@ Phases, each of which exits non-zero on a failed check:
      counts set to 0 just before and read just after), then hold
      ``zstats_zmap`` and ``zmap_logits`` against their plain versions at
      one padded batch's inputs; naive Bayes first holds one step at
-     |B| = G bitwise against VMP;
+     |B| = G bitwise against VMP.  Then the ``lda_ooc`` phase, while the
+     main path's corpus exists: the corpus written to disk shards in a
+     temporary directory (removed at exit) and streamed through
+     ``SVI(sharded_template(...), corpus=, prefetch=True)``, whose slice
+     (``slice_sharded``) and owner plans are built on the prefetch thread:
+     the 30-step fit bitwise ``lda_svi``'s (its digest), the peak host
+     buffers and shard bytes read, per step the host clock, tokens/s, the
+     thread's slice and plan ms, the caller's wait and copy ms, device ms
+     and idle share beside ``lda_svi``'s; 20 steps with a session every 5
+     crashed by ``svi.step=raise@13`` and resumed, and run by a child
+     process armed with ``REPRO_FAULTS="svi.step=kill@13"`` (it must die
+     by SIGKILL), resumed here: both bitwise the uninterrupted 20 steps; a
+     growing corpus (the first 20,000 documents, the rest appended after
+     step 10): the population rises at the next epoch boundary, every ELBO
+     finite, the held-out documents' theta rows untouched, and a crash at
+     step 27 resumed bitwise; ``run_inference`` with checkpoints, half the
+     main path's steps and a resume for the rest, bitwise its digest;
+     ``zstats`` and the Elog pass at one out-of-core batch;
   8. the segment-latent path: SLDA at the same widths over the same corpus,
      cut into sentences of 7 tokens (about 1.44M sentences), through
      ``models.make("slda")`` -> ``observe`` + ``bind("sents")`` ->
@@ -88,8 +105,8 @@ ELBO trace, so that two trees can be shown to give the same output bit for
 bit.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
-kernel and path, the path named in ``"path"``: lda, lda_svi, slda,
-naive_bayes, lm_train; the flash entry's ``"variant"`` names the kernel the path took and
+kernel and path, the path named in ``"path"``: lda, lda_svi, lda_ooc,
+slda, naive_bayes, lm_train; the flash entry's ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
 graph, where ``"ms"``, CUDA events around back-to-back calls, times the
@@ -1120,7 +1137,7 @@ def svi_batch_inputs(fit, state, t):
     from repro_torch.core import compiler, vmp
     from repro_torch.core import svi as svi_mod
     prog = fit.program
-    hb, caps, n_tok, _ = fit._load_groups(fit.sampler.batch_at(t))
+    hb, caps, n_tok = fit._load_groups(fit.sampler.batch_at(t))[:3]
     batch = svi_mod.device_put_batch(hb, "cuda")
     shadow = compiler.sliced_shadow(prog, caps)
     st = svi_mod.sliced_state(prog, state, batch)
@@ -1170,9 +1187,7 @@ def phase_lda_svi(report, prog):
     split between the host (slicing, owner plan, copy) and the card."""
     from repro_torch.core import vmp
     from repro_torch.core import svi as svi_mod
-    from repro_torch.kernels import dirichlet_expectation as de
-    from repro_torch.kernels import fused_zstats as fz
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     label = "lda_svi"
     out = report[label] = {}
     svi_equals_vmp(label, prog)
@@ -1219,6 +1234,22 @@ def phase_lda_svi(report, prog):
     log(f"[{label}] sha256 of the final posteriors, batch and held-out ELBO "
         f"traces: {digest}")
 
+    entries = svi_flat_kernels(label, fit, state, counts)
+    out.update(svi_step_times(label, fit, state, report["device"]))
+    out.update(elbo_trace=hist["elbo"], heldout=hist["heldout"],
+               launches=counts, fit_s=fit_s, digest=digest,
+               repeat_digests=digests, pad_max_abs=worst)
+    return entries
+
+
+def svi_flat_kernels(label, fit, state, counts):
+    """``zstats`` (the masked flat route) and the Elog pass at the inputs
+    of ``fit``'s batch SVI_STEPS from ``state``, held against their plain
+    versions and timed beside their bound; the kernels-line entries of
+    path ``label`` with the launch ``counts`` of its fit."""
+    from repro_torch.kernels import dirichlet_expectation as de
+    from repro_torch.kernels import fused_zstats as fz
+    from repro_torch.kernels import ref
     log(f"[kernels vs plain] {label}: one batch's inputs (padded, masked)")
     n_tok, st_b, args, plan, _ = svi_batch_inputs(fit, state, SVI_STEPS)
     theta_b = st_b.posteriors["theta"]
@@ -1259,28 +1290,28 @@ def phase_lda_svi(report, prog):
     log(f"  dirichlet_expectation on the batch's theta rows: device time "
         f"{t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
     del args, plan, theta_b, st_b
-
-    out.update(svi_step_times(label, fit, state, report["device"]))
-    out.update(elbo_trace=hist["elbo"], heldout=hist["heldout"],
-               launches=counts, fit_s=fit_s, digest=digest,
-               repeat_digests=digests, pad_max_abs=worst)
     return entries
 
 
-def svi_step_times(label, fit, state, dev_line):
-    """Per step, over SVI_TIMED_STEPS steps after the fit: host-clock ms of
-    ``SVI.step`` (each ending in the ELBO's ``float``) and tokens/s, and
-    inside those same steps the host ms of ``slice_arrays``, of the owner
-    plans and of the host-to-device copy (``SVI.host_ms``); device ms and
-    idle share under torch.profiler over the next SVI_TIMED_STEPS steps;
-    the held-out evaluation's ms, cold (slice and plan) and cached."""
+def svi_step_times(label, fit, state, dev_line, warm=0):
+    """Per step, over SVI_TIMED_STEPS steps after the fit (and ``warm``
+    untimed ones): host-clock ms of ``SVI.step`` (each ending in the ELBO's
+    ``float``) and tokens/s, and inside those same steps the host ms of the
+    slicing, of the owner plans and of the host-to-device copy
+    (``SVI.host_ms``; out of core the first two on the prefetch thread, and
+    the caller's wait for the batch); device ms and idle share under
+    torch.profiler over the next SVI_TIMED_STEPS steps; the held-out
+    evaluation's ms, cold (slice and plan) and cached."""
     from repro_torch.core import svi as svi_mod
     prog = fit.program
-    t_first = SVI_STEPS
+    st = state
+    for t in range(SVI_STEPS, SVI_STEPS + warm):
+        st, elbo = fit.step(t, st)
+        float(elbo)
+    t_first = SVI_STEPS + warm
     steps = range(t_first, t_first + SVI_TIMED_STEPS)
     tokens = float(np.mean([fit._weights[fit.sampler.batch_at(t)].sum()
                             for t in steps]))
-    st = state
     fit.host_ms = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1289,8 +1320,7 @@ def svi_step_times(label, fit, state, dev_line):
         float(elbo)
     step_ms = (time.perf_counter() - t0) / len(steps) * 1e3
     parts, fit.host_ms = fit.host_ms, None
-    ms = {k: float(np.mean([p[k] for p in parts]))
-          for k in ("slice", "plan", "h2d")}
+    ms = {k: float(np.mean([p[k] for p in parts])) for k in parts[0]}
     st2 = st
 
     def run():
@@ -1302,7 +1332,7 @@ def svi_step_times(label, fit, state, dev_line):
     trace = profile_steps(run, SVI_TIMED_STEPS, label=f"{label} trace")
     t0 = time.perf_counter()
     svi_mod.heldout_elbo(prog, st, fit.holdout, fit.cfg.holdout_local_iters,
-                         cache={})
+                         cache={}, slicer=fit._slicer)
     cold_ms = (time.perf_counter() - t0) * 1e3
     fit.heldout_elbo(st)
     t0 = time.perf_counter()
@@ -1311,20 +1341,362 @@ def svi_step_times(label, fit, state, dev_line):
     host = ms["slice"] + ms["plan"] + ms["h2d"]
     idle = (f"{1 - trace['busy_ms'] / trace['step_ms']:.3f}"
             if trace["busy_ms"] > 0 else "not measured")
+    if "wait" in ms:
+        caller = ms["wait"] + ms["h2d"]
+        split = (f"slice_sharded {ms['slice']:.2f} ms and owner plan "
+                 f"{ms['plan']:.2f} ms on the prefetch thread; on the "
+                 f"caller's thread the wait for the batch {ms['wait']:.2f} "
+                 f"ms, H2D {ms['h2d']:.2f} ms ({caller:.2f} ms before the "
+                 f"kernels, {step_ms - caller:.2f} ms the rest)")
+    else:
+        split = (f"slice_arrays {ms['slice']:.2f} ms, owner plan "
+                 f"{ms['plan']:.2f} ms, H2D {ms['h2d']:.2f} ms ({host:.2f} "
+                 f"ms of host work before the kernels, {step_ms - host:.2f} "
+                 f"ms the rest)")
     log(f"[{label} times] {dev_line}: per step over {len(steps)} steps of "
         f"{tokens:.0f} tokens: {step_ms:.2f} ms host clock, "
         f"{tokens / step_ms * 1e3:.4e} tokens/s; inside those steps "
-        f"slice_arrays {ms['slice']:.2f} ms, owner plan {ms['plan']:.2f} ms, "
-        f"H2D {ms['h2d']:.2f} ms ({host:.2f} ms of host work before the "
-        f"kernels, {step_ms - host:.2f} ms the rest); device "
+        f"{split}; device "
         f"{trace['busy_ms']:.3f} ms a step, idle share {idle}; held-out "
         f"evaluation ({len(fit.holdout)} documents, "
         f"{fit.cfg.holdout_local_iters + 1} step bodies) {held_ms:.2f} ms "
         f"cached, {cold_ms:.2f} ms cold")
     return dict(step_ms=step_ms, tokens_per_step=tokens,
                 tokens_per_s=tokens / step_ms * 1e3, slice_ms=ms["slice"],
-                plan_ms=ms["plan"], h2d_ms=ms["h2d"], host_parts=parts,
-                heldout_ms=held_ms, heldout_cold_ms=cold_ms, trace=trace)
+                plan_ms=ms["plan"], h2d_ms=ms["h2d"],
+                wait_ms=ms.get("wait"), host_parts=parts,
+                heldout_ms=held_ms, heldout_cold_ms=cold_ms, trace=trace,
+                idle_share=(1 - trace["busy_ms"] / trace["step_ms"]
+                            if trace["busy_ms"] > 0 else None))
+
+
+# ---------------------------------------------------------------------------
+# out of core: the main path's corpus on disk, streamed; sessions and
+# crash-resume; a growing corpus; VMP checkpoints
+# ---------------------------------------------------------------------------
+
+# 20 steps with a session every 5, the crash entering step 12 (the 13th
+# trip of "svi.step"); the growing run: the first two thirds of the
+# documents (20,000 of 30,000), the rest appended after step 10, a crash
+# entering step 27
+OOC_STEPS, OOC_EVERY, OOC_CRASH_AT = 20, 5, 13
+GROW_APPEND_AFTER, GROW_CRASH_AT = 10, 28
+CHILD_TIMEOUT = 600
+
+# the child of the SIGKILL check: the 20 out-of-core steps with sessions,
+# armed through REPRO_FAULTS; it loads the kernel library the parent built
+OOC_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch.core import models
+from repro_torch.core.svi import SVI, SVIConfig
+from repro_torch.data import ShardedCorpus, sharded_template
+corpus = ShardedCorpus.open({path!r})
+model = models.make("lda", alpha={alpha!r}, beta={beta!r}, K={k!r}, V={v!r})
+fit = SVI(sharded_template(model, corpus), SVIConfig(**{cfg!r}),
+          corpus=corpus, device="cuda")
+fit.fit({steps!r}, checkpoint_dir={ck!r}, checkpoint_every={every!r},
+        callback=lambda t, e: print(f"STEP {{t}}", flush=True))
+print("DONE", flush=True)
+"""
+
+
+def ooc_config(**kw):
+    """:func:`svi_config` as keyword values (the child rebuilds it)."""
+    cfg = svi_config(**kw)
+    return {f: getattr(cfg, f) for f in (
+        "batch_size", "kappa", "tau", "pad_multiple", "holdout_frac",
+        "holdout_every", "holdout_local_iters", "seed", "growing",
+        "capacity_docs", "prefetch")}
+
+
+def states_bitwise(a, b, ha, hb):
+    """Posteriors and step of two SVI states, and their histories (batch
+    and held-out ELBO), all equal bit for bit."""
+    return int(a.step) == int(b.step) and ha == hb and all(
+        torch.equal(a.posteriors[n], b.posteriors[n]) for n in a.posteriors)
+
+
+def ooc_sessions(label, tmp, tmpl, path):
+    """Crash-resume out of core: the uninterrupted OOC_STEPS; the same run
+    with ``svi.step`` armed to raise entering step OOC_CRASH_AT - 1,
+    resumed in this process from its newest session; a child process with
+    the same steps armed through REPRO_FAULTS to SIGKILL itself there, the
+    parent resuming from its newest valid session.  Both resumes must end
+    bitwise at the uninterrupted run."""
+    import os
+    from repro_torch.checkpoint import latest_session_step
+    from repro_torch.core.svi import SVI
+    from repro_torch.data import ShardedCorpus
+    from repro_torch.testing import faults
+    cfg = svi_config()
+
+    def svi():
+        return SVI(tmpl, cfg, corpus=ShardedCorpus.open(path), device="cuda")
+
+    t0 = time.perf_counter()
+    ref = svi()
+    want, want_h = ref.fit(OOC_STEPS)
+    ref.close()
+    ck = str(tmp / "ck_raise")
+    crash = svi()
+    with faults.inject("svi.step", nth=OOC_CRASH_AT):
+        try:
+            crash.fit(OOC_STEPS, checkpoint_dir=ck, checkpoint_every=OOC_EVERY)
+            raised = False
+        except faults.InjectedCrash:
+            raised = True
+    crash.close()
+    step = latest_session_step(ck)
+    again = svi()
+    got, got_h = again.fit(OOC_STEPS - (step or 0), checkpoint_dir=ck,
+                           resume_from=True)
+    again.close()
+    ok = raised and step == 10 and states_bitwise(got, want, got_h, want_h)
+    log(f"[{label}] crash-resume in one process: svi.step=raise@"
+        f"{OOC_CRASH_AT} {'raised' if raised else 'DID NOT RAISE'}, newest "
+        f"session at step {step}, resumed {OOC_STEPS - (step or 0)} steps: "
+        f"{'bitwise the uninterrupted run' if ok else 'DIFFERENT'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(ok, f"{label}: in-process crash-resume is not bitwise")
+
+    t0 = time.perf_counter()
+    ck = str(tmp / "ck_kill")
+    code = OOC_CHILD.format(src=str(ROOT / "src"), path=path, alpha=ALPHA,
+                            beta=BETA, k=TOPICS, v=VOCAB, cfg=ooc_config(),
+                            steps=OOC_STEPS, ck=ck, every=OOC_EVERY)
+    env = dict(os.environ, **{faults.ENV_VAR: f"svi.step=kill@{OOC_CRASH_AT}"})
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True,
+                         timeout=CHILD_TIMEOUT)
+    done = [int(line.split()[1]) for line in res.stdout.splitlines()
+            if line.startswith("STEP ")]
+    step = latest_session_step(ck)
+    log(f"[{label}] SIGKILL child: exit {res.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s, steps {done[:1]}..{done[-1:]} "
+        f"done, newest valid session at step {step}")
+    if res.returncode != -9:
+        log(res.stderr[-4000:])
+    check(res.returncode == -9 and done == list(range(OOC_CRASH_AT - 1))
+          and step is not None,
+          f"{label}: the child did not die by SIGKILL entering step "
+          f"{OOC_CRASH_AT - 1} with a session")
+    again = svi()
+    got, got_h = again.fit(OOC_STEPS - step, checkpoint_dir=ck,
+                           resume_from=True)
+    again.close()
+    ok = states_bitwise(got, want, got_h, want_h)
+    log(f"[{label}] resumed the killed child's run from step {step}: "
+        f"{'bitwise the uninterrupted run' if ok else 'DIFFERENT'}")
+    check(ok, f"{label}: resume after SIGKILL is not bitwise")
+    return {"crash_session_step": 10, "kill_session_step": step}
+
+
+def ooc_growing(label, tmp, corpus):
+    """A growing corpus: the first two thirds of the documents on disk, a
+    template with room for all, SVI_STEPS steps with growing=True and a
+    session every OOC_EVERY; a callback appends the rest and commits after
+    step GROW_APPEND_AFTER.  The population rises at the next epoch
+    boundary (the epochs snapshotted before the append hold the first
+    documents less their holdout, those after it all documents less the
+    same holdout), every ELBO is finite, the held-out documents' theta
+    rows keep their initial values; the same run with ``svi.step`` armed
+    to raise entering step GROW_CRASH_AT - 1, resumed from its newest
+    session (whose epoch snapshots span the growth), ends bitwise at the
+    uninterrupted one.  Each run grows its own copy of the first
+    documents' shards."""
+    from repro_torch.checkpoint import latest_session_step, load_session
+    from repro_torch.core import models, vmp
+    from repro_torch.core.svi import SVI
+    from repro_torch.data import (ShardedCorpus, ShardedCorpusWriter,
+                                  sharded_template)
+    from repro_torch.testing import faults
+    tokens, lengths = corpus["tokens"], corpus["lengths"]
+    n_docs = len(lengths)
+    grow_docs = n_docs * 2 // 3
+    cut = int(lengths[:grow_docs].sum())
+    cfg = svi_config(growing=True, capacity_docs=n_docs)
+
+    def start(name):
+        w = ShardedCorpusWriter(str(tmp / name), vocab=VOCAB)
+        w.add_docs(tokens[:cut], lengths[:grow_docs])
+        sc = w.commit()
+        model = models.make("lda", alpha=ALPHA, beta=BETA, K=TOPICS, V=VOCAB)
+        return w, sharded_template(model, sc, capacity_docs=n_docs), sc
+
+    def append_after(w):
+        def cb(t, elbo):
+            if t == GROW_APPEND_AFTER:
+                w.add_docs(tokens[cut:], lengths[grow_docs:])
+                w.close()
+        return cb
+
+    t0 = time.perf_counter()
+    w, tmpl, sc = start("grow_ref")
+    s0 = vmp.init_state(tmpl, SEED, device="cuda")
+    fit = SVI(tmpl, cfg, corpus=sc, device="cuda")
+    want, want_h = fit.fit(SVI_STEPS, state=s0, callback=append_after(w),
+                           checkpoint_dir=str(tmp / "ck_grow_ref"),
+                           checkpoint_every=OOC_EVERY)
+    fit.close()
+    epochs = fit.sampler._inner.epoch_log()
+    n_hold = len(fit.holdout)
+    pre, post = grow_docs - n_hold, n_docs - n_hold
+    grown = [s for s, n in epochs if s >= GROW_APPEND_AFTER + 2]
+    pop_ok = bool(grown) and all(
+        n == pre for s, n in epochs if s <= GROW_APPEND_AFTER) and all(
+        n == post for s, n in epochs if s >= GROW_APPEND_AFTER + 2)
+    pops = [fit.sampler.population_at(t) for t in (0, grown[0] - 1,
+                                                   grown[0])] \
+        if grown else []
+    hold = torch.from_numpy(fit.holdout).cuda()
+    held_ok = torch.equal(want.posteriors["theta"][hold],
+                          s0.posteriors["theta"][hold])
+    finite = bool(np.isfinite(want_h["elbo"]).all()) and bool(
+        np.isfinite([v for _, v in want_h["heldout"]]).all())
+    log(f"[{label}] growing: {grow_docs} documents, {n_docs - grow_docs} "
+        f"appended after step {GROW_APPEND_AFTER}; epochs (start step, "
+        f"population) {epochs}: population {pops[:1]} at step 0, "
+        f"{pops[1:]} on each side of the first boundary after the append; "
+        f"every ELBO finite: {finite}; the {n_hold} held-out documents' "
+        f"theta rows at their initial values: {held_ok} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(pop_ok, f"{label}: the population did not grow from {pre} to "
+          f"{post} at the epoch boundary")
+    check(finite, f"{label}: a growing-run ELBO is not finite")
+    check(held_ok, f"{label}: a held-out document's theta row moved")
+
+    t0 = time.perf_counter()
+    w, tmpl, sc = start("grow_crash")
+    ck = str(tmp / "ck_grow")
+    crash = SVI(tmpl, cfg, corpus=sc, device="cuda")
+    with faults.inject("svi.step", nth=GROW_CRASH_AT):
+        try:
+            crash.fit(SVI_STEPS, callback=append_after(w), checkpoint_dir=ck,
+                      checkpoint_every=OOC_EVERY)
+            raised = False
+        except faults.InjectedCrash:
+            raised = True
+    crash.close()
+    step = latest_session_step(ck)
+    sizes = [len(g) for _, g in load_session(ck).epochs]
+    again = SVI(tmpl, cfg, corpus=ShardedCorpus.open(str(tmp / "grow_crash")),
+                device="cuda")
+    got, got_h = again.fit(SVI_STEPS - (step or 0), checkpoint_dir=ck,
+                           resume_from=True)
+    again.close()
+    ok = raised and states_bitwise(got, want, got_h, want_h)
+    log(f"[{label}] growing crash-resume: svi.step=raise@{GROW_CRASH_AT} "
+        f"{'raised' if raised else 'DID NOT RAISE'}, newest session at step "
+        f"{step} with epoch snapshots of {sizes} documents, resumed: "
+        f"{'bitwise the uninterrupted run' if ok else 'DIFFERENT'} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(sizes == [n for _, n in epochs][:len(sizes)] and post in sizes,
+          f"{label}: the session lost the epoch snapshots across the growth")
+    check(ok, f"{label}: growing crash-resume is not bitwise")
+    return {"epochs": epochs, "populations": pops, "session_epochs": sizes,
+            "session_step": step, "elbo_trace": want_h["elbo"],
+            "heldout": want_h["heldout"]}
+
+
+def ooc_vmp_checkpoints(label, tmp, prog, report):
+    """``run_inference`` on the main path's program with a checkpoint every
+    half of its steps: the first half, then a call that resumes from the
+    directory for the rest; the whole trace and the final posteriors must
+    be the main path's (phase 5's digest)."""
+    from repro_torch.core import runtime, vmp
+    ck = str(tmp / "ck_vmp")
+    total = len(report["elbo_trace"])
+    half = total // 2
+    t0 = time.perf_counter()
+    _, first = runtime.run_inference(prog, half, seed=SEED,
+                                     checkpoint_every=half,
+                                     checkpoint_dir=ck, device="cuda")
+    state, second = runtime.run_inference(prog, total - half, seed=SEED,
+                                          checkpoint_every=half,
+                                          checkpoint_dir=ck, device="cuda")
+    digest = output_digest(vmp.state_to_numpy(state)[0], first + second)
+    ok = first + second == report["elbo_trace"] and digest == report["digest"]
+    log(f"[{label}] VMP checkpoints: {half} steps, then {total - half} "
+        f"resumed from step {int(state.step) - len(second)}: sha256 "
+        f"{digest} {'==' if ok else '!='} the main path's "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(ok, f"{label}: VMP checkpoint resume is not bitwise the main path")
+    return digest
+
+
+def phase_lda_ooc(report, corpus, prog):
+    """The main path's LDA out of core: the corpus written to shards in a
+    temporary directory (removed at exit) and streamed through
+    ``SVI(sharded_template(...), corpus=, prefetch=True)``.  The 30-step fit
+    must be bitwise ``lda_svi``'s; its step's time split beside
+    ``lda_svi``'s; crash-resume in one process and after a SIGKILL; a
+    growing corpus and its resume; VMP checkpoints; ``zstats`` and the Elog
+    pass at one out-of-core batch against their plain versions."""
+    import tempfile
+    from repro_torch.core import models, vmp
+    from repro_torch.core.svi import SVI
+    from repro_torch.data import sharded_template, write_sharded_corpus
+    from repro_torch.kernels import ops
+    label = "lda_ooc"
+    out = report[label] = {}
+    with tempfile.TemporaryDirectory(prefix="lda_ooc-") as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        sc = write_sharded_corpus(corpus, str(tmp / "corpus"))
+        write_s = time.perf_counter() - t0
+        model = models.make("lda", alpha=ALPHA, beta=BETA, K=TOPICS, V=VOCAB)
+        tmpl = sharded_template(model, sc)
+        log(f"[{label}] {sc.n_docs} documents, {sc.n_tokens} tokens in "
+            f"{sc.n_shards} shards ({sc.disk_bytes} bytes) written in "
+            f"{write_s:.2f} s")
+        cfg = svi_config()
+        fit = SVI(tmpl, cfg, corpus=sc, device="cuda")
+        s0 = vmp.init_state(tmpl, SEED, device="cuda")
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = fit.fit(SVI_STEPS, state=s0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        svi_fit_checks(label, cfg, hist, counts, "zstats", SVI_STEPS)
+        held = [v for _, v in hist["heldout"]]
+        digest = output_digest(vmp.state_to_numpy(state)[0],
+                               hist["elbo"] + held)
+        want = report["lda_svi"]["digest"]
+        log(f"[{label}] fit({SVI_STEPS}) out of core {fit_s:.2f} s; sha256 "
+            f"{digest} {'==' if digest == want else '!='} lda_svi's; peak "
+            f"host buffers {fit.sampler.peak_buffer_bytes} bytes (two "
+            f"batches with their owner plans); shard bytes read "
+            f"{sc.bytes_read} in {sc.reads} reads")
+        check(digest == want, f"{label}: the out-of-core fit is not bitwise "
+              f"lda_svi's")
+        entries = svi_flat_kernels(label, fit, state, counts)
+        out.update(svi_step_times(label, fit, state, report["device"],
+                                  warm=1))
+        fit.close()
+        res = report["lda_svi"]
+        log(f"[{label} vs lda_svi] {report['device']}: step "
+            f"{out['step_ms']:.2f} against {res['step_ms']:.2f} ms, "
+            f"{out['tokens_per_s']:.4e} against {res['tokens_per_s']:.4e} "
+            f"tokens/s, device {out['trace']['busy_ms']:.3f} against "
+            f"{res['trace']['busy_ms']:.3f} ms a step, idle share "
+            f"{out['idle_share']} against {res['idle_share']}")
+        out.update(elbo_trace=hist["elbo"], heldout=hist["heldout"],
+                   launches=counts, fit_s=fit_s, digest=digest,
+                   write_s=write_s, disk_bytes=sc.disk_bytes,
+                   peak_buffer_bytes=fit.sampler.peak_buffer_bytes,
+                   bytes_read=sc.bytes_read, reads=sc.reads)
+        del fit, state, s0
+        out["sessions"] = ooc_sessions(label, tmp, tmpl, str(tmp / "corpus"))
+        out["growing"] = ooc_growing(label, tmp, corpus)
+        out["vmp_checkpoint_digest"] = ooc_vmp_checkpoints(label, tmp, prog,
+                                                           report)
+    return entries
 
 
 def phase_segment_svi(label, m, report, bitwise_vmp):
@@ -1706,6 +2078,7 @@ def main(argv=None) -> int:
     counts = phase_main(args, report, corpus, m, prog)
     kernels = phase_repeat_and_time(args, report, m, prog, counts)
     kernels += svi_phase("lda_svi", phase_lda_svi, report, prog)
+    kernels += svi_phase("lda_ooc", phase_lda_ooc, report, corpus, prog)
     del m, prog
     slda = make_slda(corpus)
     del corpus

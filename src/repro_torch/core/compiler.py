@@ -397,6 +397,17 @@ def _slice_mask(cap: int, n: int, always_mask: bool):
     return out
 
 
+def check_resident(program: VMPProgram, what: str) -> None:
+    """Raise unless ``program`` holds its token arrays: a sharded template
+    (``data.store.sharded_template``) keeps them on disk, and a resident
+    path reading its ``None`` arrays must fail loudly."""
+    if program.meta.get("sharded"):
+        raise ValueError(
+            f"{what} needs a resident program, and {program.name} is a "
+            f"sharded template whose tokens live on disk: slice its batches "
+            f"with data.store.slice_sharded (SVI(corpus=))")
+
+
 def slice_arrays(program: VMPProgram, groups, caps_fn=None):
     """Build one minibatch's device-ready index arrays.
 
@@ -413,6 +424,7 @@ def slice_arrays(program: VMPProgram, groups, caps_fn=None):
         shape signature a step is built at),
       - ``n_tokens`` — unpadded observed-instance count in the batch.
     """
+    check_resident(program, "slice_arrays")
     if program.meta.get("pstar") is None:
         raise ValueError(f"model {program.name} has no '?' partition plate; "
                          f"minibatch slicing needs one")

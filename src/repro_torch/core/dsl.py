@@ -172,21 +172,21 @@ class Model:
         ``device`` is where the state and every step live (``None`` means
         ``"cuda"``).  ``elog_dtype`` (e.g. ``"bfloat16"``) narrows the
         concentration tables the token plate gathers from; accumulation
-        stays f32.
+        stays f32.  With ``checkpoint_every`` and ``checkpoint_dir`` the
+        state is saved every k steps, and a later ``infer`` (of this model
+        or a fresh one) resumes from the newest valid checkpoint there.
         """
         if sharding is not None:
             raise NotImplementedError(
                 "sharded inference arrives with the distributed slice of "
                 "the port; run on one device (sharding=None)")
-        if checkpoint_every or checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpointing arrives with the checkpoint slice of the "
-                "port; pass checkpoint_every=0 and no checkpoint_dir")
         from .runtime import run_inference
         prog = self.compile()
         self._state, trace = run_inference(
-            prog, steps=steps, callback=callback, state=self._state,
-            seed=seed, elog_dtype=elog_dtype, device=device)
+            prog, steps=steps, callback=callback,
+            checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
+            state=self._state, seed=seed, elog_dtype=elog_dtype,
+            device=device)
         self._elbo_trace.extend(trace)
         return self
 

@@ -10,14 +10,15 @@
                          holdout_frac=0.05).fit(model)
     topics = result.topics("phi")
 
-The port runs full-batch VMP and single-host SVI over a resident corpus on
-one device.  ``device=None`` means ``"cuda"``; the CPU runs only when asked
-for (``device="cpu"``).  The config keeps every field of the reference's,
-with its default, so that one config reads the same in both packages; what
-needs a later slice of the port (the Gibbs backend, out-of-core and
-multi-host corpora, checkpoints, static analysis, freezing for the query
-layer) raises ``NotImplementedError`` naming that slice when it is set away
-from its default.
+The port runs full-batch VMP and single-host SVI on one device, SVI over a
+resident corpus or a sharded one on disk (``corpus=``, growing or not), with
+crash-safe sessions (``checkpoint_dir=``, ``resume=``).  ``device=None``
+means ``"cuda"``; the CPU runs only when asked for (``device="cpu"``).  The
+config keeps every field of the reference's, with its default, so that one
+config reads the same in both packages; what needs a later slice of the port
+(the Gibbs backend, multi-host corpora, static analysis, freezing for the
+query layer) raises ``NotImplementedError`` naming that slice when it is set
+away from its default.
 """
 
 from __future__ import annotations
@@ -42,7 +43,9 @@ class EngineConfig:
     sharding: object = None         # None = 1 device
     elog_dtype: object = None       # e.g. "bfloat16": narrow the token
                                     # plate's concentration tables (f32 accum)
-    corpus: object = None           # svi, out-of-core
+    corpus: object = None           # svi only: a data.ShardedCorpus for
+                                    # out-of-core minibatches; the model
+                                    # passed to fit() stays unobserved
     hosts: object = None            # svi, multi-host
     # svi
     batch_size: int = 64
@@ -104,11 +107,7 @@ class InferenceResult:
 # the config's knobs that a later slice reads, by field: fit raises when one
 # differs from its default, so that none is ignored quietly
 _SLICE_OF = {
-    **dict.fromkeys(("corpus", "prefetch", "growing", "capacity_docs",
-                     "population_size"), "out-of-core"),
     **dict.fromkeys(("hosts", "sharding"), "distributed"),
-    **dict.fromkeys(("checkpoint_dir", "checkpoint_every", "resume"),
-                    "checkpoint"),
     **dict.fromkeys(("burnin", "thin"), "Gibbs"),
     "validate": "analysis",
 }
@@ -170,7 +169,9 @@ class SVIEngine(InferenceEngine):
     """Streaming minibatch VMP with natural-gradient global updates
     (Hoffman et al., JMLR 2013; see ``core/svi.py``).  Per-step cost is
     O(batch tokens), not O(N); posteriors come back as ``(G, K) float32``
-    concentrations like ``vmp``'s."""
+    concentrations like ``vmp``'s.  With ``cfg.corpus`` (a
+    :class:`repro_torch.data.ShardedCorpus`) minibatches stream from
+    on-disk shards and the model passed to ``fit`` stays unobserved."""
 
     name = "svi"
 
@@ -204,14 +205,33 @@ def _svi_config(cfg: EngineConfig, full_batch: bool, n_groups: int):
 def _fit_svi(model, cfg: EngineConfig, full_batch: bool) -> InferenceResult:
     """Shared SVI fit of the ``svi`` backend and the holdout-comparable
     full-batch reference (``full_batch=True``: rho=1, |B| = all training
-    groups)."""
-    target = model.compile()
-    n_groups = target.meta.get("pstar_size") or 0
+    groups).  With ``cfg.corpus`` set, ``model`` stays unobserved and
+    minibatches stream from the sharded corpus (out-of-core mode).  With
+    ``cfg.resume``, ``cfg.steps`` is the total budget: only what the newest
+    session of ``cfg.checkpoint_dir`` has not run, runs."""
+    if cfg.corpus is not None and full_batch:
+        raise ValueError("the full-batch reference needs a resident corpus")
+    if cfg.corpus is None:
+        target = model.compile()
+        n_groups = target.meta.get("pstar_size") or 0
+    else:
+        target, n_groups = model, cfg.corpus.n_docs
     svi = SVI(target, _svi_config(cfg, full_batch, n_groups),
               plan=cfg.sharding, corpus=cfg.corpus, hosts=cfg.hosts,
               device=cfg.device)
+    steps, resumed_from = cfg.steps, None
+    if cfg.resume:
+        if cfg.checkpoint_dir is None:
+            raise ValueError("resume=True needs checkpoint_dir=")
+        from ..checkpoint import latest_session_step
+        resumed_from = latest_session_step(cfg.checkpoint_dir)
+        # steps is the total budget; run only what the session hasn't
+        steps = max(cfg.steps - (resumed_from or 0), 0)
     try:
-        state, history = svi.fit(steps=cfg.steps)
+        state, history = svi.fit(
+            steps=steps, checkpoint_dir=cfg.checkpoint_dir,
+            checkpoint_every=cfg.checkpoint_every,
+            resume_from=True if cfg.resume else None)
     finally:
         svi.close()
     posts = {n: p.cpu().numpy() for n, p in state.posteriors.items()}
@@ -221,7 +241,7 @@ def _fit_svi(model, cfg: EngineConfig, full_batch: bool) -> InferenceResult:
                             "batch_size": svi.sampler.batch_size,
                             "n_train_groups": len(svi.train),
                             "n_holdout_groups": len(svi.holdout),
-                            "resumed_from_step": None,
+                            "resumed_from_step": resumed_from,
                             "device": str(svi.device)})
 
 

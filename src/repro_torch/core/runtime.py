@@ -1,10 +1,12 @@
 """Inference execution: the paper's section 4.3 ("Execution") analogue.
 
-The port of ``repro.core.runtime``: runs the VMP step in a loop with the
-paper's callback API (Figure 12): ``callback(iteration, elbo) -> bool`` —
-return False to stop early.  PyTorch runs eagerly, so the step is a plain
-function over device tensors.  Checkpointing arrives with the checkpoint
-slice of the port and raises until then.
+The port of ``repro.core.runtime``: runs the VMP step in a loop with
+  - the paper's callback API (Figure 12): ``callback(iteration, elbo) ->
+    bool`` — return False to stop early;
+  - checkpoint-every-k with crash resume (paper section 4.2's lineage
+    checkpointing, repurposed for fault tolerance), in the JAX package's
+    file format (``checkpoint/store.py``).
+PyTorch runs eagerly, so the step is a plain function over device tensors.
 """
 
 from __future__ import annotations
@@ -54,17 +56,25 @@ def run_inference(program: VMPProgram, steps: int = 20,
     """Run ``steps`` VMP iterations; returns (state, elbo_trace).
 
     ``device`` defaults to ``"cuda"``, or to the device of ``state`` when a
-    state is given; a state elsewhere than ``device`` is moved there.
+    state is given; a state elsewhere than ``device`` is moved there.  With
+    ``checkpoint_every`` and ``checkpoint_dir`` both set, the state is saved
+    every ``checkpoint_every`` steps (asynchronously; durable on return),
+    and a directory that already holds a checkpoint is resumed from its
+    newest valid one.
     """
-    if checkpoint_every or checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpointing arrives with the checkpoint slice of the port")
+    from ..checkpoint import CheckpointStore
     if device is None and state is not None:
         device = state.device
     device = resolve_device(device)
     if state is None:
         state = init_state(program, seed, device=device)
-    elif state.device != device:
+
+    store = None
+    if checkpoint_every and checkpoint_dir:
+        store = CheckpointStore(checkpoint_dir, every=checkpoint_every)
+        if store.latest() is not None:
+            state = store.restore(state)
+    if state.device != device:
         state = VMPState({n: p.to(device) for n, p in state.posteriors.items()},
                          state.step)
     step_fn = make_step(program, elog_dtype=elog_dtype, device=device)
@@ -75,6 +85,10 @@ def run_inference(program: VMPProgram, steps: int = 20,
         state, elbo = step_fn(state)
         elbo_f = float(elbo)
         trace.append(elbo_f)
+        if store is not None:
+            store.maybe_save(i + 1, state)
         if callback is not None and callback(i, elbo_f) is False:
             break
+    if store is not None:
+        store.wait()              # final async checkpoint durable on return
     return state, trace

@@ -31,7 +31,7 @@ import torch
 
 from ..kernels import ops as kops
 from . import dists
-from .compiler import VMPProgram
+from .compiler import VMPProgram, check_resident
 
 
 def resolve_device(device=None) -> torch.device:
@@ -190,6 +190,8 @@ def program_plans(program: VMPProgram, arrays: dict) -> dict:
 def _program_arrays(program: VMPProgram, device) -> dict:
     """Device constants: observed values, maps, static rows (paper: the MPG's
     edge structure, here dense index tensors)."""
+    check_resident(program, "full-batch VMP")
+
     def dev(a):
         return None if a is None else torch.from_numpy(
             np.ascontiguousarray(a, np.int32)).to(device)

@@ -9,8 +9,8 @@ and the same batches, bit for bit, in both packages.
 :class:`MinibatchSampler`, :class:`GrowingMinibatchSampler` and
 :func:`holdout_split` are copied the same way, so both packages draw the
 same minibatches and the same held-out split.  Everything is numpy on the host; device placement happens in the
-runtime, the SVI engine and the trainer.  The sharded store arrives with
-the out-of-core slice.
+runtime, the SVI engine and the trainer.  The sharded on-disk store is
+``store.py``.
 """
 
 from __future__ import annotations

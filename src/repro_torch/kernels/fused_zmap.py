@@ -63,13 +63,25 @@ class ZmapPlan:
     tensors: dict = dataclasses.field(default_factory=dict)
     streams: dict = dataclasses.field(default_factory=dict)
 
-    def to(self, device) -> "ZmapPlan":
-        """A copy whose index arrays also live on ``device``."""
-        device = _fz.placed(device)
+    def host_arrays(self) -> dict:
+        """``{key: numpy array}`` of the zmap groupings and streams (the
+        flat plan's are its own)."""
         named = [(f"latent{i}", g) for i, g in enumerate(self.by_latent)] + \
             [(f"value{i}", g) for i, g in enumerate(self.by_value)]
         arrays = _fz.grouping_arrays(named)
         arrays.update(self.streams)
+        return arrays
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the plan's host arrays, the flat plan's included."""
+        return sum(a.nbytes for a in self.host_arrays().values()) + \
+            (self.flat.nbytes if self.flat is not None else 0)
+
+    def to(self, device) -> "ZmapPlan":
+        """A copy whose index arrays also live on ``device``."""
+        device = _fz.placed(device)
+        arrays = self.host_arrays()
         flat = self.flat.to(device) if self.flat is not None else None
         return ZmapPlan(flat, self.by_latent, self.by_value, device,
                         _fz.device_arrays(arrays, device), self.streams)

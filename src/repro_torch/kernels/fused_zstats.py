@@ -144,11 +144,22 @@ class ZPlan:
         return [("prior", self.prior)] + [
             (f"child{i}", g) for i, g in enumerate(self.children)]
 
+    def host_arrays(self) -> dict:
+        """``{key: numpy array}`` of the plan's groupings and streams."""
+        arrays = grouping_arrays(self.passes())
+        arrays.update(self.streams)
+        return arrays
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the plan's host arrays (its share of a prefetched
+        batch's host buffers)."""
+        return sum(a.nbytes for a in self.host_arrays().values())
+
     def to(self, device) -> "ZPlan":
         """A copy whose index arrays also live on ``device``."""
         device = placed(device)
-        arrays = grouping_arrays(self.passes())
-        arrays.update(self.streams)
+        arrays = self.host_arrays()
         return ZPlan(self.prior, self.children, self.streams, device,
                      device_arrays(arrays, device))
 

@@ -10,6 +10,7 @@ ones (``tests/test_torch_vmp.py``): ELBO rtol 1e-4, posteriors rtol = atol =
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -154,9 +155,7 @@ def test_make_engine_selection():
 
 @pytest.mark.parametrize("backend", ["vmp", "svi"])
 @pytest.mark.parametrize("knob", [
-    dict(hosts=object()), dict(sharding=object()), dict(prefetch=False),
-    dict(growing=True), dict(capacity_docs=10), dict(population_size=10),
-    dict(checkpoint_dir="ckpt"), dict(checkpoint_every=5), dict(resume=True),
+    dict(hosts=object()), dict(sharding=object()),
     dict(burnin=3), dict(thin=2), dict(validate=True)])
 def test_later_slice_knobs_raise(corpus, backend, knob):
     m = _observe(tmodels.make("lda", **MODELS["lda"]), "lda", corpus)
@@ -164,14 +163,58 @@ def test_later_slice_knobs_raise(corpus, backend, knob):
         make_engine(backend, device="cpu", **knob).fit(m)
 
 
-def test_corpus_knob(corpus):
+@pytest.mark.parametrize("backend", ["vmp", "svi"])
+@pytest.mark.parametrize("knob", [
+    dict(prefetch=False), dict(growing=True), dict(capacity_docs=10),
+    dict(population_size=10), dict(checkpoint_dir="ckpt"),
+    dict(checkpoint_every=5), dict(resume=True)])
+def test_ported_knobs_act_as_in_the_reference(corpus, tmp_path, backend,
+                                             knob):
+    """The out-of-core and checkpoint knobs of a resident fit: where the
+    reference raises ``ValueError`` the port raises it too, and where the
+    reference fits (full-batch VMP ignores them; SVI checkpoints into
+    ``checkpoint_dir``) the port fits the same number of steps."""
+    if "checkpoint_dir" in knob:
+        knob = dict(checkpoint_dir=str(tmp_path / backend / "ref"))
+    jm = _observe(jmodels.make("lda", **MODELS["lda"]), "lda", corpus)
+    try:
+        want = j_make_engine(backend, steps=2, batch_size=16, **knob).fit(jm)
+    except ValueError as e:
+        m = _observe(tmodels.make("lda", **MODELS["lda"]), "lda", corpus)
+        with pytest.raises(ValueError, match=str(e).split()[0]):
+            make_engine(backend, device="cpu", steps=2, batch_size=16,
+                        **knob).fit(m)
+        return
+    if "checkpoint_dir" in knob:
+        knob = dict(checkpoint_dir=str(tmp_path / backend / "port"))
+    m = _observe(tmodels.make("lda", **MODELS["lda"]), "lda", corpus)
+    got = make_engine(backend, device="cpu", steps=2, batch_size=16,
+                      **knob).fit(m)
+    assert len(got.elbo_trace) == len(want.elbo_trace) == 2
+    if "checkpoint_dir" in knob:
+        saved = os.path.exists(knob["checkpoint_dir"])
+        assert saved == (backend == "svi") == os.path.exists(
+            str(tmp_path / backend / "ref"))
+
+
+def test_corpus_knob(corpus, tmp_path):
     """A full-batch fit needs a resident corpus (``ValueError``, as in the
-    reference); an out-of-core SVI fit waits for its slice."""
+    reference); an out-of-core SVI fit over the corpus written to shards is
+    bitwise the resident fit."""
+    from repro_torch.data import write_sharded_corpus
+    sharded = write_sharded_corpus(corpus, str(tmp_path / "c"),
+                                   shard_tokens=500)
     m = _observe(tmodels.make("lda", **MODELS["lda"]), "lda", corpus)
     with pytest.raises(ValueError, match="resident corpus"):
-        make_engine("vmp", device="cpu", corpus=object()).fit(m)
-    with pytest.raises(NotImplementedError, match="out-of-core slice"):
-        make_engine("svi", device="cpu", corpus=object()).fit(m)
+        make_engine("vmp", device="cpu", corpus=sharded).fit(m)
+    kw = dict(device="cpu", steps=3, batch_size=16, holdout_frac=0.1)
+    ooc = make_engine("svi", corpus=sharded, **kw).fit(
+        tmodels.make("lda", **MODELS["lda"]))
+    res = make_engine("svi", **kw).fit(m)
+    assert ooc.elbo_trace == res.elbo_trace
+    assert ooc.heldout_trace == res.heldout_trace
+    for n in res.posteriors:
+        np.testing.assert_array_equal(ooc.posteriors[n], res.posteriors[n])
 
 
 def test_svi_engine_without_a_card_raises(corpus, monkeypatch):

@@ -217,9 +217,7 @@ def test_cpu_when_asked(no_gpu):
     assert len(m.elbo_trace) == 3 and m._state.step == 3
 
 
-@pytest.mark.parametrize("kw", [dict(sharding=object()),
-                                dict(checkpoint_every=2),
-                                dict(checkpoint_dir="ckpt")])
+@pytest.mark.parametrize("kw", [dict(sharding=object())])
 def test_later_slices_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         _lda().infer(steps=1, device="cpu", **kw)

@@ -1,6 +1,7 @@
 """Import fence of the port: no module under ``src/repro_torch/``, and
-neither ``chip_smoke.py`` nor ``scripts/torch_numerics.py``, imports ``jax``
-or the JAX package ``repro``; and importing the port leaves JAX unloaded."""
+neither ``chip_smoke.py`` nor ``scripts/torch_numerics.py``, imports ``jax``,
+``ml_dtypes`` or the JAX package ``repro``; and importing the port leaves
+them unloaded."""
 
 import ast
 import os
@@ -17,7 +18,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def _imports(path: Path):
@@ -37,7 +38,8 @@ def test_fence_covers_the_port():
             "vmp_zstep.py", "build.py", "flash_attention.py", "base.py",
             "olmo_1b.py", "layers.py", "transformer.py", "registry.py",
             "adamw.py", "steps.py", "train.py", "svi.py", "engine.py",
-            "pipeline.py", "compiler.py"} <= names
+            "pipeline.py", "compiler.py", "store.py", "faults.py",
+            "session.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -49,6 +51,7 @@ def test_no_jax_or_repro_imports(path):
 
 def test_fence_catches_forbidden_names():
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
+    assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.core") and not _forbidden("torch")
 
 
@@ -58,8 +61,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.ops, repro_torch.data\n"
             "import repro_torch.configs, repro_torch.models, repro_torch.optim\n"
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
+            "import repro_torch.checkpoint, repro_torch.testing\n"
+            "import repro_torch.data.store\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "assert not bad, bad\n"
             "assert 'triton' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

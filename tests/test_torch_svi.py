@@ -518,8 +518,7 @@ def test_sliced_shadow_and_steps_leave_the_plan_cache_alone(corpus,
 @pytest.mark.parametrize("kw,match", [
     (dict(plan=object()), "distributed"), (dict(hosts=object()),
                                            "distributed"),
-    (dict(corpus=object()), "out-of-core"), (dict(validate=True),
-                                             "analysis")])
+    (dict(validate=True), "analysis")])
 def test_later_slice_arguments_raise(corpus, kw, match):
     _, tprog, _ = _pair("lda", corpus)
     with pytest.raises(NotImplementedError, match=match):
@@ -528,14 +527,6 @@ def test_later_slice_arguments_raise(corpus, kw, match):
 
 def test_later_slice_modes_raise(corpus):
     _, tprog, _ = _pair("lda", corpus)
-    with pytest.raises(NotImplementedError, match="out-of-core"):
-        tsvi.SVI(tprog, tsvi.SVIConfig(growing=True, capacity_docs=100),
-                 device=CPU)
-    svi = tsvi.SVI(tprog, tsvi.SVIConfig(), device=CPU)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        svi.fit(1, checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        svi.fit(1, resume_from=True)
     with pytest.raises(NotImplementedError, match="query"):
         tsvi.build_local_scorer(tprog, {}, 3, extras=True)
     with pytest.raises(NotImplementedError, match="distributed"):

@@ -669,16 +669,32 @@ def test_topics_equal_jax_result_topics():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(backend="gibbs"), dict(hosts=object()),
-    dict(checkpoint_dir="ckpt"), dict(validate=True),
-    dict(prefetch=False), dict(growing=True),
-    dict(capacity_docs=10), dict(population_size=10),
-    dict(checkpoint_every=5), dict(resume=True), dict(burnin=3),
-    dict(thin=2)])
+    dict(backend="gibbs"), dict(hosts=object()), dict(validate=True),
+    dict(burnin=3), dict(thin=2)])
 def test_later_slice_knobs_raise(knob):
     m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
     with pytest.raises(NotImplementedError, match="slice of the port"):
         make_engine(tengine.EngineConfig(device="cpu", **knob)).fit(m)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(checkpoint_dir="ckpt"), dict(prefetch=False), dict(growing=True),
+    dict(capacity_docs=10), dict(population_size=10),
+    dict(checkpoint_every=5), dict(resume=True)])
+def test_ported_knobs_leave_a_full_batch_fit_alone(knob, tmp_path):
+    """The out-of-core and session knobs belong to SVI: as in the
+    reference, a full-batch VMP fit ignores them, bit for bit, and writes
+    no checkpoint."""
+    if "checkpoint_dir" in knob:
+        knob = dict(checkpoint_dir=str(tmp_path / "ck"))
+    m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
+    want = make_engine(tengine.EngineConfig(device="cpu", steps=2)).fit(m)
+    got = make_engine(tengine.EngineConfig(device="cpu", steps=2,
+                                           **knob)).fit(m)
+    assert got.elbo_trace == want.elbo_trace
+    for n in want.posteriors:
+        np.testing.assert_array_equal(got.posteriors[n], want.posteriors[n])
+    assert not (tmp_path / "ck").exists()
 
 
 def test_freeze_and_unknown_backend_raise():
