@@ -69,7 +69,32 @@ Phases, each of which exits non-zero on a failed check:
      finite, the held-out documents' theta rows untouched, and a crash at
      step 27 resumed bitwise; ``run_inference`` with checkpoints, half the
      main path's steps and a resume for the rest, bitwise its digest;
-     ``zstats`` and the Elog pass at one out-of-core batch;
+     ``zstats`` and the Elog pass at one out-of-core batch.  Between them
+     the ``query`` phase: ``lda_svi``'s final state frozen
+     (``InferenceResult.freeze``), saved and loaded bitwise; ``FoldIn`` of
+     its 1,500 held-out documents at exact caps bitwise
+     ``svi.heldout_elbo``, its per-document LL summing to the ELBO and its
+     mixtures to 1 within 1e-5, two scores bitwise; a ``QueryServer``
+     (batches of up to 64 documents, ``pow2`` buckets) answering 256
+     requests of 1-4 held-out documents from 8 ``QueryClient`` threads
+     (launch counts set to 0 just before the fold-in and read after the
+     server stops), each response within 1e-5 of its documents scored
+     alone, a multi-document request bitwise its direct score, ``stats()``
+     counting every request; one ``credible_interval`` row within 1e-12
+     of ``scipy.special.betaincinv``; a 64-document score cold and warm,
+     split into host parts (``FoldIn.times``) and device time and idle
+     share under the profiler; ``zstats``, the Elog pass and ``zstep``
+     against their plain versions at the inputs that the held-out fold-in
+     and a warm 64-document score handed them (recorded as they ran).
+     After ``lda_ooc`` the ``gibbs`` phase: ``make_engine("gibbs",
+     steps=40, holdout_frac=0.05)`` on the main path's model, then
+     ``gibbs_lda`` on the engine's training tokens with every sweep's
+     counts checked against them, and once more alone for ms a sweep,
+     tokens/s and peak memory, the three chains bitwise; the complete-data
+     LL rising past burn-in, the held-out ELBO (fold-in of lda_svi's
+     held-out documents) finite, ``aligned_tv`` beside the SVI fit's; the
+     held-out scoring's kernels against their plain versions at its own
+     inputs;
   8. the segment-latent path: SLDA at the same widths over the same corpus,
      cut into sentences of 7 tokens (about 1.44M sentences), through
      ``models.make("slda")`` -> ``observe`` + ``bind("sents")`` ->
@@ -80,6 +105,12 @@ Phases, each of which exits non-zero on a failed check:
      (``zstats_zmap``, ``zmap_logits``, ``dirichlet_expectation``,
      ``zstep``) is held against its plain version on the path's own inputs
      and timed beside its bound, with the path's launch counts;
+     after ``slda_svi`` the ``slda_query`` phase: its fit frozen, payload A
+     then B (four held-out documents each, cut into sentences, with
+     ``bindings={"sents": ...}``) folded in on one ``FoldIn``, B warm in
+     A's bucket bitwise B on a cold ``FoldIn``, ``zstats_zmap`` and
+     ``zmap_logits`` against their plain versions at the inputs that B's
+     warm score handed them;
   9. both ``flash_attention`` kernels against ``ref.flash_attention``: the
      reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
      256, ragged and multi-tile cases at Dh 64 and 128, and the trainer's
@@ -105,8 +136,9 @@ ELBO trace, so that two trees can be shown to give the same output bit for
 bit.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
-kernel and path, the path named in ``"path"``: lda, lda_svi, lda_ooc,
-slda, naive_bayes, lm_train; the flash entry's ``"variant"`` names the kernel the path took and
+kernel and path, the path named in ``"path"``: lda, lda_svi, query,
+lda_ooc, gibbs, slda, slda_svi, slda_query, naive_bayes, naive_bayes_svi,
+lm_train; the flash entry's ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
 graph, where ``"ms"``, CUDA events around back-to-back calls, times the
@@ -117,6 +149,7 @@ JAX nor the JAX package.
 """
 
 import argparse
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -623,7 +656,7 @@ def phase_repeat_and_time(args, report, m, prog, counts):
                  compare("dirichlet_expectation", "phi (K, V) as (V, K)",
                          e_phi.T, de_plain(phi, transpose=True), DE_TOL))
     elog = {"theta": e_theta, "phi": e_phi}
-    logits = vmp._messages_to_latent(prog, spec, elog, arrays)
+    logits = vmp._messages_to_latent(prog, spec, elog, arrays, None)
     del elog
     r, lse = zs.zstep(logits)
     rp, lp = ref.zstep(logits)
@@ -741,6 +774,57 @@ def bound(nbytes, nops, peak=None):
     peak = peak or F32_OPS_PER_S
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _keep(child, zmask):
+    """The tokens of ``child`` that count: its own mask, else the latent's
+    ``zmask`` (through ``zmap`` for a segment latent), else None (all)."""
+    if child.mask is not None or zmask is None:
+        return child.mask
+    return zmask if child.zmap is None else zmask[child.zmap.long()]
+
+
+def real_tokens(args):
+    """The tokens of the first child of a ``zstats`` call on ``args``
+    (table_prior, prior_rows, children, zmask) that count."""
+    c = args[2][0]
+    keep = _keep(c, args[3])
+    return len(c.values) if keep is None else int((keep > 0).sum())
+
+
+def gathered_bytes(children, k, zmask=None):
+    """Each child's index streams read once, and of its table only the
+    cells that its counted tokens gather: one for each of the latent's
+    ``k`` values at each distinct (row base, value) pair."""
+    total = 0
+    for c in children:
+        key = c.values.long()
+        if c.base is not None:
+            key = key + c.base.long() * c.elog.shape[1]
+        keep = _keep(c, zmask)
+        if keep is not None:
+            key = key[keep > 0]
+        cells = min(torch.unique(key).numel() * k, c.elog.numel())
+        total += _nbytes(c.values, c.zmap, c.base, c.mask) + cells * 4
+    return total
+
+
+def zstats_bytes(args):
+    """The least bytes a ``zstats`` call on ``args`` moves: the prior rows
+    and zmask read once, the prior table's gathered rows, each child's
+    streams and gathered cells (:func:`gathered_bytes`), every stats table
+    written once as the dense table the function returns, the lse sum."""
+    prior, rows, children, zmask = args
+    k = prior.shape[1]
+    used = rows.long() if zmask is None else rows.long()[zmask > 0]
+    prior_cells = min(torch.unique(used).numel() * k, prior.numel())
+    return (_nbytes(rows, zmask) + prior_cells * 4 + prior.numel() * 4
+            + gathered_bytes(children, k, zmask)
+            + sum(c.elog.numel() * 4 for c in children) + 4)
 
 
 def kernel_entry(path, name, route, src, replaces, launches, err, ms, plain_ms,
@@ -935,7 +1019,7 @@ def phase_segment_times(label, m, report, counts):
             + (" as (V, K)" if tr else ""),
             de.dirichlet_expectation(p, transpose=tr),
             de_plain(p, transpose=tr), DE_TOL))
-    logits = vmp._messages_to_latent(prog, spec, tabs, arrays)
+    logits = vmp._messages_to_latent(prog, spec, tabs, arrays, plan)
     r, lse = zs.zstep(logits)
     rp, lp = ref.zstep(logits)
     zstep_err = max(compare("zstep", f"{label} r {tuple(logits.shape)}", r,
@@ -982,7 +1066,7 @@ def phase_segment_times(label, m, report, counts):
          "src/repro/kernels/fused_zmap.py:236", t_z, t_zp,
          bound(z_bytes, z_ops), err),
         ("zmap_logits", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
-         "src/repro/kernels/fused_zmap.py:150", t_l, t_lp,
+         "src/repro/kernels/fused_zmap.py:165", t_l, t_lp,
          bound(l_bytes, l_ops), lerr),
         ("dirichlet_expectation", "triton",
          "src/repro_torch/kernels/dirichlet_expectation.py",
@@ -1184,7 +1268,9 @@ def phase_lda_svi(report, prog):
     invariance, untouched rows, two bitwise 5-step runs, the 30-step fit
     with its launch counts, ``zstats`` (masked route) and the Elog pass
     against their plain versions at one batch's inputs, and the step's time
-    split between the host (slicing, owner plan, copy) and the card."""
+    split between the host (slicing, owner plan, copy) and the card.
+    Returns the kernels entries, the fit's final state, its held-out
+    documents and its last held-out ELBO."""
     from repro_torch.core import vmp
     from repro_torch.core import svi as svi_mod
     from repro_torch.kernels import ops
@@ -1239,7 +1325,7 @@ def phase_lda_svi(report, prog):
     out.update(elbo_trace=hist["elbo"], heldout=hist["heldout"],
                launches=counts, fit_s=fit_s, digest=digest,
                repeat_digests=digests, pad_max_abs=worst)
-    return entries
+    return entries, state, fit.holdout, held[-1]
 
 
 def svi_flat_kernels(label, fit, state, counts):
@@ -1247,31 +1333,39 @@ def svi_flat_kernels(label, fit, state, counts):
     of ``fit``'s batch SVI_STEPS from ``state``, held against their plain
     versions and timed beside their bound; the kernels-line entries of
     path ``label`` with the launch ``counts`` of its fit."""
+    log(f"[kernels vs plain] {label}: one batch's inputs (padded, masked)")
+    _, st_b, args, plan, _ = svi_batch_inputs(fit, state, SVI_STEPS)
+    entries = flat_kernel_entries(label, args, plan,
+                                  st_b.posteriors["theta"], counts,
+                                  "the batch's theta rows")
+    del args, plan, st_b
+    return entries
+
+
+def flat_kernel_entries(label, args, plan, theta, counts, rows, extra=()):
+    """``zstats`` (``args`` and its ``plan``) and the Elog pass on
+    ``theta`` (the ``rows`` of one batch or request), each held against its
+    plain version and timed beside its bound, then each of ``extra``
+    (``(name, route, source, replaces, ms, plain_ms, (bound_ms, by),
+    err)``): the kernels-line entries of path ``label`` with its launch
+    ``counts``."""
     from repro_torch.kernels import dirichlet_expectation as de
     from repro_torch.kernels import fused_zstats as fz
     from repro_torch.kernels import ref
-    log(f"[kernels vs plain] {label}: one batch's inputs (padded, masked)")
-    n_tok, st_b, args, plan, _ = svi_batch_inputs(fit, state, SVI_STEPS)
-    theta_b = st_b.posteriors["theta"]
-    zerr = compare_zstats(f"{label} batch", fz.zstats(*args, plan=plan),
+    zerr = compare_zstats(f"{label} inputs", fz.zstats(*args, plan=plan),
                           ref.zstats(*args))
     de_err = compare("dirichlet_expectation", f"{label} theta rows "
-                     f"{tuple(theta_b.shape)}",
-                     de.dirichlet_expectation(theta_b), de_plain(theta_b),
+                     f"{tuple(theta.shape)}",
+                     de.dirichlet_expectation(theta), de_plain(theta),
                      DE_TOL)
     t_z = time_ms(lambda: fz.zstats(*args, plan=plan), reps=20)
     t_zp = time_ms(lambda: ref.zstats(*args), reps=3)
-    t_de = time_ms(lambda: de.dirichlet_expectation(theta_b), reps=20)
-    t_de_dev = device_ms(lambda: de.dirichlet_expectation(theta_b))
-    t_dep = time_ms(lambda: de_plain(theta_b).contiguous(), reps=5)
-    cap, k = args[1].shape[0], theta_b.shape[1]
-    v = args[2][0].elog.shape[1]
-    # the prior rows, values, zmask and token mask each read once, both
-    # tables read and both stats written once; the work of the batch's
-    # real tokens
-    z_bytes = cap * 16 + (theta_b.shape[0] * k + k * v) * 4 * 2 + 4
-    z_ops = 8 * n_tok * k
-    d_bytes, d_ops = theta_b.numel() * 8, DIGAMMA_OPS * theta_b.numel()
+    t_de = time_ms(lambda: de.dirichlet_expectation(theta), reps=20)
+    t_de_dev = device_ms(lambda: de.dirichlet_expectation(theta))
+    t_dep = time_ms(lambda: de_plain(theta).contiguous(), reps=5)
+    # the bytes of zstats_bytes; the work of the real tokens
+    z_bytes, z_ops = zstats_bytes(args), 8 * real_tokens(args) * theta.shape[1]
+    d_bytes, d_ops = theta.numel() * 8, DIGAMMA_OPS * theta.numel()
     entries = []
     for name, route, src, rep, ms, pms, (bms, by), e in [
         ("zstats", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
@@ -1281,15 +1375,15 @@ def svi_flat_kernels(label, fit, state, counts):
          "src/repro_torch/kernels/dirichlet_expectation.py",
          "src/repro/kernels/dirichlet_expectation.py:52", t_de, t_dep,
          bound(d_bytes, d_ops), de_err),
+        *extra,
     ]:
         entries.append(kernel_entry(label, name, route, src, rep,
                                     counts[name], e, ms, pms, bms, by))
         log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
             f"{bms:8.4f} ms ({by})  launches {counts[name]}")
-    entries[-1]["device_ms"] = t_de_dev
-    log(f"  dirichlet_expectation on the batch's theta rows: device time "
-        f"{t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
-    del args, plan, theta_b, st_b
+    entries[1]["device_ms"] = t_de_dev
+    log(f"  dirichlet_expectation on {rows}: device time {t_de_dev:.4f} ms a "
+        f"call (CUDA graph of 20 calls)")
     return entries
 
 
@@ -1707,7 +1801,8 @@ def phase_segment_svi(label, m, report, bitwise_vmp):
     set to 0 just before and read just after; then ``zstats_zmap`` and its
     phase 1 alone (``zmap_logits``) against their plain versions at one
     padded batch's inputs, whose padding tokens map to instance 0 and whose
-    padding instances hold no tokens.  Returns the path's kernels entry."""
+    padding instances hold no tokens.  Returns the path's kernels entry and
+    the fit's final state."""
     from repro_torch.core import vmp
     from repro_torch.core.svi import SVI
     from repro_torch.kernels import fused_zmap as fzm
@@ -1750,16 +1845,9 @@ def phase_segment_svi(label, m, report, bitwise_vmp):
                    dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"]))
     t_z = time_ms(lambda: fzm.zstats_zmap(*args, plan=plan), reps=20)
     t_zp = time_ms(lambda: ref.zstats(*args), reps=3)
-    # the prior rows and zmask, each child's token streams (values, zmap,
-    # mask, base) each read once; every table read and its stats written
-    # once; the work of the batch's real instances and tokens
-    streams = sum(len(c.values) * 4 * sum(
-        a is not None for a in (c.values, c.zmap, c.mask, c.base))
-        for c in children)
-    tables = (prior.numel() + sum(c.elog.numel() for c in children)) * 4
-    z_bytes = n_z * 8 + streams + tables * 2 + 4
-    z_ops = 8 * n_real * k + 4 * n_tok * k
-    bms, by = bound(z_bytes, z_ops)
+    # the bytes of zstats_bytes; the work of the batch's real instances and
+    # tokens
+    bms, by = bound(zstats_bytes(args), 8 * n_real * k + 4 * n_tok * k)
     entry = kernel_entry(name, "zstats_zmap", "cuda",
                          "src/repro_torch/kernels/csrc/zstats.cu",
                          "src/repro/kernels/fused_zmap.py:236",
@@ -1774,7 +1862,543 @@ def phase_segment_svi(label, m, report, bitwise_vmp):
                         launches=counts, fit_s=fit_s, pad_max_abs=worst,
                         zstats_zmap_ms=t_z, zmap_logits_max_abs=lerr,
                         partial_rows=n_parts)
-    return [entry]
+    return [entry], state
+
+
+# ---------------------------------------------------------------------------
+# the query layer: the lda_svi fit frozen, folded in and served; SLDA
+# fold-in with bindings; the Gibbs backend on the main path's model
+# ---------------------------------------------------------------------------
+
+# the server's load, assumed (no source gives request sizes or clients):
+# 256 requests of 1-4 held-out documents from 8 client threads, batched up
+# to 64 documents (docs/query_serving.md's max_batch_docs); a 64-document score timed cold and
+# warm, and WARM_SCORES warm scores under the profiler
+QUERY_REQUESTS, QUERY_CLIENTS, QUERY_BATCH_DOCS = 256, 8, 64
+WARM_SCORES = 3
+# the Gibbs phase: 40 sweeps, half of them burn-in, 5% held out
+GIBBS_STEPS, GIBBS_HOLDOUT = 40, 0.05
+QUERY_RTOL = 1e-5
+
+
+def docs_payload(corpus, docs):
+    """(tokens, lengths) of the given documents, back to back."""
+    offs = np.concatenate([[0], np.cumsum(corpus["lengths"])])
+    vals = np.concatenate([corpus["tokens"][offs[d]:offs[d + 1]]
+                           for d in docs])
+    return vals, corpus["lengths"][docs]
+
+
+@contextlib.contextmanager
+def recording(*names):
+    """While the block runs, every call of the port's dispatch functions
+    ``names`` (``kernels/ops.py``) passes through unchanged, and the last
+    call for each shape of its first table is kept: ``{(name, shape):
+    (args, kwargs, output)}``.  These are the inputs that the port's own
+    code hands the kernels; nothing launches twice."""
+    from repro_torch.kernels import ops
+    calls, orig = {}, {n: getattr(ops, n) for n in names}
+
+    def wrap(name):
+        def call(*a, **kw):
+            out = orig[name](*a, **kw)
+            first = a[0][0].elog if name == "zmap_logits" else a[0]
+            calls[name, tuple(first.shape)] = (a, kw, out)
+            return out
+        return call
+    for n in names:
+        setattr(ops, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, f in orig.items():
+            setattr(ops, n, f)
+
+
+def same(a, b):
+    """Bitwise equality of two outputs (tensors, or tuples of them)."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+
+
+def replayed(label, calls):
+    """Each recorded call (:func:`recording`) made again on its recorded
+    inputs must give its recorded output bitwise (the inputs still hold
+    what the kernel read), and the zstats call's prior table must differ
+    from row to row (a local pass after the prior's).  Returns the zstats
+    call as (table_prior, prior_rows, children, zmask) and its plan."""
+    from repro_torch.kernels import ops
+    for (name, shape), (a, kw, out) in calls.items():
+        check(same(getattr(ops, name)(*a, **kw), out),
+              f"{label}: {name} {shape} made again on its recorded inputs "
+              f"differs from the recorded call")
+    (a, kw, _), = [v for (n, _), v in calls.items() if n == "zstats"]
+    check(not torch.equal(a[0].amin(0), a[0].amax(0)),
+          f"{label}: the recorded zstats call reads the prior's rows only")
+    return (*a, kw.get("zmask")), kw.get("plan")
+
+
+def flat_recorded(label, calls, counts, rows):
+    """The kernels of a flat latent's fold-in at the inputs it handed them
+    (:func:`recording` of one score), each call :func:`replayed`: ``zstats``
+    at the last step body, the Elog pass on every table (timed on the theta
+    rows that zstats call read) and ``zstep`` on the per-group pass's
+    logits, each held against its plain version and timed beside its
+    bound: the kernels-line entries of path ``label`` with its launch
+    ``counts``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import vmp_zstep as zs
+    args, plan = replayed(label, calls)
+    theta = calls["dirichlet_expectation", tuple(args[0].shape)][0][0]
+    for (name, shape), (a, kw, out) in calls.items():
+        if name == "dirichlet_expectation" and a[0] is not theta:
+            compare(name, f"{label} {shape}", out,
+                    de_plain(a[0], kw.get("transpose", False)), DE_TOL)
+    (logits,), _, (r, lse) = [v for (n, _), v in calls.items()
+                              if n == "zstep"][0]
+    rp, lp = ref.zstep(logits)
+    s_err = max(compare("zstep", f"{label} r {tuple(logits.shape)}", r, rp,
+                        ZSTEP_TOL),
+                compare("zstep", f"{label} lse", lse, lp,
+                        dict(rtol=1e-5, atol=1e-5)))
+    t_s = time_ms(lambda: zs.zstep(logits), reps=20)
+    t_sp = time_ms(lambda: ref.zstep(logits), reps=5)
+    s_bytes = logits.numel() * 8 + logits.shape[0] * 4
+    zstep = ("zstep", "triton", "src/repro_torch/kernels/vmp_zstep.py",
+             "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp,
+             bound(s_bytes, 5 * logits.numel()), s_err)
+    return flat_kernel_entries(label, args, plan, theta, counts, rows,
+                               extra=(zstep,))
+
+
+def score_split(fold, payloads):
+    """Score each payload on ``fold`` and return the mean ms of each part
+    ``FoldIn.times`` records (compile, slice, plan, h2d, run) and of the
+    whole, on the host clock."""
+    fold.times = []
+    for vals, lengths in payloads:
+        t0 = time.perf_counter()
+        fold.score(vals, lengths=lengths)
+        fold.times[-1]["total"] = (time.perf_counter() - t0) * 1e3
+    parts, fold.times = fold.times, None
+    return {k: float(np.mean([p[k] for p in parts])) for k in parts[0]}
+
+
+def phase_query(report, m, prog, state, holdout, corpus, heldout_svi):
+    """The lda_svi fit frozen into a Posterior (``InferenceResult.freeze``),
+    saved and loaded bitwise; its held-out documents folded in at exact
+    caps bitwise ``svi.heldout_elbo``; a QueryServer answering 256 requests
+    from 8 client threads (launch counts set to 0 just before the fold-in
+    and read after the server stops), each response held against the same
+    documents scored alone; one credible-interval row against
+    ``betaincinv``; cold and warm scores of 64 documents split host/device;
+    the kernels against their plain versions at the inputs that the
+    held-out fold-in (checked only) and a warm 64-document score (the
+    path's entries) handed them."""
+    import tempfile
+    import threading
+    from scipy.special import betaincinv
+    from repro_torch.core import svi as svi_mod
+    from repro_torch.core.engine import InferenceResult
+    from repro_torch.kernels import ops
+    from repro_torch.query import (FoldIn, FoldInConfig, Posterior,
+                                   QueryClient, QueryServer)
+    label = "query"
+    out = report[label] = {}
+    posts = {n: p.cpu().numpy() for n, p in state.posteriors.items()}
+    res = InferenceResult("svi", posts, [], [(SVI_STEPS - 1, heldout_svi)],
+                          {"steps": SVI_STEPS})
+    t0 = time.perf_counter()
+    post = res.freeze(m, program=prog)
+    with tempfile.TemporaryDirectory(prefix="query-") as tmp:
+        post.save(tmp)
+        loaded = Posterior.load(tmp)
+    io_s = time.perf_counter() - t0
+    ok = all(np.array_equal(loaded.posteriors[n], post.posteriors[n])
+             and np.array_equal(post.posteriors[n], posts[n])
+             for n in posts) and (loaded.local, loaded.observed) == \
+        (("theta",), ("x",))
+    log(f"[{label}] freeze + save + load of phi {posts['phi'].shape} and "
+        f"theta {posts['theta'].shape}: {io_s:.2f} s, round trip "
+        f"{'bitwise' if ok else 'DIFFERENT'}")
+    check(ok, f"{label}: the artifact's save/load round trip is not bitwise")
+
+    member = np.zeros(len(corpus["lengths"]), bool)
+    member[holdout] = True
+    hm = member[corpus["doc_ids"]]
+    h_vals = corpus["tokens"][hm]
+    h_segs = np.searchsorted(holdout, corpus["doc_ids"][hm])
+    exact = FoldIn(loaded, FoldInConfig(local_iters=10, bucket=None),
+                   device="cuda")
+    fold = FoldIn(loaded, FoldInConfig(local_iters=10), device="cuda")
+    rng = np.random.default_rng(SEED)
+    requests = []
+    for _ in range(QUERY_REQUESTS):
+        docs = rng.choice(holdout, size=int(rng.integers(1, 5)),
+                          replace=False)
+        requests.append(docs_payload(corpus, docs))
+    responses = [None] * QUERY_REQUESTS
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = exact.score(h_vals, segment_ids=h_segs)
+    held_s = time.perf_counter() - t0
+    with QueryServer(fold, max_batch_docs=QUERY_BATCH_DOCS) as srv:
+        t_srv = time.perf_counter()
+
+        def client(i):
+            c = QueryClient(srv)
+            for j in range(i, QUERY_REQUESTS, QUERY_CLIENTS):
+                responses[j] = c.score(requests[j][0],
+                                       lengths=requests[j][1])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(QUERY_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        srv_s = time.perf_counter() - t_srv
+        stats = srv.stats()
+    counts = ops.launch_counts()
+    check(all(r is not None for r in responses),
+          f"{label}: a client thread got no response")
+
+    want = svi_mod.heldout_elbo(prog, state, holdout, 10)
+    log(f"[{label}] fold-in of the {len(holdout)} held-out documents "
+        f"({got.n_tokens} tokens, exact caps, 10 local passes) in "
+        f"{held_s:.2f} s: per-token LL {got.per_token_ll!r}, "
+        f"svi.heldout_elbo {want!r}: "
+        f"{'bitwise' if got.per_token_ll == want else 'DIFFERENT'}")
+    check(got.per_token_ll == want,
+          f"{label}: fold-in is not bitwise svi.heldout_elbo")
+    rel = abs(float(got.doc_ll.astype(np.float64).sum()) - got.elbo) \
+        / abs(got.elbo)
+    mix_err = float(np.abs(got.mixtures["theta"].sum(-1, dtype=np.float64)
+                           - 1).max())
+    log(f"[{label}] doc_ll sums to the ELBO within {rel:.2e} relative "
+        f"(tol {QUERY_RTOL}); mixtures {got.mixtures['theta'].shape} sum to "
+        f"1 within {mix_err:.2e}")
+    check(rel <= QUERY_RTOL and got.doc_ll.shape == (len(holdout),)
+          and np.isfinite(got.doc_ll).all(),
+          f"{label}: doc_ll does not decompose the ELBO")
+    check(mix_err <= QUERY_RTOL, f"{label}: mixtures do not sum to 1")
+    with recording("zstats", "dirichlet_expectation", "zstep") as calls:
+        again = exact.score(h_vals, segment_ids=h_segs)
+    ok = again.elbo == got.elbo and np.array_equal(again.doc_ll, got.doc_ll)
+    log(f"[{label}] two scores of one payload: "
+        f"{'bitwise' if ok else 'DIFFERENT'}")
+    check(ok, f"{label}: two scores of one payload differ")
+    log(f"[kernels vs plain] {label}: the held-out fold-in's own inputs "
+        f"(exact caps; its entries are checked, not kept)")
+    flat_recorded(f"{label} held-out", calls, counts,
+                  "the held-out theta rows")
+    del calls
+
+    n_req = sum(len(r[1]) for r in requests)
+    log(f"[{label}] server: {QUERY_REQUESTS} requests ({n_req} documents) "
+        f"from {QUERY_CLIENTS} client threads in {srv_s:.2f} s: "
+        f"{stats['docs_per_s']:.1f} docs/s, {stats['tokens_per_s']:.4e} "
+        f"tokens/s, p50 {stats['latency_p50_ms']:.2f} ms, p95 "
+        f"{stats['latency_p95_ms']:.2f} ms, {stats['batches']} batches of "
+        f"{stats['mean_batch_docs']:.2f} documents on average, "
+        f"{stats['compiled_buckets']} buckets")
+    log(f"[{label}] launches (held-out fold-in + server): {counts}")
+    check(stats["requests"] == QUERY_REQUESTS and stats["docs"] == n_req,
+          f"{label}: stats() counts {stats['requests']} requests, "
+          f"{stats['docs']} documents")
+    for name in ("zstats", "dirichlet_expectation", "zstep"):
+        check(counts[name] > 0, f"{label}: {name} did not launch")
+    check(counts["zstats_zmap"] == 0, f"{label}: zstats_zmap launched")
+    worst = 0.0
+    for (vals, lengths), r in zip(requests, responses):
+        alone = fold.score(vals, lengths=lengths)
+        d = np.abs(r.doc_ll.astype(np.float64) - alone.doc_ll) \
+            / np.abs(alone.doc_ll)
+        worst = max(worst, float(d.max()))
+    log(f"[{label}] each response against its documents scored alone: "
+        f"max relative difference {worst:.2e} (tol {QUERY_RTOL})")
+    check(worst <= QUERY_RTOL, f"{label}: a response differs from its "
+          f"documents scored alone")
+    multi = requests[0] if len(requests[0][1]) > 1 else docs_payload(
+        corpus, holdout[:3])
+    with QueryServer(fold, max_batch_docs=QUERY_BATCH_DOCS) as srv:
+        r = QueryClient(srv).score(multi[0], lengths=multi[1])
+    direct = fold.score(multi[0], lengths=multi[1])
+    ok = np.array_equal(r.doc_ll, direct.doc_ll)
+    log(f"[{label}] a {len(multi[1])}-document request served alone: "
+        f"{'bitwise' if ok else 'DIFFERENT'} its direct score")
+    check(ok, f"{label}: a served request is not bitwise its direct score")
+
+    t0 = time.perf_counter()
+    lo, hi = loaded.credible_interval("phi", 0.9, rows=0)
+    ci_s = time.perf_counter() - t0
+    a = loaded.posteriors["phi"][:1].astype(np.float64)
+    b = a.sum(-1, keepdims=True) - a
+    ci_err = max(float(np.abs(lo - betaincinv(a, b, 0.05)).max()),
+                 float(np.abs(hi - betaincinv(a, b, 0.95)).max()))
+    log(f"[{label}] credible_interval of phi row 0 ({a.shape[1]} cells, 90%)"
+        f" in {ci_s:.2f} s: max |bisection - betaincinv| {ci_err:.2e} "
+        f"(tol 1e-12)")
+    check(ci_err <= 1e-12, f"{label}: a credible interval is off "
+          f"betaincinv")
+
+    # cold and warm scores of 64 documents, and the device under the
+    # profiler over warm ones
+    pay = [docs_payload(corpus, docs) for docs in np.resize(
+        holdout, (WARM_SCORES + 2) * QUERY_BATCH_DOCS).reshape(
+            -1, QUERY_BATCH_DOCS)]
+    timed = FoldIn(loaded, FoldInConfig(local_iters=10), device="cuda")
+    cold = score_split(timed, pay[:1])
+    warm = score_split(timed, pay[1:2])
+
+    def run():
+        for vals, lengths in pay[2:]:
+            timed.score(vals, lengths=lengths)
+    trace = profile_steps(run, WARM_SCORES, label=f"{label} trace")
+    idle = (1 - trace["busy_ms"] / trace["step_ms"]
+            if trace["busy_ms"] > 0 else None)
+    tok = float(np.mean([p[1].sum() for p in pay]))
+    for name, t in (("cold", cold), ("warm", warm)):
+        host = t["compile"] + t["slice"] + t["plan"] + t["h2d"]
+        log(f"[{label} times] {report['device']}: {name} score of "
+            f"{QUERY_BATCH_DOCS} documents (~{tok:.0f} tokens) "
+            f"{t['total']:.2f} ms: compile {t['compile']:.2f}, slice "
+            f"{t['slice']:.2f}, plan {t['plan']:.2f}, H2D {t['h2d']:.2f} ms "
+            f"({host:.2f} ms of host work before the kernels), the scorer "
+            f"to results on the host {t['run']:.2f} ms")
+    log(f"[{label} times] warm scores under the profiler: device "
+        f"{trace['busy_ms']:.3f} ms a score of {trace['step_ms']:.2f}, idle "
+        f"share {'not measured' if idle is None else f'{idle:.3f}'}")
+    log(f"[kernels vs plain] {label}: the inputs of a warm score of "
+        f"{QUERY_BATCH_DOCS} documents (a pow2 bucket, padded and masked)")
+    with recording("zstats", "dirichlet_expectation", "zstep") as calls:
+        timed.score(pay[0][0], lengths=pay[0][1])
+    entries = flat_recorded(label, calls, counts, "the request's theta rows")
+    out.update(heldout_per_token=got.per_token_ll, heldout_svi=want,
+               heldout_s=held_s, server=stats, server_s=srv_s,
+               launches=counts, response_max_rel=worst,
+               credible_interval_err=ci_err, credible_interval_s=ci_s,
+               cold=cold, warm=warm, trace=trace, idle_share=idle)
+    return entries
+
+
+def slda_payloads(corpus, n_docs=4):
+    """Two payloads (A, B) of ``n_docs`` held-out documents each, cut into
+    sentences as the SLDA path cuts them: (tokens, sentence of each token,
+    document of each sentence) per payload."""
+    from repro_torch.data.pipeline import holdout_split
+    _, hold = holdout_split(len(corpus["lengths"]), 0.05, SEED)
+    out = []
+    for docs in (hold[:n_docs], hold[n_docs:2 * n_docs]):
+        vals, lengths = docs_payload(corpus, docs)
+        sub = {"lengths": lengths,
+               "doc_ids": np.repeat(np.arange(len(docs)), lengths)}
+        tok_sent, sent_doc = sentences(sub)
+        out.append((vals, tok_sent, sent_doc))
+    return out
+
+
+def phase_slda_query(report, m, state, payloads):
+    """SLDA fold-in with bindings on the slda_svi fit, frozen: payload A,
+    then B, on one FoldIn (B warm in A's bucket) with the launch counts set
+    to 0 just before and read just after; B again on a cold FoldIn, bitwise
+    the warm score (a cached plan would feed B's kernels A's tokens);
+    ``zstats_zmap`` and ``zmap_logits`` against their plain versions at the
+    inputs that B's warm score handed them."""
+    from repro_torch.core.engine import InferenceResult
+    from repro_torch.kernels import fused_zmap as fzm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.query import FoldIn, FoldInConfig
+    label = "slda_query"
+    prog = m.compile()
+    posts = {n: p.cpu().numpy() for n, p in state.posteriors.items()}
+    post = InferenceResult("svi", posts, [], [], {}).freeze(m, program=prog)
+    cfg = FoldInConfig(local_iters=10)
+    warm = FoldIn(post, cfg, device="cuda")
+    (va, sa, ba), (vb, sb, bb) = payloads
+    pa = warm.plan(np.bincount(sa), bindings={"sents": ba})
+    pb = warm.plan(np.bincount(sb), bindings={"sents": bb})
+    log(f"[{label}] payloads A ({len(va)} tokens, {len(ba)} sentences) and "
+        f"B ({len(vb)} tokens, {len(bb)} sentences), bucket {pb['caps']}")
+    check(pa["signature"] == pb["signature"],
+          f"{label}: payloads A and B land in different buckets")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ra = warm.score(va, segment_ids=sa, bindings={"sents": ba})
+    with recording("zstats", "zmap_logits") as calls:
+        rb = warm.score(vb, segment_ids=sb, bindings={"sents": bb})
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    cold = FoldIn(post, cfg, device="cuda").score(vb, segment_ids=sb,
+                                                  bindings={"sents": bb})
+    log(f"[{label}] per-token LL A {ra.per_token_ll:.6f}, B "
+        f"{rb.per_token_ll:.6f} (both in {warm_s:.2f} s); launches {counts}")
+    check(all(np.isfinite(r.doc_ll).all() and np.isfinite(r.per_token_ll)
+              for r in (ra, rb)), f"{label}: a fold-in score is not finite")
+    ok = (cold.elbo == rb.elbo and np.array_equal(cold.doc_ll, rb.doc_ll)
+          and np.array_equal(cold.mixtures["theta"], rb.mixtures["theta"]))
+    log(f"[{label}] B warm in A's bucket against B on a cold FoldIn: "
+        f"{'bitwise' if ok else 'DIFFERENT'}")
+    check(ok, f"{label}: a warm bucket scores B unlike a cold one")
+    for name in ("zstats_zmap", "zmap_logits"):
+        check(counts[name] > 0, f"{label}: {name} did not launch")
+
+    log(f"[kernels vs plain] {label}: the inputs of B's warm score")
+    args, plan = replayed(label, calls)
+    (zkids, n_z, k), lkw, _ = [v for (n, _), v in calls.items()
+                               if n == "zmap_logits"][0]
+    zmask = args[3]
+    err = compare_zstats(f"{label} request", fzm.zstats_zmap(
+        *args, plan=plan), ref.zstats(*args), name="zstats_zmap")
+    lerr = compare("zmap_logits", f"{label} request",
+                   fzm.zmap_logits(zkids, n_z, k, **lkw),
+                   ref.zmap_logits(zkids, n_z, k),
+                   dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"]))
+    t_z = time_ms(lambda: fzm.zstats_zmap(*args, plan=plan), reps=20)
+    t_zp = time_ms(lambda: ref.zstats(*args), reps=3)
+    t_l = time_ms(lambda: fzm.zmap_logits(zkids, n_z, k, **lkw), reps=20)
+    t_lp = time_ms(lambda: ref.zmap_logits(zkids, n_z, k), reps=3)
+    del calls
+    n_real = int(zmask.sum()) if zmask is not None else n_z
+    n_tok = real_tokens(args)
+    # zstats_bytes; zmap_logits reads its children's streams and gathered
+    # cells and writes the (instances, K) logits
+    z_ops = 8 * n_real * k + 4 * n_tok * k
+    l_bytes = gathered_bytes(zkids, k) + n_z * k * 4
+    l_ops = 2 * n_tok * k
+    entries = []
+    for name, t, tp, (bms, by), e in [
+        ("zstats_zmap", t_z, t_zp, bound(zstats_bytes(args), z_ops), err),
+        ("zmap_logits", t_l, t_lp, bound(l_bytes, l_ops), lerr),
+    ]:
+        rep = ("src/repro/kernels/fused_zmap.py:236" if name == "zstats_zmap"
+               else "src/repro/kernels/fused_zmap.py:165")
+        entries.append(kernel_entry(label, name, "cuda",
+                                    "src/repro_torch/kernels/csrc/zstats.cu",
+                                    rep, counts[name], e, t, tp, bms, by))
+        log(f"  {name:<22} {t:9.4f} ms  plain {tp:9.4f} ms  bound "
+            f"{bms:8.4f} ms ({by})  launches {counts[name]}")
+    report[label] = dict(per_token_ll=[ra.per_token_ll, rb.per_token_ll],
+                         launches=counts, warm_s=warm_s, caps=pb["caps"])
+    return entries
+
+
+def phase_gibbs(report, m, prog, corpus, svi_state, svi_heldout, n_holdout):
+    """``make_engine("gibbs", steps=40, holdout_frac=0.05)`` on the main
+    path's model (launch counts set to 0 just before and read just after,
+    the kernels' inputs recorded in its held-out scoring), then
+    ``gibbs_lda`` on the engine's training tokens twice: once with every
+    sweep's counts checked against the training tokens, once timed alone
+    for ms a sweep and peak memory; the three chains bitwise; the LL trace
+    rising past burn-in, the held-out ELBO finite over the held-out
+    documents of lda_svi; ``aligned_tv`` of phi beside the SVI fit's;
+    ``zstats``, the Elog pass and ``zstep`` against their plain versions at
+    the held-out scoring's own inputs (exact caps, the Gibbs posterior)."""
+    from repro_torch.core import make_engine
+    from repro_torch.core.gibbs import gibbs_lda
+    from repro_torch.core.metrics import aligned_tv
+    from repro_torch.kernels import ops
+    label = "gibbs"
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording("zstats", "dirichlet_expectation", "zstep") as calls:
+        res = make_engine("gibbs", steps=GIBBS_STEPS,
+                          holdout_frac=GIBBS_HOLDOUT, seed=SEED,
+                          device="cuda").fit(m)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    lls = np.asarray(res.elbo_trace, np.float64)
+    burnin = res.meta["burnin"]
+    log(f"[{label}] make_engine('gibbs', steps={GIBBS_STEPS}).fit "
+        f"{fit_s:.2f} s, held-out scoring included; launches {counts}")
+
+    # the engine's sampler call, on its own training split
+    spec = prog.latents[0]
+    child = spec.children[0]
+    train = res.meta["train_groups"]
+    member = np.zeros(prog.dirichlets[spec.prior_dir].g, bool)
+    member[train] = True
+    tm = member[spec.prior_rows]
+    tokens = child.values[tm]
+    docs = np.searchsorted(train, spec.prior_rows[tm])
+    gkw = dict(alpha=float(prog.dirichlets[spec.prior_dir].prior[0]),
+               beta=float(prog.dirichlets[child.dir_name].prior[0]),
+               iters=GIBBS_STEPS, burnin=burnin, seed=SEED,
+               return_conc=True, device="cuda")
+    k, v = spec.k, prog.dirichlets[child.dir_name].k
+    bad = []
+
+    def on_sweep(it, cnt_d, cnt_k):
+        nd, nk = int(cnt_d.sum()), int(cnt_k.sum())
+        if not nd == nk == len(tokens):
+            bad.append((it, nd, nk))
+    checked = gibbs_lda(tokens, docs, k, v, on_sweep=on_sweep, **gkw)
+    check(not bad, f"{label}: a sweep's counts do not sum to the training "
+          f"tokens: {bad[:3]}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    alone = gibbs_lda(tokens, docs, k, v, **gkw)
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) / GIBBS_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    same_chain = all(np.array_equal(x, y) for x, y in
+                     zip((*checked[:3], *checked[3]), (*alone[:3], *alone[3])))
+    names = (spec.prior_dir, child.dir_name)
+    engine = (np.array_equal(np.asarray(res.elbo_trace), alone[2])
+              and all(np.array_equal(res.posteriors[n], alone[i])
+                      and np.array_equal(res.meta["concentrations"][n],
+                                         alone[3][i])
+                      for i, n in enumerate(names)))
+    log(f"[{label}] gibbs_lda over the {len(tokens)} training tokens: "
+        f"counts checked each sweep, then alone {sweep_ms:.2f} ms a sweep "
+        f"(set-up and the copy back included), "
+        f"{len(tokens) / sweep_ms * 1e3:.4e} tokens/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held "
+        f"before; the two runs {'bitwise' if same_chain else 'DIFFERENT'}, "
+        f"the engine's chain {'bitwise' if engine else 'DIFFERENT'}")
+    check(same_chain and engine, f"{label}: runs of one seed differ")
+    del checked, alone
+    early, late = lls[:burnin // 4].mean(), lls[burnin:].mean()
+    log(f"[{label}] complete-data LL {lls[0]:.6e} -> {lls[-1]:.6e}; mean of "
+        f"the first {burnin // 4} sweeps {early:.6e}, after burn-in "
+        f"{late:.6e}")
+    check(np.isfinite(lls).all() and late > early,
+          f"{label}: the LL trace is not finite or did not rise")
+    held = res.heldout_elbo
+    log(f"[{label}] held-out per-token ELBO {held:.6f} over "
+        f"{res.meta['n_holdout_groups']} documents (lda_svi: "
+        f"{svi_heldout:.6f} over {n_holdout})")
+    check(np.isfinite(held) and res.meta["n_holdout_groups"] == n_holdout,
+          f"{label}: the held-out ELBO is not finite or not over lda_svi's "
+          f"held-out documents")
+    for name in ("zstats", "dirichlet_expectation", "zstep"):
+        check(counts[name] > 0, f"{label}: {name} did not launch in the "
+              f"held-out scoring")
+    phi_svi = svi_state.posteriors["phi"].cpu().numpy().astype(np.float64)
+    tv_g = aligned_tv(res.topics("phi"), corpus["true_phi"])
+    tv_s = aligned_tv(phi_svi / phi_svi.sum(-1, keepdims=True),
+                      corpus["true_phi"])
+    log(f"[{label}] aligned_tv(phi, planted) {tv_g:.4f} (lda_svi's fit "
+        f"{tv_s:.4f})")
+    log(f"[kernels vs plain] {label}: the held-out scoring's own inputs "
+        f"(exact caps, the Gibbs posterior)")
+    entries = flat_recorded(label, calls, counts, "the held-out theta rows")
+    report[label] = dict(
+        fit_s=fit_s, sweep_ms=sweep_ms,
+        tokens_per_s=len(tokens) / sweep_ms * 1e3, peak_bytes=peak,
+        ll_trace=lls.tolist(), heldout=held, heldout_svi=svi_heldout,
+        aligned_tv=tv_g, aligned_tv_svi=tv_s, launches=counts)
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -2063,12 +2687,12 @@ def main(argv=None) -> int:
     log(f"[device] {dev_line}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     report = {"device": dev_line, "args": vars(args)}
-    svi_s = report["svi_phase_s"] = {}
+    phase_s = report["phase_s"] = {}
 
-    def svi_phase(name, fn, *a, **kw):
+    def timed(name, fn, *a, **kw):
         t0 = time.perf_counter()
         out = fn(*a, **kw)
-        svi_s[name] = time.perf_counter() - t0
+        phase_s[name] = time.perf_counter() - t0
         return out
 
     phase_build(report)
@@ -2077,30 +2701,41 @@ def main(argv=None) -> int:
     corpus, m, prog = make_main_model(args)
     counts = phase_main(args, report, corpus, m, prog)
     kernels = phase_repeat_and_time(args, report, m, prog, counts)
-    kernels += svi_phase("lda_svi", phase_lda_svi, report, prog)
-    kernels += svi_phase("lda_ooc", phase_lda_ooc, report, corpus, prog)
-    del m, prog
+    entries, svi_state, svi_holdout, svi_held = timed(
+        "lda_svi", phase_lda_svi, report, prog)
+    kernels += entries
+    kernels += timed("query", phase_query, report, m, prog, svi_state,
+                     svi_holdout, corpus, svi_held)
+    kernels += timed("lda_ooc", phase_lda_ooc, report, corpus, prog)
+    kernels += timed("gibbs", phase_gibbs, report, m, prog, corpus,
+                     svi_state, svi_held, len(svi_holdout))
+    del m, prog, svi_state
+    payloads = slda_payloads(corpus)
     slda = make_slda(corpus)
     del corpus
     counts = phase_segment("slda", slda, args.steps, "z", report)
     kernels += phase_segment_times("slda", slda, report, counts)
-    kernels += svi_phase("slda_svi", phase_segment_svi, "slda", slda, report,
-                         bitwise_vmp=False)
-    del slda
+    entries, slda_state = timed("slda_svi", phase_segment_svi, "slda", slda,
+                                report, bitwise_vmp=False)
+    kernels += entries
+    kernels += timed("slda_query", phase_slda_query, report, slda,
+                     slda_state, payloads)
+    del slda, slda_state
     nb = make_naive_bayes(args)
     counts = phase_segment("naive_bayes", nb, NB_STEPS, "c", report)
     kernels += phase_segment_times("naive_bayes", nb, report, counts)
-    kernels += svi_phase("naive_bayes_svi", phase_segment_svi, "naive_bayes",
-                         nb, report, bitwise_vmp=True)
+    kernels += timed("naive_bayes_svi", phase_segment_svi, "naive_bayes",
+                     nb, report, bitwise_vmp=True)[0]
     del nb
     kernels += phase_lm_train(report, phase_flash(report))
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))
     log(f"[done] {report['seconds']:.1f} s (kernel builds "
-        f"{report['build_s']:.1f} s, SVI phases {sum(svi_s.values()):.1f} s: "
-        f"{', '.join(f'{k} {v:.1f}' for k, v in svi_s.items())}); report in "
-        f"{REPORT}")
+        f"{report['build_s']:.1f} s; SVI, query and Gibbs phases "
+        f"{sum(phase_s.values()):.1f} s: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in phase_s.items())}); report "
+        f"in {REPORT}")
     print(dev_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

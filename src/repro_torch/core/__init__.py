@@ -1,6 +1,7 @@
 """The port's probabilistic-programming layer: DSL -> Bayesian network ->
-compiled VMP program -> full-batch VMP or SVI on one device, behind
-``make_engine("vmp")`` and ``make_engine("svi")``."""
+compiled VMP program -> full-batch VMP, SVI or Gibbs sampling on one
+device, behind ``make_engine("vmp")``, ``make_engine("svi")`` and
+``make_engine("gibbs")``."""
 
 from .dsl import Model, ModelBuilder, build  # noqa: F401
 from .network import BayesianNetwork, CategoricalRV, DirichletRV, Plate  # noqa: F401

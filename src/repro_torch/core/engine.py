@@ -1,5 +1,4 @@
-"""One API over the inference backends: the VMP and SVI part of
-``repro.core.engine``.
+"""One API over the inference backends: the port of ``repro.core.engine``.
 
 ``make_engine`` builds an engine from a backend name, a config dict or an
 :class:`EngineConfig`, and ``fit(model)`` returns an
@@ -8,17 +7,19 @@
     result = make_engine("vmp", steps=50).fit(model)     # on the GPU
     result = make_engine("svi", steps=500, batch_size=256,
                          holdout_frac=0.05).fit(model)
+    result = make_engine("gibbs", steps=200, holdout_frac=0.05).fit(model)
     topics = result.topics("phi")
+    post = result.freeze(model)           # a servable query.Posterior
 
-The port runs full-batch VMP and single-host SVI on one device, SVI over a
-resident corpus or a sharded one on disk (``corpus=``, growing or not), with
-crash-safe sessions (``checkpoint_dir=``, ``resume=``).  ``device=None``
-means ``"cuda"``; the CPU runs only when asked for (``device="cpu"``).  The
-config keeps every field of the reference's, with its default, so that one
-config reads the same in both packages; what needs a later slice of the port
-(the Gibbs backend, multi-host corpora, static analysis, freezing for the
-query layer) raises ``NotImplementedError`` naming that slice when it is set
-away from its default.
+The port runs full-batch VMP, single-host SVI (over a resident corpus or a
+sharded one on disk, ``corpus=``, growing or not, with crash-safe sessions:
+``checkpoint_dir=``, ``resume=``) and blocked Gibbs sampling for LDA-shaped
+models on one device.  ``device=None`` means ``"cuda"``; the CPU runs only
+when asked for (``device="cpu"``).  The config keeps every field of the
+reference's, with its default, so that one config reads the same in both
+packages; what needs a later slice of the port (multi-host corpora,
+sharding, static analysis) raises ``NotImplementedError`` naming that slice
+when it is set away from its default.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..data.pipeline import holdout_split
 from .svi import SVI, SVIConfig, later_slice
 from .vmp import resolve_device
 
@@ -37,7 +39,7 @@ class EngineConfig:
     """Backend selection + the union of backend knobs, as in the reference;
     ``device`` is the port's own.  A knob of a later slice raises in
     ``fit`` unless it keeps its default."""
-    backend: str = "vmp"            # vmp | svi | gibbs (the port: vmp, svi)
+    backend: str = "vmp"            # vmp | svi | gibbs
     steps: int = 50
     seed: int = 0
     sharding: object = None         # None = 1 device
@@ -66,7 +68,7 @@ class EngineConfig:
     checkpoint_every: int = 10
     resume: bool = False
     # gibbs
-    burnin: Optional[int] = None
+    burnin: Optional[int] = None    # default: steps // 2
     thin: int = 1
     # static analysis
     validate: bool = False
@@ -79,18 +81,24 @@ class InferenceResult:
     """What every backend returns: posterior summaries + diagnostics."""
     backend: str
     posteriors: dict[str, np.ndarray]   # per Dirichlet RV: (G, K) float32
-                                        # concentrations
-    elbo_trace: list                    # per-step float ELBO
+                                        # concentrations, or (G, K) mean
+                                        # probabilities when
+                                        # meta["normalized"] (gibbs)
+    elbo_trace: list                    # per-step float ELBO (gibbs: the
+                                        # complete-data log-likelihood)
     heldout_trace: list                 # [(step, per-token heldout ELBO)]
     meta: dict
 
     def topics(self, name: str) -> np.ndarray:
-        """Row-normalized posterior-mean distribution for a Dirichlet RV."""
+        """Row-normalized posterior-mean distribution for a Dirichlet RV —
+        directly comparable across variational and sampling backends."""
         if name not in self.posteriors:
             raise KeyError(
                 f"no posterior for RV {name!r} in this {self.backend} "
                 f"result; available: {sorted(self.posteriors)}")
         p = np.asarray(self.posteriors[name], np.float64)
+        if self.meta.get("normalized"):
+            return p
         return p / p.sum(-1, keepdims=True)
 
     @property
@@ -98,17 +106,21 @@ class InferenceResult:
         return self.heldout_trace[-1][1] if self.heldout_trace else float("nan")
 
     def freeze(self, model, program=None, note: str = ""):
-        """A servable posterior artifact: arrives with the query slice."""
-        raise NotImplementedError(
-            "freezing a result into a Posterior artifact arrives with the "
-            "query slice of the port")
+        """Freeze this result into a servable
+        :class:`repro_torch.query.Posterior` artifact (posterior
+        concentrations + model/program provenance).  ``model`` is the fitted
+        :class:`~repro_torch.core.dsl.Model`; ``program`` overrides
+        ``model.compile()`` when the model itself was never observed (the
+        out-of-core path — pass its ``sharded_template``)."""
+        from ..query import Posterior
+        return Posterior.from_result(self, model, program=program,
+                                     note=note)
 
 
 # the config's knobs that a later slice reads, by field: fit raises when one
 # differs from its default, so that none is ignored quietly
 _SLICE_OF = {
     **dict.fromkeys(("hosts", "sharding"), "distributed"),
-    **dict.fromkeys(("burnin", "thin"), "Gibbs"),
     "validate": "analysis",
 }
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
@@ -245,8 +257,88 @@ def _fit_svi(model, cfg: EngineConfig, full_batch: bool) -> InferenceResult:
                             "device": str(svi.device)})
 
 
-_ENGINES = {"vmp": VMPEngine, "svi": SVIEngine}
-_LATER = {"gibbs": "Gibbs"}
+class GibbsEngine(InferenceEngine):
+    """Blocked Gibbs sampling for LDA-shaped models (one latent selector
+    with a single specialized child and a per-group prior Dirichlet;
+    ``core/gibbs.py``).
+
+    With ``holdout_frac > 0`` the held-out documents (the same
+    ``holdout_split`` as the variational engines, so the splits coincide
+    at equal seeds) are excluded from the sweeps and scored afterwards by
+    the query layer's fold-in against the frozen posterior-mean
+    concentrations — populating ``heldout_trace`` with the same per-token
+    ELBO metric the other backends report."""
+
+    name = "gibbs"
+
+    def fit(self, model) -> InferenceResult:
+        from .gibbs import gibbs_lda
+        cfg = self.cfg
+        if cfg.corpus is not None:
+            raise ValueError("gibbs sweeps every token and needs a resident "
+                             "corpus; use backend='svi' with corpus=")
+        _check_slice_knobs(cfg)
+        device = resolve_device(cfg.device)
+        program = model.compile()
+        spec, child = _lda_shape(program)
+        theta_d = program.dirichlets[spec.prior_dir]
+        phi_d = program.dirichlets[child.dir_name]
+        burnin = cfg.burnin if cfg.burnin is not None else cfg.steps // 2
+        values, doc_rows = child.values, spec.prior_rows
+        train = holdout = None
+        if cfg.holdout_frac > 0:
+            train, holdout = holdout_split(theta_d.g, cfg.holdout_frac,
+                                           cfg.seed)
+            member = np.zeros(theta_d.g, bool)
+            member[train] = True
+            tm = member[doc_rows]
+            values = values[tm]
+            doc_rows = np.searchsorted(train, doc_rows[tm])
+        theta, phi, lls, (theta_conc, phi_conc) = gibbs_lda(
+            values, doc_rows, spec.k, phi_d.k,
+            alpha=float(theta_d.prior[0]), beta=float(phi_d.prior[0]),
+            iters=cfg.steps, burnin=burnin, seed=cfg.seed, thin=cfg.thin,
+            return_conc=True, device=device)
+        posts = {spec.prior_dir: theta, child.dir_name: phi}
+        meta = {"normalized": True, "burnin": burnin, "steps": cfg.steps,
+                "concentrations": {spec.prior_dir: theta_conc,
+                                   child.dir_name: phi_conc},
+                "device": str(device)}
+        result = InferenceResult(self.name, posts, list(lls), [], meta)
+        if cfg.holdout_frac > 0:
+            meta["n_train_groups"] = len(train)
+            meta["n_holdout_groups"] = len(holdout)
+            meta["train_groups"] = train
+            from ..query import FoldIn, FoldInConfig
+            fold = FoldIn(result.freeze(model, program=program),
+                          FoldInConfig(
+                              local_iters=cfg.holdout_local_iters,
+                              bucket=None),
+                          model=model, device=device)
+            hm = ~member[spec.prior_rows]
+            score = fold.score(
+                child.values[hm],
+                segment_ids=np.searchsorted(holdout,
+                                            spec.prior_rows[hm]))
+            result.heldout_trace.append((cfg.steps - 1,
+                                         score.per_token_ll))
+        return result
+
+
+def _lda_shape(program):
+    """The (latent, child) pair of an LDA-shaped program, or raise."""
+    if (len(program.latents) == 1 and not program.statics
+            and len(program.latents[0].children) == 1):
+        spec = program.latents[0]
+        f = spec.children[0]
+        if f.specialized and f.zmap is None:
+            return spec, f
+    raise ValueError(
+        f"gibbs backend needs an LDA-shaped model (one latent selector, one "
+        f"specialized child); {program.name} is not — use vmp or svi")
+
+
+_ENGINES = {"vmp": VMPEngine, "svi": SVIEngine, "gibbs": GibbsEngine}
 
 
 def make_engine(spec="vmp", **overrides) -> InferenceEngine:
@@ -258,9 +350,7 @@ def make_engine(spec="vmp", **overrides) -> InferenceEngine:
         cfg = EngineConfig(**{**spec, **overrides})
     else:
         cfg = EngineConfig(backend=str(spec), **overrides)
-    if cfg.backend in _LATER:
-        later_slice(f"the {cfg.backend} backend", _LATER[cfg.backend])
     if cfg.backend not in _ENGINES:
         raise ValueError(f"unknown backend {cfg.backend!r}; "
-                         f"choose from {sorted(_ENGINES) + sorted(_LATER)}")
+                         f"choose from {sorted(_ENGINES)}")
     return _ENGINES[cfg.backend](cfg)

@@ -32,9 +32,10 @@ resident path.  ``growing=True`` follows a corpus that a live writer keeps
 appending to.  ``fit(checkpoint_dir=, resume_from=)`` commits resumable
 sessions (``checkpoint/session.py``) and resumes bitwise.
 
-What needs a later slice of the port raises ``NotImplementedError`` naming
-it: the distributed path (``plan=``, ``hosts=``), the static pre-flight
-(``validate=True``) and fold-in (``build_local_scorer(extras=True)``).
+``build_local_scorer(extras=True)`` is the query layer's fold-in scorer
+(``repro_torch.query.foldin``).  What needs a later slice of the port
+raises ``NotImplementedError`` naming it: the distributed path
+(``plan=``, ``hosts=``) and the static pre-flight (``validate=True``).
 """
 
 from __future__ import annotations
@@ -52,8 +53,10 @@ from . import dists
 from .compiler import (VMPProgram, check_resident, local_dirichlets,
                        slice_arrays, sliced_shadow)
 from .runtime import _resolve_elog_dtype
-from .vmp import (VMPState, _step_body, init_state, owner_plans,
-                  resolve_device, state_from_numpy, state_to_numpy)
+from ..kernels import ops as kops
+from .vmp import (VMPState, _elog_tables, _messages_to_latent, _step_body,
+                  init_state, owner_plans, resolve_device, state_from_numpy,
+                  state_to_numpy)
 
 
 def later_slice(what: str, slice_name: str):
@@ -279,6 +282,27 @@ def device_batch(program: VMPProgram, groups, caps_fn=None, device=None):
 # held-out ELBO
 # ---------------------------------------------------------------------------
 
+def segment_index(seg, n_seg: int) -> tuple[np.ndarray, np.ndarray]:
+    """The host-side plan of a deterministic segment sum over one axis:
+    ``(order, lengths)`` — the axis positions whose group id lies in
+    ``[0, n_seg)``, stably sorted by it (ids outside, the padding sentinel
+    ``n_seg`` among them, are dropped), and each group's count.  On the
+    device :func:`segment_sum` then reduces every group in a fixed order,
+    where a scatter-add of floats on CUDA would not."""
+    seg = np.asarray(seg, np.int64)
+    keep = np.flatnonzero((seg >= 0) & (seg < n_seg))
+    order = keep[np.argsort(seg[keep], kind="stable")]
+    return order, np.bincount(seg[order], minlength=n_seg)
+
+
+def segment_sum(values: torch.Tensor, plan) -> torch.Tensor:
+    """Per-group sums of ``values`` along its first axis by a
+    :func:`segment_index` plan (on ``values``' device): ``(n_seg, ...)``."""
+    order, lengths = plan
+    return torch.segment_reduce(values[order], "sum", lengths=lengths,
+                                axis=0)
+
+
 def build_local_scorer(program: VMPProgram, caps: dict[str, int],
                        inner_iters: int, *, extras: bool = False,
                        n_seg: int = 0):
@@ -289,15 +313,27 @@ def build_local_scorer(program: VMPProgram, caps: dict[str, int],
     the global Dirichlets' KL terms (training-objective bookkeeping, not
     predictive quality) are excluded from the score.  ``posteriors`` need
     only hold the global Dirichlets; ``plans`` are the arrays' owner plans
-    (:func:`host_batch`), as in ``_step_body``.  ``extras=True`` (the
-    fold-in path) belongs to the query slice.
+    (:func:`host_batch`), as in ``_step_body``.
+
+    ``extras=True`` (the fold-in path) returns ``fn(posteriors, arrays,
+    plans, seg) -> (elbo, locals, group_elbo)`` where ``elbo`` is the same
+    scalar (identical ops, so it stays bitwise with the extras=False build
+    at matching caps/iters), ``locals`` maps each local Dirichlet to its
+    fitted ``(caps[name], k)`` posterior concentrations (MAP mixtures after
+    normalization), and ``group_elbo`` is the ``(n_seg,)``
+    per-partition-group decomposition of the score: per-instance logsumexp
+    terms plus each group's local-Dirichlet ELBO terms, summed per group
+    by ``seg`` (per latent / static / local Dirichlet, the
+    :func:`segment_index` plan of its group ids, on the arrays' device).
+    ``group_elbo.sum()`` equals ``elbo`` up to float reassociation.  The
+    per-group pass reads the latent's owner plan from ``plans``, never
+    from a cache: the scorer serves every request of its caps, and each
+    request brings its own plans.
     """
-    if extras:
-        later_slice("build_local_scorer(extras=True) (fold-in)", "query")
     local = local_dirichlets(program)
     shadow = sliced_shadow(program, caps)
 
-    def fn(posteriors, arrays, plans):
+    def _fit_locals(posteriors, arrays, plans):
         device = next(iter(posteriors.values())).device
         priors = _priors(program, device)
         posts = {name: (priors[name].expand(caps[name], d.k).contiguous()
@@ -313,9 +349,44 @@ def build_local_scorer(program: VMPProgram, caps: dict[str, int],
             if name not in local:
                 elbo = elbo - dists.dirichlet_elbo_term(priors[name],
                                                         posteriors[name])
-        return elbo
+        return st, elbo, priors
 
-    return fn
+    if not extras:
+        def fn(posteriors, arrays, plans):
+            return _fit_locals(posteriors, arrays, plans)[1]
+
+        return fn
+
+    def fn_extras(posteriors, arrays, plans, seg):
+        st, elbo, priors = _fit_locals(posteriors, arrays, plans)
+        # per-group decomposition: an explicit (materializing) pass at the
+        # fitted locals — the fused elbo above stays the bitwise artifact
+        elog = _elog_tables(shadow, st)
+        grp = torch.zeros((n_seg,), dtype=torch.float32, device=elbo.device)
+        for spec in shadow.latents:
+            logits = _messages_to_latent(shadow, spec, elog, arrays,
+                                         plans.get(spec.name))
+            _, lse = kops.zstep(logits)
+            m = arrays[spec.name].get("mask")
+            if m is not None:
+                lse = lse * m
+            grp = grp + segment_sum(lse, seg[spec.name])
+        for s in shadow.statics:
+            a = arrays[s.x_name]
+            e = elog[s.dir_name][a["rows"].long(), a["values"].long()]
+            if a.get("mask") is not None:
+                e = e * a["mask"]
+            grp = grp + segment_sum(e, seg[s.x_name])
+        for name in sorted(local):
+            post = st.posteriors[name]
+            prior = torch.broadcast_to(priors[name], post.shape)
+            term = dists.dirichlet_log_norm(post) \
+                - dists.dirichlet_log_norm(prior) \
+                + ((prior - post) * elog[name]).sum(dim=-1)
+            grp = grp + segment_sum(term, seg[name])
+        return elbo, {n: st.posteriors[n] for n in local}, grp
+
+    return fn_extras
 
 
 def heldout_elbo(program: VMPProgram, state: VMPState, groups,

@@ -97,10 +97,13 @@ def state_to_numpy(state: VMPState) -> tuple[dict, int]:
 # message computation
 # ---------------------------------------------------------------------------
 
-def _messages_to_latent(program, spec, elog, arrays):
+def _messages_to_latent(program, spec, elog, arrays, plan):
     """Sum of prior + child messages -> logits (n, K).  The children with a
     ``zmap`` (a segment latent's) are summed per instance by
-    ``kops.zmap_logits``, in a fixed order on every device, and added last."""
+    ``kops.zmap_logits``, in a fixed order on every device, and added last.
+    ``plan`` — the latent's owner plan for exactly these ``arrays``, from the
+    caller (:func:`program_plans` for the program's own arrays, a request's
+    ``svi.host_batch`` plans for a sliced one), or None off CUDA."""
     logits = elog[spec.prior_dir][arrays[spec.name]["prior_rows"].long()]
     for f in spec.children:
         a = arrays[f.x_name]
@@ -119,7 +122,6 @@ def _messages_to_latent(program, spec, elog, arrays):
     children = _latent_children(spec, elog, arrays)
     zkids = tuple(c for c in children if c.zmap is not None)
     if zkids:
-        plan = program_plans(program, arrays).get(spec.name)
         logits = logits + kops.zmap_logits(zkids, spec.n, spec.k, plan=plan)
     return logits.contiguous()
 
@@ -291,7 +293,8 @@ def latent_responsibilities(program: VMPProgram, state: VMPState, name: str):
     elog = _elog_tables(program, state)
     for spec in program.latents:
         if spec.name == name:
-            logits = _messages_to_latent(program, spec, elog, arrays)
+            plan = program_plans(program, arrays).get(spec.name)
+            logits = _messages_to_latent(program, spec, elog, arrays, plan)
             r, _ = kops.zstep(logits)
             return r
     raise KeyError(name)

@@ -147,20 +147,36 @@ def test_make_engine_selection():
     assert make_engine("vmp").name == "vmp"
     assert make_engine("svi").name == "svi"
     assert make_engine({"backend": "svi", "steps": 7}).cfg.steps == 7
-    with pytest.raises(NotImplementedError, match="Gibbs slice"):
-        make_engine("gibbs")
+    assert make_engine("gibbs").name == "gibbs"
+    assert isinstance(make_engine("gibbs", burnin=3), tengine.GibbsEngine)
     with pytest.raises(ValueError, match="unknown backend"):
         make_engine("annealed_ais")
 
 
-@pytest.mark.parametrize("backend", ["vmp", "svi"])
+@pytest.mark.parametrize("backend", ["vmp", "svi", "gibbs"])
 @pytest.mark.parametrize("knob", [
-    dict(hosts=object()), dict(sharding=object()),
-    dict(burnin=3), dict(thin=2), dict(validate=True)])
+    dict(hosts=object()), dict(sharding=object()), dict(validate=True)])
 def test_later_slice_knobs_raise(corpus, backend, knob):
     m = _observe(tmodels.make("lda", **MODELS["lda"]), "lda", corpus)
     with pytest.raises(NotImplementedError, match="slice of the port"):
         make_engine(backend, device="cpu", **knob).fit(m)
+
+
+@pytest.mark.parametrize("backend", ["vmp", "svi"])
+@pytest.mark.parametrize("knob", [dict(burnin=3), dict(thin=2)])
+def test_gibbs_knobs_leave_a_variational_fit_alone(corpus, backend, knob):
+    """``burnin`` and ``thin`` belong to the sampler: as in the reference,
+    a vmp or svi fit ignores them, bit for bit."""
+    m = _observe(tmodels.make("lda", **MODELS["lda"]), "lda", corpus)
+    kw = dict(device="cpu", steps=3, seed=0)
+    if backend == "svi":
+        kw.update(batch_size=8, holdout_frac=0.1, holdout_every=2)
+    want = make_engine(backend, **kw).fit(m)
+    got = make_engine(backend, **kw, **knob).fit(m)
+    assert got.elbo_trace == want.elbo_trace
+    assert got.heldout_trace == want.heldout_trace
+    for n in want.posteriors:
+        np.testing.assert_array_equal(got.posteriors[n], want.posteriors[n])
 
 
 @pytest.mark.parametrize("backend", ["vmp", "svi"])

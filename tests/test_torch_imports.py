@@ -39,7 +39,8 @@ def test_fence_covers_the_port():
             "olmo_1b.py", "layers.py", "transformer.py", "registry.py",
             "adamw.py", "steps.py", "train.py", "svi.py", "engine.py",
             "pipeline.py", "compiler.py", "store.py", "faults.py",
-            "session.py"} <= names
+            "session.py", "gibbs.py", "baselines.py", "posterior.py",
+            "foldin.py", "server.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -62,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.configs, repro_torch.models, repro_torch.optim\n"
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "import repro_torch.checkpoint, repro_torch.testing\n"
-            "import repro_torch.data.store\n"
+            "import repro_torch.data.store, repro_torch.query\n"
+            "import repro_torch.core.gibbs, repro_torch.core.baselines\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "assert not bad, bad\n"

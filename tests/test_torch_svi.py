@@ -527,10 +527,37 @@ def test_later_slice_arguments_raise(corpus, kw, match):
 
 def test_later_slice_modes_raise(corpus):
     _, tprog, _ = _pair("lda", corpus)
-    with pytest.raises(NotImplementedError, match="query"):
-        tsvi.build_local_scorer(tprog, {}, 3, extras=True)
     with pytest.raises(NotImplementedError, match="distributed"):
         tsvi.host_batch(tprog, np.arange(3), plan=object())
+
+
+def test_local_scorer_extras_returns_three_outputs(corpus):
+    """``build_local_scorer(extras=True)``, the fold-in scorer, returns the
+    reference's three outputs: the ELBO (bitwise the plain build's), the
+    fitted local tables at their caps and the per-group decomposition."""
+    _, tprog, posts0 = _pair("lda", corpus)
+    groups = np.arange(tprog.meta["pstar_size"])
+    hb, caps, _ = tsvi.host_batch(tprog, groups, _pad64, device=CPU)
+    batch = tsvi.device_put_batch(hb, CPU)
+    n_seg = 64
+    seg = {}
+    for spec in tprog.latents:
+        g = np.full(caps[spec.name], n_seg)
+        g[:len(spec.group)] = spec.group
+        seg[spec.name] = g
+    rows = hb["dirs"]["theta"]["rows"]
+    seg["theta"] = np.where(rows < len(groups), rows, n_seg)
+    seg = {k: tuple(torch.from_numpy(a) for a in tsvi.segment_index(v, n_seg))
+           for k, v in seg.items()}
+    out = tsvi.build_local_scorer(tprog, caps, 3, extras=True, n_seg=n_seg)(
+        _state(posts0).posteriors, batch["arrays"], batch["plans"], seg)
+    elbo, locs, grp = out
+    plain = tsvi.build_local_scorer(tprog, caps, 3)(
+        _state(posts0).posteriors, batch["arrays"], batch["plans"])
+    assert torch.equal(elbo, plain)
+    assert locs.keys() == {"theta"} and locs["theta"].shape == (64, 3)
+    assert grp.shape == (n_seg,)
+    np.testing.assert_allclose(grp.sum().item(), elbo.item(), rtol=1e-5)
 
 
 

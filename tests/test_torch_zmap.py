@@ -668,13 +668,38 @@ def test_topics_equal_jax_result_topics():
         got.topics("pi")
 
 
-@pytest.mark.parametrize("knob", [
-    dict(backend="gibbs"), dict(hosts=object()), dict(validate=True),
-    dict(burnin=3), dict(thin=2)])
+@pytest.mark.parametrize("knob", [dict(hosts=object()), dict(validate=True)])
 def test_later_slice_knobs_raise(knob):
     m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
     with pytest.raises(NotImplementedError, match="slice of the port"):
         make_engine(tengine.EngineConfig(device="cpu", **knob)).fit(m)
+
+
+def test_gibbs_fit_of_a_segment_latent_raises_like_the_reference():
+    """SLDA is not LDA-shaped (its child has a zmap): the Gibbs backend
+    refuses it with the reference's ``ValueError``."""
+    from repro.core import make_engine as j_make_engine
+    from repro.core import models as jmodels
+    m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
+    jm = _observe("slda", jmodels.make("slda", **MODELS["slda"]))
+    with pytest.raises(ValueError, match="LDA-shaped") as got:
+        make_engine("gibbs", steps=2, device="cpu").fit(m)
+    with pytest.raises(ValueError, match="LDA-shaped") as want:
+        j_make_engine("gibbs", steps=2).fit(jm)
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("knob", [dict(burnin=3), dict(thin=2)])
+def test_gibbs_knobs_leave_a_full_batch_fit_alone(knob):
+    """``burnin`` and ``thin`` belong to the sampler: a full-batch VMP fit
+    ignores them, bit for bit, as in the reference."""
+    m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
+    want = make_engine(tengine.EngineConfig(device="cpu", steps=2)).fit(m)
+    got = make_engine(tengine.EngineConfig(device="cpu", steps=2,
+                                           **knob)).fit(m)
+    assert got.elbo_trace == want.elbo_trace
+    for n in want.posteriors:
+        np.testing.assert_array_equal(got.posteriors[n], want.posteriors[n])
 
 
 @pytest.mark.parametrize("knob", [
@@ -697,12 +722,26 @@ def test_ported_knobs_leave_a_full_batch_fit_alone(knob, tmp_path):
     assert not (tmp_path / "ck").exists()
 
 
-def test_freeze_and_unknown_backend_raise():
-    res = tengine.InferenceResult("vmp", {}, [], [], {})
-    with pytest.raises(NotImplementedError, match="query slice"):
-        res.freeze(None)
+def test_unknown_backend_raises():
     with pytest.raises(ValueError, match="unknown backend"):
         make_engine("mcmc")
+
+
+def test_freeze_records_what_the_reference_records():
+    """``freeze`` of a segment-latent fit: the concentrations as they are,
+    and the model, parameters, local/global split and observed RVs the
+    reference's ``freeze`` records for the same model and result."""
+    from repro.core import models as jmodels
+    m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
+    res = make_engine(tengine.EngineConfig(device="cpu", steps=2)).fit(m)
+    post = res.freeze(m, note="n")
+    jm = _observe("slda", jmodels.make("slda", **MODELS["slda"]))
+    want = JInferenceResult("vmp", res.posteriors, [], [], {}).freeze(jm)
+    assert (post.model, post.params, post.local, post.observed) == \
+        (want.model, want.params, want.local, want.observed)
+    for n in want.posteriors:
+        np.testing.assert_array_equal(post.posteriors[n], want.posteriors[n])
+    assert post.meta["backend"] == "vmp" and post.meta["note"] == "n"
 
 
 def test_default_device_without_a_card_raises():
