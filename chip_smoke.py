@@ -27,7 +27,10 @@ Phases, each of which exits non-zero on a failed check:
      documents of mean length 332 (about 10M tokens), through
      ``models.make`` -> ``observe`` -> ``Model.infer(steps=10)`` ->
      ``get_result``, with the launch counts set to 0 just before and read
-     just after;
+     just after; ``explain_plan(backend="cuda")`` of the model names the
+     route that the steps' launches took (``ops.route_counts``), as it does
+     for SLDA, naive Bayes and ``lda_svi`` (whose plan's caps are batch
+     0's);
   6. times (CUDA events) of each kernel, its plain version and its bound at
      the main path's shapes (the Elog pass on phi also by its two Triton
      launches, row sums and elementwise), and the VMP step's ms and
@@ -86,6 +89,19 @@ Phases, each of which exits non-zero on a failed check:
      share under the profiler; ``zstats``, the Elog pass and ``zstep``
      against their plain versions at the inputs that the held-out fold-in
      and a warm 64-document score handed them (recorded as they ran).
+     Then the ``gateway`` phase (``benchmarks/bench_gateway.py``'s
+     protocol): the frozen posterior and a replica compacted at top-k 128
+     (bitwise across save/load, its tables on the card bitwise the host's
+     compaction) under one ``Gateway``; 4 tenant threads each running the
+     bench's script (TOPICS, SIMILARITY, CREDIBLE INTERVAL on a theta row,
+     PREDICT of 3 corpus documents) once on each artifact, launch counts
+     set to 0 just before and read just after; every PREDICT within 1e-5
+     of ``FoldIn.score`` alone, ``stats()`` counting every query and no
+     error; queries/s and p95, ms per query kind full against lite, bytes,
+     ``error_bound`` and the replicas' PREDICT deviation, one phi-row
+     interval; EXPLAIN's route the executed one for every kind, its kernel
+     routes those the launches took; ``zstats``, the Elog pass and
+     ``zstep`` at one PREDICT's recorded inputs (entry ``gateway``).
      After ``lda_ooc`` the ``gibbs`` phase: ``make_engine("gibbs",
      steps=40, holdout_frac=0.05)`` on the main path's model, then
      ``gibbs_lda`` on the engine's training tokens with every sweep's
@@ -110,7 +126,9 @@ Phases, each of which exits non-zero on a failed check:
      ``bindings={"sents": ...}``) folded in on one ``FoldIn``, B warm in
      A's bucket bitwise B on a cold ``FoldIn``, ``zstats_zmap`` and
      ``zmap_logits`` against their plain versions at the inputs that B's
-     warm score handed them;
+     warm score handed them; A and B as PREDICT with bindings through a
+     ``Gateway``, bitwise the phase's scores, EXPLAIN naming ``zmap`` with
+     the ``group`` logits, the route the launches took;
   9. both ``flash_attention`` kernels against ``ref.flash_attention``: the
      reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
      256, ragged and multi-tile cases at Dh 64 and 128, and the trainer's
@@ -137,7 +155,7 @@ bit.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, lda_svi, query,
-lda_ooc, gibbs, slda, slda_svi, slda_query, naive_bayes, naive_bayes_svi,
+gateway, lda_ooc, gibbs, slda, slda_svi, slda_query, naive_bayes, naive_bayes_svi,
 lm_train; the flash entry's ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
@@ -176,6 +194,12 @@ SENT_LEN = 7
 # naive Bayes at the 20 Newsgroups "bydate" widths (20 classes, 61,188
 # words, 18,774 documents), the main path's priors and mean length
 NB_CLASSES, NB_VOCAB, NB_DOCS, NB_STEPS = 20, 61188, 18774, 5
+# the route each VMP path takes on the card (``ops.route_label``): LDA's flat
+# passes; SLDA's sentences of 7 tokens, one piece an instance; naive Bayes'
+# documents, many longer than a piece (PIECE = 256 tokens)
+EXPECTED_ROUTE = {"main": "flat passes=pieces",
+                  "slda": "zmap passes=pieces logits=group",
+                  "naive_bayes": "zmap passes=pieces logits=warp"}
 
 ZSTATS_TOL = dict(rtol=2e-4, atol=2e-4, lse_rtol=2e-5)
 DE_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -577,6 +601,7 @@ def phase_main(args, report, corpus, m, prog):
     torch.cuda.synchronize()
     infer_s = time.perf_counter() - t0
     after_infer = ops.launch_counts()
+    routes = ops.route_counts()
     r = m["z"].get_result()
     counts = ops.launch_counts()
     trace = m.elbo_trace
@@ -608,7 +633,8 @@ def phase_main(args, report, corpus, m, prog):
     from repro_torch.core.metrics import aligned_tv
     tv = aligned_tv(phi / phi.sum(-1, keepdims=True), corpus["true_phi"])
     log(f"[main] aligned_tv(phi, planted) = {tv:.4f} after {steps} steps")
-    report.update(elbo_trace=trace, launches=counts, aligned_tv=tv,
+    explain_check("main", m, routes, EXPECTED_ROUTE["main"])
+    report.update(routes=routes, elbo_trace=trace, launches=counts, aligned_tv=tv,
                   infer_s=infer_s, stats_sums=sums, n_tokens=n, digest=digest)
     return counts
 
@@ -776,55 +802,13 @@ def bound(nbytes, nops, peak=None):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def _keep(child, zmask):
-    """The tokens of ``child`` that count: its own mask, else the latent's
-    ``zmask`` (through ``zmap`` for a segment latent), else None (all)."""
-    if child.mask is not None or zmask is None:
-        return child.mask
-    return zmask if child.zmap is None else zmask[child.zmap.long()]
-
-
 def real_tokens(args):
     """The tokens of the first child of a ``zstats`` call on ``args``
     (table_prior, prior_rows, children, zmask) that count."""
+    from repro_torch.analysis.explain import counted
     c = args[2][0]
-    keep = _keep(c, args[3])
+    keep = counted(c, args[3])
     return len(c.values) if keep is None else int((keep > 0).sum())
-
-
-def gathered_bytes(children, k, zmask=None):
-    """Each child's index streams read once, and of its table only the
-    cells that its counted tokens gather: one for each of the latent's
-    ``k`` values at each distinct (row base, value) pair."""
-    total = 0
-    for c in children:
-        key = c.values.long()
-        if c.base is not None:
-            key = key + c.base.long() * c.elog.shape[1]
-        keep = _keep(c, zmask)
-        if keep is not None:
-            key = key[keep > 0]
-        cells = min(torch.unique(key).numel() * k, c.elog.numel())
-        total += _nbytes(c.values, c.zmap, c.base, c.mask) + cells * 4
-    return total
-
-
-def zstats_bytes(args):
-    """The least bytes a ``zstats`` call on ``args`` moves: the prior rows
-    and zmask read once, the prior table's gathered rows, each child's
-    streams and gathered cells (:func:`gathered_bytes`), every stats table
-    written once as the dense table the function returns, the lse sum."""
-    prior, rows, children, zmask = args
-    k = prior.shape[1]
-    used = rows.long() if zmask is None else rows.long()[zmask > 0]
-    prior_cells = min(torch.unique(used).numel() * k, prior.numel())
-    return (_nbytes(rows, zmask) + prior_cells * 4 + prior.numel() * 4
-            + gathered_bytes(children, k, zmask)
-            + sum(c.elog.numel() * 4 for c in children) + 4)
 
 
 def kernel_entry(path, name, route, src, replaces, launches, err, ms, plain_ms,
@@ -836,6 +820,60 @@ def kernel_entry(path, name, route, src, replaces, launches, err, ms, plain_ms,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def parse_route(label):
+    """(path, passes, logits) of a route label (``ops.route_label``:
+    ``"zmap passes=pieces logits=group"``)."""
+    path, *rest = label.split()
+    kv = dict(t.split("=", 1) for t in rest)
+    return (path, tuple(kv["passes"].split(",")) if "passes" in kv else (),
+            tuple(kv["logits"].split(",")) if "logits" in kv else ())
+
+
+def explained_routes(text):
+    """``{latent: route label}`` of the kernel-route lines of an EXPLAIN."""
+    import re
+    return dict(re.findall(r"^    latent (\S+) \(prior \S+\): "
+                           r"route=(.+) tokens=\d+ K=\d+$", text, re.M))
+
+
+def route_check(label, what, route, counts):
+    """``route`` (path, passes, logits) is the route that the launches of
+    ``counts`` (``ops.route_counts()``) took: its wrapper launched every
+    pass kind and logits route it names and no other, the other wrapper
+    nothing, and ``zmap_logits`` no other logits route."""
+    from repro_torch.kernels.ops import route_label
+    path, passes, logits = route
+    wrapper, other = (("zstats", "zstats_zmap") if path == "flat"
+                      else ("zstats_zmap", "zstats"))
+    seen = {k for k, v in counts[wrapper].items() if v}
+    lseen = {k for k, v in counts["zmap_logits"].items() if v}
+    ok = (path in ("flat", "zmap") and seen == set(passes) | set(logits)
+          and not any(counts[other].values()) and lseen <= set(logits))
+    log(f"[{label}] {what}: route {route_label(*route)}; {wrapper} "
+        f"launches by route {counts[wrapper]}, zmap_logits "
+        f"{counts['zmap_logits']}: {'the same route' if ok else 'DIFFERENT'}")
+    check(ok, f"{label}: {what} names {route_label(*route)}, the launches "
+          f"took {counts}")
+
+
+def explain_check(label, m, counts, expect, config=None):
+    """``explain_plan(m, config, backend="cuda")`` names the route
+    ``expect`` for the model's one latent, and it is the route that the
+    run's launches took (``counts``: ``ops.route_counts()`` read just after
+    it).  Returns the plan."""
+    from repro_torch.analysis.explain import explain_plan
+    t0 = time.perf_counter()
+    plan = explain_plan(m, config, backend="cuda")
+    plan_s = time.perf_counter() - t0
+    (r,) = plan.routes
+    check(r.label == expect, f"{label}: explain_plan names {r.label!r}, "
+          f"not {expect!r}")
+    route_check(label, f"explain_plan(backend='cuda') in {plan_s:.2f} s "
+                f"(owner plan {r.plan_bytes} bytes)",
+                (r.path, r.passes, r.logits), counts)
+    return plan
 
 
 def time_steps(prog, state, reps=5):
@@ -922,6 +960,7 @@ def phase_segment(label, m, steps, latent, report):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = ops.launch_counts()
+    fit_routes = ops.route_counts()
     r = m[latent].get_result()
     r_again = m[latent].get_result()
     counts = ops.launch_counts()
@@ -973,7 +1012,9 @@ def phase_segment(label, m, steps, latent, report):
     check(rel <= 2e-2, f"{label}: bf16 tables move the ELBO by {rel:.2e}")
     digest = output_digest(res.posteriors, trace)
     log(f"[{label}] sha256 of the final posteriors and ELBO trace: {digest}")
+    explain_check(label, m, fit_routes, EXPECTED_ROUTE[label])
     report[label] = dict(elbo_trace=trace, launches=counts, fit_s=fit_s,
+                         routes=fit_routes,
                          stats_sums=sums, n_tokens=n_tok, n_latent=n_inst,
                          digest=digest)
     return counts
@@ -1263,10 +1304,11 @@ def svi_pad_check(label, prog, fit, s0):
     return groups, sp, worst
 
 
-def phase_lda_svi(report, prog):
+def phase_lda_svi(report, prog, m):
     """SVI over the main path's program: bitwise VMP at |B| = G, padding
     invariance, untouched rows, two bitwise 5-step runs, the 30-step fit
-    with its launch counts, ``zstats`` (masked route) and the Elog pass
+    with its launch counts, the route and caps of ``explain_plan`` against
+    the fit's (``m`` is the main path's model), ``zstats`` (masked route) and the Elog pass
     against their plain versions at one batch's inputs, and the step's time
     split between the host (slicing, owner plan, copy) and the card.
     Returns the kernels entries, the fit's final state, its held-out
@@ -1311,7 +1353,13 @@ def phase_lda_svi(report, prog):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    routes = ops.route_counts()
     svi_fit_checks(label, cfg, hist, counts, "zstats", SVI_STEPS)
+    plan = explain_check(label, m, routes, EXPECTED_ROUTE["main"], cfg)
+    caps0 = fit._load_groups(fit.sampler.batch_at(0))[1]
+    log(f"[{label}] explain_plan's caps {plan.caps}, batch 0's "
+        f"{caps0}: {'equal' if plan.caps == caps0 else 'DIFFERENT'}")
+    check(plan.caps == caps0, f"{label}: the plan's caps are not batch 0's")
     held = [v for _, v in hist["heldout"]]
     log(f"[{label}] fit({SVI_STEPS}) {fit_s:.2f} s; held-out per-token ELBO "
         f"{held[0]:.6f} -> {held[-1]:.6f}")
@@ -1349,6 +1397,7 @@ def flat_kernel_entries(label, args, plan, theta, counts, rows, extra=()):
     (``(name, route, source, replaces, ms, plain_ms, (bound_ms, by),
     err)``): the kernels-line entries of path ``label`` with its launch
     ``counts``."""
+    from repro_torch.analysis.explain import zstats_bytes
     from repro_torch.kernels import dirichlet_expectation as de
     from repro_torch.kernels import fused_zstats as fz
     from repro_torch.kernels import ref
@@ -1364,7 +1413,7 @@ def flat_kernel_entries(label, args, plan, theta, counts, rows, extra=()):
     t_de_dev = device_ms(lambda: de.dirichlet_expectation(theta))
     t_dep = time_ms(lambda: de_plain(theta).contiguous(), reps=5)
     # the bytes of zstats_bytes; the work of the real tokens
-    z_bytes, z_ops = zstats_bytes(args), 8 * real_tokens(args) * theta.shape[1]
+    z_bytes, z_ops = zstats_bytes(*args), 8 * real_tokens(args) * theta.shape[1]
     d_bytes, d_ops = theta.numel() * 8, DIGAMMA_OPS * theta.numel()
     entries = []
     for name, route, src, rep, ms, pms, (bms, by), e in [
@@ -1803,6 +1852,7 @@ def phase_segment_svi(label, m, report, bitwise_vmp):
     padded batch's inputs, whose padding tokens map to instance 0 and whose
     padding instances hold no tokens.  Returns the path's kernels entry and
     the fit's final state."""
+    from repro_torch.analysis.explain import zstats_bytes
     from repro_torch.core import vmp
     from repro_torch.core.svi import SVI
     from repro_torch.kernels import fused_zmap as fzm
@@ -1847,7 +1897,7 @@ def phase_segment_svi(label, m, report, bitwise_vmp):
     t_zp = time_ms(lambda: ref.zstats(*args), reps=3)
     # the bytes of zstats_bytes; the work of the batch's real instances and
     # tokens
-    bms, by = bound(zstats_bytes(args), 8 * n_real * k + 4 * n_tok * k)
+    bms, by = bound(zstats_bytes(*args), 8 * n_real * k + 4 * n_tok * k)
     entry = kernel_entry(name, "zstats_zmap", "cuda",
                          "src/repro_torch/kernels/csrc/zstats.cu",
                          "src/repro/kernels/fused_zmap.py:236",
@@ -1995,7 +2045,8 @@ def phase_query(report, m, prog, state, holdout, corpus, heldout_svi):
     ``betaincinv``; cold and warm scores of 64 documents split host/device;
     the kernels against their plain versions at the inputs that the
     held-out fold-in (checked only) and a warm 64-document score (the
-    path's entries) handed them."""
+    path's entries) handed them.  Returns the entries and the loaded
+    artifact."""
     import tempfile
     import threading
     from scipy.special import betaincinv
@@ -2183,6 +2234,264 @@ def phase_query(report, m, prog, state, holdout, corpus, heldout_svi):
                launches=counts, response_max_rel=worst,
                credible_interval_err=ci_err, credible_interval_s=ci_s,
                cold=cold, warm=warm, trace=trace, idle_share=idle)
+    return entries, loaded
+
+
+# the gateway phase: benchmarks/bench_gateway.py's protocol at the NYTimes
+# widths; each tenant runs the bench's script once on each artifact, with
+# its interval on a theta row (a phi row's 102,660 cells take seconds of
+# float64 bisection, timed once apart from the load)
+GATEWAY_TENANTS, GATEWAY_TOP_K, GATEWAY_REPS = 4, 128, 2
+GATEWAY_SCRIPT = """
+    TOPICS OF phi TOP 10 USING ARTIFACT '{a}';
+    SIMILARITY BETWEEN phi[0] AND phi[1] USING hellinger
+        USING ARTIFACT '{a}';
+    CREDIBLE INTERVAL 0.9 FOR theta[{row}] USING ARTIFACT '{a}';
+    PREDICT LL FOR DOCS $batch USING ARTIFACT '{a}'
+"""
+GATEWAY_KINDS = {
+    "topics": "TOPICS OF phi TOP 10 USING ARTIFACT '{a}'",
+    "similarity": "SIMILARITY BETWEEN phi[0] AND phi[1] USING hellinger "
+                  "USING ARTIFACT '{a}'",
+    "credible": "CREDIBLE INTERVAL 0.9 FOR theta[{row}] USING ARTIFACT '{a}'",
+    "predict": "PREDICT LL FOR DOCS $batch USING ARTIFACT '{a}'",
+}
+
+
+def gateway_docs(corpus, seed, n=3):
+    """The bench's payload: ``n`` corpus documents drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    vals, lengths = docs_payload(corpus, rng.integers(
+        0, len(corpus["lengths"]), n))
+    return {"values": vals, "lengths": lengths}
+
+
+def compacted_bitwise(a, b):
+    """Two compacted artifacts hold the same compact tables (the bf16 ones
+    by their bits), dense tables and error record."""
+    def bits(t):
+        return t.view(torch.int16).numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+    return (sorted(a.compact_tables) == sorted(b.compact_tables)
+            and all(np.array_equal(bits(v), bits(b.compact_tables[n]))
+                    for n, v in a.compact_tables.items())
+            and sorted(a.posteriors) == sorted(b.posteriors)
+            and all(np.array_equal(v, b.posteriors[n])
+                    for n, v in a.posteriors.items())
+            and a.compaction == b.compaction
+            and a.error_bound == b.error_bound)
+
+
+def phase_gateway(report, post, corpus):
+    """``benchmarks/bench_gateway.py``'s protocol over lda_svi's frozen
+    posterior (``post``, phi 100 x 102,660): a replica compacted at top-k
+    128, bitwise across save/load, its dense tables on the card bitwise the
+    host's compaction; both registered under one ``Gateway`` on the card;
+    four tenant threads each running the bench's script (TOPICS,
+    SIMILARITY, CREDIBLE INTERVAL on a theta row, PREDICT of 3 corpus
+    documents) once on each artifact, with the launch counts set to 0 just
+    before and read just after; every PREDICT within 1e-5 of its documents
+    scored through ``FoldIn.score`` alone; ``stats()`` counting every
+    query, no tenant error; queries/s and p95 from the gateway's stats tree;
+    ms per query kind on each artifact and one phi-row interval; EXPLAIN's
+    route equal to the executed route for every statement of one tenant's
+    scripts, and its kernel routes the routes that a PREDICT's launches
+    took, on each artifact; ``zstats``, the Elog pass
+    and ``zstep`` at the inputs one PREDICT handed them, replayed bitwise
+    and held against their plain versions (the path's entries)."""
+    import tempfile
+    import threading
+    from repro_torch.gateway import Gateway, compact_posterior, parse_script
+    from repro_torch.gateway.plan import ExplainQuery
+    from repro_torch.kernels import ops
+    from repro_torch.query import Posterior
+    label = "gateway"
+    out = report[label] = {}
+    n_theta = post.posteriors["theta"].shape[0]
+
+    t0 = time.perf_counter()
+    lite = compact_posterior(post, top_k=GATEWAY_TOP_K)
+    compact_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="gateway-") as tmp:
+        lite.save(tmp)
+        loaded = Posterior.load(tmp)
+    ok = compacted_bitwise(loaded, lite)
+    log(f"[{label}] compact_posterior(top_k={GATEWAY_TOP_K}) in "
+        f"{compact_s:.2f} s: {lite.nbytes_full()} bytes full, "
+        f"{lite.nbytes_compact()} compact ({lite.compression_ratio():.2f}x), "
+        f"error_bound {lite.error_bound!r}; save/load "
+        f"{'bitwise' if ok else 'DIFFERENT'}")
+    check(ok, f"{label}: the compacted artifact is not bitwise across "
+          f"save/load")
+
+    with Gateway(max_delay_s=0.002, device="cuda") as gw:
+        gw.register("full", post, version="f0")
+        gw.register("lite", loaded, version="l0")
+        on_card = {n: t.cpu().numpy() for n, t in
+                   gw.registry.get("lite").foldin._globals.items()}
+        ok = all(np.array_equal(v, lite.posteriors[n])
+                 for n, v in on_card.items())
+        log(f"[{label}] the lite artifact's tables on the card "
+            f"{sorted(on_card)}: {'bitwise' if ok else 'DIFFERENT'} the "
+            f"host's compact_posterior")
+        check(ok, f"{label}: the card's lite tables are not the host's "
+              f"compaction")
+        # warm both artifacts' buckets out of the load, as the bench does
+        for aid in ("full", "lite"):
+            gw.query(GATEWAY_KINDS["predict"].format(a=aid),
+                     params={"batch": gateway_docs(corpus, 0)}, timeout_s=120)
+
+        results, errors = {}, []
+
+        def tenant_load(t):
+            rng = np.random.default_rng(t)
+            for i, aid in enumerate(("full", "lite")):
+                params = {"batch": gateway_docs(corpus, t * 97 + i)}
+                script = GATEWAY_SCRIPT.format(a=aid,
+                                               row=int(rng.integers(n_theta)))
+                try:
+                    results[t, aid] = (params["batch"], gw.run_script(
+                        script, params=params, tenant=f"tenant-{t}",
+                        timeout_s=120), script)
+                except Exception as e:
+                    errors.append((t, aid, repr(e)))
+
+        threads = [threading.Thread(target=tenant_load, args=(t,))
+                   for t in range(GATEWAY_TENANTS)]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        stats = gw.stats()
+        check(not errors, f"{label}: tenant errors {errors[:3]}")
+        tenants = {t: w for t, w in stats["tenants"].items()
+                   if t.startswith("tenant-")}
+        n_queries = GATEWAY_TENANTS * 2 * len(GATEWAY_KINDS)
+        served = sum(w["served"] for w in tenants.values())
+        bad = sum(w["errors"] + w["rejected"] for w in tenants.values())
+        p95 = max(w["latency_p95_ms"] for w in tenants.values())
+        occ = {a: w.get("batch_occupancy")
+               for a, w in stats["artifacts"].items()}
+        log(f"[{label}] {GATEWAY_TENANTS} tenants x 2 scripts: {served} "
+            f"queries in {wall:.2f} s, {served / wall:.2f} queries/s, p95 "
+            f"{p95:.2f} ms (the gateway's stats tree), PREDICT batch "
+            f"occupancy {occ}; launches {counts}")
+        check(len(tenants) == GATEWAY_TENANTS and served == n_queries
+              and bad == 0, f"{label}: stats() counts {served} served of "
+              f"{n_queries}, {bad} errors or rejections")
+        for name in ("zstats", "dirichlet_expectation", "zstep"):
+            check(counts[name] > 0, f"{label}: {name} did not launch")
+        check(counts["zstats_zmap"] == 0, f"{label}: zstats_zmap launched")
+        worst, gap = 0.0, 0.0
+        for (t, aid), (docs, rs, _) in sorted(results.items()):
+            r = rs[-1]
+            check(r.kind == "predict" and r.artifact == aid,
+                  f"{label}: tenant {t}'s last answer is {r.kind}")
+            alone = gw.registry.get(aid).foldin.score(
+                docs["values"], lengths=docs["lengths"])
+            # a served answer's per-token LL is its documents' LL over
+            # their tokens (QueryServer), as it is here
+            ptl = float(alone.doc_ll.sum()) / alone.n_tokens
+            d = np.abs(r.value["doc_ll"].astype(np.float64) - alone.doc_ll) \
+                / np.abs(alone.doc_ll)
+            worst = max(worst, float(d.max()),
+                        abs(r.value["per_token_ll"] - ptl) / abs(ptl))
+            gap = max(gap, abs(float(alone.doc_ll.astype(np.float64).sum())
+                               - alone.elbo))
+            check((r.error_bound is None) == (aid == "full"),
+                  f"{label}: {aid} answered with error_bound "
+                  f"{r.error_bound}")
+        log(f"[{label}] each gateway PREDICT (its documents' LL and "
+            f"per-token LL) against its documents scored through "
+            f"FoldIn.score alone: max relative difference {worst:.2e} "
+            f"(tol {QUERY_RTOL}); FoldIn's fused ELBO against the sum of "
+            f"its documents' LL: max |gap| {gap:.4f} nats")
+        check(worst <= QUERY_RTOL, f"{label}: a PREDICT differs from "
+              f"FoldIn.score")
+
+        # ms per query kind, full against lite, on one payload per rep
+        kind_ms, lls = {}, {}
+        for aid in ("full", "lite"):
+            for kind, text in GATEWAY_KINDS.items():
+                t0 = time.perf_counter()
+                for i in range(GATEWAY_REPS):
+                    r = gw.query(text.format(a=aid, row=i),
+                                 params={"batch": gateway_docs(corpus, i)},
+                                 timeout_s=120)
+                kind_ms[aid, kind] = (time.perf_counter() - t0) \
+                    / GATEWAY_REPS * 1e3
+                if kind == "predict":
+                    lls[aid] = r.value["per_token_ll"]
+        for kind in GATEWAY_KINDS:
+            log(f"[{label} times] {report['device']}: {kind:<10} full "
+                f"{kind_ms['full', kind]:9.2f} ms, lite "
+                f"{kind_ms['lite', kind]:9.2f} ms a query (mean of "
+                f"{GATEWAY_REPS})")
+        dev = abs(lls["lite"] - lls["full"])
+        log(f"[{label}] PREDICT per-token LL full {lls['full']!r}, lite "
+            f"{lls['lite']!r}: |lite - full| {dev:.6f} nats/token beside "
+            f"error_bound {lite.error_bound:.6f}")
+        t0 = time.perf_counter()
+        r = gw.query("CREDIBLE INTERVAL 0.9 FOR phi[0] USING ARTIFACT 'full'")
+        ci_s = time.perf_counter() - t0
+        check(r.value["lo"].shape == (VOCAB,)
+              and bool((r.value["lo"] <= r.value["hi"]).all()),
+              f"{label}: a phi-row interval is malformed")
+        log(f"[{label} times] CREDIBLE INTERVAL 0.9 FOR phi[0] ({VOCAB} "
+            f"cells): {ci_s:.2f} s")
+
+        # EXPLAIN against the execution: every statement of tenant 0's two
+        # scripts (every kind on both artifacts) against its answer in the
+        # load, and each artifact's PREDICT run alone, its kernel routes
+        # against the routes that its launches took
+        for aid in ("full", "lite"):
+            docs, rs, script = results[0, aid]
+            for q, r in zip(parse_script(script), rs):
+                ex = gw.query(ExplainQuery(q), params={"batch": docs})
+                check(ex.route == r.route
+                      and f"route: {r.route}" in ex.value["text"],
+                      f"{label}: EXPLAIN {q.to_text()} names {ex.route!r}, "
+                      f"the execution {r.route!r}")
+            q = GATEWAY_KINDS["predict"].format(a=aid)
+            ex = gw.query(f"EXPLAIN {q}", params={"batch": docs})
+            ops.reset_launch_counts()
+            ran = gw.query(q, params={"batch": docs}, timeout_s=120)
+            torch.cuda.synchronize()
+            routes = ops.route_counts()
+            check(ex.route == ran.route, f"{label}: EXPLAIN {q} names "
+                  f"{ex.route!r}, the execution {ran.route!r}")
+            named = explained_routes(ex.value["text"])
+            check(named == {"z": EXPECTED_ROUTE["main"]},
+                  f"{label}: EXPLAIN names kernel routes {named}")
+            route_check(label, f"EXPLAIN PREDICT on {aid}",
+                        parse_route(named["z"]), routes)
+        log(f"[{label}] EXPLAIN's route equals the executed route for "
+            f"every kind on both artifacts")
+
+        log(f"[kernels vs plain] {label}: the inputs of one gateway PREDICT "
+            f"on the full artifact")
+        with recording("zstats", "dirichlet_expectation", "zstep") as calls:
+            gw.query(GATEWAY_KINDS["predict"].format(a="full"),
+                     params={"batch": gateway_docs(corpus, 11)},
+                     timeout_s=120)
+        entries = flat_recorded(label, calls, counts,
+                                "the request's theta rows")
+        del calls
+    out.update(bytes_full=lite.nbytes_full(),
+               bytes_compact=lite.nbytes_compact(),
+               error_bound=lite.error_bound, compact_s=compact_s,
+               load_s=wall, queries=served, queries_per_s=served / wall,
+               p95_ms=p95, batch_occupancy=occ, launches=counts,
+               predict_max_rel=worst, elbo_doc_ll_gap=gap,
+               kind_ms={f"{a}/{k}": v for (a, k), v in kind_ms.items()},
+               predict_ll=lls, predict_ll_deviation=dev,
+               phi_row_interval_s=ci_s, stats=stats)
     return entries
 
 
@@ -2209,6 +2518,7 @@ def phase_slda_query(report, m, state, payloads):
     the warm score (a cached plan would feed B's kernels A's tokens);
     ``zstats_zmap`` and ``zmap_logits`` against their plain versions at the
     inputs that B's warm score handed them."""
+    from repro_torch.analysis.explain import gathered_bytes, zstats_bytes
     from repro_torch.core.engine import InferenceResult
     from repro_torch.kernels import fused_zmap as fzm
     from repro_torch.kernels import ops, ref
@@ -2274,7 +2584,7 @@ def phase_slda_query(report, m, state, payloads):
     l_ops = 2 * n_tok * k
     entries = []
     for name, t, tp, (bms, by), e in [
-        ("zstats_zmap", t_z, t_zp, bound(zstats_bytes(args), z_ops), err),
+        ("zstats_zmap", t_z, t_zp, bound(zstats_bytes(*args), z_ops), err),
         ("zmap_logits", t_l, t_lp, bound(l_bytes, l_ops), lerr),
     ]:
         rep = ("src/repro/kernels/fused_zmap.py:236" if name == "zstats_zmap"
@@ -2284,9 +2594,50 @@ def phase_slda_query(report, m, state, payloads):
                                     rep, counts[name], e, t, tp, bms, by))
         log(f"  {name:<22} {t:9.4f} ms  plain {tp:9.4f} ms  bound "
             f"{bms:8.4f} ms ({by})  launches {counts[name]}")
+    slda_gateway(label, post, cfg, payloads, (ra, rb))
     report[label] = dict(per_token_ll=[ra.per_token_ll, rb.per_token_ll],
                          launches=counts, warm_s=warm_s, caps=pb["caps"])
     return entries
+
+
+def slda_gateway(label, post, cfg, payloads, scores):
+    """Payloads A and B as PREDICT with bindings through a ``Gateway`` on
+    the card: the direct route, each response bitwise the phase's own score
+    of it (``scores``), EXPLAIN's route the executed one, and its kernel
+    route zmap with the group logits, the route that the launches took."""
+    from repro_torch.gateway import Gateway, TenantQuota
+    from repro_torch.kernels import ops
+    text = "PREDICT LL FOR DOCS $d USING ARTIFACT 'slda'"
+    with Gateway(cfg, device="cuda") as gw:
+        gw.register("slda", post, version="s0")
+        # a payload with segment ids costs a token for each segment (here
+        # a sentence, about 190 a payload), past the default burst of 200
+        gw.set_quota("slda", TenantQuota(rate=1000.0, burst=1000.0))
+        for name, (vals, sents, docs), want in zip("AB", payloads, scores):
+            params = {"d": {"values": vals, "segment_ids": sents,
+                            "bindings": {"sents": docs}}}
+            ex = gw.query(f"EXPLAIN {text}", params=params, tenant="slda")
+            ops.reset_launch_counts()
+            r = gw.query(text, params=params, tenant="slda", timeout_s=120)
+            torch.cuda.synchronize()
+            routes = ops.route_counts()
+            ok = (r.value["per_token_ll"] == want.per_token_ll
+                  and np.array_equal(r.value["doc_ll"], want.doc_ll)
+                  and np.array_equal(r.value["mixtures"]["theta"],
+                                     want.mixtures["theta"]))
+            log(f"[{label}] gateway PREDICT {name} with bindings "
+                f"({r.route}): {'bitwise' if ok else 'DIFFERENT'} the "
+                f"phase's score")
+            check(ok, f"{label}: gateway PREDICT {name} is not the phase's "
+                  f"score")
+            check(ex.route == r.route and "[direct: nested-plate bindings]"
+                  in r.route, f"{label}: EXPLAIN names {ex.route!r}, the "
+                  f"execution {r.route!r}")
+            named = explained_routes(ex.value["text"])
+            check(named == {"z": EXPECTED_ROUTE["slda"]},
+                  f"{label}: EXPLAIN names kernel routes {named}")
+            route_check(label, f"EXPLAIN PREDICT {name}",
+                        parse_route(named["z"]), routes)
 
 
 def phase_gibbs(report, m, prog, corpus, svi_state, svi_heldout, n_holdout):
@@ -2702,10 +3053,13 @@ def main(argv=None) -> int:
     counts = phase_main(args, report, corpus, m, prog)
     kernels = phase_repeat_and_time(args, report, m, prog, counts)
     entries, svi_state, svi_holdout, svi_held = timed(
-        "lda_svi", phase_lda_svi, report, prog)
+        "lda_svi", phase_lda_svi, report, prog, m)
     kernels += entries
-    kernels += timed("query", phase_query, report, m, prog, svi_state,
-                     svi_holdout, corpus, svi_held)
+    entries, post = timed("query", phase_query, report, m, prog, svi_state,
+                          svi_holdout, corpus, svi_held)
+    kernels += entries
+    kernels += timed("gateway", phase_gateway, report, post, corpus)
+    del post
     kernels += timed("lda_ooc", phase_lda_ooc, report, corpus, prog)
     kernels += timed("gibbs", phase_gibbs, report, m, prog, corpus,
                      svi_state, svi_held, len(svi_holdout))
@@ -2732,7 +3086,7 @@ def main(argv=None) -> int:
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))
     log(f"[done] {report['seconds']:.1f} s (kernel builds "
-        f"{report['build_s']:.1f} s; SVI, query and Gibbs phases "
+        f"{report['build_s']:.1f} s; SVI, query, gateway and Gibbs phases "
         f"{sum(phase_s.values()):.1f} s: "
         f"{', '.join(f'{k} {v:.1f}' for k, v in phase_s.items())}); report "
         f"in {REPORT}")

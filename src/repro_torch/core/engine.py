@@ -18,8 +18,9 @@ models on one device.  ``device=None`` means ``"cuda"``; the CPU runs only
 when asked for (``device="cpu"``).  The config keeps every field of the
 reference's, with its default, so that one config reads the same in both
 packages; what needs a later slice of the port (multi-host corpora,
-sharding, static analysis) raises ``NotImplementedError`` naming that slice
-when it is set away from its default.
+sharding) raises ``NotImplementedError`` naming that slice when it is set
+away from its default.  ``validate=True`` runs the static pre-flight
+(``repro_torch.analysis``) before any device work.
 """
 
 from __future__ import annotations
@@ -119,10 +120,7 @@ class InferenceResult:
 
 # the config's knobs that a later slice reads, by field: fit raises when one
 # differs from its default, so that none is ignored quietly
-_SLICE_OF = {
-    **dict.fromkeys(("hosts", "sharding"), "distributed"),
-    "validate": "analysis",
-}
+_SLICE_OF = dict.fromkeys(("hosts", "sharding"), "distributed")
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
 
 
@@ -144,6 +142,21 @@ class InferenceEngine:
     def fit(self, model) -> InferenceResult:
         raise NotImplementedError
 
+    def _preflight(self, model):
+        """Opt-in static analysis (``cfg.validate=True``): raise
+        ``PreflightError`` with every error finding before any device
+        work starts, and audit the config for rebuild hazards."""
+        if not self.cfg.validate:
+            return
+        from ..analysis.audit import audit_config
+        from ..analysis.validate import PreflightError, preflight
+        diags = preflight(model)
+        n_docs = self.cfg.corpus.n_docs if self.cfg.corpus is not None \
+            else None
+        diags += audit_config(self.cfg, n_docs=n_docs)
+        if any(d.severity == "error" for d in diags):
+            raise PreflightError(diags)
+
 
 class VMPEngine(InferenceEngine):
     """Full-batch VMP (the paper's engine): deterministic, monotone ELBO,
@@ -163,6 +176,7 @@ class VMPEngine(InferenceEngine):
                 "full-batch VMP touches every token each step and needs a "
                 "resident corpus; use backend='svi' with corpus=")
         _check_slice_knobs(cfg)
+        self._preflight(model)
         device = resolve_device(cfg.device)
         if cfg.holdout_frac > 0:
             return _fit_svi(model, cfg, full_batch=True)
@@ -189,6 +203,7 @@ class SVIEngine(InferenceEngine):
 
     def fit(self, model) -> InferenceResult:
         _check_slice_knobs(self.cfg)
+        self._preflight(model)
         return _fit_svi(model, self.cfg, full_batch=False)
 
 
@@ -278,6 +293,7 @@ class GibbsEngine(InferenceEngine):
             raise ValueError("gibbs sweeps every token and needs a resident "
                              "corpus; use backend='svi' with corpus=")
         _check_slice_knobs(cfg)
+        self._preflight(model)
         device = resolve_device(cfg.device)
         program = model.compile()
         spec, child = _lda_shape(program)

@@ -33,9 +33,10 @@ appending to.  ``fit(checkpoint_dir=, resume_from=)`` commits resumable
 sessions (``checkpoint/session.py``) and resumes bitwise.
 
 ``build_local_scorer(extras=True)`` is the query layer's fold-in scorer
-(``repro_torch.query.foldin``).  What needs a later slice of the port
-raises ``NotImplementedError`` naming it: the distributed path
-(``plan=``, ``hosts=``) and the static pre-flight (``validate=True``).
+(``repro_torch.query.foldin``).  ``SVI(validate=True)`` runs the static
+pre-flight (``repro_torch.analysis``) first.  What needs a later slice of
+the port raises ``NotImplementedError`` naming it: the distributed path
+(``plan=``, ``hosts=``).
 """
 
 from __future__ import annotations
@@ -458,12 +459,22 @@ class SVI:
     def __init__(self, program, config: SVIConfig = None, plan=None,
                  corpus=None, hosts=None, validate=False, device=None):
         self.cfg = config or SVIConfig()
-        if validate:
-            later_slice("validate=True (the static pre-flight)", "analysis")
         if plan is not None:
             later_slice("a sharding plan (plan=)", "distributed")
         if hosts is not None:
             later_slice("multi-host corpora (hosts=)", "distributed")
+        if validate:
+            # opt-in pre-flight: structural diagnostics + rebuild-hazard
+            # audit, before any template/device work
+            from ..analysis.audit import audit_config
+            from ..analysis.validate import PreflightError, preflight
+            diags = list(preflight(program)) if not isinstance(
+                program, VMPProgram) else []
+            diags += audit_config(
+                self.cfg, n_docs=corpus.n_docs if corpus is not None
+                else None)
+            if any(d.severity == "error" for d in diags):
+                raise PreflightError(diags)
         self.device = resolve_device(device)
         self.corpus = corpus
         self._slicer = None

@@ -45,8 +45,13 @@ from . import fused_zstats as _fz
 
 #: ``zstats_zmap`` calls that launched the kernel
 launches = 0
+#: their child stats passes by kind (``fused_zstats.pass_kind``) and their
+#: zmap children's phase 1 by route (:func:`logits_route`)
+route_launches = {"pieces": 0, "strided": 0, "group": 0, "warp": 0}
 #: ``zmap_logits`` calls that launched phase 1 alone
 logits_launches = 0
+#: their children's phase 1 by route
+logits_route_launches = {"group": 0, "warp": 0}
 
 
 @dataclasses.dataclass
@@ -250,7 +255,7 @@ def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
         gf, kf = c.elog.shape
         name = f"value{j}"
         args = _pass_args(zargs, plan, name, j)
-        if c.specialized:
+        if _fz.pass_kind(c) == "pieces":
             cs = torch.empty((gf, kf), dtype=torch.float32, device=dev)
             partial = torch.empty((g.n_pieces, k), dtype=torch.float32,
                                   device=dev)
@@ -270,6 +275,10 @@ def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     cstats = tuple(next(zit) if c.zmap is not None else next(fit)
                    for c in children)
     launches += 1
+    for c in children:
+        route_launches[_fz.pass_kind(c)] += 1
+    for g in plan.by_latent:
+        route_launches[logits_route(g)] += 1
     return lse_sum, pstats, cstats
 
 
@@ -305,4 +314,6 @@ def zmap_logits(children: tuple, n_latent: int, k: int, *,
     out = _logits(_fz.library(), zargs, plan, n_latent, k,
                   torch.cuda.current_stream(dev).cuda_stream)
     logits_launches += 1
+    for g in plan.by_latent:
+        logits_route_launches[logits_route(g)] += 1
     return out

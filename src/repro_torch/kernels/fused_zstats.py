@@ -48,6 +48,8 @@ from . import dirichlet_expectation as _de
 
 #: calls that launched the kernel (one per wrapper call)
 launches = 0
+#: child stats passes those calls launched, by kind (:func:`pass_kind`)
+route_launches = {"pieces": 0, "strided": 0}
 
 #: most tokens one warp sums before its partial goes to the finishing pass
 PIECE = 256
@@ -460,7 +462,18 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     eprior, etabs = elog_tables(table_prior, children, tables)
     out = launch_flat(eprior, prior_rows, children, etabs, zmask, plan)
     launches += 1
+    for c in children:
+        route_launches[pass_kind(c)] += 1
     return out
+
+
+def pass_kind(child) -> str:
+    """The stats pass that takes a child: ``"pieces"`` for a specialized
+    child (owner warps over its tokens grouped by value, then the finishing
+    pass), ``"strided"`` for one whose rows are ``base + stride * k`` (a
+    thread a table column).  The wrappers launch by it and
+    ``ops.routing`` reports it."""
+    return "pieces" if child.specialized else "strided"
 
 
 def pass_args(base: _Args, plan: ZPlan, name: str, g: Grouping, n_children,
@@ -531,7 +544,7 @@ def launch_flat(eprior, prior_rows, children, etabs, zmask, plan: ZPlan,
     cstats = []
     for i, (c, grp) in enumerate(zip(children, plan.children)):
         gf, kf = c.elog.shape
-        if c.specialized:
+        if pass_kind(c) == "pieces":
             cs = torch.empty((gf, kf), **f32)
             pieces_then_finish(i, f"child{i}", grp, cs, 1, kf)
         else:

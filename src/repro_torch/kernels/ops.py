@@ -8,10 +8,15 @@ wrapper (CUDA C++ for ``zstats``, ``zstats_zmap``, ``zmap_logits`` and
 tensors only and raise on any other device: nothing on the card falls back
 to a plain version.  Each kernel module keeps a plain integer count of its
 launches (``<module>.launches``; ``fused_zmap.logits_launches`` for
-``zmap_logits``).
+``zmap_logits``) and of the routes they took (``route_counts``).
+:func:`routing` says, before anything runs, which route a ``zstats`` call
+takes, from the same functions the wrappers launch by.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -75,6 +80,107 @@ def zstats_plan(table_prior, prior_rows, children):
                      children).to(table_prior.device)
 
 
+#: the H100's L2 cache (NVIDIA data sheet), set beside the Elog tables in a
+#: route for information: the passes gather from device memory at any size
+L2_BYTES = 50 * 2 ** 20
+
+
+class RouteInfo(NamedTuple):
+    """The route of one :func:`zstats` call, as metadata.  ``path`` is what
+    runs:
+
+      - ``"plain"`` -- ``ref.zstats``, on CPU tensors;
+      - ``"flat"``  -- the owner passes of ``fused_zstats.launch_flat``;
+      - ``"zmap"``  -- ``fused_zmap.zstats_zmap`` (a child has a zmap).
+
+    ``passes`` names, per child in order, its stats pass on the card
+    (``fused_zstats.pass_kind``: ``"pieces"`` or ``"strided"``); ``logits``,
+    per child with a zmap, the route of phase 1 (``fused_zmap.logits_route``:
+    ``"group"`` or ``"warp"``); both are empty for ``"plain"``.
+    ``table_bytes`` is the f32 Elog tables the passes gather from, set
+    against ``l2_bytes`` (:data:`L2_BYTES`) for information only;
+    ``plan_bytes`` the owner plan's host arrays (``ZPlan.nbytes``);
+    ``reason`` says why in one sentence.
+    """
+    path: str
+    backend: str
+    tables: str
+    table_dtype: str
+    passes: tuple
+    logits: tuple
+    table_bytes: int
+    l2_bytes: int
+    plan_bytes: int
+    reason: str
+
+    @property
+    def label(self) -> str:
+        """:func:`route_label` of this route."""
+        return route_label(self.path, self.passes, self.logits)
+
+
+def route_label(path: str, passes=(), logits=()) -> str:
+    """A route in one word group: ``path``, then the passes and the logits
+    routes where there are any (``"flat passes=pieces"``, ``"zmap
+    passes=pieces logits=group"``, ``"plain"``)."""
+    out = path
+    if passes:
+        out += " passes=" + ",".join(passes)
+    if logits:
+        out += " logits=" + ",".join(logits)
+    return out
+
+
+def routing(table_prior, prior_rows=None, children=(), *,
+            tables: str = "elog", backend: str = "cuda",
+            plan=None) -> RouteInfo:
+    """The route a :func:`zstats` call on these arguments takes, without
+    launching anything or touching a device.
+
+    Of the tables (``table_prior`` and each child's ``elog``) only the
+    shapes and dtype are read: real tensors or stand-ins of their shape.
+    ``backend="cuda"`` (the default) plans the card's route from anywhere,
+    the CPU included; ``"cpu"`` gives ``"plain"``.  On the card, phase 1's
+    route depends on how the index streams group (``logits_route``: an
+    instance of several pieces), not on shapes alone, so the route is read
+    from the owner plan: ``plan`` (a :func:`host_plan` result), or one
+    built here from ``prior_rows`` and the children's streams (numpy arrays
+    or tensors).  The passes and the logits routes come from the functions
+    the wrappers launch by, so this and the dispatch cannot drift.
+    """
+    if backend not in ("cuda", "cpu"):
+        raise ValueError(f"backend must be 'cuda' or 'cpu', not {backend!r}")
+    dtype = str(getattr(table_prior, "dtype", "float32")).replace("torch.", "")
+    shapes = [tuple(table_prior.shape)] + [tuple(c.elog.shape)
+                                          for c in children]
+    table_bytes = 4 * sum(math.prod(s) for s in shapes)
+
+    def _route(path, passes=(), logits=(), plan_bytes=0, reason=""):
+        return RouteInfo(path, backend, tables, dtype, tuple(passes),
+                         tuple(logits), table_bytes, L2_BYTES, plan_bytes,
+                         reason)
+
+    if backend == "cpu":
+        return _route("plain", reason="CPU tensors: the plain PyTorch "
+                      "version (ref.zstats)")
+    if plan is None:
+        if prior_rows is None or any(c.values is None for c in children):
+            raise ValueError("routing(backend='cuda') reads the owner plan: "
+                             "pass the index streams or plan=")
+        plan = host_plan(table_prior.shape, prior_rows, children)
+    passes = [_fz.pass_kind(c) for c in children]
+    if _segmented(children):
+        logits = [_fzm.logits_route(g) for g in plan.by_latent]
+        return _route("zmap", passes, logits, plan.nbytes,
+                      "segment latent: phase 1 sums each instance's logits "
+                      "over its tokens, then the flat passes and each zmap "
+                      "child's stats pass (fused_zmap.zstats_zmap)")
+    return _route("flat", passes, (), plan.nbytes,
+                  "flat latent: owner passes over the tokens grouped by "
+                  "prior row, then by each child's value "
+                  "(fused_zstats.launch_flat)")
+
+
 def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
            children: tuple, zmask=None, *, tables: str = "elog", plan=None):
     """Fused token-plate substep: ``(lse_sum, prior_stats, child_stats)``.
@@ -132,11 +238,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0 (flash attention's by route
-    too)."""
+    """Set every kernel's launch count to 0, and its counts by route."""
     _de.launches = _fz.launches = _zs.launches = _fa.launches = 0
-    _fa.route_launches.update(wgmma=0, mma=0)
     _fzm.launches = _fzm.logits_launches = 0
+    for counts in (_fa.route_launches, _fz.route_launches,
+                   _fzm.route_launches, _fzm.logits_route_launches):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def launch_counts() -> dict:
@@ -147,6 +254,19 @@ def launch_counts() -> dict:
             "flash_attention": _fa.launches}
 
 
-__all__ = ["ZChild", "dirichlet_expectation", "zstep", "zstats",
-           "host_plan", "zstats_plan", "zmap_logits", "flash_attention",
-           "reset_launch_counts", "launch_counts"]
+def route_counts() -> dict:
+    """Launches by route since the last :func:`reset_launch_counts`:
+    ``zstats``' and ``zstats_zmap``'s child passes by kind (``"pieces"``,
+    ``"strided"``), ``zstats_zmap``'s and ``zmap_logits``' zmap children's
+    phase 1 by route (``"group"``, ``"warp"``), flash attention's kernel
+    (``"wgmma"``, ``"mma"``).  The routes :func:`routing` names."""
+    return {"zstats": dict(_fz.route_launches),
+            "zstats_zmap": dict(_fzm.route_launches),
+            "zmap_logits": dict(_fzm.logits_route_launches),
+            "flash_attention": dict(_fa.route_launches)}
+
+
+__all__ = ["ZChild", "RouteInfo", "routing", "route_label", "L2_BYTES",
+           "dirichlet_expectation", "zstep", "zstats", "host_plan",
+           "zstats_plan", "zmap_logits", "flash_attention",
+           "reset_launch_counts", "launch_counts", "route_counts"]

@@ -173,7 +173,9 @@ class FoldIn:
         self._fns = _BucketCache(self.cfg.max_compiled)
         # a list to record, per score, the ms of its host parts ("compile":
         # the blank model's copy, observe and compile; "slice", "plan",
-        # "h2d") and of the scorer's run to results on the host ("run")
+        # "h2d") and of the scorer's run to results on the host ("run"),
+        # one record appended whole by whichever thread scored (the
+        # server's dispatcher, or a gateway caller scoring direct)
         self.times: Optional[list] = None
 
     def _on_device(self, posterior: Posterior) -> dict:

@@ -14,8 +14,8 @@ rename commit, manifest as the commit record — ``checkpoint/store.py``,
 the reference's file format) with a versioned ``posterior.json`` on top, so
 each package loads the other's artifacts; a loader rejects artifacts whose
 format version it does not understand rather than misreading them.
-Compacted artifacts (the gateway's sparse top-k tables) arrive with the
-gateway slice of the port.
+Compacted artifacts (the gateway's sparse top-k tables,
+``repro_torch.gateway.compact``) load through the same :meth:`Posterior.load`.
 
 Statistical queries answered directly from the artifact (numpy on the host,
 no engine, no device):
@@ -152,9 +152,9 @@ class Posterior:
                 f"— re-freeze the posterior with this build")
         if doc.get("compact"):
             # compacted artifacts store sparse top-k/bf16 tables; the
-            # compaction layer owns their layout
-            from ..core.svi import later_slice
-            later_slice("compacted artifacts", "gateway")
+            # compaction layer owns their layout (and its error record)
+            from ..gateway.compact import load_compacted
+            return load_compacted(directory, doc)
         from ..checkpoint import store
         tree = store.restore(directory, {n: 0 for n in doc["names"]},
                              step=_STEP)

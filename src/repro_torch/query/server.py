@@ -323,6 +323,9 @@ class QueryServer:
                 for req in batch:
                     if not req.future.done():
                         req.future.set_exception(e)
+            # the loop holds no artifact between batches: after a swap the
+            # old tables leave the device once the last batch on them ends
+            del fold
 
     def _dispatch(self, batch: list[_Request], fold: FoldIn,
                   version: str) -> None:

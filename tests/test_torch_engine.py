@@ -154,8 +154,8 @@ def test_make_engine_selection():
 
 
 @pytest.mark.parametrize("backend", ["vmp", "svi", "gibbs"])
-@pytest.mark.parametrize("knob", [
-    dict(hosts=object()), dict(sharding=object()), dict(validate=True)])
+@pytest.mark.parametrize("knob", [dict(hosts=object()),
+                                  dict(sharding=object())])
 def test_later_slice_knobs_raise(corpus, backend, knob):
     m = _observe(tmodels.make("lda", **MODELS["lda"]), "lda", corpus)
     with pytest.raises(NotImplementedError, match="slice of the port"):

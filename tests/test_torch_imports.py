@@ -40,7 +40,9 @@ def test_fence_covers_the_port():
             "adamw.py", "steps.py", "train.py", "svi.py", "engine.py",
             "pipeline.py", "compiler.py", "store.py", "faults.py",
             "session.py", "gibbs.py", "baselines.py", "posterior.py",
-            "foldin.py", "server.py"} <= names
+            "foldin.py", "server.py", "validate.py", "audit.py",
+            "explain.py", "ql.py", "plan.py", "admission.py", "compact.py",
+            "gateway.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -65,6 +67,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.checkpoint, repro_torch.testing\n"
             "import repro_torch.data.store, repro_torch.query\n"
             "import repro_torch.core.gibbs, repro_torch.core.baselines\n"
+            "import repro_torch.gateway, repro_torch.analysis.explain\n"
+            "import repro_torch.analysis.audit, repro_torch.analysis.validate\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "assert not bad, bad\n"

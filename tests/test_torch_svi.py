@@ -517,8 +517,7 @@ def test_sliced_shadow_and_steps_leave_the_plan_cache_alone(corpus,
 
 @pytest.mark.parametrize("kw,match", [
     (dict(plan=object()), "distributed"), (dict(hosts=object()),
-                                           "distributed"),
-    (dict(validate=True), "analysis")])
+                                           "distributed")])
 def test_later_slice_arguments_raise(corpus, kw, match):
     _, tprog, _ = _pair("lda", corpus)
     with pytest.raises(NotImplementedError, match=match):

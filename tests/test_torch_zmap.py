@@ -668,7 +668,7 @@ def test_topics_equal_jax_result_topics():
         got.topics("pi")
 
 
-@pytest.mark.parametrize("knob", [dict(hosts=object()), dict(validate=True)])
+@pytest.mark.parametrize("knob", [dict(hosts=object())])
 def test_later_slice_knobs_raise(knob):
     m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
     with pytest.raises(NotImplementedError, match="slice of the port"):
