@@ -110,7 +110,28 @@ Phases, each of which exits non-zero on a failed check:
      LL rising past burn-in, the held-out ELBO (fold-in of lda_svi's
      held-out documents) finite, ``aligned_tv`` beside the SVI fit's; the
      held-out scoring's kernels against their plain versions at its own
-     inputs;
+     inputs.  After ``gibbs`` the ``lda_dist`` phase, the distributed path
+     at the main path's widths: full-batch VMP under
+     ``ShardingPlan(2, "inferspark")`` (both shards in this process) from
+     the main path's initial state, 5 steps within 1e-4 of as many
+     one-device steps (the ELBO trace, the gathered phi and theta), two
+     runs bitwise, each step handing the shard group phi's stats and the
+     ELBO and nothing of theta, the owner plans' ms per shard, one step
+     under the profiler; then SVI at ``lda_svi``'s settings over the
+     corpus in disk shards of 2^20 tokens (both hosts must own some), 10
+     steps each: the plain 2-shard plan path, ``hosts=HostAssignment(1,
+     0)`` bitwise it, 2 virtual hosts within 5e-4 of it, two child
+     processes on the card (one gloo rank each, each opening the corpus
+     through its own host view, through ``multihost_svi_session``) bitwise
+     the 2-virtual-host run with phi's bytes over the wire
+     ``collective_bytes_per_iteration`` a step, that run with sessions every 2 steps in a
+     child armed with ``svi.step=kill@6`` (it must die by SIGKILL),
+     resumed here bitwise; ms a step, the group's ms
+     and the bytes handed to it a step, each host's owned disk bytes, one step under the
+     profiler; ``zstats`` and the Elog pass at one shard's inputs of each
+     (entries ``lda_dist`` and ``lda_multihost``), recorded as they ran.
+     The ``gateway`` phase also holds each PREDICT's ``FoldIn.score``
+     ELBO to the sum of its documents' LL within 1e-5 of it;
   8. the segment-latent path: SLDA at the same widths over the same corpus,
      cut into sentences of 7 tokens (about 1.44M sentences), through
      ``models.make("slda")`` -> ``observe`` + ``bind("sents")`` ->
@@ -155,8 +176,8 @@ bit.
 
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, lda_svi, query,
-gateway, lda_ooc, gibbs, slda, slda_svi, slda_query, naive_bayes, naive_bayes_svi,
-lm_train; the flash entry's ``"variant"`` names the kernel the path took and
+gateway, lda_ooc, gibbs, lda_dist, lda_multihost, slda, slda_svi,
+slda_query, naive_bayes, naive_bayes_svi, lm_train; the flash entry's ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
 graph, where ``"ms"``, CUDA events around back-to-back calls, times the
@@ -2388,7 +2409,7 @@ def phase_gateway(report, post, corpus):
         for name in ("zstats", "dirichlet_expectation", "zstep"):
             check(counts[name] > 0, f"{label}: {name} did not launch")
         check(counts["zstats_zmap"] == 0, f"{label}: zstats_zmap launched")
-        worst, gap = 0.0, 0.0
+        worst, gap, gap_rel = 0.0, 0.0, 0.0
         for (t, aid), (docs, rs, _) in sorted(results.items()):
             r = rs[-1]
             check(r.kind == "predict" and r.artifact == aid,
@@ -2402,8 +2423,9 @@ def phase_gateway(report, post, corpus):
                 / np.abs(alone.doc_ll)
             worst = max(worst, float(d.max()),
                         abs(r.value["per_token_ll"] - ptl) / abs(ptl))
-            gap = max(gap, abs(float(alone.doc_ll.astype(np.float64).sum())
-                               - alone.elbo))
+            g = abs(float(alone.doc_ll.astype(np.float64).sum())
+                    - alone.elbo)
+            gap, gap_rel = max(gap, g), max(gap_rel, g / abs(alone.elbo))
             check((r.error_bound is None) == (aid == "full"),
                   f"{label}: {aid} answered with error_bound "
                   f"{r.error_bound}")
@@ -2411,9 +2433,12 @@ def phase_gateway(report, post, corpus):
             f"per-token LL) against its documents scored through "
             f"FoldIn.score alone: max relative difference {worst:.2e} "
             f"(tol {QUERY_RTOL}); FoldIn's fused ELBO against the sum of "
-            f"its documents' LL: max |gap| {gap:.4f} nats")
+            f"its documents' LL: max |gap| {gap:.4f} nats, {gap_rel:.2e} "
+            f"of the ELBO (tol {QUERY_RTOL})")
         check(worst <= QUERY_RTOL, f"{label}: a PREDICT differs from "
               f"FoldIn.score")
+        check(gap_rel <= QUERY_RTOL, f"{label}: FoldIn's ELBO is not the "
+              f"sum of its documents' LL")
 
         # ms per query kind, full against lite, on one payload per rep
         kind_ms, lls = {}, {}
@@ -2489,6 +2514,7 @@ def phase_gateway(report, post, corpus):
                load_s=wall, queries=served, queries_per_s=served / wall,
                p95_ms=p95, batch_occupancy=occ, launches=counts,
                predict_max_rel=worst, elbo_doc_ll_gap=gap,
+               elbo_doc_ll_gap_rel=gap_rel,
                kind_ms={f"{a}/{k}": v for (a, k), v in kind_ms.items()},
                predict_ll=lls, predict_ll_deviation=dev,
                phi_row_interval_s=ci_s, stats=stats)
@@ -2749,6 +2775,422 @@ def phase_gibbs(report, m, prog, corpus, svi_state, svi_heldout, n_holdout):
         tokens_per_s=len(tokens) / sweep_ms * 1e3, peak_bytes=peak,
         ll_trace=lls.tolist(), heldout=held, heldout_svi=svi_heldout,
         aligned_tv=tv_g, aligned_tv_svi=tv_s, launches=counts)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# the distributed path: co-partitioned VMP over 2 shards, sharded and
+# multi-host SVI (virtual hosts, and 2 processes over gloo on the one card)
+# ---------------------------------------------------------------------------
+
+# the reference's bounds: a plan's trace and posteriors within 1e-4 of one
+# device's (scripts/dist_checks.py), 2 virtual hosts within 5e-4 of the
+# plain plan (tests/test_multihost.py); the held-out score of a hosts run is
+# summed per shard, so it meets the plain plan's (one scorer) within 1e-5
+DIST_SHARDS, DIST_VMP_STEPS, DIST_SVI_STEPS, DIST_TIMED_STEPS = 2, 5, 10, 5
+DIST_REL, DIST_HOSTS_TOL, DIST_HELD_RTOL = 1e-4, 5e-4, 1e-5
+# disk shards of 2^20 tokens (about 10 over the main path's corpus, so that
+# both hosts own some); sessions every 2 steps, the crash entering step 5
+# (the 6th trip of "svi.step")
+DIST_SHARD_TOKENS, DIST_EVERY, DIST_CRASH_AT = 1 << 20, 2, 6
+
+# one host of the 2-process run: rank {rank} of a gloo group on the card,
+# through the entry point a user calls; it loads the kernel library the
+# parent built
+DIST_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch.core import models
+from repro_torch.launch.elastic import multihost_svi_session
+res = multihost_svi_session(
+    models.make("lda", alpha={alpha!r}, beta={beta!r}, K={k!r}, V={v!r}),
+    {engine!r}, {path!r}, None, n_hosts=2, host_id={rank},
+    coordinator="127.0.0.1:{port}")
+g = res.meta["group"]
+print("TIMES", res.meta["fit_s"], g["seconds"], g["calls"],
+      sum(g["wire"].values()), g["wire"].get("phi", 0),
+      g["wire"].get("theta", 0), flush=True)
+if {rank} == 0:
+    np.savez({out!r}, elbo=np.asarray(res.elbo_trace, np.float64),
+             heldout=np.asarray([v for _, v in res.heldout_trace],
+                                np.float64), **res.posteriors)
+print("DONE", flush=True)
+"""
+
+
+# the crash child: 2 virtual hosts with sessions, armed through
+# REPRO_FAULTS to SIGKILL itself entering a step
+DIST_KILL_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch.core import models
+from repro_torch.launch.elastic import multihost_svi_session
+multihost_svi_session(
+    models.make("lda", alpha={alpha!r}, beta={beta!r}, K={k!r}, V={v!r}),
+    {engine!r}, {path!r}, {ck!r}, n_hosts=2)
+"""
+
+
+def rel_max(got, want):
+    """max |got - want| / max |want|: the reference's measure of two
+    posteriors (scripts/dist_checks.py)."""
+    got, want = (np.asarray(x, np.float64) for x in (got, want))
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def dist_vmp(label, out, prog):
+    """Full-batch VMP under ``ShardingPlan(2, "inferspark")`` from the main
+    path's initial state: DIST_VMP_STEPS steps within DIST_REL of as many
+    one-device steps in this process (the ELBO trace elementwise, the
+    gathered phi and theta), two runs bitwise, each step handing the shard
+    group every shard's phi stats and ELBO and nothing of theta, with no
+    byte over the wire in one process (the 2-process SVI run measures
+    phi's exchange against ``collective_bytes_per_iteration``), ms a step
+    and the owner plans' host ms per shard, one step under the profiler;
+    ``zstats`` (masked, one shard's block) and the Elog pass at the inputs
+    one shard handed them, recorded as they ran."""
+    from repro_torch.core import partition, runtime, vmp
+    from repro_torch.kernels import ops
+    s0 = vmp.init_state(prog, SEED, device="cuda")
+    one = runtime.make_step(prog, device="cuda")
+    st, trace1 = s0, []
+    for _ in range(DIST_VMP_STEPS):
+        st, e = one(st)
+        trace1.append(float(e))
+    single = {n: p.cpu().numpy() for n, p in st.posteriors.items()}
+    del st, one
+    plan = partition.ShardingPlan(DIST_SHARDS, "inferspark")
+    t0 = time.perf_counter()
+    step, sd0 = partition.make_distributed_step(prog, plan, device="cuda",
+                                                state=s0)
+    build_s = time.perf_counter() - t0
+    layout = step.layout
+    want = partition.collective_bytes_per_iteration(prog, plan)
+    # every shard hands its f32 stats of each global Dirichlet and its ELBO
+    handed = {"elbo": DIST_SHARDS * 4, **{
+        n: DIST_SHARDS * d.g * d.k * 4 for n, d in prog.dirichlets.items()
+        if d.group_rows is None}}
+    log(f"[{label}] ShardingPlan({DIST_SHARDS}, 'inferspark'): layout and "
+        f"owner plans {build_s:.2f} s (owner plans "
+        f"{', '.join(f'{ms:.1f}' for ms in step.plan_ms.values())} ms a "
+        f"shard); caps {dict((n, i['cap']) for n, i in layout.lat.items())} "
+        f"tokens, theta {layout.dir_row['theta']['cap']} rows a shard; "
+        f"collective_bytes_per_iteration {want}")
+    runs = []
+    for run in range(2):
+        st, trace, moved = sd0, [], []
+        with recording("zstats", "dirichlet_expectation") as calls:
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DIST_VMP_STEPS):
+                before = dict(plan.group.payload)
+                st, e = step(st)
+                trace.append(float(e))
+                moved.append({k: v - before.get(k, 0)
+                              for k, v in plan.group.payload.items()})
+            step_ms = (time.perf_counter() - t0) / DIST_VMP_STEPS * 1e3
+            counts = ops.launch_counts()
+        runs.append(dict(state=st, trace=trace, moved=moved, step_ms=step_ms,
+                         calls=calls, counts=counts))
+    a, b = runs
+    bitwise_ok = a["trace"] == b["trace"] and all(
+        torch.equal(a["state"].posteriors[n], b["state"].posteriors[n])
+        for n in prog.dirichlets)
+    t_rel = max(abs(x - y) / abs(y) for x, y in zip(a["trace"], trace1))
+    p_rel = {n: rel_max(partition.gather_posterior(step, prog, a["state"], n),
+                        single[n]) for n in ("theta", "phi")}
+    counts = a["counts"]
+    log(f"[{label}] {DIST_VMP_STEPS} steps: ELBO {a['trace'][0]:.6e} -> "
+        f"{a['trace'][-1]:.6e}; against one device: trace max rel "
+        f"{t_rel:.2e}, theta {p_rel['theta']:.2e}, phi {p_rel['phi']:.2e} "
+        f"(tol {DIST_REL}); two runs "
+        f"{'bitwise' if bitwise_ok else 'DIFFERENT'}; handed to the group "
+        f"a step {a['moved'][0]} bytes (want {handed}), over the wire "
+        f"{plan.group.wire_bytes}; "
+        f"{a['step_ms']:.2f} / {b['step_ms']:.2f} ms a step; launches "
+        f"{counts}")
+    check(t_rel <= DIST_REL and max(p_rel.values()) <= DIST_REL,
+          f"{label}: the co-partitioned run is not within {DIST_REL} of one "
+          f"device")
+    check(bitwise_ok, f"{label}: two runs from one state differ")
+    check(a["moved"] == [handed] * DIST_VMP_STEPS
+          and plan.group.wire_bytes == 0,
+          f"{label}: the shards did not hand the group phi's stats and the "
+          f"ELBO alone, or bytes went over the wire in one process")
+    check(counts["zstats"] == DIST_SHARDS * DIST_VMP_STEPS,
+          f"{label}: zstats launched {counts['zstats']} times")
+    st = b["state"]
+
+    def run():
+        nonlocal st
+        st, e = step(st)
+        float(e)
+    trace = profile_steps(run, 1, label=f"{label} trace")
+    args, zplan = replayed(label, a["calls"])
+    theta = a["calls"]["dirichlet_expectation", tuple(args[0].shape)][0][0]
+    entries = flat_kernel_entries(label, args, zplan, theta, counts,
+                                  "one shard's theta rows")
+    out["vmp"] = dict(trace=a["trace"], single_trace=trace1,
+                      trace_rel=t_rel, posterior_rel=p_rel,
+                      payload_per_step=a["moved"], want_payload=handed,
+                      collective_bytes_per_iteration=want,
+                      step_ms=[a["step_ms"], b["step_ms"]],
+                      plan_ms=step.plan_ms, build_s=build_s, launches=counts,
+                      profile=trace)
+    return entries
+
+
+def dist_svi(label, out, corpus, tmp):
+    """SVI at lda_svi's settings under a 2-shard plan, over the main path's
+    corpus in disk shards of DIST_SHARD_TOKENS tokens, DIST_SVI_STEPS steps
+    each: the plain plan path; ``hosts=HostAssignment(1, 0)`` bitwise it;
+    2 virtual hosts within DIST_HOSTS_TOL of it; two child processes on the
+    card over gloo, each opening the corpus through its own host view,
+    bitwise the 2-virtual-host run (posteriors, ELBO and held-out traces),
+    each rank's phi bytes over the wire ``collective_bytes_per_iteration``
+    a step; that run with sessions in a child SIGKILLed entering step
+    DIST_CRASH_AT - 1, resumed here, bitwise it.  Per step the host clock,
+    the group's ms and the bytes handed to it, the owned disk bytes of each host, one step
+    under the profiler; ``zstats`` and the Elog pass at one shard's inputs
+    of a further step, recorded as they ran."""
+    import os
+    import socket
+    from repro_torch.checkpoint import latest_session_step
+    from repro_torch.core import models
+    from repro_torch.core.partition import (ShardingPlan,
+                                            collective_bytes_per_iteration)
+    from repro_torch.core.svi import SVI
+    from repro_torch.data import (HostAssignment, ShardedCorpus,
+                                  sharded_template, write_sharded_corpus)
+    from repro_torch.kernels import ops
+    from repro_torch.testing import faults
+    path = str(tmp / "corpus")
+    t0 = time.perf_counter()
+    sc = write_sharded_corpus(corpus, path, shard_tokens=DIST_SHARD_TOKENS)
+    views = [ShardedCorpus.open(path, hosts=HostAssignment(2, h))
+             for h in (0, 1)]
+    owned = [int(v.owned_disk_bytes) for v in views]
+    log(f"[{label}] {sc.n_tokens} tokens in {sc.n_shards} shards "
+        f"({sc.disk_bytes} bytes) written in {time.perf_counter() - t0:.2f} "
+        f"s; 2 hosts own shards {[v.owned_shards().tolist() for v in views]}"
+        f", {owned} bytes on disk")
+    check(all(len(v.owned_shards()) for v in views),
+          f"{label}: a host owns no shard")
+    tmpl = sharded_template(models.make("lda", alpha=ALPHA, beta=BETA,
+                                        K=TOPICS, V=VOCAB), sc)
+    want_phi = collective_bytes_per_iteration(
+        tmpl, ShardingPlan(DIST_SHARDS))["phi"]
+    cfg = svi_config()
+
+    def make(hosts):
+        return SVI(tmpl, cfg, plan=ShardingPlan(DIST_SHARDS, "inferspark"),
+                   corpus=ShardedCorpus.open(path), hosts=hosts,
+                   device="cuda")
+
+    def posts(state):
+        return {n: p.cpu().numpy() for n, p in state.posteriors.items()}
+
+    fits = {}
+    for name, hosts in (("plan", None), ("hosts1", HostAssignment(1, 0)),
+                        ("hosts2", HostAssignment(2, 0))):
+        svi = make(hosts)
+        group = svi.plan.group
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, hist = svi.fit(DIST_SVI_STEPS)
+        fits[name] = dict(svi=svi, state=state, hist=hist,
+                          fit_s=time.perf_counter() - t0,
+                          counts=ops.launch_counts(), group_s=group.seconds,
+                          group_payload=group.payload_bytes)
+        if name != "hosts2":
+            svi.close()
+    plain, one, two = fits["plan"], fits["hosts1"], fits["hosts2"]
+    held = {k: [v for _, v in f["hist"]["heldout"]] for k, f in fits.items()}
+    ok1 = one["hist"]["elbo"] == plain["hist"]["elbo"] and all(
+        torch.equal(one["state"].posteriors[n], plain["state"].posteriors[n])
+        for n in plain["state"].posteriors)
+    h_rel = max(abs(x - y) / abs(y) for x, y in zip(held["hosts1"],
+                                                     held["plan"]))
+    p2 = {n: float(np.max(np.abs(a - b) / (DIST_HOSTS_TOL + DIST_HOSTS_TOL
+                                            * np.abs(b))))
+          for (n, a), b in zip(posts(two["state"]).items(),
+                               posts(plain["state"]).values())}
+    log(f"[{label}] {DIST_SVI_STEPS} steps each: hosts=HostAssignment(1, 0) "
+        f"{'bitwise' if ok1 else 'DIFFERENT FROM'} the plain plan path "
+        f"(posteriors, batch ELBO), held-out within {h_rel:.2e} (tol "
+        f"{DIST_HELD_RTOL}); 2 virtual hosts against it: max |diff| / (atol "
+        f"+ rtol |want|) {p2} (<= 1 at rtol = atol = {DIST_HOSTS_TOL}); "
+        f"held-out {held}")
+    check(ok1 and h_rel <= DIST_HELD_RTOL, f"{label}: hosts=(1, 0) is not "
+          f"the plain plan path")
+    check(max(p2.values()) <= 1.0, f"{label}: 2 virtual hosts are not "
+          f"within {DIST_HOSTS_TOL} of the plain plan path")
+    counts, evals = two["counts"], len(two["hist"]["heldout"])
+    want_z = DIST_SHARDS * (DIST_SVI_STEPS + evals
+                            * (cfg.holdout_local_iters + 1))
+    check(np.isfinite(two["hist"]["elbo"]).all() and evals
+          and np.isfinite(held["hosts2"]).all(),
+          f"{label}: a 2-virtual-host ELBO is not finite")
+    check(counts["zstats"] == want_z, f"{label}: zstats launched "
+          f"{counts['zstats']} times, not {want_z}")
+
+    # two processes on the card, each one host over gloo
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    npz = str(tmp / "two_proc.npz")
+    engine = dict(backend="svi", steps=DIST_SVI_STEPS, device="cuda",
+                  **ooc_config())
+    env = {k: v for k, v in os.environ.items() if k != faults.ENV_VAR}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DIST_CHILD.format(
+            src=str(ROOT / "src"), alpha=ALPHA, beta=BETA, k=TOPICS,
+            v=VOCAB, engine=engine, path=path, rank=rank, port=port,
+            out=npz)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in (0, 1)]
+    results = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=CHILD_TIMEOUT)
+            results.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (code, o, e) in enumerate(results):
+        if code != 0 or "DONE" not in o:
+            log(f"[{label}] rank {rank} exit {code}:\n{e[-4000:]}")
+    check(all(code == 0 and "DONE" in o for code, o, _ in results),
+          f"{label}: a process of the 2-process run failed")
+    times = [[float(x) for x in line.split()[1:]] for _, o, _ in results
+             for line in o.splitlines() if line.startswith("TIMES ")]
+    got = np.load(npz)
+    want2 = dict(posts(two["state"]), elbo=np.asarray(two["hist"]["elbo"]),
+                 heldout=np.asarray(held["hosts2"]))
+    ok2 = set(got.files) == set(want2) and all(
+        np.array_equal(got[k], want2[k]) for k in want2)
+    log(f"[{label}] 2 processes over gloo on {torch.cuda.get_device_name(0)}"
+        f" (cuda:0 each), {wall:.1f} s with start-up: "
+        f"{'bitwise' if ok2 else 'DIFFERENT FROM'} the 2-virtual-host run "
+        f"(posteriors, ELBO and held-out traces); per rank fit "
+        f"{[round(t[0], 3) for t in times]} s, group "
+        f"{[round(t[1], 3) for t in times]} s in "
+        f"{[int(t[2]) for t in times]} exchanges, over the wire (sent and "
+        f"received) {[int(t[3]) for t in times]} bytes, phi's "
+        f"{[int(t[4]) for t in times]} (want {DIST_SVI_STEPS} x "
+        f"{want_phi}: collective_bytes_per_iteration), theta's "
+        f"{[int(t[5]) for t in times]}")
+    check(ok2, f"{label}: 2 processes are not bitwise 2 virtual hosts")
+    check(len(times) == 2 and all(int(t[4]) == DIST_SVI_STEPS * want_phi
+                                  for t in times),
+          f"{label}: phi's bytes over the wire are not "
+          f"collective_bytes_per_iteration a step")
+
+    # a 2-virtual-host session SIGKILLed in a child and resumed here
+    ck = str(tmp / "ck")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", DIST_KILL_CHILD.format(
+            src=str(ROOT / "src"), alpha=ALPHA, beta=BETA, k=TOPICS, v=VOCAB,
+            engine=dict(engine, checkpoint_every=DIST_EVERY), path=path,
+            ck=ck)],
+        env=dict(env, **{faults.ENV_VAR: f"svi.step=kill@{DIST_CRASH_AT}"}),
+        capture_output=True, text=True, timeout=CHILD_TIMEOUT)
+    at = latest_session_step(ck)
+    if res.returncode != -9:
+        log(res.stderr[-4000:])
+    check(res.returncode == -9 and at in (DIST_CRASH_AT - 4,
+                                          DIST_CRASH_AT - 2),
+          f"{label}: the child did not die by SIGKILL entering step "
+          f"{DIST_CRASH_AT - 1} with a session")
+    again = make(HostAssignment(2, 0))
+    got_s, got_h = again.fit(DIST_SVI_STEPS - at, checkpoint_dir=ck,
+                             resume_from=True)
+    again.close()
+    ok3 = states_bitwise(got_s, two["state"], got_h, two["hist"])
+    log(f"[{label}] 2 virtual hosts in a child, svi.step=kill@"
+        f"{DIST_CRASH_AT}: exit {res.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s, newest valid session at step "
+        f"{at}; resumed here: {'bitwise' if ok3 else 'DIFFERENT FROM'} the "
+        f"straight run")
+    check(ok3, f"{label}: crash-resume of 2 virtual hosts is not bitwise")
+
+    # per step, after the fit: host clock, the group's ms and bytes
+    svi, st = two["svi"], two["state"]
+    group = svi.plan.group
+    g0 = (group.seconds, group.payload_bytes)
+    steps = range(DIST_SVI_STEPS, DIST_SVI_STEPS + DIST_TIMED_STEPS)
+    tokens = float(np.mean([svi._weights[svi.sampler.batch_at(t)].sum()
+                            for t in steps]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in steps:
+        st, e = svi.step(t, st)
+        float(e)
+    step_ms = (time.perf_counter() - t0) / len(steps) * 1e3
+    group_ms = (group.seconds - g0[0]) / len(steps) * 1e3
+    group_bytes = (group.payload_bytes - g0[1]) / len(steps)
+    t_next = DIST_SVI_STEPS + DIST_TIMED_STEPS
+
+    def run():
+        nonlocal st
+        st, e = svi.step(t_next, st)
+        float(e)
+    trace = profile_steps(run, 1, label=f"{label} trace")
+    with recording("zstats", "dirichlet_expectation") as calls:
+        st, e = svi.step(t_next + 1, st)
+        float(e)
+    svi.close()
+    idle = (1 - trace["busy_ms"] / trace["step_ms"]
+            if trace["busy_ms"] > 0 else None)
+    log(f"[{label} times] per step over {len(steps)} steps of {tokens:.0f} "
+        f"tokens, 2 virtual hosts: {step_ms:.2f} ms host clock, "
+        f"{tokens / step_ms * 1e3:.4e} tokens/s; the group {group_ms:.3f} ms "
+        f"and {group_bytes:.0f} bytes handed to it a step (none over the "
+        f"wire: {group.wire_bytes}); the plain plan's fit "
+        f"{plain['fit_s'] / DIST_SVI_STEPS * 1e3:.2f} ms a step, 2 virtual "
+        f"hosts' {two['fit_s'] / DIST_SVI_STEPS * 1e3:.2f} (one held-out "
+        f"evaluation in each); device {trace['busy_ms']:.3f} ms of a "
+        f"{trace['step_ms']:.2f} ms step, idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    args, zplan = replayed(label, calls)
+    theta = calls["dirichlet_expectation", tuple(args[0].shape)][0][0]
+    entries = flat_kernel_entries(label, args, zplan, theta, counts,
+                                  "one shard's batch theta rows")
+    out["svi"] = dict(
+        n_shards=sc.n_shards, owned_shards=[v.owned_shards().tolist()
+                                            for v in views],
+        owned_disk_bytes=owned, hosts1_bitwise=ok1, heldout_rel=h_rel,
+        hosts2_vs_plan=p2, two_process_bitwise=ok2, two_process_s=wall,
+        two_process_times=times, crash_session_step=at, step_ms=step_ms,
+        tokens_per_step=tokens, group_ms=group_ms,
+        group_payload_bytes=group_bytes, wire_phi_bytes=want_phi,
+        fit_s={k: f["fit_s"] for k, f in fits.items()}, profile=trace,
+        idle_share=idle, heldout=held, launches=counts)
+    return entries
+
+
+def phase_lda_dist(report, corpus, prog):
+    """The distributed path at the main path's widths: co-partitioned
+    full-batch VMP (:func:`dist_vmp`, entry ``lda_dist``), then sharded and
+    multi-host SVI (:func:`dist_svi`, entry ``lda_multihost``)."""
+    import tempfile
+    out = report["lda_dist"] = {}
+    entries = dist_vmp("lda_dist", out, prog)
+    with tempfile.TemporaryDirectory(prefix="lda_dist-") as tmpdir:
+        entries += dist_svi("lda_multihost", out, corpus, Path(tmpdir))
     return entries
 
 
@@ -3063,6 +3505,7 @@ def main(argv=None) -> int:
     kernels += timed("lda_ooc", phase_lda_ooc, report, corpus, prog)
     kernels += timed("gibbs", phase_gibbs, report, m, prog, corpus,
                      svi_state, svi_held, len(svi_holdout))
+    kernels += timed("lda_dist", phase_lda_dist, report, corpus, prog)
     del m, prog, svi_state
     payloads = slda_payloads(corpus)
     slda = make_slda(corpus)

@@ -24,11 +24,12 @@ device:
   - the Hopper footprints: the Elog tables against the 50 MB L2 (for
     information: the passes gather from device memory at any size) and the
     owner plan's host bytes;
-  - the estimated per-step **working set** vs the corpus size.
+  - the estimated per-step **working set** vs the corpus size;
+  - the per-host partition summary (shards, docs, bytes) when a sharded
+    corpus and ``n_hosts`` are given.
 
 What the TPU planner reported instead (the 8 MiB VMEM budget, streamed
-tiles, the ref fallback) has no Hopper meaning and is gone.  The per-host
-partition (``n_hosts=``) belongs to the distributed slice of the port.
+tiles, the ref fallback) has no Hopper meaning and is gone.
 
 CLI::
 
@@ -104,7 +105,7 @@ class Plan:
     caps: Optional[dict]            # padded-shape signature (sliced axes)
     signature: Optional[tuple]      # the SVI step-cache key, exactly
     routes: list                    # KernelRoute per latent
-    hosts: Optional[list]           # per-host partition (distributed slice)
+    hosts: Optional[list]           # per-host partition summary dicts
     working_set: Optional[dict]     # bytes: batch / tables / corpus
     notes: list
 
@@ -147,6 +148,11 @@ class Plan:
             out.append(f"    HBM/step: fused {_fmt(r.hbm_fused)} vs "
                        f"unfused {_fmt(r.hbm_unfused)} "
                        f"({r.hbm_unfused / max(r.hbm_fused, 1):.1f}x)")
+        if self.hosts:
+            out.append("  host partition:")
+            for h in self.hosts:
+                out.append(f"    host {h['host']}: {h['shards']} shards, "
+                           f"{h['docs']} docs, {_fmt(h['bytes'])}")
         if self.working_set:
             w = self.working_set
             out.append(f"  working set/step: batch {_fmt(w['batch_bytes'])} "
@@ -337,13 +343,13 @@ def explain_plan(model, config=None, *, corpus=None, backend: str = "cuda",
     ``model`` — a ``dsl.Model`` with observations bound (compile is pure
     numpy).  ``config`` — ``SVIConfig`` (minibatch plan), ``EngineConfig``
     (engine chosen by its ``backend`` field), or ``None`` (full-batch
-    VMP).  ``corpus`` — optional ``ShardedCorpus`` for working-set context.
-    ``backend`` — ``"cuda"`` (the default) plans the card's routes from
-    anywhere, the CPU included; ``"cpu"`` plans the plain versions.
-    ``n_hosts`` with a ``corpus`` — the multi-host partition summary, which
-    arrives with the distributed slice of the port.
+    VMP).  ``corpus`` — optional ``ShardedCorpus`` for working-set and
+    host-partition context.  ``backend`` — ``"cuda"`` (the default) plans
+    the card's routes from anywhere, the CPU included; ``"cpu"`` plans the
+    plain versions.  ``n_hosts`` — include the multi-host partition
+    summary (with a ``corpus``).
     """
-    from ..core.svi import SVIConfig, later_slice
+    from ..core.svi import SVIConfig
     from .validate import validate_model
 
     engine, svi_cfg, elog_dtype, notes = "vmp", None, None, []
@@ -358,8 +364,6 @@ def explain_plan(model, config=None, *, corpus=None, backend: str = "cuda",
         elif engine == "gibbs":
             notes.append("gibbs runs full-batch sweeps; routes below are "
                          "the fold-in scorer's (zstats) view")
-    if n_hosts and corpus is not None:
-        later_slice("the host partition of a plan (n_hosts=)", "distributed")
 
     diags = validate_model(model)
     name = getattr(getattr(model, "net", model), "name", "?")
@@ -394,6 +398,20 @@ def explain_plan(model, config=None, *, corpus=None, backend: str = "cuda",
             ws["corpus_bytes"] = cb
             ws["fraction"] = (batch_bytes + table_bytes) / cb
     plan.working_set = ws
+
+    if n_hosts and corpus is not None:
+        from ..data.store import doc_ownership, shard_ownership
+        manifest = corpus.manifest
+        owner = shard_ownership(len(manifest["shards"]), n_hosts)
+        downer = doc_ownership(manifest, n_hosts)
+        plan.hosts = []
+        for h in range(n_hosts):
+            sids = np.flatnonzero(owner == h)
+            ndocs = int((downer == h).sum())
+            nbytes = sum(int(manifest["shards"][int(s)].get("n_tokens", 0))
+                         * 4 for s in sids)
+            plan.hosts.append({"host": h, "shards": int(len(sids)),
+                               "docs": ndocs, "bytes": int(nbytes)})
     return plan
 
 
@@ -459,6 +477,8 @@ def _main(argv=None) -> int:
     ap.add_argument("--corpus-dir", default=None,
                     help="ShardedCorpus directory: plan against its real "
                          "manifest/lengths instead of --docs/--mean-len")
+    ap.add_argument("--hosts", type=int, default=None,
+                    help="include the n-host partition summary")
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
 
@@ -485,7 +505,8 @@ def _main(argv=None) -> int:
         cfg = SVIConfig(batch_size=args.batch_docs,
                         pad_multiple=args.pad_multiple,
                         elog_dtype=args.elog_dtype)
-    plan = explain_plan(m, cfg, corpus=corpus, backend=args.backend)
+    plan = explain_plan(m, cfg, corpus=corpus, backend=args.backend,
+                        n_hosts=args.hosts)
     print(plan.to_json() if args.json else plan.render())
     return 1 if any(d.severity == "error" for d in plan.diagnostics) else 0
 

@@ -237,7 +237,8 @@ def _dirichlet_rows(pl: _PlateInfo, d: DirichletRV, child: CategoricalRV):
 # ---------------------------------------------------------------------------
 
 def compile_program(net: BayesianNetwork, observations: dict,
-                    plate_bindings: dict | None = None) -> VMPProgram:
+                    plate_bindings: dict | None = None,
+                    sharding=None) -> VMPProgram:
     net.validate()
     pl = _PlateInfo(net)
     pl.resolve(observations, plate_bindings or {})
@@ -350,7 +351,7 @@ def compile_program(net: BayesianNetwork, observations: dict,
     plate_sizes = {p.name: pl.flat[id(p)] for p in net.plates if id(p) in pl.flat}
     n_obs = sum(len(o["values"]) for o in observations.values())
     meta = {"n_observed": n_obs, "n_vertices": off,
-            "model_loc": net.loc(), "sharding": None,
+            "model_loc": net.loc(), "sharding": sharding,
             "pstar": pstar.name if pstar is not None else None,
             "pstar_size": pl.flat[id(pstar)] if pstar is not None else None}
     return VMPProgram(net.name, net, dirichlets, latents, statics,

@@ -111,6 +111,7 @@ class Model:
         self.plate_bindings: dict[str, object] = {}
         self._program = None
         self._state = None
+        self._step_fn = None
         self._elbo_trace: list[float] = []
 
     def __getitem__(self, name: str) -> _RVHandle:
@@ -139,6 +140,7 @@ class Model:
         rv.observed = True
         self.observations[name] = {"values": values, "segment_ids": segment_ids}
         self._program = None      # metadata changed; force re-compile
+        self._step_fn = None
         self._state = None
 
     def bind(self, plate_name: str, parent_ids):
@@ -149,19 +151,23 @@ class Model:
         return self
 
     def reset(self):
-        """Drop inference state (posteriors, ELBO trace) so the next
-        ``infer`` starts fresh; the compiled program is kept."""
+        """Drop inference state (posteriors, step fn, ELBO trace) so the
+        next ``infer`` starts fresh; the compiled program is kept."""
         self._state = None
+        self._step_fn = None
         self._elbo_trace = []
         return self
 
     # -- inference --------------------------------------------------------
-    def compile(self):
-        """Metadata collection + "code generation" (the ``VMPProgram``)."""
+    def compile(self, sharding=None):
+        """Metadata collection + "code generation" (the ``VMPProgram``).
+        ``sharding`` is recorded in the program's meta, where
+        ``runtime.run_inference`` finds it."""
         from .compiler import compile_program
         if self._program is None:
             self._program = compile_program(self.net, self.observations,
-                                            plate_bindings=self.plate_bindings)
+                                            plate_bindings=self.plate_bindings,
+                                            sharding=sharding)
         return self._program
 
     def infer(self, steps: int = 20, callback=None, checkpoint_every: int = 0,
@@ -170,23 +176,35 @@ class Model:
         """Run VMP iterations (paper's ``infer`` API with callback, Fig 12).
 
         ``device`` is where the state and every step live (``None`` means
-        ``"cuda"``).  ``elog_dtype`` (e.g. ``"bfloat16"``) narrows the
+        ``"cuda"``).  ``sharding`` is a
+        :class:`repro_torch.core.partition.ShardingPlan`; None runs on one
+        device.  ``elog_dtype`` (e.g. ``"bfloat16"``) narrows the
         concentration tables the token plate gathers from; accumulation
         stays f32.  With ``checkpoint_every`` and ``checkpoint_dir`` the
-        state is saved every k steps, and a later ``infer`` (of this model
-        or a fresh one) resumes from the newest valid checkpoint there.
+        state is saved every k steps (under a plan, the laid-out state, as
+        the reference saves it), and a later ``infer`` (of this model or a
+        fresh one) resumes from the newest valid checkpoint there.
         """
-        if sharding is not None:
-            raise NotImplementedError(
-                "sharded inference arrives with the distributed slice of "
-                "the port; run on one device (sharding=None)")
         from .runtime import run_inference
-        prog = self.compile()
+        prog = self.compile(sharding=sharding)
+        if sharding is not None:
+            # the cached distributed step is dtype- and device-specific: a
+            # different one on a later infer() must rebuild it
+            key = (elog_dtype, device)
+            if self._step_fn is not None and self._step_key != key:
+                self._step_fn = None
+            if self._step_fn is None:
+                from .partition import make_distributed_step
+                self._step_fn, state0 = make_distributed_step(
+                    prog, sharding, seed=seed, elog_dtype=elog_dtype,
+                    device=device)
+                self._step_key = key
+                self._state = self._state or state0
         self._state, trace = run_inference(
             prog, steps=steps, callback=callback,
             checkpoint_every=checkpoint_every, checkpoint_dir=checkpoint_dir,
-            state=self._state, seed=seed, elog_dtype=elog_dtype,
-            device=device)
+            state=self._state, step_fn=self._step_fn, seed=seed,
+            elog_dtype=elog_dtype, device=device)
         self._elbo_trace.extend(trace)
         return self
 
@@ -207,8 +225,16 @@ class Model:
             raise RuntimeError("call infer() first")
         rv = self.net.rvs[name]
         if isinstance(rv, DirichletRV):
+            if self._step_fn is not None:
+                from .partition import gather_posterior
+                return gather_posterior(self._step_fn, self._program,
+                                        self._state, name)
             return self._state.posteriors[name].cpu().numpy()
         if not rv.observed:
+            if self._step_fn is not None:
+                raise NotImplementedError(
+                    "latent responsibilities of a distributed run: gather the "
+                    "Dirichlet posteriors and recompute locally")
             from .vmp import latent_responsibilities
             return latent_responsibilities(self._program, self._state,
                                            name).cpu().numpy()

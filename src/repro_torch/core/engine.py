@@ -11,45 +11,51 @@
     topics = result.topics("phi")
     post = result.freeze(model)           # a servable query.Posterior
 
-The port runs full-batch VMP, single-host SVI (over a resident corpus or a
+The port runs full-batch VMP (on one device or under a
+``partition.ShardingPlan``: ``sharding=``), SVI (over a resident corpus or a
 sharded one on disk, ``corpus=``, growing or not, with crash-safe sessions:
-``checkpoint_dir=``, ``resume=``) and blocked Gibbs sampling for LDA-shaped
-models on one device.  ``device=None`` means ``"cuda"``; the CPU runs only
-when asked for (``device="cpu"``).  The config keeps every field of the
-reference's, with its default, so that one config reads the same in both
-packages; what needs a later slice of the port (multi-host corpora,
-sharding) raises ``NotImplementedError`` naming that slice when it is set
-away from its default.  ``validate=True`` runs the static pre-flight
+``checkpoint_dir=``, ``resume=``; sharded with ``sharding=``, over the
+hosts of a partitioned corpus with ``hosts=``) and blocked Gibbs sampling
+for LDA-shaped models.  ``device=None`` means ``"cuda"``; the CPU runs
+only when asked for (``device="cpu"``).  The config keeps every field of
+the reference's, with its default, so that one config reads the same in
+both packages; as in the reference a backend ignores the knobs it does not
+read.  ``validate=True`` runs the static pre-flight
 (``repro_torch.analysis``) before any device work.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 
 from ..data.pipeline import holdout_split
-from .svi import SVI, SVIConfig, later_slice
+from .svi import SVI, SVIConfig
 from .vmp import resolve_device
 
 
 @dataclasses.dataclass
 class EngineConfig:
-    """Backend selection + the union of backend knobs, as in the reference;
-    ``device`` is the port's own.  A knob of a later slice raises in
-    ``fit`` unless it keeps its default."""
+    """Backend selection + the union of backend knobs (unused ones are
+    ignored by the chosen backend), as in the reference; ``device`` is the
+    port's own."""
     backend: str = "vmp"            # vmp | svi | gibbs
     steps: int = 50
     seed: int = 0
-    sharding: object = None         # None = 1 device
+    sharding: object = None         # a ShardingPlan for vmp/svi; None =
+                                    # 1 device
     elog_dtype: object = None       # e.g. "bfloat16": narrow the token
                                     # plate's concentration tables (f32 accum)
     corpus: object = None           # svi only: a data.ShardedCorpus for
                                     # out-of-core minibatches; the model
                                     # passed to fit() stays unobserved
-    hosts: object = None            # svi, multi-host
+    hosts: object = None            # svi only: a data.HostAssignment —
+                                    # partition the corpus by shard
+                                    # ownership over the plan's processes
+                                    # (or virtual hosts in one)
     # svi
     batch_size: int = 64
     kappa: float = 0.7
@@ -118,19 +124,6 @@ class InferenceResult:
                                      note=note)
 
 
-# the config's knobs that a later slice reads, by field: fit raises when one
-# differs from its default, so that none is ignored quietly
-_SLICE_OF = dict.fromkeys(("hosts", "sharding"), "distributed")
-_DEFAULTS = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
-
-
-def _check_slice_knobs(cfg: EngineConfig):
-    for name, slice_name in _SLICE_OF.items():
-        value, default = getattr(cfg, name), _DEFAULTS[name]
-        if value is not default and value != default:
-            later_slice(f"{name}={value!r} (default {default!r})", slice_name)
-
-
 class InferenceEngine:
     """Backend-agnostic interface: ``fit(model) -> InferenceResult``."""
 
@@ -153,7 +146,9 @@ class InferenceEngine:
         diags = preflight(model)
         n_docs = self.cfg.corpus.n_docs if self.cfg.corpus is not None \
             else None
-        diags += audit_config(self.cfg, n_docs=n_docs)
+        n_hosts = self.cfg.hosts.n_hosts if self.cfg.hosts is not None \
+            else None
+        diags += audit_config(self.cfg, n_docs=n_docs, n_hosts=n_hosts)
         if any(d.severity == "error" for d in diags):
             raise PreflightError(diags)
 
@@ -175,14 +170,13 @@ class VMPEngine(InferenceEngine):
             raise ValueError(
                 "full-batch VMP touches every token each step and needs a "
                 "resident corpus; use backend='svi' with corpus=")
-        _check_slice_knobs(cfg)
         self._preflight(model)
         device = resolve_device(cfg.device)
         if cfg.holdout_frac > 0:
             return _fit_svi(model, cfg, full_batch=True)
         # every fit starts fresh: a model inferred before must not warm-start
         model.reset()
-        model.infer(steps=cfg.steps, seed=cfg.seed,
+        model.infer(steps=cfg.steps, sharding=cfg.sharding, seed=cfg.seed,
                     elog_dtype=cfg.elog_dtype, device=device)
         program = model.compile()
         posts = {n: model[n].get_result() for n in model.net.rvs
@@ -202,7 +196,6 @@ class SVIEngine(InferenceEngine):
     name = "svi"
 
     def fit(self, model) -> InferenceResult:
-        _check_slice_knobs(self.cfg)
         self._preflight(model)
         return _fit_svi(model, self.cfg, full_batch=False)
 
@@ -254,6 +247,10 @@ def _fit_svi(model, cfg: EngineConfig, full_batch: bool) -> InferenceResult:
         resumed_from = latest_session_step(cfg.checkpoint_dir)
         # steps is the total budget; run only what the session hasn't
         steps = max(cfg.steps - (resumed_from or 0), 0)
+    group = cfg.sharding.group if cfg.sharding is not None else None
+    before = (dict(group.payload), dict(group.wire), group.calls,
+              group.seconds) if group else None
+    t0 = time.perf_counter()
     try:
         state, history = svi.fit(
             steps=steps, checkpoint_dir=cfg.checkpoint_dir,
@@ -261,15 +258,24 @@ def _fit_svi(model, cfg: EngineConfig, full_batch: bool) -> InferenceResult:
             resume_from=True if cfg.resume else None)
     finally:
         svi.close()
+    fit_s = time.perf_counter() - t0
     posts = {n: p.cpu().numpy() for n, p in state.posteriors.items()}
+    meta = {"steps": cfg.steps, "batch_size": svi.sampler.batch_size,
+            "n_train_groups": len(svi.train),
+            "n_holdout_groups": len(svi.holdout),
+            "resumed_from_step": resumed_from, "device": str(svi.device),
+            "fit_s": fit_s}
+    if group is not None:
+        # what the plan's shards handed their group in this fit, and the
+        # bytes that went through the backend to other ranks
+        payload, wire, calls, seconds = before
+        meta["group"] = dict(
+            payload={k: v - payload.get(k, 0)
+                     for k, v in group.payload.items()},
+            wire={k: v - wire.get(k, 0) for k, v in group.wire.items()},
+            calls=group.calls - calls, seconds=group.seconds - seconds)
     return InferenceResult("vmp" if full_batch else "svi", posts,
-                           history["elbo"], history["heldout"],
-                           {"steps": cfg.steps,
-                            "batch_size": svi.sampler.batch_size,
-                            "n_train_groups": len(svi.train),
-                            "n_holdout_groups": len(svi.holdout),
-                            "resumed_from_step": resumed_from,
-                            "device": str(svi.device)})
+                           history["elbo"], history["heldout"], meta)
 
 
 class GibbsEngine(InferenceEngine):
@@ -292,7 +298,6 @@ class GibbsEngine(InferenceEngine):
         if cfg.corpus is not None:
             raise ValueError("gibbs sweeps every token and needs a resident "
                              "corpus; use backend='svi' with corpus=")
-        _check_slice_knobs(cfg)
         self._preflight(model)
         device = resolve_device(cfg.device)
         program = model.compile()

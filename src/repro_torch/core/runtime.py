@@ -51,21 +51,31 @@ def run_inference(program: VMPProgram, steps: int = 20,
                   checkpoint_dir: Optional[str] = None,
                   state: Optional[VMPState] = None,
                   seed: int = 0,
+                  step_fn=None,
                   elog_dtype=None,
                   device=None):
     """Run ``steps`` VMP iterations; returns (state, elbo_trace).
 
     ``device`` defaults to ``"cuda"``, or to the device of ``state`` when a
-    state is given; a state elsewhere than ``device`` is moved there.  With
-    ``checkpoint_every`` and ``checkpoint_dir`` both set, the state is saved
-    every ``checkpoint_every`` steps (asynchronously; durable on return),
-    and a directory that already holds a checkpoint is resumed from its
-    newest valid one.
+    state is given; a state elsewhere than ``device`` is moved there.
+    ``step_fn`` replaces the program's own step: a distributed step from
+    ``partition.make_distributed_step`` (``state`` then in its layout),
+    which the program's ``meta["sharding"]`` also selects.  With ``checkpoint_every``
+    and ``checkpoint_dir`` both set, the state is saved every
+    ``checkpoint_every`` steps (asynchronously; durable on return), and a
+    directory that already holds a checkpoint is resumed from its newest
+    valid one.
     """
     from ..checkpoint import CheckpointStore
     if device is None and state is not None:
         device = state.device
     device = resolve_device(device)
+    if step_fn is None and program.meta.get("sharding") is not None:
+        from .partition import make_distributed_step
+        step_fn, state0 = make_distributed_step(
+            program, program.meta["sharding"], seed=seed,
+            elog_dtype=elog_dtype, device=device)
+        state = state if state is not None else state0
     if state is None:
         state = init_state(program, seed, device=device)
 
@@ -77,7 +87,8 @@ def run_inference(program: VMPProgram, steps: int = 20,
     if state.device != device:
         state = VMPState({n: p.to(device) for n, p in state.posteriors.items()},
                          state.step)
-    step_fn = make_step(program, elog_dtype=elog_dtype, device=device)
+    if step_fn is None:
+        step_fn = make_step(program, elog_dtype=elog_dtype, device=device)
 
     trace: list[float] = []
     start = int(state.step)

@@ -32,11 +32,20 @@ resident path.  ``growing=True`` follows a corpus that a live writer keeps
 appending to.  ``fit(checkpoint_dir=, resume_from=)`` commits resumable
 sessions (``checkpoint/session.py``) and resumes bitwise.
 
+Under a :class:`~repro_torch.core.partition.ShardingPlan` (``plan=``)
+each shard receives its own sub-minibatch (the batch LPT-packed over the
+shards by token mass, every shard padded to shared caps, with its own owner
+plans), the global stats meet in the plan's shard group, and the local
+rows merge as the reference's deltas.  With ``hosts=`` a
+:class:`~repro_torch.data.HostAssignment` over a sharded corpus, each
+document goes to the shards of the host that owns it: in one process the
+hosts are virtual, and in a ``torch.distributed`` run (gloo) each process
+is one host that reads only its own shards; a 2-process run is bitwise the
+1-process run with 2 virtual hosts.
+
 ``build_local_scorer(extras=True)`` is the query layer's fold-in scorer
 (``repro_torch.query.foldin``).  ``SVI(validate=True)`` runs the static
-pre-flight (``repro_torch.analysis``) first.  What needs a later slice of
-the port raises ``NotImplementedError`` naming it: the distributed path
-(``plan=``, ``hosts=``).
+pre-flight (``repro_torch.analysis``) first.
 """
 
 from __future__ import annotations
@@ -55,15 +64,9 @@ from .compiler import (VMPProgram, check_resident, local_dirichlets,
                        slice_arrays, sliced_shadow)
 from .runtime import _resolve_elog_dtype
 from ..kernels import ops as kops
-from .vmp import (VMPState, _elog_tables, _messages_to_latent, _step_body,
-                  init_state, owner_plans, resolve_device, state_from_numpy,
-                  state_to_numpy)
-
-
-def later_slice(what: str, slice_name: str):
-    """Raise ``NotImplementedError`` for a feature of a later slice."""
-    raise NotImplementedError(f"{what} arrives with the {slice_name} slice "
-                              f"of the port")
+from .vmp import (VMPState, _elog_tables, _messages_to_latent,
+                  _sharded_step_body, _step_body, init_state, owner_plans,
+                  resolve_device, state_from_numpy, state_to_numpy)
 
 
 @dataclasses.dataclass
@@ -157,7 +160,7 @@ def sliced_state(program: VMPProgram, state: VMPState, batch: dict,
     return VMPState(sliced, state.step)
 
 
-def make_svi_step(program: VMPProgram, caps: dict[str, int],
+def make_svi_step(program: VMPProgram, caps: dict[str, int], plan=None,
                   local_iters: int = 1, elog_dtype=None):
     """Build ``step(state, batch, rho, scale) -> (state', batch_elbo)`` for
     batches padded to ``caps``.
@@ -167,11 +170,42 @@ def make_svi_step(program: VMPProgram, caps: dict[str, int],
     taken as f32 on the state's device).  The batch's owner plans
     (``batch["plans"]``, empty off CUDA) go to every ``_step_body`` of the
     step; the program's cached plans are never read.
+
+    With ``plan`` (a :class:`~repro_torch.core.partition.ShardingPlan`) the
+    batch is ``{"shards": {shard: batch}}``, this process's shards: each
+    runs its body on its own sub-batch, the global stats meet in the plan's
+    group, and each shard's local rows merge as the reference's psum of
+    deltas, ``state + delta`` (shards own disjoint rows).
     """
     local = local_dirichlets(program)
     shadow = sliced_shadow(program, caps)
     elog_dtype = _resolve_elog_dtype(elog_dtype)
     priors_on: dict = {}
+
+    def refined(st, arrays, plans):
+        """``st`` after ``local_iters - 1`` local passes: the local rows
+        move, the global Dirichlets stay."""
+        sliced = st.posteriors
+        for _ in range(max(local_iters - 1, 0)):     # local refinement only
+            ref, _ = _step_body(shadow, arrays, st, elog_dtype=elog_dtype,
+                                plans=plans)
+            st = VMPState({n: (ref.posteriors[n] if n in local else sliced[n])
+                           for n in sliced}, st.step)
+        return st
+
+    def natural_gradient(state, new, priors, rho, scale):
+        # natural gradient: target = prior + scale * stats_B; the
+        # where()s keep the |B|=G, rho=1 case bitwise equal to the
+        # full-batch VMP update (no x-p+p float round-trip)
+        posts = {}
+        for name in program.dirichlets:
+            if name in local:
+                continue
+            target = priors[name] + scale * (new[name] - priors[name])
+            target = torch.where(scale == 1.0, new[name], target)
+            blend = (1.0 - rho) * state.posteriors[name] + rho * target
+            posts[name] = torch.where(rho == 1.0, target, blend)
+        return posts
 
     def step(state: VMPState, batch: dict, rho, scale):
         device = state.device
@@ -180,17 +214,11 @@ def make_svi_step(program: VMPProgram, caps: dict[str, int],
         priors = priors_on[device]
         rho, scale = _scalar(rho, device), _scalar(scale, device)
         plans = batch["plans"]
-        st = sliced_state(program, state, batch, priors)
-        sliced = st.posteriors
-        for _ in range(max(local_iters - 1, 0)):     # local refinement only
-            ref, _ = _step_body(shadow, batch["arrays"], st,
-                                elog_dtype=elog_dtype, plans=plans)
-            st = VMPState({n: (ref.posteriors[n] if n in local else sliced[n])
-                           for n in sliced}, state.step)
+        st = refined(sliced_state(program, state, batch, priors),
+                     batch["arrays"], plans)
         new, elbo = _step_body(shadow, batch["arrays"], st,
                                elog_dtype=elog_dtype, plans=plans)
-
-        posts = {}
+        posts = natural_gradient(state, new.posteriors, priors, rho, scale)
         for name, d in program.dirichlets.items():
             if name in local:
                 # the batch's rows are unique; its padding rows all land in
@@ -201,19 +229,48 @@ def make_svi_step(program: VMPProgram, caps: dict[str, int],
                 out[:d.g] = state.posteriors[name]
                 out.index_copy_(0, rows, new.posteriors[name])
                 posts[name] = out[:d.g]
-            else:
-                # natural gradient: target = prior + scale * stats_B; the
-                # where()s keep the |B|=G, rho=1 case bitwise equal to the
-                # full-batch VMP update (no x-p+p float round-trip)
-                target = priors[name] + scale * \
-                    (new.posteriors[name] - priors[name])
-                target = torch.where(scale == 1.0, new.posteriors[name],
-                                     target)
-                blend = (1.0 - rho) * state.posteriors[name] + rho * target
-                posts[name] = torch.where(rho == 1.0, target, blend)
-        return VMPState(posts, state.step + 1), elbo
+        return VMPState({n: posts[n] for n in program.dirichlets},
+                        state.step + 1), elbo
 
-    return step
+    def sharded_step(state: VMPState, batch: dict, rho, scale):
+        device = state.device
+        if device not in priors_on:
+            priors_on[device] = _priors(program, device)
+        priors = priors_on[device]
+        rho, scale = _scalar(rho, device), _scalar(scale, device)
+        group = plan.group
+        sliced = {s: sliced_state(program, state, b, priors)
+                  for s, b in batch["shards"].items()}
+        shards = {s: (b["arrays"],
+                      refined(sliced[s], b["arrays"], b["plans"]),
+                      b["plans"])
+                  for s, b in batch["shards"].items()}
+        new, elbo = _sharded_step_body(shadow, shards, group, elog_dtype,
+                                       local_dirs=local)
+        any_new = new[group.local_shards[0]].posteriors
+        posts = natural_gradient(state, any_new, priors, rho, scale)
+        names = [n for n in program.dirichlets if n in local]
+        # each shard's rows and deltas, every shard's in shard order
+        got = group.gather({s: [t for n in names for t in (
+            batch["shards"][s]["dirs"][n]["rows"].long(),
+            new[s].posteriors[n] - sliced[s].posteriors[n])]
+            for s in batch["shards"]}, [n for n in names for _ in range(2)])
+        for i, name in enumerate(names):
+            d = program.dirichlets[name]
+            base = torch.empty((d.g + 1, d.k), dtype=torch.float32,
+                               device=device)
+            base[:d.g] = state.posteriors[name]
+            out = base.clone()
+            for shard in got:
+                rows, delta = shard[2 * i], shard[2 * i + 1]
+                # padding rows (the sentinel g) carry a zero delta into the
+                # scratch row g, which is cut off
+                out.index_copy_(0, rows, base[rows] + delta)
+            posts[name] = out[:d.g]
+        return VMPState({n: posts[n] for n in program.dirichlets},
+                        state.step + 1), elbo
+
+    return step if plan is None else sharded_step
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +278,8 @@ def make_svi_step(program: VMPProgram, caps: dict[str, int],
 # ---------------------------------------------------------------------------
 
 def host_batch(program: VMPProgram, groups, caps_fn=None, plan=None, *,
-               device=None, times: Optional[dict] = None, slicer=None):
+               device=None, times: Optional[dict] = None, slicer=None,
+               group_weights: Optional[np.ndarray] = None, caps_probe=None):
     """Build one minibatch's host-side (numpy) arrays for ``device``
     (``None`` means ``"cuda"``; no card is needed, as nothing is placed).
 
@@ -235,14 +293,33 @@ def host_batch(program: VMPProgram, groups, caps_fn=None, plan=None, *,
     dirs, caps, n_tokens)`` selects the corpus view: by default
     ``compiler.slice_arrays`` over the resident ``program``; the
     out-of-core path binds ``data.store.slice_sharded`` (the same contract,
-    reading only the shards the batch touches).  ``plan`` (a sharding
-    plan) belongs to the distributed slice.
+    reading only the shards the batch touches).
+
+    With ``plan`` the batch's groups are LPT-packed into ``plan.n_shards``
+    sub-minibatches by token mass (``group_weights``), each padded to
+    shared caps, and ``batch`` is ``{"shards": {shard: batch}}`` for the
+    shards of this process (``plan.group.local_shards``; ``n_tokens``
+    counts theirs), each with its own owner plans.  ``caps_probe(groups)
+    -> caps`` — a cheap predictor of the caps ``slicer(groups, None)``
+    would realize (``data.store.sharded_caps``); without it every
+    sub-minibatch is sliced twice.
     """
-    if plan is not None:
-        later_slice("a sharded batch (plan=)", "distributed")
     if slicer is None:
         slicer = functools.partial(slice_arrays, program)
     device = torch.device("cuda" if device is None else device)
+    if plan is not None:
+        from .partition import lpt_pack
+        groups = np.asarray(groups, np.int64)
+        m = plan.n_shards
+        w = (group_weights[groups] if group_weights is not None
+             else np.ones(len(groups), np.int64))
+        shard_of = lpt_pack(np.maximum(w, 1), m)
+        parts = [groups[shard_of == s] for s in range(m)]
+        caps = shared_caps(parts, caps_probe or (
+            lambda p: slicer(p, None)[2]), caps_fn)
+        batch, n_tok = shard_batches(program, parts, plan.group.local_shards,
+                                     caps, slicer, device, times)
+        return batch, caps, n_tok
     t0 = time.perf_counter()
     arrays, dirs, caps, n_tok = slicer(groups, caps_fn)
     t1 = time.perf_counter()
@@ -254,6 +331,75 @@ def host_batch(program: VMPProgram, groups, caps_fn=None, plan=None, *,
     return batch, caps, n_tok
 
 
+def shared_caps(parts, probe, caps_fn=None) -> dict[str, int]:
+    """The caps every shard's sub-minibatch is padded to: each axis's
+    largest exact cap over ``parts`` (``probe(groups) -> caps``), then
+    ``caps_fn``'s padding policy."""
+    caps: dict[str, int] = {}
+    for p in parts:
+        for k, v in probe(p).items():
+            caps[k] = max(caps.get(k, 1), int(v))
+    if caps_fn is not None:
+        caps = {k: max(int(caps_fn(k, v)), v) for k, v in caps.items()}
+    return caps
+
+
+def spread_padding(program: VMPProgram, arrays: dict, dirs: dict) -> None:
+    """Point a padded slice's masked instances and tokens at distinct rows,
+    in place.  The slicer pads with 0, so every padding instance reads row
+    0 of its prior and every padding token value 0, and the owner plan
+    gives one owner all of them: under shared caps a small part's padding
+    (a third of the part, say) would walk in series.  Here padding
+    instances go round-robin over their prior's padding rows (the sentinel
+    rows; every row when there are none) and the padding tokens of a flat
+    child over its table's values.  Masked, they add exact zeros wherever
+    they land, so only the plan's balance changes; a segment child's
+    padding is left as sliced."""
+    for spec in program.latents:
+        a = arrays[spec.name]
+        pad = np.flatnonzero(a["mask"] == 0)
+        if len(pad):
+            rows = a["prior_rows"]
+            d = dirs.get(spec.prior_dir)
+            free = (np.flatnonzero(d["mask"] == 0) if d is not None
+                    else np.arange(0))
+            if not len(free):
+                free = np.arange(len(d["mask"]) if d is not None
+                                 else program.dirichlets[spec.prior_dir].g)
+            rows[pad] = free[np.arange(len(pad)) % len(free)]
+        for f in spec.children:
+            if f.zmap is not None:
+                continue
+            x = arrays[f.x_name]
+            pad = np.flatnonzero(x["mask"] == 0)
+            x["values"][pad] = (np.arange(len(pad))
+                                % program.dirichlets[f.dir_name].k)
+
+
+def shard_batches(program: VMPProgram, parts, shards, caps: dict, slicer,
+                  device, times: Optional[dict] = None):
+    """``({"shards": {shard: batch}}, n_tokens)``: each of ``shards``'
+    groups (``parts[shard]``) sliced at ``caps``, its padding spread
+    (:func:`spread_padding`), with the owner plans of its own streams —
+    the shards share every shape, so no shard may read another's plan.
+    ``times`` gets the slicing's and the plans' host ms, summed over the
+    shards."""
+    out, n_tok, t_slice, t_plan = {}, 0, 0.0, 0.0
+    for s in shards:
+        t0 = time.perf_counter()
+        arrays, dirs, _, nt = slicer(parts[s], lambda name, n: caps[name])
+        spread_padding(program, arrays, dirs)
+        t1 = time.perf_counter()
+        out[s] = {"arrays": arrays, "dirs": dirs,
+                  "plans": owner_plans(program, arrays, device, caps)}
+        t_slice += t1 - t0
+        t_plan += time.perf_counter() - t1
+        n_tok += nt
+    if times is not None:
+        times.update(slice=t_slice * 1e3, plan=t_plan * 1e3)
+    return {"shards": out}, n_tok
+
+
 def _put(a, device):
     return None if a is None else torch.from_numpy(a).to(device)
 
@@ -261,7 +407,10 @@ def _put(a, device):
 def device_put_batch(batch: dict, device) -> dict:
     """A :func:`host_batch` result on ``device``: every numpy leaf as a
     tensor (``None`` passes through), every owner plan with its device
-    copy."""
+    copy; a sharded batch shard by shard."""
+    if "shards" in batch:
+        return {"shards": {s: device_put_batch(b, device)
+                           for s, b in batch["shards"].items()}}
     out = {part: {k: {kk: _put(vv, device) for kk, vv in v.items()}
                   for k, v in batch[part].items()}
            for part in ("arrays", "dirs")}
@@ -342,14 +491,15 @@ def build_local_scorer(program: VMPProgram, caps: dict[str, int],
                  for name, d in program.dirichlets.items()}
         st = VMPState(posts, 0)
         for _ in range(inner_iters):
-            new, _ = _step_body(shadow, arrays, st, plans=plans)
+            new, _ = _step_body(shadow, arrays, st, plans=plans,
+                                local_dirs=local, global_terms=False)
             st = VMPState({n: (new.posteriors[n] if n in local
                                else posts[n]) for n in posts}, st.step)
-        _, elbo = _step_body(shadow, arrays, st, plans=plans)
-        for name in program.dirichlets:
-            if name not in local:
-                elbo = elbo - dists.dirichlet_elbo_term(priors[name],
-                                                        posteriors[name])
+        # the global Dirichlets' terms are left out, not added and then
+        # subtracted: two f32 sums of a (K, V) term cancel only to a few
+        # nats, which a short request's score cannot carry
+        _, elbo = _step_body(shadow, arrays, st, plans=plans,
+                             local_dirs=local, global_terms=False)
         return st, elbo, priors
 
     if not extras:
@@ -388,6 +538,29 @@ def build_local_scorer(program: VMPProgram, caps: dict[str, int],
         return elbo, {n: st.posteriors[n] for n in local}, grp
 
     return fn_extras
+
+
+def build_sharded_scorer(program: VMPProgram, caps: dict[str, int],
+                         inner_iters: int, plan):
+    """Distributed counterpart of :func:`build_local_scorer`
+    (extras=False): ``fn(posteriors, shards) -> elbo`` with ``shards =
+    {shard: (arrays, plans)}`` of this process.  Each shard fits fresh
+    local posteriors on its *own* held-out sub-slice with the global
+    Dirichlets frozen, and the shards' scores are summed in the plan's
+    group, in shard order, so every rank reads the same scalar.
+
+    The sum is the score of the union: a shard's score holds no global
+    Dirichlet's term — only per-instance logsumexp terms (masked) and its
+    local Dirichlets' terms, whose padding rows sit exactly at the prior
+    and contribute 0."""
+    fn = build_local_scorer(program, caps, inner_iters)
+
+    def sharded(posteriors, shards):
+        return plan.group.sum({s: [fn(posteriors, arrays, plans)]
+                               for s, (arrays, plans) in shards.items()},
+                              ["heldout"])[0]
+
+    return sharded
 
 
 def heldout_elbo(program: VMPProgram, state: VMPState, groups,
@@ -459,10 +632,6 @@ class SVI:
     def __init__(self, program, config: SVIConfig = None, plan=None,
                  corpus=None, hosts=None, validate=False, device=None):
         self.cfg = config or SVIConfig()
-        if plan is not None:
-            later_slice("a sharding plan (plan=)", "distributed")
-        if hosts is not None:
-            later_slice("multi-host corpora (hosts=)", "distributed")
         if validate:
             # opt-in pre-flight: structural diagnostics + rebuild-hazard
             # audit, before any template/device work
@@ -472,15 +641,22 @@ class SVI:
                 program, VMPProgram) else []
             diags += audit_config(
                 self.cfg, n_docs=corpus.n_docs if corpus is not None
-                else None)
+                else None,
+                n_hosts=hosts.n_hosts if hosts is not None else None)
             if any(d.severity == "error" for d in diags):
                 raise PreflightError(diags)
         self.device = resolve_device(device)
+        self.plan = plan
         self.corpus = corpus
+        self.hosts = hosts
+        self._multiproc = False
         self._slicer = None
+        self._caps_probe = None
         if self.cfg.growing and corpus is None:
             raise ValueError("growing=True needs corpus= (a ShardedCorpus "
                              "being appended to by a live writer)")
+        if hosts is not None:
+            self._init_hosts()
         if corpus is not None:
             from ..data import store as _store
             if not isinstance(program, VMPProgram):
@@ -508,6 +684,8 @@ class SVI:
                     "corpus)")
             self._slicer = functools.partial(_store.slice_sharded, program,
                                              corpus)
+            self._caps_probe = functools.partial(_store.sharded_caps,
+                                                 program, corpus)
         else:
             check_resident(program, "SVI without corpus=")
         self.program = program
@@ -528,7 +706,9 @@ class SVI:
             self.sampler = ShardedMinibatchSampler(
                 corpus=corpus, groups=self.train, batch_size=batch_size,
                 seed=self.cfg.seed, shuffle=self.cfg.shuffle,
-                loader=self._load_groups, prefetch=self.cfg.prefetch,
+                loader=(self._load_groups_hosts if hosts is not None
+                        else self._load_groups),
+                prefetch=self.cfg.prefetch,
                 grow=self.cfg.growing,
                 exclude=self.holdout if self.cfg.growing else None,
                 max_group=(program.meta["capacity_docs"]
@@ -547,7 +727,7 @@ class SVI:
 
     def _group_token_weights(self) -> np.ndarray:
         """Per-group observed-token counts ``(pstar_size,) int64``: the
-        packing weights of the distributed slice's batches."""
+        LPT packing weights of a sharded batch."""
         n = self.program.meta["pstar_size"]
         w = np.zeros(n, np.int64)
         for spec in self.program.latents:
@@ -573,9 +753,112 @@ class SVI:
             self._weights = np.asarray(self.corpus.lengths, np.int64)
         times: dict = {}
         hb, caps, n_tok = host_batch(self.program, groups, self._caps_fn,
-                                     device=self.device, times=times,
-                                     slicer=self._slicer)
+                                     plan=self.plan, device=self.device,
+                                     times=times, slicer=self._slicer,
+                                     group_weights=self._weights,
+                                     caps_probe=self._caps_probe)
         return hb, caps, n_tok, len(groups), times
+
+    # -- multi-host partitioned batching ----------------------------------
+
+    def _init_hosts(self):
+        """Validate the topology and build the shard -> host map.
+
+        ``hosts`` (a :class:`repro_torch.data.HostAssignment`) turns the
+        plan path into ownership-partitioned batching: documents go to the
+        shards of the host that *owns* them (``doc_ownership``), not to
+        whichever shard the global LPT pack prefers.  In a
+        ``torch.distributed`` run of several processes the shards of host
+        ``h`` are those of rank ``h`` (``plan.group``) and the corpus must
+        be opened with the matching host view; in one process the same
+        ``n_hosts`` are *virtual* — the shards split into ``n_hosts``
+        contiguous blocks — which gives the multi-process run's every sum,
+        in its order (bitwise 2 processes = 2 virtual hosts).
+        """
+        from ..data import store as _store
+        hosts = self.hosts
+        if self.corpus is None or self.plan is None:
+            raise ValueError("hosts= needs both corpus= (a partitioned "
+                             "ShardedCorpus) and plan= (a ShardingPlan)")
+        if self.cfg.growing:
+            raise NotImplementedError(
+                "growing corpora are single-host for now: a multi-host "
+                "epoch snapshot needs a refresh barrier so every host "
+                "adopts the same commit")
+        group = self.plan.group
+        m = self.plan.n_shards
+        if group.world_size > 1:
+            self._multiproc = True
+            if hosts.n_hosts != group.world_size:
+                raise ValueError(
+                    f"hosts.n_hosts={hosts.n_hosts} but this is a "
+                    f"{group.world_size}-process run")
+            if hosts.host_id != group.rank:
+                raise ValueError(
+                    f"hosts.host_id={hosts.host_id} but this process is "
+                    f"rank {group.rank}")
+            if (self.corpus.hosts is None
+                    or self.corpus.hosts.host_id != hosts.host_id
+                    or self.corpus.hosts.n_hosts != hosts.n_hosts):
+                raise ValueError(
+                    "in a multi-process run the corpus must be opened with "
+                    "the matching host view: ShardedCorpus.open(path, "
+                    "hosts=HostAssignment(n_hosts, host_id, seed))")
+            self._shard_host = group.shard_rank
+        else:
+            if self.corpus.hosts is not None:
+                raise ValueError("virtual-host mode (single process) needs "
+                                 "an unrestricted corpus — all shards are "
+                                 "local")
+            if m % hosts.n_hosts:
+                raise ValueError(f"{m} shards do not split evenly into "
+                                 f"{hosts.n_hosts} virtual hosts")
+            self._shard_host = np.repeat(
+                np.arange(hosts.n_hosts, dtype=np.int32), m // hosts.n_hosts)
+        ownership_seed = (self.corpus.hosts.seed
+                          if self.corpus.hosts is not None else hosts.seed)
+        self._doc_owner = _store.doc_ownership(
+            self.corpus.manifest, hosts.n_hosts, ownership_seed)
+
+    def _host_parts(self, groups: np.ndarray) -> list:
+        """Partition one *global* batch onto the shards: each document goes
+        to its owner host (``doc_ownership`` — the only host that can read
+        it), then LPT-packs by token mass across that host's shards.  A
+        pure function of (lengths, manifest, seed, plan), so every host
+        computes the identical global partition with no communication."""
+        from .partition import lpt_pack
+        owner = self._doc_owner[groups]
+        parts: list = [None] * len(self._shard_host)
+        for h in range(self.hosts.n_hosts):
+            gh = groups[owner == h]
+            sids = np.flatnonzero(self._shard_host == h)
+            shard_of = lpt_pack(np.maximum(self._weights[gh], 1), len(sids))
+            for j, s in enumerate(sids):
+                parts[int(s)] = gh[shard_of == j]
+        return parts
+
+    def _host_slices(self, groups, caps_fn):
+        """The shards of this process, each sliced from its part of
+        ``groups`` (:meth:`_host_parts`) at caps agreed from the
+        lengths-only probe of **every** shard's part — no cross-host
+        traffic, no shard I/O — so all hosts pad to identical shapes.
+        Returns ``(batch, caps, times)``."""
+        parts = self._host_parts(groups)
+        caps = shared_caps(parts, self._caps_probe, caps_fn)
+        times: dict = {}
+        batch, _ = shard_batches(self.program, parts,
+                                 self.plan.group.local_shards, caps,
+                                 self._slicer, self.device, times)
+        return batch, caps, times
+
+    def _load_groups_hosts(self, groups):
+        """Multi-host loader: the *schedule* stays the global ``(seed,
+        epoch)`` permutation (every host computes the same ``batch_at``);
+        only the slicing is partitioned (:meth:`_host_slices`)."""
+        groups = np.unique(np.asarray(groups, np.int64))
+        batch, caps, times = self._host_slices(groups, self._caps_fn)
+        n_tok = int(np.asarray(self.corpus.lengths)[groups].sum())
+        return batch, caps, n_tok, len(groups), times
 
     def step(self, t: int, state: VMPState):
         """One SVI step at schedule position ``t``; returns (state', elbo)."""
@@ -595,7 +878,8 @@ class SVI:
         sig = tuple(sorted(caps.items()))
         if sig not in self._steps:
             self._steps[sig] = make_svi_step(
-                self.program, caps, local_iters=self.cfg.local_iters,
+                self.program, caps, plan=self.plan,
+                local_iters=self.cfg.local_iters,
                 elog_dtype=self.cfg.elog_dtype)
         rho = (self.cfg.rho if self.cfg.rho is not None
                else robbins_monro(t, self.cfg.tau, self.cfg.kappa))
@@ -616,9 +900,34 @@ class SVI:
         """Per-token held-out ELBO at ``state`` (NaN without a holdout)."""
         if len(self.holdout) == 0:
             return float("nan")
+        if self.hosts is not None:
+            return self._heldout_hosts(state)
         return heldout_elbo(self.program, state, self.holdout,
                             self.cfg.holdout_local_iters,
                             cache=self._heldout_cache, slicer=self._slicer)
+
+    def _heldout_hosts(self, state: VMPState) -> float:
+        """Multi-host held-out ELBO: the holdout is partitioned by document
+        ownership exactly like a training batch (each host reads only its
+        shards), scored per shard with frozen globals, and summed in the
+        plan's group (:func:`build_sharded_scorer`).  Every host returns
+        the identical scalar.  The held-out slices, plans and scorer are
+        built once and kept."""
+        entry = self._heldout_cache.get("hosts")
+        if entry is None:
+            groups = np.asarray(self.holdout, np.int64)
+            batch, caps, _ = self._host_slices(groups, None)
+            n_tok = int(np.asarray(self.corpus.lengths)[groups].sum())
+            shards = {s: (b["arrays"], b["plans"]) for s, b in
+                      device_put_batch(batch, self.device)["shards"].items()}
+            entry = (build_sharded_scorer(self.program, caps,
+                                          self.cfg.holdout_local_iters,
+                                          self.plan), shards, n_tok)
+            self._heldout_cache["hosts"] = entry
+        fn, shards, n_tok = entry
+        if n_tok == 0:
+            return float("nan")
+        return float(fn(state.posteriors, shards)) / n_tok
 
     def close(self):
         """Stop the sharded sampler's prefetch thread (no-op in resident
@@ -712,6 +1021,11 @@ class SVI:
             store = CheckpointStore(checkpoint_dir,
                                     every=max(1, checkpoint_every),
                                     keep=checkpoint_keep)
+            if self._multiproc and self.plan.group.rank != 0:
+                # one writer per cluster: the state is replicated, so rank
+                # 0 persists for everyone (every rank reads on resume — a
+                # shared filesystem is the multi-host contract)
+                store = None
         resume_dir = None
         if resume_from is True:
             if checkpoint_dir is None:

@@ -19,7 +19,10 @@ cached in ``program.meta`` on the full-batch path (:func:`program_plans`),
 once per minibatch under SVI (``svi.host_batch``).  :func:`_step_body`
 takes the plans from its caller.  Every reduction on the
 card runs in a fixed order, so two runs from the same state are bitwise
-equal.
+equal.  Under a sharding plan (``core/partition.py``) each shard runs the
+same substeps on its own block (:func:`_step_stats`), and
+:func:`_sharded_step_body` sums the global Dirichlets' stats and the ELBOs
+in the plan's shard group.
 """
 
 from __future__ import annotations
@@ -209,25 +212,35 @@ def _program_arrays(program: VMPProgram, device) -> dict:
     return arrays
 
 
-def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
-               elog_dtype=None, *, plans: dict):
-    """One VMP iteration: ``(new_state, elbo)``, the ELBO a 0-d f32 tensor.
+def _step_stats(program: VMPProgram, arrays: dict, state: VMPState,
+                elog_dtype=None, *, plans: dict,
+                local_dirs: frozenset = frozenset(), n_replicas: int = 1,
+                global_terms: bool = True):
+    """One shard's part of a VMP iteration: ``(elbo, stats)``, the ELBO a
+    0-d f32 tensor and ``stats`` each Dirichlet's ``(g, k)`` sufficient
+    statistics from these ``arrays``.
 
     Each Dirichlet's Elog table is made once (:func:`_elog_tables`) and read
     by the token plate, the statics and the Dirichlet ELBO terms.  Per
     latent, the fused ``kops.zstats`` substep gathers the Elog messages,
     takes the softmax/logsumexp and scatters the sufficient statistics, so
     the token plate's (N, K) responsibilities are never materialized (a
-    segment latent's (n_latent, K) ones are).  ``elog_dtype`` (e.g. ``torch.bfloat16``) instead hands
-    the token plate the posterior *concentrations* narrowed to that type
-    (``tables="alpha"``), while the digamma, softmax, stats and the Dirichlet
-    ELBO terms stay f32.
+    segment latent's (n_latent, K) ones are).  ``elog_dtype`` (e.g.
+    ``torch.bfloat16``) instead hands the token plate the posterior
+    *concentrations* narrowed to that type (``tables="alpha"``), while the
+    digamma, softmax, stats and the Dirichlet ELBO terms stay f32.
 
     ``plans`` — ``{latent name: owner plan}`` for exactly these ``arrays``
     (:func:`owner_plans`): the program's cached ones (:func:`program_plans`)
-    on the full-batch path, a minibatch's own under SVI
-    (``svi.host_batch``).  On CUDA every latent needs its plan; elsewhere
-    the mapping is empty.
+    on the full-batch path, a minibatch's or a shard's own otherwise.  On
+    CUDA every latent needs its plan; elsewhere the mapping is empty.
+
+    The ELBO holds the terms of the Dirichlets in ``local_dirs`` (rooted at
+    the partition plate: a shard's own rows) and, with ``global_terms``,
+    those of the others, each divided by ``n_replicas``: a replicated
+    Dirichlet's term is the same on every shard, and the shards' ELBOs are
+    summed.  ``global_terms=False`` leaves the global terms out altogether
+    (the frozen-globals scorer of ``svi.build_local_scorer``).
     """
 
     device = state.device
@@ -272,14 +285,78 @@ def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
                           device=device).index_add_(0, rows * d.k + vals, ones)
         stats[s.dir_name] = stats[s.dir_name] + add.reshape(d.g, d.k)
 
-    # Dirichlet ELBO terms + posterior updates
-    new_posts = {}
+    # Dirichlet ELBO terms
     for name, d in program.dirichlets.items():
-        prior = torch.from_numpy(np.asarray(d.prior, np.float32)).to(device)[None, :]
-        elbo = elbo + dists.dirichlet_elbo_term(prior, state.posteriors[name],
-                                                elog[name])
-        new_posts[name] = prior * torch.ones_like(stats[name]) + stats[name]
-    return VMPState(new_posts, state.step + 1), elbo
+        if name not in local_dirs and not global_terms:
+            continue
+        term = dists.dirichlet_elbo_term(_prior(d, device),
+                                         state.posteriors[name], elog[name])
+        if name not in local_dirs and n_replicas != 1:
+            term = term / n_replicas
+        elbo = elbo + term
+    return elbo, stats
+
+
+def _prior(d, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(d.prior, np.float32)).to(device)[None, :]
+
+
+def _updated(program: VMPProgram, stats: dict, device) -> dict:
+    """The posterior update ``prior + stats`` of each Dirichlet in
+    ``stats``."""
+    return {name: _prior(program.dirichlets[name], device)
+            * torch.ones_like(st) + st for name, st in stats.items()}
+
+
+def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
+               elog_dtype=None, *, plans: dict,
+               local_dirs: frozenset = frozenset(),
+               global_terms: bool = True):
+    """One VMP iteration on one device: ``(new_state, elbo)``, the ELBO a
+    0-d f32 tensor (:func:`_step_stats`, then every posterior's
+    ``prior + stats``)."""
+    elbo, stats = _step_stats(program, arrays, state, elog_dtype,
+                              plans=plans, local_dirs=local_dirs,
+                              global_terms=global_terms)
+    return VMPState(_updated(program, stats, state.device),
+                    state.step + 1), elbo
+
+
+def _sharded_step_body(program: VMPProgram, shards: dict, group,
+                       elog_dtype=None, *, local_dirs: frozenset,
+                       global_terms: bool = True):
+    """One VMP iteration over a sharded layout (the InferSpark partitioning
+    of ``core/partition.py``): ``({shard: new_state}, elbo)``.
+
+    ``shards`` — ``{shard id: (arrays, state, plans)}`` of the shards this
+    process runs (every shard in one process); each state holds the
+    replicated global Dirichlets and the shard's own rows of the local
+    ones.  Each shard's body runs in turn (:func:`_step_stats`, global
+    terms divided by the shard count); the global Dirichlets' stats and the
+    ELBOs then meet in ``group`` (``launch.dist.ShardGroup.sum``: every
+    shard's, summed in shard order, so one process and several give the
+    same bits), while the local Dirichlets' stats never leave their shard.
+    """
+    parts = {s: _step_stats(program, arrays, st, elog_dtype, plans=plans,
+                            local_dirs=local_dirs,
+                            n_replicas=group.n_shards,
+                            global_terms=global_terms)
+             for s, (arrays, st, plans) in shards.items()}
+    glob = [n for n in program.dirichlets if n not in local_dirs]
+    sums = group.sum({s: [elbo] + [stats[n] for n in glob]
+                      for s, (elbo, stats) in parts.items()},
+                     ["elbo"] + glob)
+    any_state = next(iter(shards.values()))[1]
+    device = any_state.device
+    posts = _updated(program, dict(zip(glob, sums[1:])), device)
+    out = {}
+    for s, (_, stats) in parts.items():
+        local = _updated(program, {n: stats[n] for n in program.dirichlets
+                                   if n in local_dirs}, device)
+        out[s] = VMPState({n: posts[n] if n in posts else local[n]
+                           for n in program.dirichlets},
+                          shards[s][1].step + 1)
+    return out, sums[0]
 
 
 def latent_responsibilities(program: VMPProgram, state: VMPState, name: str):

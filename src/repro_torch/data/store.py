@@ -33,10 +33,14 @@ module keeps the corpus on disk instead:
   prefetch thread so building batch ``t+1``'s host arrays (shard I/O, index
   construction, owner plans) overlaps the SVI step on batch ``t``.
 
+- :class:`HostAssignment` / :func:`shard_ownership` /
+  :func:`doc_ownership` — which host of a multi-host run owns which shard
+  (rendezvous hashing, the reference's op for op, so both packages give the
+  same map); ``ShardedCorpus.open(path, hosts=)`` is one host's view, which
+  reads only the shards it owns.
+
 Everything here is numpy on the host; device placement stays in
-``core/svi.py``.  Multi-host partitioning (``HostAssignment``,
-``shard_ownership``, ``doc_ownership``, ``ShardedCorpus.open(hosts=)``)
-belongs to the distributed slice of the port.
+``core/svi.py``.
 """
 
 from __future__ import annotations
@@ -57,6 +61,89 @@ _MANIFEST = "manifest.json"
 _LENGTHS = "lengths.npy"
 _FORMAT = "sharded-corpus"
 _VERSION = 1
+_OWNER_TAG = 0x1f5c  # domain-separates ownership hashing from sampler seeds
+
+
+# ---------------------------------------------------------------------------
+# shard ownership (multi-host corpora)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HostAssignment:
+    """This process's place in a multi-host corpus partition.
+
+    ``shard_ownership(n_shards, n_hosts, seed)`` is the single source of
+    truth for which host owns which shard; a :class:`ShardedCorpus` opened
+    with ``hosts=HostAssignment(...)`` enforces it — only owned shards are
+    ever memory-mapped, so each host's page cache holds its partition and
+    nothing else, while the global metadata (doc count, vocab, lengths)
+    still comes from the shared manifest and is identical on every host.
+    """
+    n_hosts: int
+    host_id: int
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.n_hosts < 1:
+            raise ValueError(f"n_hosts must be >= 1, got {self.n_hosts}")
+        if not (0 <= self.host_id < self.n_hosts):
+            raise ValueError(f"host_id {self.host_id} out of range "
+                             f"[0, {self.n_hosts})")
+
+
+def shard_ownership(n_shards: int, n_hosts: int, seed: int = 0) -> np.ndarray:
+    """Deterministic shard -> owner-host assignment, ``(n_shards,) int32``.
+
+    Rendezvous (highest-random-weight) hashing: shard ``s`` belongs to the
+    host ``h`` maximizing a pseudorandom weight drawn from
+    ``SeedSequence([seed, _OWNER_TAG, s, h])`` — a pure function of
+    ``(seed, s, h)`` with no ordering or state, which gives the three
+    properties the multi-host layer needs (property-tested in
+    ``tests/test_torch_multihost.py``):
+
+    - every shard has exactly one owner on every host's copy of the map;
+    - the map is a deterministic function of ``(n_shards, n_hosts, seed)``
+      — hosts never have to communicate to agree on it;
+    - **minimal movement on remesh**: adding host ``n`` only moves shards
+      whose new maximum is at ``n`` (each shard's other weights are
+      untouched), and removing a host only moves the shards it owned.
+
+    Shards are written on document boundaries, so shard ownership is also
+    document ownership (:func:`doc_ownership`).
+    """
+    if n_shards < 0:
+        raise ValueError("n_shards must be >= 0")
+    if n_hosts < 1:
+        raise ValueError("n_hosts must be >= 1")
+    owner = np.zeros(n_shards, np.int32)
+    if n_hosts == 1:
+        return owner
+    for s in range(n_shards):
+        best, best_w = 0, -1
+        for h in range(n_hosts):
+            w = int(np.random.SeedSequence(
+                [int(seed), _OWNER_TAG, s, h]).generate_state(
+                    1, np.uint64)[0])
+            if w > best_w:
+                best, best_w = h, w
+        owner[s] = best
+    return owner
+
+
+def doc_ownership(manifest: dict, n_hosts: int, seed: int = 0) -> np.ndarray:
+    """Per-document owner host, ``(n_docs,) int32`` — the shard owner map
+    expanded over each shard's ``[doc_start, doc_end)`` range.  Computed
+    from the manifest alone (no shard I/O), so every host can build the
+    identical map and partition a *global* minibatch without talking to
+    anyone."""
+    shards = manifest["shards"]
+    owner = shard_ownership(len(shards), n_hosts, seed)
+    out = np.zeros(int(manifest["n_docs"]), np.int32)
+    for sid, s in enumerate(shards):
+        out[int(s["doc_start"]):int(s["doc_end"])] = owner[sid]
+    return out
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -381,10 +468,21 @@ class ShardedCorpus:
     manifest without reopening — existing shard mmaps stay valid (shards
     are immutable; commits only append), and already-handed-out doc ids
     keep meaning the same documents.
+
+    **Multi-host partitioning**: with ``hosts=`` a :class:`HostAssignment`,
+    this reader is one host's view of a corpus shared by ``n_hosts``
+    processes (e.g. on a cluster filesystem).  Shard ownership comes from
+    :func:`shard_ownership`; only owned shards may be memory-mapped
+    (:meth:`gather_tokens` of an unowned document raises
+    ``PermissionError``), while the global metadata — ``n_docs``,
+    ``n_tokens``, ``vocab``, ``lengths`` — is read from the shared manifest
+    and is identical on every host.
     """
 
-    def __init__(self, path: str, manifest: dict, lengths: np.ndarray):
+    def __init__(self, path: str, manifest: dict, lengths: np.ndarray,
+                 hosts: Optional[HostAssignment] = None):
         self.path = str(path)
+        self.hosts = hosts
         self._mmaps: dict[int, np.ndarray] = {}
         self._lock = threading.Lock()   # gather_tokens runs on the prefetch
         self.bytes_read = 0             # thread concurrently with held-out
@@ -414,12 +512,25 @@ class ShardedCorpus:
             [s["token_start"] for s in manifest["shards"]], np.int64)
         tok_end = np.asarray(
             [s["token_end"] for s in manifest["shards"]], np.int64)
+        shard_owner = doc_owner = None
+        if self.hosts is not None:
+            # ownership is per shard, so a refresh (append-only: existing
+            # shards keep their ids) never reassigns an existing shard
+            shard_owner = shard_ownership(len(manifest["shards"]),
+                                          self.hosts.n_hosts,
+                                          self.hosts.seed)
+            doc_owner = np.zeros(int(manifest["n_docs"]), np.int32)
+            for sid, s in enumerate(manifest["shards"]):
+                doc_owner[int(s["doc_start"]):int(s["doc_end"])] = \
+                    shard_owner[sid]
         with self._lock:
             self.manifest = manifest
             self.lengths = lengths
             self.offsets = offsets
             self._shard_tok_start = tok_start
             self._shard_tok_end = tok_end
+            self.shard_owner = shard_owner
+            self.doc_owner = doc_owner
 
     def refresh(self) -> bool:
         """Pick up documents committed since this reader's snapshot.
@@ -451,14 +562,10 @@ class ShardedCorpus:
         return True
 
     @classmethod
-    def open(cls, path: str, hosts=None) -> "ShardedCorpus":
+    def open(cls, path: str,
+             hosts: Optional[HostAssignment] = None) -> "ShardedCorpus":
         """Open an existing store directory (``manifest.json`` required).
-        ``hosts=`` (one host's partition view of a multi-host corpus)
-        belongs to the distributed slice of the port and raises."""
-        if hosts is not None:
-            raise NotImplementedError(
-                "a multi-host corpus view (hosts=) arrives with the "
-                "distributed slice of the port")
+        ``hosts=`` opens one host's partition view (see class docstring)."""
         mf = os.path.join(str(path), _MANIFEST)
         if not os.path.exists(mf):
             raise FileNotFoundError(f"no {_MANIFEST} in {path}; write one "
@@ -468,7 +575,7 @@ class ShardedCorpus:
         if manifest.get("format") != _FORMAT:
             raise ValueError(f"{mf}: not a {_FORMAT} manifest")
         lengths = np.load(os.path.join(str(path), _LENGTHS))
-        return cls(path, manifest, lengths)
+        return cls(path, manifest, lengths, hosts=hosts)
 
     # -- metadata ---------------------------------------------------------
     @property
@@ -494,8 +601,38 @@ class ShardedCorpus:
         return sum(os.path.getsize(os.path.join(self.path, s["path"]))
                    for s in self.manifest["shards"])
 
+    # -- multi-host partition view ----------------------------------------
+    def owned_shards(self) -> np.ndarray:
+        """Shard ids this host owns (all of them without ``hosts=``)."""
+        if self.hosts is None:
+            return np.arange(self.n_shards, dtype=np.int64)
+        return np.flatnonzero(self.shard_owner == self.hosts.host_id)
+
+    def owned_doc_ids(self) -> np.ndarray:
+        """Doc ids this host owns — the docs of its owned shards."""
+        if self.hosts is None:
+            return np.arange(self.n_docs, dtype=np.int64)
+        return np.flatnonzero(self.doc_owner == self.hosts.host_id)
+
+    @property
+    def owned_disk_bytes(self) -> int:
+        """On-disk bytes of the owned shards — the ceiling of what this
+        host's page cache can ever hold of the corpus."""
+        if self.hosts is None:
+            return self.disk_bytes
+        return sum(os.path.getsize(
+            os.path.join(self.path, self.manifest["shards"][int(s)]["path"]))
+            for s in self.owned_shards())
+
     def _mmap(self, sid: int) -> np.ndarray:
         with self._lock:
+            if (self.shard_owner is not None
+                    and int(self.shard_owner[sid]) != self.hosts.host_id):
+                raise PermissionError(
+                    f"{self.path}: shard {sid} is owned by host "
+                    f"{int(self.shard_owner[sid])}, not this host "
+                    f"{self.hosts.host_id} — multi-host readers mmap only "
+                    f"their own shards (partition the batch by doc_owner)")
             mm = self._mmaps.get(sid)
             if mm is None:
                 mm = np.load(
@@ -540,8 +677,16 @@ class ShardedCorpus:
             tok_start = self._shard_tok_start
             tok_end = self._shard_tok_end
             n_docs = int(self.manifest["n_docs"])
+            doc_owner = self.doc_owner
         if int(docs.min()) < 0 or int(docs.max()) >= n_docs:
             raise IndexError(f"doc ids out of range [0, {n_docs})")
+        if doc_owner is not None:
+            alien = docs[doc_owner[docs] != self.hosts.host_id]
+            if len(alien):
+                raise PermissionError(
+                    f"{self.path}: docs {alien[:5].tolist()}... are not "
+                    f"owned by host {self.hosts.host_id} "
+                    f"(of {self.hosts.n_hosts}); gather only owned docs")
         starts = offsets[docs]
         ends = offsets[docs + 1]
         pieces: list[np.ndarray] = []
@@ -627,7 +772,14 @@ def sharded_template(model, corpus: ShardedCorpus,
     p = min(int(proto_docs), corpus.n_docs)
     if p < 1:
         raise ValueError("corpus has no documents")
-    proto_tokens = corpus.gather_tokens(np.arange(p))
+    # the proto slice reads the first documents, which a host-partitioned
+    # view may not own; read them through an unrestricted reader over the
+    # SAME snapshot (manifest + lengths), so the template — and everything
+    # derived from it — is identical on every host
+    reader = corpus
+    if corpus.hosts is not None:
+        reader = ShardedCorpus(corpus.path, corpus.manifest, corpus.lengths)
+    proto_tokens = reader.gather_tokens(np.arange(p))
     proto_ids = np.repeat(np.arange(p, dtype=np.int32), corpus.lengths[:p])
     try:
         model[observe].observe(proto_tokens, segment_ids=proto_ids)

@@ -1,0 +1,96 @@
+"""Elastic scaling of the statistical engines: re-plan the shards for a
+changed topology and resume from the newest session.
+
+The port of ``repro.launch.elastic``'s SVI entry points.  On a real
+cluster the controller detects lost or added hosts and relaunches the job
+with a different host set; everything the job needs to continue is (a) a
+shard plan for the new count, (b) the ownership map re-derived from the new
+topology (rendezvous hashing moves only the minimal shards), and (c) the
+newest valid session (host arrays, read by every host).  The LM trainer's
+mesh re-planning belongs to the LM-sharding slice of the port.
+"""
+
+from __future__ import annotations
+
+from .dist import init_distributed, process_count, process_index
+
+
+def remesh_and_resume_svi(model, engine_cfg, checkpoint_dir: str,
+                          n_shards: int | None = None):
+    """Continue an SVI fit from ``checkpoint_dir``'s newest valid
+    :class:`~repro_torch.checkpoint.TrainSession` on an inferspark
+    :class:`~repro_torch.core.partition.ShardingPlan` of ``n_shards``
+    shards (one per process of the current group when None).
+
+    ``engine_cfg`` is anything :func:`~repro_torch.core.engine.make_engine`
+    accepts (its ``steps`` is the *total* budget — only the remainder past
+    the session's step runs).  The session fingerprint deliberately
+    excludes the plan, so resuming on a *different* shard count is allowed
+    — the schedule (sampler, Robbins-Monro position, holdout) continues
+    exactly, but the cross-shard sum order changes, so the continuation is
+    deterministic going forward rather than bitwise to the old plan.  At an
+    unchanged shard count it is bitwise.
+    """
+    from ..core.engine import make_engine
+    from ..core.partition import ShardingPlan
+    plan = ShardingPlan(n_shards or process_count(), "inferspark")
+    eng = make_engine(engine_cfg, sharding=plan,
+                      checkpoint_dir=checkpoint_dir, resume=True)
+    return eng.fit(model)
+
+
+def multihost_svi_session(model, engine_cfg, corpus_dir: str,
+                          checkpoint_dir: str | None = None, *,
+                          n_hosts: int | None = None,
+                          host_id: int | None = None,
+                          coordinator: str | None = None,
+                          ownership_seed: int = 0):
+    """One host's entry point into a multi-host SVI fit over a partitioned
+    corpus — the distributed analogue of :func:`remesh_and_resume_svi`.
+
+    With ``coordinator`` (``"host:port"``) the process first joins the
+    ``torch.distributed`` group (gloo) as rank ``host_id`` of ``n_hosts``
+    (:func:`launch.dist.init_distributed`).  In a multi-process run the
+    corpus is opened through a :class:`~repro_torch.data.HostAssignment`
+    view, so this host maps only the shards it owns; a single process gets
+    ``n_hosts`` *virtual* hosts (the same partitioned batching,
+    unrestricted I/O).
+
+    The plan has one shard a host (the reference's one ``"data"`` axis
+    over the global device set, one device a host).  With ``checkpoint_dir`` the fit resumes from the newest valid session
+    (rank 0 is the sole writer; all ranks read — shared-filesystem
+    contract), which is how an elastic remesh works here: relaunch every
+    surviving or new host with the new ``n_hosts`` and the same
+    ``checkpoint_dir``/``ownership_seed``; shard ownership re-derives from
+    the new topology and the schedule continues exactly —
+    deterministic going forward, bitwise when the shard count is unchanged.
+    ``engine_cfg`` names the device (``device``; ``None`` means
+    ``"cuda"``): every rank of one card names that card.
+    """
+    from ..checkpoint import latest_session_step
+    from ..core.engine import make_engine
+    from ..core.partition import ShardingPlan
+    from ..data import HostAssignment, ShardedCorpus
+
+    if coordinator is not None:
+        if n_hosts is None or host_id is None:
+            raise ValueError("coordinator= needs explicit n_hosts/host_id")
+        init_distributed(coordinator, n_hosts, host_id)
+    multiproc = process_count() > 1
+    if n_hosts is None:
+        n_hosts = process_count()
+    if host_id is None:
+        host_id = process_index() if multiproc else 0
+    hosts = HostAssignment(n_hosts, host_id, ownership_seed)
+    # real multi-process runs restrict corpus I/O to owned shards; a
+    # single process simulating n virtual hosts must keep all shards
+    # readable (SVI rejects a restricted view in virtual mode)
+    corpus = ShardedCorpus.open(corpus_dir, hosts=hosts if multiproc
+                                else None)
+    plan = ShardingPlan(n_hosts, "inferspark")
+    resume = bool(checkpoint_dir
+                  and latest_session_step(checkpoint_dir) is not None)
+    eng = make_engine(engine_cfg, sharding=plan, corpus=corpus,
+                      hosts=hosts, checkpoint_dir=checkpoint_dir,
+                      resume=resume)
+    return eng.fit(model)

@@ -39,9 +39,11 @@ def build_infer_step(program, engine="vmp", corpus=None):
     ``corpus`` (or ``EngineConfig.corpus``) — a
     :class:`repro_torch.data.ShardedCorpus` for out-of-core SVI: ``program``
     may then be an unobserved :class:`~repro_torch.core.dsl.Model` or a
-    template from :func:`repro_torch.data.store.sharded_template`.  A
-    sharding plan (``EngineConfig.sharding``) belongs to the distributed
-    slice of the port.
+    template from :func:`repro_torch.data.store.sharded_template`.
+    ``EngineConfig.sharding`` (a :class:`~repro_torch.core.partition.
+    ShardingPlan`) shards either backend: VMP through
+    :func:`~repro_torch.core.partition.make_distributed_step` (its state in
+    the plan's layout), SVI over the plan's shards (and ``engine.hosts``).
     """
     from ..core.engine import EngineConfig
     from ..core.runtime import make_step
@@ -50,16 +52,18 @@ def build_infer_step(program, engine="vmp", corpus=None):
 
     if isinstance(engine, str):
         engine = EngineConfig(backend=engine)
-    if engine.sharding is not None:
-        raise NotImplementedError(
-            "a sharded step (EngineConfig.sharding) arrives with the "
-            "distributed slice of the port")
     corpus = corpus if corpus is not None else engine.corpus
     device = resolve_device(engine.device)
     if engine.backend == "vmp":
         if corpus is not None:
             raise ValueError("full-batch VMP needs a resident corpus; use "
                              "engine='svi' for out-of-core inference")
+        if engine.sharding is not None:
+            from ..core.partition import make_distributed_step
+            return make_distributed_step(program, engine.sharding,
+                                         seed=engine.seed,
+                                         elog_dtype=engine.elog_dtype,
+                                         device=device)
         return make_step(program, elog_dtype=engine.elog_dtype,
                          device=device), \
             init_state(program, engine.seed, device=device)
@@ -70,7 +74,8 @@ def build_infer_step(program, engine="vmp", corpus=None):
             holdout_frac=engine.holdout_frac,
             holdout_every=engine.holdout_every, seed=engine.seed,
             elog_dtype=engine.elog_dtype),
-            corpus=corpus, hosts=engine.hosts, device=device)
+            plan=engine.sharding, corpus=corpus, hosts=engine.hosts,
+            device=device)
 
         def step_fn(state):
             return svi.step(int(state.step), state)

@@ -63,7 +63,7 @@ def train(cfg, run: RunConfig, steps: int, device=None, params=None,
     place) replaces the initialisation, so that a caller can start from a
     given state."""
     if mesh is not None:
-        later_slice("a mesh", "distributed")
+        later_slice("a mesh", "LM sharding")
     if checkpoint_dir or checkpoint_every:
         later_slice("checkpoint_dir / checkpoint_every", "LM checkpoint")
     built = build_train_step(cfg, run, device)

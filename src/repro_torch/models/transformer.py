@@ -43,8 +43,8 @@ _ARCH_SLICE = (
 _RUN_SLICE = (
     (lambda r: r.remat != "none", "remat", "remat and microbatch"),
     (lambda r: r.microbatch > 1, "microbatch > 1", "remat and microbatch"),
-    (lambda r: r.fsdp, "fsdp", "distributed"),
-    (lambda r: r.act_shard != "none", "act_shard", "distributed"),
+    (lambda r: r.fsdp, "fsdp", "LM sharding"),
+    (lambda r: r.act_shard != "none", "act_shard", "LM sharding"),
     (lambda r: r.param_dtype != "float32", "param_dtype other than float32",
      "mixed-precision parameter"),
 )

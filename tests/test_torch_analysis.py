@@ -501,11 +501,28 @@ def test_engineconfig_and_fallbacks_match_reference():
     assert plan.routes == [] and "plan aborted" in plan.render()
 
 
-def test_host_partition_belongs_to_the_distributed_slice():
+def test_host_partition_is_the_reference(tmp_path):
+    """``explain_plan(n_hosts=)`` with a sharded corpus: each host's
+    shards, documents and bytes, the reference's summary exactly, and its
+    render line."""
+    from repro.data import store as jstore
+    from repro_torch.data import store as tstore
     m = texplain.synthesize_model("lda", docs=20, vocab=30, topics=3,
                                   mean_len=10)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        texplain.explain_plan(m, None, corpus=object(), n_hosts=2)
+    jm = jexplain.synthesize_model("lda", docs=20, vocab=30, topics=3,
+                                   mean_len=10)
+    c = {"tokens": m.observations["x"]["values"],
+         "doc_ids": m.observations["x"]["segment_ids"]}
+    tstore.write_sharded_corpus(c, str(tmp_path / "c"), shard_tokens=40)
+    got = texplain.explain_plan(m, None, n_hosts=2,
+                                corpus=tstore.ShardedCorpus.open(
+                                    str(tmp_path / "c")))
+    want = jexplain.explain_plan(jm, None, n_hosts=2,
+                                 corpus=jstore.ShardedCorpus.open(
+                                     str(tmp_path / "c")))
+    assert got.hosts == want.hosts and len(got.hosts) == 2
+    assert sum(h["docs"] for h in got.hosts) == 20
+    assert "host partition:" in got.render()
 
 
 def test_zstats_bytes_counts_gathered_cells():

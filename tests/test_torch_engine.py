@@ -29,7 +29,8 @@ from repro_torch.core import runtime as trun
 from repro_torch.core import svi as tsvi
 from repro_torch.core import vmp as tvmp
 from repro_torch.core.metrics import aligned_tv
-from repro_torch.data import SyntheticCorpus
+from repro_torch.core.partition import ShardingPlan
+from repro_torch.data import HostAssignment, SyntheticCorpus
 
 MODELS = {
     "lda": dict(alpha=0.1, beta=0.05, K=3, V=30),
@@ -154,12 +155,39 @@ def test_make_engine_selection():
 
 
 @pytest.mark.parametrize("backend", ["vmp", "svi", "gibbs"])
-@pytest.mark.parametrize("knob", [dict(hosts=object()),
-                                  dict(sharding=object())])
-def test_later_slice_knobs_raise(corpus, backend, knob):
+@pytest.mark.parametrize("knob", [
+    pytest.param(lambda: dict(hosts=HostAssignment(2, 0)), id="hosts"),
+    pytest.param(lambda: dict(sharding=ShardingPlan(2, "inferspark")),
+                 id="sharding")])
+def test_distributed_knobs_act_as_in_the_reference(corpus, backend, knob):
+    """The distributed knobs act as in the reference: a two-shard
+    ``sharding`` plan shards vmp and svi (within 1e-4 of one device) and
+    gibbs ignores it bit for bit; ``hosts`` needs a corpus and a plan under
+    svi (the reference's ``ValueError``), and vmp and gibbs ignore it bit
+    for bit."""
+    knob = knob()
     m = _observe(tmodels.make("lda", **MODELS["lda"]), "lda", corpus)
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        make_engine(backend, device="cpu", **knob).fit(m)
+    kw = dict(device="cpu", steps=3, seed=0)
+    if backend == "svi":
+        kw.update(batch_size=8, holdout_frac=0.1, holdout_every=2)
+        if "hosts" in knob:
+            with pytest.raises(ValueError, match="corpus"):
+                make_engine(backend, **kw, **knob).fit(m)
+            return
+    want = make_engine(backend, **kw).fit(m)
+    got = make_engine(backend, **kw, **knob).fit(m)
+    if backend == "gibbs" or "hosts" in knob:
+        assert got.elbo_trace == want.elbo_trace
+        for n in want.posteriors:
+            np.testing.assert_array_equal(got.posteriors[n],
+                                          want.posteriors[n])
+        return
+    np.testing.assert_allclose(got.elbo_trace, want.elbo_trace, rtol=1e-4)
+    np.testing.assert_allclose([v for _, v in got.heldout_trace],
+                               [v for _, v in want.heldout_trace], rtol=1e-4)
+    for n in want.posteriors:
+        np.testing.assert_allclose(got.posteriors[n], want.posteriors[n],
+                                   rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("backend", ["vmp", "svi"])

@@ -217,10 +217,18 @@ def test_cpu_when_asked(no_gpu):
     assert len(m.elbo_trace) == 3 and m._state.step == 3
 
 
-@pytest.mark.parametrize("kw", [dict(sharding=object())])
-def test_later_slices_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
-        _lda().infer(steps=1, device="cpu", **kw)
+@pytest.mark.parametrize("strategy", ["inferspark", "gspmd"])
+def test_infer_with_a_sharding_plan(strategy):
+    """``infer(sharding=)`` runs the plan's step: within 1e-4 of one
+    device, theta gathered whole."""
+    from repro_torch.core.partition import ShardingPlan
+    m = _lda().infer(steps=2, device="cpu",
+                     sharding=ShardingPlan(2, strategy))
+    ref = _lda().infer(steps=2, device="cpu")
+    np.testing.assert_allclose(m.elbo_trace, ref.elbo_trace, rtol=1e-4)
+    np.testing.assert_allclose(m["theta"].get_result(),
+                               ref["theta"].get_result(), rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_results_api():

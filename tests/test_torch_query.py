@@ -324,6 +324,36 @@ def test_foldin_outputs_are_coherent(fitted):
     assert res.perplexity == pytest.approx(np.exp(-res.per_token_ll))
 
 
+def test_score_elbo_is_its_documents_ll_at_a_large_phi():
+    """The score holds no global Dirichlet's ELBO term: it is never added
+    and then subtracted, so a short request's ELBO is the sum of its
+    documents' LL up to the order of f32 sums (bound 1e-6 of it: a few
+    hundred terms of ~1e3 nats).  Adding phi's term (here -4.6e6 nats:
+    100 x 20,000 cells far from the prior) and subtracting it again leaves
+    ~ulp(4.6e6) = 0.5 nats of f32 cancellation, 1e-5 of a 3-document
+    score."""
+    from repro_torch.core import dists
+    from repro_torch.core.engine import InferenceResult
+    k, v = 100, 20000
+    c = JCorpus(n_docs=20, vocab=v, n_topics=4, mean_len=50,
+                seed=0).generate()
+    m = models.make("lda", alpha=0.1, beta=0.05, K=k, V=v)
+    m["x"].observe(c["tokens"], segment_ids=c["doc_ids"])
+    rng = np.random.default_rng(0)
+    phi = (0.05 + rng.gamma(0.5, 20.0, (k, v))).astype(np.float32)
+    theta = (0.1 + rng.gamma(1.0, 5.0, (20, k))).astype(np.float32)
+    term = float(dists.dirichlet_elbo_term(torch.full((1,), 0.05),
+                                           torch.from_numpy(phi)))
+    assert abs(term) > 1e6              # the cancellation would show
+    post = InferenceResult("vmp", {"theta": theta, "phi": phi}, [0.0], [],
+                           {}).freeze(m)
+    fold = FoldIn(post, FoldInConfig(local_iters=10, bucket=None),
+                  device=CPU)
+    n = int(c["lengths"][:3].sum())
+    res = fold.score(c["tokens"][:n], lengths=c["lengths"][:3])
+    assert abs(res.elbo - float(res.doc_ll.sum())) <= 1e-6 * abs(res.elbo)
+
+
 def test_foldin_determinism_across_batch_compositions(fitted):
     """A document's score must not depend on which other documents share
     its dispatch batch: same bucket -> bitwise; the repeated call is

@@ -135,9 +135,18 @@ def test_writer_validates(tmp_path):
         ShardedCorpus.open(str(tmp_path / "nowhere"))
 
 
-def test_hosts_view_belongs_to_the_distributed_slice(store):
-    with pytest.raises(NotImplementedError, match="distributed"):
-        ShardedCorpus.open(store.path, hosts=object())
+def test_hosts_view_reads_owned_documents_only(store):
+    """``hosts=`` opens one host's view of the shards: it reads the
+    documents it owns as the unrestricted reader does, and refuses
+    another host's (``tests/test_torch_multihost.py`` holds the rest)."""
+    view = ShardedCorpus.open(store.path, hosts=tstore.HostAssignment(2, 0))
+    mine = view.owned_doc_ids()
+    assert 0 < len(mine) < view.n_docs
+    np.testing.assert_array_equal(view.gather_tokens(mine[:3]),
+                                  store.gather_tokens(mine[:3]))
+    alien = np.setdiff1d(np.arange(view.n_docs), mine)[:2]
+    with pytest.raises(PermissionError, match="host 0"):
+        view.gather_tokens(alien)
 
 
 @pytest.mark.parametrize("writer,reader", [("reference", "port"),
@@ -462,9 +471,12 @@ def test_build_infer_step_out_of_core(store, program):
     with pytest.raises(ValueError, match="resident"):
         build_infer_step(_lda(), EngineConfig(device="cpu"),
                          corpus=ShardedCorpus.open(store.path))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        build_infer_step(program, EngineConfig(device="cpu",
-                                               sharding=object()))
+    # a sharding plan: the co-partitioned step, within 1e-4 of one device
+    from repro_torch.core.partition import ShardingPlan
+    d_fn, d0 = build_infer_step(program, EngineConfig(
+        device="cpu", sharding=ShardingPlan(2, "inferspark")))
+    np.testing.assert_allclose(float(d_fn(d0)[1]), float(vmp_fn(v0)[1]),
+                               rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -512,22 +512,55 @@ def test_sliced_shadow_and_steps_leave_the_plan_cache_alone(corpus,
 
 
 # ---------------------------------------------------------------------------
-# what belongs to a later slice raises
+# the distributed arguments (``tests/test_torch_partition.py`` and
+# ``tests/test_torch_multihost.py`` hold the rest)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(plan=object()), "distributed"), (dict(hosts=object()),
-                                           "distributed")])
-def test_later_slice_arguments_raise(corpus, kw, match):
-    _, tprog, _ = _pair("lda", corpus)
-    with pytest.raises(NotImplementedError, match=match):
-        tsvi.SVI(tprog, tsvi.SVIConfig(), device=CPU, **kw)
+@pytest.mark.parametrize("kw", ["plan", "hosts"])
+def test_plan_and_hosts_arguments(corpus, kw):
+    """``plan`` shards the step (within 1e-4 of one device); ``hosts``
+    needs a corpus and a plan, and raises the reference's ``ValueError``
+    without them."""
+    from repro.data import HostAssignment as JHosts
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.data import HostAssignment
+    jprog, tprog, posts0 = _pair("lda", corpus)
+    cfg = dict(batch_size=8, pad_multiple=64, seed=0)
+    if kw == "hosts":
+        with pytest.raises(ValueError, match="corpus") as got:
+            tsvi.SVI(tprog, tsvi.SVIConfig(**cfg), device=CPU,
+                     hosts=HostAssignment(2, 0))
+        with pytest.raises(ValueError, match="corpus") as want:
+            jsvi.SVI(jprog, jsvi.SVIConfig(**cfg), hosts=JHosts(2, 0))
+        assert str(got.value).split("plan=")[0] == \
+            str(want.value).split("plan=")[0]
+        return
+    one = tsvi.SVI(tprog, tsvi.SVIConfig(**cfg), device=CPU)
+    two = tsvi.SVI(tprog, tsvi.SVIConfig(**cfg), device=CPU,
+                   plan=ShardingPlan(2, "inferspark"))
+    s1, h1 = one.fit(3, state=_state(posts0))
+    s2, h2 = two.fit(3, state=_state(posts0))
+    np.testing.assert_allclose(h2["elbo"], h1["elbo"], rtol=1e-4)
+    _assert_posts_close(s2.posteriors, {n: p.numpy() for n, p in
+                                        s1.posteriors.items()})
 
 
-def test_later_slice_modes_raise(corpus):
+def test_host_batch_with_a_plan_packs_the_batch(corpus):
+    """``host_batch(plan=)``: the batch LPT-packed over the plan's shards,
+    each sliced at shared caps; together they hold the batch's tokens."""
+    from repro_torch.core.partition import ShardingPlan
     _, tprog, _ = _pair("lda", corpus)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tsvi.host_batch(tprog, np.arange(3), plan=object())
+    groups = np.arange(7)
+    hb, caps, n_tok = tsvi.host_batch(tprog, groups, _pad64,
+                                      plan=ShardingPlan(2, "inferspark"),
+                                      device=CPU)
+    _, _, want_tok = tsvi.host_batch(tprog, groups, _pad64, device=CPU)
+    assert sorted(hb["shards"]) == [0, 1] and n_tok == want_tok
+    rows = np.concatenate([b["dirs"]["theta"]["rows"][
+        b["dirs"]["theta"]["mask"] > 0] for b in hb["shards"].values()])
+    np.testing.assert_array_equal(np.sort(rows), groups)
+    for b in hb["shards"].values():
+        assert b["arrays"]["z"]["prior_rows"].shape == (caps["z"],)
 
 
 def test_local_scorer_extras_returns_three_outputs(corpus):

@@ -35,6 +35,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import engine as tengine
 from repro_torch.core import make_engine, models as tmodels
 from repro_torch.core import vmp as tvmp
+from repro_torch.data import HostAssignment
 from repro_torch.kernels import fused_zmap as tfzm
 from repro_torch.kernels import fused_zstats as tfz
 from repro_torch.kernels import ops as tops
@@ -668,11 +669,18 @@ def test_topics_equal_jax_result_topics():
         got.topics("pi")
 
 
-@pytest.mark.parametrize("knob", [dict(hosts=object())])
-def test_later_slice_knobs_raise(knob):
+@pytest.mark.parametrize("knob", [
+    pytest.param(lambda: dict(hosts=HostAssignment(2, 0)), id="hosts")])
+def test_full_batch_fit_ignores_hosts(knob):
+    """``hosts`` belongs to SVI over a partitioned corpus: as in the
+    reference, a full-batch VMP fit ignores it, bit for bit."""
     m = _observe("slda", tmodels.make("slda", **MODELS["slda"]))
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        make_engine(tengine.EngineConfig(device="cpu", **knob)).fit(m)
+    want = make_engine(tengine.EngineConfig(device="cpu", steps=2)).fit(m)
+    got = make_engine(tengine.EngineConfig(device="cpu", steps=2,
+                                           **knob())).fit(m)
+    assert got.elbo_trace == want.elbo_trace
+    for n in want.posteriors:
+        np.testing.assert_array_equal(got.posteriors[n], want.posteriors[n])
 
 
 def test_gibbs_fit_of_a_segment_latent_raises_like_the_reference():
