@@ -168,7 +168,24 @@ Phases, each of which exits non-zero on a failed check:
      step 0's loss at the chance level of the model's own initial logits
      and every loss finite and within 1.5 nats of it, every parameter moved, flash against dense attention on one batch,
      ms per step, tokens/s, the model flops' share of the bf16 peak, peak
-     memory, and the device's idle share over 2 steps under the profiler.
+     memory, and the device's idle share over 2 steps under the profiler;
+  11. serving (``lm_serve``): olmo-1b (batch 8) and gemma3-4b (batch 4,
+     LLLLLG with window 1,024) at full width and depth through
+     ``launch.serve.serve``, prompts of 4,096 tokens, 64 new tokens, bf16
+     compute: the prefill's chunked routes (``_sdpa_flash`` with the causal
+     skip, ``_sdpa_window``), no kernel launched, prefill ms, decode ms a
+     step, tokens/s, peak memory, a decode step twice from one cache
+     bitwise, and 8 decode steps under the profiler; then in f32 at batch
+     2, 8 teacher-forced decode steps after a chunked prefill of 1,024
+     tokens and one of 32 (local windows cut to 16) against prefill of the
+     growing prefix (gemma3's rings wrap), each with a power control (the
+     first step with one key zeroed must leave the tolerance), and olmo-1b's greedy ``serve`` against prefill's argmax over
+     the growing sequence at both lengths; gemma3-4b's training step at one block cycle,
+     batch 1 x 4,096, its global layer through the flash kernel's mma
+     route (Dh 256, launches counted), the loss against the plain path's,
+     the kernel timed at the inputs the path handed it; and olmo-1b at 2
+     layers trained 4 steps straight against 2 saved and 2 resumed through
+     ``train``'s checkpoints.
 
 Each VMP path, and the SVI fit, logs a sha256 of its final posteriors and
 ELBO trace, so that two trees can be shown to give the same output bit for
@@ -177,7 +194,8 @@ bit.
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, lda_svi, query,
 gateway, lda_ooc, gibbs, lda_dist, lda_multihost, slda, slda_svi,
-slda_query, naive_bayes, naive_bayes_svi, lm_train; the flash entry's ``"variant"`` names the kernel the path took and
+slda_query, naive_bayes, naive_bayes_svi, lm_train, lm_train_gemma3; the
+flash entries' ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
 graph, where ``"ms"``, CUDA events around back-to-back calls, times the
@@ -299,6 +317,26 @@ FLASH_SHAPES = [(1, 32, 16), (2, 64, 16), (1, 100, 32), (3, 96, 8), (2, 48, 64)]
 FLASH_WGMMA_CASES = [(1, 1, 1, 64, True), (2, 257, 257, 128, True),
                      (2, 48, 300, 128, True), (2, 300, 200, 64, True),
                      (3, 70, 333, 128, False), (2, 512, 512, 64, True)]
+# serving: olmo-1b at batch 8 and gemma3-4b (arXiv:2503.19786) at batch 4,
+# full width and depth, prompts of 4,096 tokens from TokenStream, 64 new
+# tokens, 8 decode steps profiled; checks in f32 at batch 2, 8 decode steps
+# after a chunked prefill of 1,024 tokens (chunk 256; gemma3's window-1,024
+# rings wrap at position 1,024) and of 32 tokens (chunk 8; local windows cut
+# to 16, so that the rings wrap and one key is 1/33 of those a query reads)
+SERVE_CASES = (("olmo-1b", 8), ("gemma3-4b", 4))
+SERVE_PROMPT, SERVE_NEW, SERVE_PROFILE_STEPS = 4096, 64, 8
+SERVE_CHECK_CASES = ((1024, 256, None), (32, 8, 16))  # prompt, chunk, window
+SERVE_CHECK_STEPS = 8
+# the reference's test_decode_matches_full_forward tolerance
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+# gemma3-4b's training step: one block cycle, batch 1 x 4,096, 3 steps
+GEMMA_SEQ, GEMMA_STEPS = 4096, 3
+# checkpoint and resume: olmo-1b at 2 layers, 4 steps, saved at step 2.  The
+# embedding gather's backward accumulates rows with atomics on CUDA, so a
+# rerun may differ in the last bits of that gradient; AdamW then moves an
+# element by lr times its normalised gradient, and the loss over 8,192
+# tokens by far less than 1e-3 nats
+CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, RESUME_TOL = 2, 4, 2, 1e-3
 SHAPES = [(1, 2), (3, 5), (7, 128), (33, 96), (128, 130), (257, 4),
           (64, 300), (1000, 3), (5, 102660), (70000, 16)]
 
@@ -3458,6 +3496,393 @@ def phase_lm_train(report, flash):
     return [entry]
 
 
+# ---------------------------------------------------------------------------
+# LM serving: prefill and decode caches for global and sliding-window layers
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def attention_routes():
+    """While the block runs, count the calls of the chunked attention
+    routes of ``models/layers.py``: ``_sdpa_flash`` by its
+    ``dynamic_skip``, and ``_sdpa_window``."""
+    from repro_torch.models import layers as L
+    counts = {"flash": 0, "flash_skip": 0, "window": 0}
+    orig = {n: getattr(L, n) for n in ("_sdpa_flash", "_sdpa_window")}
+
+    def flash(*a, **kw):
+        counts["flash_skip" if kw.get("dynamic_skip") else "flash"] += 1
+        return orig["_sdpa_flash"](*a, **kw)
+
+    def window(*a, **kw):
+        counts["window"] += 1
+        return orig["_sdpa_window"](*a, **kw)
+    L._sdpa_flash, L._sdpa_window = flash, window
+    try:
+        yield counts
+    finally:
+        L._sdpa_flash, L._sdpa_window = orig["_sdpa_flash"], orig["_sdpa_window"]
+
+
+def serve_perf(name, batch, params, cfg):
+    """``serve`` at ``batch`` x SERVE_PROMPT tokens and SERVE_NEW new
+    tokens in bf16 compute: the prefill's attention routes, no kernel
+    launched, tokens in the vocabulary; prefill ms, decode ms a step,
+    tokens/s and peak memory; a decode step twice from one cache bitwise;
+    SERVE_PROFILE_STEPS decode steps under the profiler."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import make_model
+    run = RunConfig(seq_len=SERVE_PROMPT, global_batch=batch)
+    prompts = TokenStream(vocab=cfg.vocab, seq_len=SERVE_PROMPT, batch=batch,
+                          seed=SEED).batch_at(0)["tokens"]
+    kinds = cfg.layer_kinds()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with attention_routes() as routes:
+        toks, stats = serve(cfg, run, prompts, SERVE_NEW, device=DEV,
+                            params=params)
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_local = kinds.count("local")
+    want = {"flash": 0, "flash_skip": len(kinds) - n_local, "window": n_local}
+    log(f"[lm_serve] {name}: serve({batch} x {SERVE_PROMPT}, {SERVE_NEW} new "
+        f"tokens, {run.dtype} compute): prefill routes {routes} (want "
+        f"{want}); launches {counts}")
+    check(routes == want, f"{name}: prefill took routes {routes}, not {want}")
+    check(sum(counts.values()) == 0, f"{name}: serving launched {counts}: "
+          f"its path reaches no kernel")
+    check(toks.shape == (batch, SERVE_NEW) and (toks >= 0).all() and
+          (toks < cfg.vocab).all(), f"{name}: generated tokens {toks.shape} "
+          f"outside [0, {cfg.vocab})")
+    decode_ms = stats["decode_s"] / SERVE_NEW * 1e3
+    log(f"[lm_serve] {name}: prefill {stats['prefill_s'] * 1e3:.2f} ms, "
+        f"decode {decode_ms:.3f} ms a step, {stats['tokens_per_s']:.1f} "
+        f"tokens/s, peak memory {peak_gb:.2f} GB; continuation of prompt 0: "
+        f"{toks[0, :8].tolist()}")
+
+    model = make_model(cfg)
+    s0 = SERVE_PROMPT
+    with torch.inference_mode():
+        tokens = torch.from_numpy(prompts).to(DEV, torch.int64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model["prefill"](params, {"tokens": tokens}, run,
+                                         s0 + SERVE_NEW)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[lm_serve] {name}: prefill again, warm: {warm_ms:.2f} ms")
+        tok = torch.argmax(logits, -1)[:, None]
+        twins = [[{k: t.clone() for k, t in c.items()} for c in cache]
+                 for _ in range(2)]
+        outs = [model["decode_step"](params, c, tok, s0, run) for c in twins]
+        check(torch.equal(outs[0][0], outs[1][0]) and all(
+            torch.equal(a[k], b[k]) for a, b in zip(*twins) for k in a),
+            f"{name}: a decode step twice from one cache differs")
+        del twins, outs
+        log(f"[lm_serve] {name}: a decode step twice from one cache: "
+            f"logits and caches bitwise equal")
+        state = {"tok": tok, "pos": s0}
+
+        def decode_steps():
+            for _ in range(SERVE_PROFILE_STEPS):
+                lg, _ = model["decode_step"](params, cache, state["tok"],
+                                             state["pos"], run)
+                state["tok"] = torch.argmax(lg, -1)[:, None]
+                state["pos"] += 1
+        decode_steps()                                  # warm
+        t0 = time.perf_counter()
+        trace = profile_steps(decode_steps, SERVE_PROFILE_STEPS,
+                              label=f"lm_serve {name} decode trace")
+        trace["seconds"] = time.perf_counter() - t0
+        del cache
+    idle = 1 - trace["busy_ms"] / trace["step_ms"] if trace["kernels"] \
+        else "not measured"
+    return dict(batch=batch, prompt_len=s0, new_tokens=SERVE_NEW,
+                prefill_ms=stats["prefill_s"] * 1e3, prefill_warm_ms=warm_ms,
+                decode_ms=decode_ms,
+                tokens_per_s=stats["tokens_per_s"], peak_memory_gb=peak_gb,
+                routes=routes, continuation=toks[0].tolist(),
+                decode_trace=trace, decode_idle_share=idle)
+
+
+def _tol_units(got, want, vocab):
+    """The largest |got - want| over the vocabulary, in units of DECODE_TOL's
+    atol + rtol |want|."""
+    return ((got - want).abs() / (DECODE_TOL["atol"] + DECODE_TOL["rtol"]
+                                  * want.abs()))[:, :vocab].max().item()
+
+
+def serve_checks(name, cfg, params, greedy):
+    """f32 compute at batch 2, for each of SERVE_CHECK_CASES (a prompt
+    length, its attn_chunk, and a window for the local layers or the
+    model's own): SERVE_CHECK_STEPS decode steps, teacher forced, after a
+    chunked prefill, each step's logits against the last logits of a
+    prefill of the growing prefix.  The power control runs the first step
+    again from a copy of the prefill's cache in which the slot of the last
+    prompt position is zeroed in every layer: one missing key, what a write
+    clamped onto that slot does to the first step; it must leave the
+    tolerance in both cases.  With
+    ``greedy``, ``serve``'s greedy continuation of the 2 prompts against
+    the argmax of prefill over the growing sequence, with the least top-2
+    logit margin beside the largest logit shift of the control."""
+    import dataclasses
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import make_model
+    k, out = SERVE_CHECK_STEPS, {}
+    for s0, chunk, window in SERVE_CHECK_CASES:
+        c = cfg if window is None or not cfg.window else \
+            dataclasses.replace(cfg, window=window)
+        run = RunConfig(seq_len=s0, global_batch=2, dtype="float32",
+                        attn_chunk=chunk)
+        model = make_model(c)
+        seq = torch.from_numpy(TokenStream(
+            vocab=c.vocab, seq_len=s0 + k, batch=2, seed=SEED + 1)
+            .batch_at(0)["tokens"]).to(DEV, torch.int64)
+        case = out[s0] = {"attn_chunk": chunk, "window": c.window}
+        with torch.inference_mode():
+            with attention_routes() as routes:
+                _, cache = model["prefill"](params, {"tokens": seq[:, :s0]},
+                                            run, s0 + k)
+            check(routes["flash_skip"] + routes["window"] == c.n_layers,
+                  f"{name}: the {s0}-token prefill at chunk {chunk} was not "
+                  f"chunked: {routes}")
+            faulty = [{n: t.clone() for n, t in layer.items()}
+                      for layer in cache]
+            for layer, kind in zip(faulty, c.layer_kinds()):
+                slot = (s0 - 1) % layer["k"].shape[2] if kind == "local" \
+                    else s0 - 1
+                layer["k"][:, :, slot] = 0
+                layer["v"][:, :, slot] = 0
+            worst = 0.0
+            for i in range(k):
+                pos = s0 + i
+                dec, _ = model["decode_step"](params, cache,
+                                              seq[:, pos:pos + 1], pos, run)
+                full, _ = model["prefill"](
+                    params, {"tokens": seq[:, :pos + 1]}, run)
+                worst = max(worst, _tol_units(dec, full, c.vocab))
+                if i == 0:
+                    first = full
+            ctl, _ = model["decode_step"](params, faulty, seq[:, s0:s0 + 1],
+                                          s0, run)
+            ctl_err = _tol_units(ctl, first, c.vocab)
+            shift = (ctl - first)[:, :c.vocab].abs().max().item()
+            rings = sorted({layer["k"].shape[2] for layer, kind in
+                            zip(cache, c.layer_kinds()) if kind == "local"})
+            del cache, faulty
+        case.update(teacher_forced_worst=worst, control_one_missing_key=ctl_err,
+                    control_max_logit_shift=shift)
+        log(f"[lm_serve] {name}: {k} teacher-forced decode steps after a "
+            f"chunked prefill of {s0} tokens ({routes}; local rings of "
+            f"{rings} slots, written to position {s0 + k - 1}) against "
+            f"prefill of the growing prefix, f32: worst |diff| {worst:.3e} of "
+            f"atol + rtol |ref| (rtol = atol = 2e-3); the first step with "
+            f"position {s0 - 1}'s key and value zeroed in every layer: "
+            f"{ctl_err:.3e} of it, largest logit shift {shift:.3e}")
+        check(worst <= 1.0, f"{name}: decode differs from prefill of the "
+              f"growing prefix by {worst:.3e} of the tolerance")
+        check(ctl_err > 1.0, f"{name}: one missing key moves the first "
+              f"decode step's logits by only {ctl_err:.3e} of the tolerance "
+              f"at a {s0}-token prompt")
+        if greedy:
+            served, _ = serve(c, run, seq[:, :s0].cpu().numpy(), k,
+                              device=DEV, params=params)
+            grown, margins = seq[:, :s0], []
+            with torch.inference_mode():
+                for _ in range(k):
+                    lg, _ = model["prefill"](params, {"tokens": grown}, run)
+                    top = torch.topk(lg, 2, dim=-1).values
+                    margins.append((top[:, 0] - top[:, 1]).min().item())
+                    grown = torch.cat([grown, torch.argmax(lg, -1)[:, None]],
+                                      1)
+            want = grown[:, s0:].cpu().numpy()
+            log(f"[lm_serve] {name}: greedy serve of 2 x {s0} tokens, f32: "
+                f"{served.tolist()}; prefill over the growing sequence: "
+                f"{want.tolist()}; least top-2 logit margin "
+                f"{min(margins):.3e} (one missing key shifts a logit by at "
+                f"most {shift:.3e})")
+            check(np.array_equal(served, want), f"{name}: serve's greedy "
+                  f"continuation is not prefill's over the growing sequence")
+            case.update(greedy_equal=True, greedy_min_margin=min(margins))
+    return out
+
+
+def gemma_train_step(report):
+    """gemma3-4b at full width, one block cycle (5 local layers and 1
+    global), batch 1 x 4,096, through ``train`` with ``flash_kernel``: the
+    global layer's attention through the flash kernel's mma route (Dh 256),
+    once a forward; step 0's loss against the same step without the kernel;
+    the kernel at the inputs the path handed it, against the plain version,
+    timed beside its bound and SDPA."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.launch.train import train
+    from repro_torch.models import make_model
+    cfg = dataclasses.replace(get_arch("gemma3-4b"),
+                              n_layers=len(get_arch("gemma3-4b").pattern))
+    run = RunConfig(seq_len=GEMMA_SEQ, global_batch=1, flash_kernel=True)
+    params = make_model(cfg)["init"](run, device=DEV)
+    batch = batch_to(TokenStream(vocab=cfg.vocab, seq_len=GEMMA_SEQ, batch=1,
+                                 seed=run.seed).batch_at(0), DEV)
+    with torch.no_grad():
+        l_plain = float(make_model(cfg)["train_loss"](
+            params, batch, dataclasses.replace(run, flash_kernel=False)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with recording("flash_attention") as calls:
+        params, opt, losses, tel = train(cfg, run, GEMMA_STEPS, device=DEV,
+                                         params=params, log_every=0)
+    counts, routes = ops.launch_counts(), ops.route_counts()["flash_attention"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt
+    torch.cuda.empty_cache()
+    log(f"[lm_serve] gemma3-4b train step ({cfg.n_layers} layers: "
+        f"{cfg.layer_kinds()}, batch 1 x {GEMMA_SEQ}, flash kernel): losses "
+        f"{losses}; launches {counts}, flash routes {routes}")
+    check(counts["flash_attention"] == GEMMA_STEPS and
+          routes == {"wgmma": 0, "mma": GEMMA_STEPS},
+          f"gemma3-4b: flash_attention launched {counts['flash_attention']} "
+          f"times by route {routes}, not once a forward on mma")
+    log(f"[lm_serve] gemma3-4b step 0's loss {losses[0]:.6f} through the "
+        f"flash kernel, {l_plain:.6f} without (|diff| "
+        f"{abs(losses[0] - l_plain):.2e}, tol {LM_LOSS_TOL} nats)")
+    check(abs(losses[0] - l_plain) <= LM_LOSS_TOL,
+          "gemma3-4b: the flash kernel's loss is off the plain path's")
+    step_ms = tel.summary()["mean_s"] * 1e3
+    (key, (a, kw, _)), = calls.items()
+    q, k, v = (t.detach() for t in a)
+    bh, s, dh = q.shape
+    check(fa.route(q, k, v) == "mma", f"gemma3-4b: {key} not on mma")
+    err = compare("flash_attention", f"gemma3-4b {tuple(q.shape)} mma",
+                  fa.launch(q, k, v, True), ref.flash_attention(q, k, v), 
+                  FLASH_BF16_TOL)
+    t_k = time_ms(lambda: fa.launch(q, k, v, True), reps=20)
+    t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=5)
+    q4, k4, v4 = (t.view(1, bh, s, dh) for t in (q, k, v))
+    t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), reps=20)
+    flops = flash_ops(bh, s, s, dh, True)
+    bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
+    log(f"[times] flash_attention on gemma3-4b's global layer ({bh}, {s}, "
+        f"{dh}) bf16 causal, mma route: {t_k:.4f} ms ({flops / t_k / 1e9:.1f} "
+        f"TFLOP/s, {bms / t_k:.3f} of the bound), plain {t_p:.4f}, SDPA "
+        f"{t_l:.4f}, bound {bms:.4f} ms ({by}); step {step_ms:.2f} ms "
+        f"(mean of steps 1-{GEMMA_STEPS - 1}), peak memory {peak_gb:.2f} GB")
+    report["lm_serve"]["gemma3_train"] = dict(
+        losses=losses, loss_plain=l_plain, launches=counts, routes=routes,
+        step_ms=step_ms, step_times_s=tel.times, peak_memory_gb=peak_gb,
+        flash_ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms, bound_by=by,
+        err=err)
+    del q, k, v, q4, k4, v4, calls
+    torch.cuda.empty_cache()
+    entry = kernel_entry(
+        "lm_train_gemma3", "flash_attention", "cuda",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:106", counts["flash_attention"],
+        err, t_k, t_p, bms, by, t_l)
+    entry.update(variant="mma")
+    return entry
+
+
+def lm_checkpoint(report):
+    """olmo-1b at full width, depth cut to CKPT_LAYERS: CKPT_STEPS steps
+    straight through, against CKPT_EVERY steps saved and the rest resumed
+    in a fresh ``train`` call; the restored state bitwise the saved one,
+    the resumed losses against the uninterrupted run's."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.train import restore_state, train
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=CKPT_LAYERS)
+    run = RunConfig(seq_len=LM_SEQ, global_batch=LM_BATCH, warmup=1,
+                    flash_kernel=True)
+    t0 = time.perf_counter()
+    _, _, straight, _ = train(cfg, run, CKPT_STEPS, device=DEV, log_every=0)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lm_ckpt-") as d:
+        p1, o1, first, _ = train(cfg, run, CKPT_EVERY, device=DEV,
+                                 log_every=0, checkpoint_dir=d,
+                                 checkpoint_every=CKPT_EVERY)
+        rp, ro, step = restore_state(cfg, CheckpointStore(d), DEV)
+        same_state = step == CKPT_EVERY and ro["count"] == o1["count"] and \
+            bitwise(list(rp.parameters()), list(p1.parameters())) and \
+            bitwise(ro["mu"], o1["mu"]) and bitwise(ro["nu"], o1["nu"])
+        check(same_state, "the restored parameters or AdamW state are not "
+              "bitwise the saved ones")
+        del p1, o1, rp, ro
+        torch.cuda.empty_cache()
+        _, o2, resumed, _ = train(cfg, run, CKPT_STEPS - CKPT_EVERY,
+                                  device=DEV, log_every=0, checkpoint_dir=d,
+                                  checkpoint_every=CKPT_EVERY)
+        latest = CheckpointStore(d).latest()
+    both = first + resumed
+    diff = max(abs(a - b) for a, b in zip(both, straight))
+    secs = time.perf_counter() - t0
+    log(f"[lm_serve] checkpoint: {cfg.name} at {CKPT_LAYERS} layers, "
+        f"{CKPT_STEPS} steps straight {straight}; {CKPT_EVERY} saved + "
+        f"{CKPT_STEPS - CKPT_EVERY} resumed {both} (latest step {latest}, "
+        f"AdamW count {o2['count']}); the restored state bitwise the saved "
+        f"one; losses {'bitwise' if both == straight else 'not bitwise'}, "
+        f"max |diff| {diff:.3e} (tol {RESUME_TOL}); {secs:.1f} s")
+    check(latest == CKPT_STEPS and o2["count"] == CKPT_STEPS,
+          f"resume ended at step {latest}, count {o2['count']}")
+    check(diff <= RESUME_TOL, f"the resumed losses {both} are off the "
+          f"uninterrupted run's {straight}")
+    report["lm_serve"]["checkpoint"] = dict(
+        straight=straight, resumed=both, bitwise=both == straight,
+        max_diff=diff, seconds=secs)
+
+
+def phase_lm_serve(report):
+    """olmo-1b and gemma3-4b at full width and depth through ``serve``
+    (bf16 compute; numbers and a decode profile), their f32 checks,
+    gemma3-4b's training step through the flash kernel's mma route, and
+    the trainer's checkpoint and resume."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models import make_model
+    report["lm_serve"] = {}
+    stage_s = report["lm_serve"]["stage_s"] = {}
+
+    def timed(key, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        stage_s[key] = time.perf_counter() - t0
+        return out
+    for name, batch in SERVE_CASES:
+        cfg = get_arch(name)
+        t0 = time.perf_counter()
+        params = make_model(cfg)["init"](RunConfig(), device=DEV)
+        log(f"[lm_serve] {name}: {cfg.n_layers} layers "
+            f"{''.join(k[0].upper() for k in cfg.layer_kinds())}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
+            f"{cfg.head_dim_}, window {cfg.window}, vocab {cfg.vocab}; "
+            f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B f32 "
+            f"parameters")
+        out = timed(f"{name} serve", serve_perf, name, batch, params, cfg)
+        out.update(timed(f"{name} checks", serve_checks, name, cfg, params,
+                         greedy=name == LM_ARCH))
+        out["seconds"] = time.perf_counter() - t0
+        report["lm_serve"][name] = out
+        del params
+        torch.cuda.empty_cache()
+    entry = timed("gemma3-4b train", gemma_train_step, report)
+    timed("checkpoint", lm_checkpoint, report)
+    log(f"[lm_serve] seconds by stage: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in stage_s.items())}")
+    return [entry]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--docs", type=int, default=30000,
@@ -3525,6 +3950,7 @@ def main(argv=None) -> int:
                      nb, report, bitwise_vmp=True)[0]
     del nb
     kernels += phase_lm_train(report, phase_flash(report))
+    kernels += timed("lm_serve", phase_lm_serve, report)
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))

@@ -5,8 +5,9 @@
 VMP or SVI (over a resident or a sharded corpus).  :func:`build_train_step`
 builds the LM step: the loss and its gradient (``torch.autograd.grad``, so
 no ``.grad`` state is kept between steps), the clip to the global norm, the
-learning rate from the schedule and AdamW in place.  PyTorch runs both
-eagerly on one device.
+learning rate from the schedule and AdamW in place.
+:func:`build_prefill_step` and :func:`build_decode_step` build the serving
+steps.  PyTorch runs them eagerly on one device.
 """
 
 from __future__ import annotations
@@ -109,3 +110,31 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, device=None) -> dict:
                                    "lr": lr}
 
     return {"fn": train_step, "device": device}
+
+
+def build_prefill_step(cfg: ArchConfig, run: RunConfig, device=None) -> dict:
+    """``{"fn": prefill_step, "device": device}``.  ``prefill_step(params,
+    batch, cache_len=0)`` gives the prompt's last logits and its decode
+    cache for ``cache_len`` positions (``models.transformer.prefill``).
+    ``device=None`` means ``"cuda"``."""
+    device = resolve_device(device)
+    model = make_model(cfg)
+
+    def prefill_step(params, batch, cache_len: int = 0):
+        return model["prefill"](params, batch, run, cache_len)
+
+    return {"fn": prefill_step, "device": device}
+
+
+def build_decode_step(cfg: ArchConfig, run: RunConfig, device=None) -> dict:
+    """``{"fn": decode_step, "device": device}``.  ``decode_step(params,
+    cache, tokens, pos)`` gives the logits of ``tokens`` (B, 1) at position
+    ``pos`` and the cache, updated in place.  ``device=None`` means
+    ``"cuda"``."""
+    device = resolve_device(device)
+    model = make_model(cfg)
+
+    def decode_step(params, cache, tokens, pos: int):
+        return model["decode_step"](params, cache, tokens, pos, run)
+
+    return {"fn": decode_step, "device": device}

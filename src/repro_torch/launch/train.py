@@ -1,11 +1,14 @@
 """The port's LM trainer: ``repro.launch.train.train`` on one device.
 
-``train`` builds the step (``steps.build_train_step``), initialises the
-parameters (the port's own initialisation from ``run.seed``) or takes them
-from ``params=``, and runs ``steps`` steps over ``TokenStream`` batches,
-recording each step's host time (the loss's ``float`` ends each step, so the
-time covers the device's work).  A mesh and checkpoints belong to later
-slices of the port and raise.
+``train`` builds the step (``steps.build_train_step``), restores the latest
+checkpoint of ``checkpoint_dir`` or initialises the parameters (the port's
+own initialisation from ``run.seed``, or ``params=``), and runs ``steps``
+steps over ``TokenStream`` batches, recording each step's host time (the
+loss's ``float`` ends each step, so the time covers the device's work).
+Every ``checkpoint_every`` steps it saves ``{"params", "opt", "step"}``
+through ``checkpoint.CheckpointStore`` in the reference's trees and file
+format, so that either package reads the other's parameters.  A mesh
+belongs to a later slice of the port and raises.
 
 Usage (a reduced olmo on the CPU; on the card drop ``--device``):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 \\
@@ -19,11 +22,13 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
+from ..checkpoint import CheckpointStore
 from ..configs import RunConfig, get_arch
 from ..data import TokenStream
-from ..models import make_model
-from ..models.transformer import later_slice
+from ..models import make_model, params_from_numpy, params_to_numpy
+from ..models.transformer import Decoder, later_slice
 from ..optim import adamw_init
 from .steps import batch_to, build_train_step
 
@@ -54,6 +59,37 @@ class StepTelemetry:
                 "stragglers": self.stragglers}
 
 
+def state_to_numpy(cfg, params, opt_state, step: int) -> dict:
+    """The trainer's checkpoint tree: the parameters and AdamW's moments in
+    the reference's parameter tree, its count and the next step as int32
+    scalars."""
+    return {"params": params_to_numpy(cfg, params),
+            "opt": {"mu": params_to_numpy(cfg, params, opt_state["mu"]),
+                    "nu": params_to_numpy(cfg, params, opt_state["nu"]),
+                    "count": np.int32(opt_state["count"])},
+            "step": np.int32(step)}
+
+
+def restore_state(cfg, store: CheckpointStore, device):
+    """``(params, opt_state, step)`` from ``store``'s latest checkpoint,
+    on ``device``."""
+    shell = Decoder(cfg, None, "meta")
+    like = params_to_numpy(cfg, shell, [torch.empty(0)] *
+                           len(list(shell.parameters())))
+    tree = store.restore({"params": like,
+                          "opt": {"mu": like, "nu": like, "count": 0},
+                          "step": 0})
+
+    def leaves(t):
+        return [p.detach() for p in
+                params_from_numpy(cfg, t, device).parameters()]
+    opt_state = {"mu": leaves(tree["opt"]["mu"]),
+                 "nu": leaves(tree["opt"]["nu"]),
+                 "count": int(tree["opt"]["count"])}
+    return params_from_numpy(cfg, tree["params"], device), opt_state, \
+        int(tree["step"])
+
+
 def train(cfg, run: RunConfig, steps: int, device=None, params=None,
           mesh=None, checkpoint_dir: str | None = None,
           checkpoint_every: int = 0, log_every: int = 10,
@@ -61,19 +97,31 @@ def train(cfg, run: RunConfig, steps: int, device=None, params=None,
     """Returns ``(params, opt_state, losses, telemetry)``.  ``device=None``
     means ``"cuda"``; ``params`` (a ``Decoder`` on that device, updated in
     place) replaces the initialisation, so that a caller can start from a
-    given state."""
+    given state.  With ``checkpoint_dir`` the run resumes from its latest
+    checkpoint (``params`` must then be ``None``) and saves one every
+    ``checkpoint_every`` steps; ``start_step`` overrides the step it starts
+    from, as the reference's does."""
     if mesh is not None:
         later_slice("a mesh", "LM sharding")
-    if checkpoint_dir or checkpoint_every:
-        later_slice("checkpoint_dir / checkpoint_every", "LM checkpoint")
     built = build_train_step(cfg, run, device)
     device = built["device"]
     stream = TokenStream(vocab=cfg.vocab, seq_len=run.seq_len,
                          batch=run.global_batch, seed=run.seed)
+
+    store, first, opt_state = None, 0, None
+    if checkpoint_dir:
+        store = CheckpointStore(checkpoint_dir, every=max(checkpoint_every, 1))
+        if store.latest() is not None:
+            if params is not None:
+                raise ValueError(f"params= and the checkpoint in "
+                                 f"{checkpoint_dir} both give the start")
+            params, opt_state, first = restore_state(cfg, store, device)
     if params is None:
         params = make_model(cfg)["init"](run, device=device)
-    opt_state = adamw_init(list(params.parameters()))
-    first = start_step or 0
+    if opt_state is None:
+        opt_state = adamw_init(list(params.parameters()))
+    if start_step is not None:
+        first = start_step
 
     telemetry = StepTelemetry()
     losses = []
@@ -85,9 +133,15 @@ def train(cfg, run: RunConfig, steps: int, device=None, params=None,
         dt = time.time() - t0
         straggle = telemetry.record(dt)
         losses.append(loss)
+        if store is not None and checkpoint_every and \
+                (i + 1) % checkpoint_every == 0:
+            store.maybe_save(i + 1, state_to_numpy(cfg, params, opt_state,
+                                                   i + 1))
         if log_every and (i % log_every == 0 or straggle):
             print(f"[train] step {i:5d} loss {loss:8.4f} "
                   f"{dt*1e3:7.1f} ms{'  STRAGGLER' if straggle else ''}")
+    if store is not None:
+        store.wait()              # the last checkpoint durable on return
     return params, opt_state, losses, telemetry
 
 
@@ -99,6 +153,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--layers", type=int, default=0)
     ap.add_argument("--d-model", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda")
     args = ap.parse_args(argv)
@@ -115,7 +171,9 @@ def main(argv=None):
             vocab=min(cfg.vocab, 32000))
     run = RunConfig(seq_len=args.seq, global_batch=args.batch,
                     dtype="float32")
-    _, _, losses, tel = train(cfg, run, args.steps, device=args.device)
+    _, _, losses, tel = train(cfg, run, args.steps, device=args.device,
+                              checkpoint_dir=args.ckpt_dir,
+                              checkpoint_every=args.ckpt_every)
     print(f"[train] first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
     print(f"[train] telemetry {tel.summary()}")
 

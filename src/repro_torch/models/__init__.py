@@ -2,5 +2,5 @@
 
 from . import layers, transformer  # noqa: F401
 from .registry import make_model  # noqa: F401
-from .transformer import (Decoder, params_from_numpy,  # noqa: F401
-                          params_to_numpy)
+from .transformer import (Decoder, cache_from_numpy,  # noqa: F401
+                          cache_to_numpy, params_from_numpy, params_to_numpy)

@@ -8,9 +8,10 @@ Compute runs in the run dtype (bf16 by default): each weight is cast to it
 at its use, and norms and softmax run in f32, as in the reference.
 
 Blocks: RMS/LayerNorm (with olmo's non-parametric one), RoPE, GQA attention
-(dense, flash-style chunked for long sequences, or the flash kernel) and the
-SwiGLU/GEGLU/GELU MLPs.  Sliding windows, caches, experts, RG-LRU and SSD
-belong to later slices.
+(full and sliding-window: dense, flash-style chunked for long sequences, or
+the flash kernel for full causal layers; one token against a decode cache,
+a ring buffer of ``window`` slots for sliding-window layers) and the
+SwiGLU/GEGLU/GELU MLPs.  Experts, RG-LRU and SSD belong to later slices.
 """
 
 from __future__ import annotations
@@ -128,28 +129,39 @@ def _qkv(p, xq, xkv, cfg: ArchConfig, run: RunConfig):
     return q, k, v
 
 
-def _sdpa_dense(q, k, v, *, causal: bool):
-    """Dense masked attention.  q: (B,Sq,H,Dh), k/v: (B,Sk,KV,Dh)."""
+def _sdpa_dense(q, k, v, *, causal: bool, window: int = 0, q_pos0: int = 0,
+                kv_pos0: int = 0):
+    """Dense masked attention.  q: (B,Sq,H,Dh), k/v: (B,Sk,KV,Dh); query
+    ``i`` sits at position ``q_pos0 + i`` and key ``j`` at ``kv_pos0 + j``
+    (negative: left padding, masked under ``causal``); ``window`` keeps the
+    keys within ``window - 1`` positions before each query."""
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     q = q.reshape(b, sq, kvh, g, dh)
     scores = torch.einsum("bqkgd,bskd->bkgqs", q, k) / math.sqrt(dh)
+    qi = q_pos0 + torch.arange(sq, device=q.device)[:, None]
+    ki = kv_pos0 + torch.arange(sk, device=q.device)[None, :]
+    mask = None
     if causal:
-        qi = torch.arange(sq, device=q.device)[:, None]
-        ki = torch.arange(sk, device=q.device)[None, :]
-        scores = torch.where(ki <= qi, scores.float(), -1e30)
-    else:
-        scores = scores.float()
+        mask = (ki <= qi) & (ki >= 0)
+    if window:
+        mask = ki > qi - window if mask is None else mask & (ki > qi - window)
+    scores = scores.float() if mask is None else \
+        torch.where(mask, scores.float(), -1e30)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
     return out.reshape(b, sq, h, dh)
 
 
-def _sdpa_flash(q, k, v, *, causal: bool, chunk: int, f32_scores: bool = True):
+def _sdpa_flash(q, k, v, *, causal: bool, chunk: int, dynamic_skip: bool = False,
+                f32_scores: bool = True):
     """Flash-style double-chunked attention for long full-attention layers:
-    an outer loop over query chunks, an inner one over every kv chunk (the
-    masked full scan of the reference's train path)."""
+    an outer loop over query chunks, an inner one over the kv chunks.  The
+    train path scans every kv chunk under the mask, as the reference's
+    does; ``dynamic_skip`` (forward-only, prefill) stops each query chunk's
+    scan at the last kv chunk its causal mask reaches, the triangular
+    ~S^2/2 of the work."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -167,7 +179,9 @@ def _sdpa_flash(q, k, v, *, causal: bool, chunk: int, f32_scores: bool = True):
         m = torch.full((b, kvh, g, cq), -1e30, **f32)
         l = torch.zeros((b, kvh, g, cq), **f32)
         acc = torch.zeros((b, kvh, g, cq, dh), **f32)
-        for ki in range(nk):
+        n_blocks = min(-(-(qi + 1) * cq // ck), nk) if dynamic_skip and causal \
+            else nk
+        for ki in range(n_blocks):
             kb, vb = kc[:, ki], vc[:, ki]
             # bf16 score blocks halve their traffic; max and sum stay f32
             sc = torch.einsum("bqkgd,bskd->bkgqs", qb, kb).to(sdt) * \
@@ -190,41 +204,122 @@ def _sdpa_flash(q, k, v, *, causal: bool, chunk: int, f32_scores: bool = True):
     return out.to(q.dtype)
 
 
+def _sdpa_window(q, k, v, *, window: int, chunk: int):
+    """Sliding-window attention over a long sequence: each query chunk sees
+    the statically sized kv slice [chunk start - window, chunk end) of k/v
+    padded on the left by ``window``: O(S * W)."""
+    b, s, h, dh = q.shape
+    cq = min(chunk, s)
+    span = window + cq
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    outs = []
+    for start in range(0, s, cq):
+        # query t sits at start + t, kv slice entry j at start + j - window
+        # (negative: the left padding, masked by _sdpa_dense's ki >= 0)
+        outs.append(_sdpa_dense(q[:, start:start + cq],
+                                kp[:, start:start + span],
+                                vp[:, start:start + span], causal=True,
+                                window=window, q_pos0=start,
+                                kv_pos0=start - window))
+    return torch.cat(outs, dim=1)
+
+
 def _flash_kernel_gqa(q, k, v):
     """Route GQA attention through the flash kernel: broadcast kv heads to
-    query heads and flatten (B, H) into the kernel's batch dim."""
+    query heads and flatten (B, H) into the kernel's batch dim, contiguous
+    as the kernel takes it (at B = 1 the reshape alone is a strided
+    view)."""
     b, s, h, dh = q.shape
     g = h // k.shape[2]
     kb = k.repeat_interleave(g, dim=2)
     vb = v.repeat_interleave(g, dim=2)
-    qf = q.transpose(1, 2).reshape(b * h, s, dh)
-    kf = kb.transpose(1, 2).reshape(b * h, s, dh)
-    vf = vb.transpose(1, 2).reshape(b * h, s, dh)
+    qf, kf, vf = (t.transpose(1, 2).reshape(b * h, s, dh).contiguous()
+                  for t in (q, kb, vb))
     out = kops.flash_attention(qf, kf, vf, causal=True)
     return out.reshape(b, h, s, dh).transpose(1, 2)
 
 
 def attention_train(p, x, cfg: ArchConfig, run: RunConfig, *, kind: str,
                     positions, causal: bool = True):
-    """Full-sequence self-attention of a "global" layer."""
-    if kind != "global":
-        raise NotImplementedError(
-            f"{kind!r} attention (sliding windows) belongs to a later slice "
-            f"of the port; this slice runs 'global' layers")
+    """Full-sequence self-attention of a "global" or "local" (sliding
+    window) layer, by the reference's route order: the flash kernel for
+    full causal layers when ``run.flash_kernel``, then the windowed or the
+    flash-style chunks for long sequences, else dense."""
     q, k, v = _qkv(p, x, x, cfg, run)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     s = x.shape[1]
+    window = cfg.window if kind == "local" else 0
     chunked = s > 2 * run.attn_chunk and s % run.attn_chunk == 0
-    if run.flash_kernel and causal:
+    if run.flash_kernel and causal and not window:
         out = _flash_kernel_gqa(q, k, v)
+    elif window and chunked:
+        out = _sdpa_window(q, k, v, window=window, chunk=run.attn_chunk)
     elif chunked and causal:
         out = _sdpa_flash(q, k, v, causal=True, chunk=run.attn_chunk,
                           f32_scores=run.attn_f32_scores)
     else:
-        out = _sdpa_dense(q, k, v, causal=causal)
+        out = _sdpa_dense(q, k, v, causal=causal, window=window)
     b, s_, h, dh = out.shape
     return out.reshape(b, s_, h * dh) @ p["wo"].to(_dtype(run))
+
+
+def init_attn_cache(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,
+                    kind: str, device=None) -> dict:
+    """A zeroed decode cache ``{"k", "v"}`` of (batch, KV, length, Dh) in
+    the run dtype: a "global" layer holds ``max_len`` positions, a "local"
+    one a ring of ``min(max_len, window)`` slots.  Head-major, so that the
+    decode's products read it in place; the reference's (batch, length,
+    KV, Dh) would be permuted into this layout by every step."""
+    length = min(max_len, cfg.window) if kind == "local" else max_len
+    shape = (batch, cfg.n_kv_heads, length, cfg.head_dim_)
+    dt = _dtype(run)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def attention_decode(p, x, cache: dict, pos: int, cfg: ArchConfig,
+                     run: RunConfig, *, kind: str):
+    """One token ``x`` (B, 1, d) at position ``pos`` against ``cache``:
+    its K/V written in place at slot ``pos`` ("global") or ``pos % length``
+    (the "local" ring), then attention over the valid slots.  Returns
+    ``(y (B, 1, d), cache)``.  A "global" cache has no slot past its
+    length, and a "local" ring shorter than the window would overwrite keys
+    still inside it: either way ``pos >= length`` raises ``IndexError``
+    (the reference's ``dynamic_update_slice`` clamps a global write onto
+    the last slot, and its ring wraps early)."""
+    length = cache["k"].shape[2]
+    if kind != "local" and not 0 <= pos < length:
+        raise IndexError(f"decode position {pos} outside the {length} "
+                         f"positions of a global layer's cache")
+    if kind == "local" and length < cfg.window and not 0 <= pos < length:
+        raise IndexError(f"decode position {pos} outside the {length} "
+                         f"slots of a local layer's ring, shorter than its "
+                         f"window of {cfg.window}")
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _qkv(p, x, x, cfg, run)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    slot = pos % length if kind == "local" else pos
+    cache["k"][:, :, slot] = k[:, 0]
+    cache["v"][:, :, slot] = v[:, 0]
+
+    b, _, h, dh = q.shape
+    kvh = cache["k"].shape[1]
+    qh = q.reshape(b, kvh, h // kvh, dh)
+    scores = (qh @ cache["k"].transpose(-1, -2)) / math.sqrt(dh)
+    idx = torch.arange(length, device=x.device)
+    if kind == "local":
+        # ring slot s holds time t = pos - ((pos - s) mod length)
+        t = pos - torch.remainder(pos - idx, length)
+        valid = (t >= 0) & (t <= pos)
+    else:
+        valid = idx <= pos
+    scores = torch.where(valid, scores.float(), -1e30)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = (w @ cache["v"]).reshape(b, 1, h * dh)
+    return out @ p["wo"].to(_dtype(run)), cache
 
 
 # ---------------------------------------------------------------------------

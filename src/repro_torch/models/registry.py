@@ -1,8 +1,8 @@
 """Arch registry of the port: resolve an ArchConfig to its model functions.
 
-The bundle has the reference's keys.  This slice runs training: ``init``
-and ``train_loss``.  Serving (``prefill``, ``init_cache``, ``decode_step``)
-raises ``NotImplementedError`` until the serving slice of the port.
+The bundle has the reference's keys and signatures: ``init`` and
+``train_loss`` for training; ``prefill``, ``init_cache`` and
+``decode_step`` for serving.
 """
 
 from __future__ import annotations
@@ -11,22 +11,22 @@ from ..configs.base import ArchConfig
 from . import transformer as T
 
 
-def _serving(name: str):
-    def raise_(*args, **kwargs):
-        T.later_slice(name, "serving (prefill and decode caches)")
-    return raise_
-
-
 def make_model(cfg: ArchConfig) -> dict:
     """The model bundle for an architecture: ``init(run, generator=None,
     device=None)`` gives a :class:`~repro_torch.models.transformer.Decoder`,
-    ``train_loss(params, batch, run)`` its loss."""
+    ``train_loss(params, batch, run)`` its loss, ``prefill(params, batch,
+    run, cache_len=0)`` the last logits and the decode cache,
+    ``init_cache(run, batch, max_len, device=None)`` a zeroed cache and
+    ``decode_step(params, cache, tokens, pos, run)`` one token's logits."""
     T.check_slice(cfg)
     return {
         "init": lambda run, generator=None, device=None: T.init_params(
             cfg, run, generator, device),
         "train_loss": lambda p, b, run: T.train_loss(p, b, cfg, run),
-        "prefill": _serving("prefill"),
-        "init_cache": _serving("init_cache"),
-        "decode_step": _serving("decode_step"),
+        "prefill": lambda p, b, run, cache_len=0: T.prefill(
+            p, b, cfg, run, cache_len),
+        "init_cache": lambda run, batch, max_len, device=None: T.init_cache(
+            cfg, run, batch, max_len, device),
+        "decode_step": lambda p, c, tokens, pos, run: T.decode_step(
+            p, c, tokens, pos, cfg, run),
     }

@@ -10,9 +10,16 @@ they are a ``ModuleList`` in layer order, and :func:`params_from_numpy` /
 reference's ``blocks.scan[pos][r]``, then ``blocks.tail`` in order).
 
 Entry points: :func:`init_params` (the port's own initialisation, from a
-``torch.Generator``, at the reference's scales) and :func:`train_loss`
-(full-sequence forward + masked CE).  What this slice does not run raises
-``NotImplementedError`` naming the slice that will (:func:`check_slice`).
+``torch.Generator``, at the reference's scales), :func:`train_loss`
+(full-sequence forward + masked CE), and serving: :func:`init_cache`,
+:func:`prefill` (the prompt's forward, building the decode cache) and
+:func:`decode_step` (one token against the cache, updated in place).  The
+cache is a list of ``{"k", "v"}``, one per layer in layer order, each
+(B, KV, length, Dh); :func:`cache_from_numpy` / :func:`cache_to_numpy`
+carry it across from and to the reference's ``{"scan", "tail"}`` tree of
+(B, length, KV, Dh) arrays by the parameters' rule.
+What this slice does not run raises ``NotImplementedError`` naming the
+slice that will (:func:`check_slice`).
 """
 
 from __future__ import annotations
@@ -28,8 +35,6 @@ from . import layers as L
 
 # what the slice does not run, and the slice that will: cfg and run knobs
 _ARCH_SLICE = (
-    (lambda c: any(k == "local" for k in c.layer_kinds()),
-     "'local' (sliding-window) layers", "local-window"),
     (lambda c: any(k in ("rglru", "ssd") for k in c.layer_kinds()),
      "'rglru' and 'ssd' layers", "recurrent (rglru, ssd)"),
     (lambda c: c.n_experts > 0, "experts", "experts"),
@@ -57,8 +62,9 @@ def later_slice(what: str, slice_name: str):
 
 def check_slice(cfg: ArchConfig | None = None, run: RunConfig | None = None):
     """Raise ``NotImplementedError`` on what this slice does not run: an
-    architecture other than a dense "global"-attention decoder, or a run
-    knob of a later slice set away from its default."""
+    architecture other than a dense decoder of "global" and "local"
+    attention layers, or a run knob of a later slice set away from its
+    default."""
     for test, what, slice_name in _ARCH_SLICE if cfg is not None else ():
         if test(cfg):
             later_slice(f"{cfg.name}: {what}", slice_name)
@@ -72,11 +78,12 @@ def check_slice(cfg: ArchConfig | None = None, run: RunConfig | None = None):
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One pre-norm decoder block: attention then the MLP, each added to
-    the residual stream."""
+    """One pre-norm decoder block of attention ``kind`` ("global" or
+    "local"): attention then the MLP, each added to the residual stream."""
 
-    def __init__(self, cfg: ArchConfig, gen, device):
+    def __init__(self, cfg: ArchConfig, gen, device, kind: str):
         super().__init__()
+        self.kind = kind
         self.norm1 = L.init_norm(cfg, device)
         self.attn = L.init_attention(gen, cfg, device)
         self.norm2 = L.init_norm(cfg, device)
@@ -84,7 +91,7 @@ class Block(nn.Module):
 
     def forward(self, x, cfg: ArchConfig, run: RunConfig, positions):
         h = L.apply_norm(self.norm1, x, cfg)
-        x = x + L.attention_train(self.attn, h, cfg, run, kind="global",
+        x = x + L.attention_train(self.attn, h, cfg, run, kind=self.kind,
                                   positions=positions)
         h2 = L.apply_norm(self.norm2, x, cfg)
         return x + L.mlp(self.ffn, h2, cfg, run)
@@ -101,8 +108,8 @@ class Decoder(nn.Module):
         self.cfg = cfg
         d, vp = cfg.d_model, cfg.vocab_padded
         self.embed = L._init(generator, (vp, d), device, scale=0.02)
-        self.blocks = nn.ModuleList(Block(cfg, generator, device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, generator, device, kind)
+                                    for kind in cfg.layer_kinds())
         self.final_norm = L.init_norm(cfg, device)
         self.lm_head = None if cfg.tie_embeddings else \
             L._init(generator, (d, vp), device)
@@ -172,6 +179,122 @@ def train_loss(params: Decoder, batch: dict, cfg: ArchConfig,
 
 
 # ---------------------------------------------------------------------------
+# serving: prefill builds the decode cache, decode_step extends it
+# ---------------------------------------------------------------------------
+
+def _attn_with_cache(p, h, cfg: ArchConfig, run: RunConfig, kind: str,
+                     positions, cache_len: int):
+    """Prefill's attention of one layer, and the layer's decode cache: a
+    "global" layer's K/V in slots [0, s) of ``cache_len``, a "local"
+    layer's last ``min(window, s)`` positions at their ring slots
+    ``t % w`` of ``w = min(window, cache_len)``."""
+    q, k, v = L._qkv(p, h, h, cfg, run)
+    q = L.rope(q, positions, cfg.rope_theta)
+    kr = L.rope(k, positions, cfg.rope_theta)
+    b, s = h.shape[:2]
+    window = cfg.window if kind == "local" else 0
+    chunked = s > 2 * run.attn_chunk and s % run.attn_chunk == 0
+    if window and chunked:
+        out = L._sdpa_window(q, kr, v, window=window, chunk=run.attn_chunk)
+    elif chunked:
+        # prefill is forward-only: the causal skip is legal
+        out = L._sdpa_flash(q, kr, v, causal=True, chunk=run.attn_chunk,
+                            dynamic_skip=True, f32_scores=run.attn_f32_scores)
+    else:
+        out = L._sdpa_dense(q, kr, v, causal=True, window=window)
+    y = out.reshape(b, s, -1) @ p["wo"].to(L._dtype(run))
+
+    cache = L.init_attn_cache(cfg, run, b, cache_len, kind, device=h.device)
+    if kind == "local":
+        w = cache["k"].shape[2]
+        t0 = s - min(w, s)
+        slots = torch.remainder(torch.arange(t0, s, device=h.device), w)
+        cache["k"][:, :, slots] = kr[:, t0:].transpose(1, 2)
+        cache["v"][:, :, slots] = v[:, t0:].transpose(1, 2)
+    else:
+        if s > cache_len:
+            raise ValueError(f"a prompt of {s} tokens does not fit a cache "
+                             f"of {cache_len} positions")
+        cache["k"][:, :, :s] = kr.transpose(1, 2)
+        cache["v"][:, :, :s] = v.transpose(1, 2)
+    return y, cache
+
+
+def _block_prefill(block: Block, x, cfg: ArchConfig, run: RunConfig,
+                   positions, cache_len: int):
+    h = L.apply_norm(block.norm1, x, cfg)
+    out, cache = _attn_with_cache(block.attn, h, cfg, run, block.kind,
+                                  positions, cache_len)
+    x = x + out
+    h2 = L.apply_norm(block.norm2, x, cfg)
+    return x + L.mlp(block.ffn, h2, cfg, run), cache
+
+
+def _block_decode(block: Block, x, cache: dict, cfg: ArchConfig,
+                  run: RunConfig, pos: int):
+    h = L.apply_norm(block.norm1, x, cfg)
+    out, cache = L.attention_decode(block.attn, h, cache, pos, cfg, run,
+                                    kind=block.kind)
+    x = x + out
+    h2 = L.apply_norm(block.norm2, x, cfg)
+    return x + L.mlp(block.ffn, h2, cfg, run), cache
+
+
+def _apply_stack_prefill(params: Decoder, x, cfg: ArchConfig, run: RunConfig,
+                         positions, cache_len: int):
+    caches = []
+    for block in params.blocks:
+        x, cache = _block_prefill(block, x, cfg, run, positions, cache_len)
+        caches.append(cache)
+    return x, caches
+
+
+def _apply_stack_decode(params: Decoder, caches: list, x, cfg: ArchConfig,
+                        run: RunConfig, pos: int):
+    for block, cache in zip(params.blocks, caches):
+        x, _ = _block_decode(block, x, cache, cfg, run, pos)
+    return x, caches
+
+
+@torch.inference_mode()
+def init_cache(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,
+               device=None) -> list:
+    """A zeroed decode cache for ``batch`` sequences of up to ``max_len``
+    positions on ``device`` (``None`` means ``"cuda"``): one ``{"k", "v"}``
+    per layer (:func:`layers.init_attn_cache`)."""
+    from ..core.vmp import resolve_device
+    device = resolve_device(device)
+    return [L.init_attn_cache(cfg, run, batch, max_len, kind, device=device)
+            for kind in cfg.layer_kinds()]
+
+
+@torch.inference_mode()
+def prefill(params: Decoder, batch: dict, cfg: ArchConfig, run: RunConfig,
+            cache_len: int = 0):
+    """The prompt ``batch["tokens"]`` (B, S) through the model: ``(the last
+    position's logits (B, V_padded) f32, the decode cache)``, the cache
+    sized for ``cache_len`` positions (the prompt's length when 0), so that
+    ``decode_step`` can write positions S .. cache_len - 1."""
+    tokens = batch["tokens"]
+    x = _embed(params, tokens, cfg, run)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, caches = _apply_stack_prefill(params, x, cfg, run, positions,
+                                     cache_len or x.shape[1])
+    return _logits(params, x[:, -1:], cfg, run)[:, 0], caches
+
+
+@torch.inference_mode()
+def decode_step(params: Decoder, cache: list, tokens, pos: int,
+                cfg: ArchConfig, run: RunConfig):
+    """``tokens`` (B, 1) at position ``pos`` (the next one to write) against
+    ``cache``, which is updated in place: ``(logits (B, V_padded) f32,
+    cache)``."""
+    x = _embed(params, tokens, cfg, run)
+    x, cache = _apply_stack_decode(params, cache, x, cfg, run, int(pos))
+    return _logits(params, x, cfg, run)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
 # weights carried across from and to the reference's parameter tree
 # ---------------------------------------------------------------------------
 
@@ -181,31 +304,49 @@ def _cycle_info(cfg: ArchConfig):
     return c, cfg.n_layers // c
 
 
-def _block_tree(block: Block) -> dict:
-    return {name: {k: p.detach().cpu().numpy() for k, p in sub.items()}
-            for name, sub in (("norm1", block.norm1), ("attn", block.attn),
-                              ("norm2", block.norm2), ("ffn", block.ffn))}
-
-
-def params_to_numpy(cfg: ArchConfig, module: Decoder) -> dict:
-    """The module's parameters as the reference's pytree of numpy arrays:
-    ``blocks.scan[pos]`` stacks layer ``r * c + pos`` over the repeats ``r``
-    of the block cycle, and ``blocks.tail`` holds the rest in order."""
+def _stack_layers(cfg: ArchConfig, trees: list) -> dict:
+    """Per-layer trees in layer order as the reference's ``{"scan",
+    "tail"}``: ``scan[pos]`` stacks layer ``r * c + pos`` over the repeats
+    ``r`` of the block cycle, ``tail`` holds the rest in order."""
+    def stack(ts):
+        if isinstance(ts[0], dict):
+            return {k: stack([t[k] for t in ts]) for k in ts[0]}
+        return np.stack(ts)
     c, repeats = _cycle_info(cfg)
-    trees = [_block_tree(b) for b in module.blocks]
-    scan = None
-    if repeats:
-        scan = []
-        for pos in range(c):
-            reps = [trees[r * c + pos] for r in range(repeats)]
-            scan.append({name: {k: np.stack([t[name][k] for t in reps])
-                                for k in reps[0][name]} for name in reps[0]})
-    tree = {"embed": module.embed.detach().cpu().numpy(),
-            "final_norm": {k: p.detach().cpu().numpy()
-                           for k, p in module.final_norm.items()},
-            "blocks": {"scan": scan, "tail": trees[repeats * c:]}}
+    scan = [stack([trees[r * c + pos] for r in range(repeats)])
+            for pos in range(c)] if repeats else None
+    return {"scan": scan, "tail": list(trees[repeats * c:])}
+
+
+def _unstack_layers(cfg: ArchConfig, tree: dict) -> list:
+    """The inverse of :func:`_stack_layers`: per-layer trees in layer
+    order."""
+    def index(t, r):
+        return {k: index(v, r) for k, v in t.items()} \
+            if isinstance(t, dict) else t[r]
+    c, repeats = _cycle_info(cfg)
+    return [index(tree["scan"][pos], r) for r in range(repeats)
+            for pos in range(c)] + list(tree["tail"])
+
+
+def params_to_numpy(cfg: ArchConfig, module: Decoder, leaves=None) -> dict:
+    """The module's parameters as the reference's pytree of numpy arrays
+    (``blocks`` as :func:`_stack_layers` lays them out).  ``leaves``,
+    tensors in ``module.parameters()`` order, take the parameters' places
+    (the AdamW moments, in the parameters' tree)."""
+    values = {} if leaves is None else \
+        dict(zip(map(id, module.parameters()), leaves))
+
+    def host(p):
+        return values.get(id(p), p).detach().cpu().numpy()
+    trees = [{name: {k: host(p) for k, p in getattr(b, name).items()}
+              for name in ("norm1", "attn", "norm2", "ffn")}
+             for b in module.blocks]
+    tree = {"embed": host(module.embed),
+            "final_norm": {k: host(p) for k, p in module.final_norm.items()},
+            "blocks": _stack_layers(cfg, trees)}
     if module.lm_head is not None:
-        tree["lm_head"] = module.lm_head.detach().cpu().numpy()
+        tree["lm_head"] = host(module.lm_head)
     return tree
 
 
@@ -216,14 +357,7 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> Decoder:
     from ..core.vmp import resolve_device
     device = resolve_device(device)
     module = Decoder(cfg, None, "meta").to_empty(device=device)
-    c, repeats = _cycle_info(cfg)
-    blocks = [None] * cfg.n_layers
-    for pos in range(c if repeats else 0):
-        for r in range(repeats):
-            blocks[r * c + pos] = {
-                name: {k: a[r] for k, a in sub.items()}
-                for name, sub in tree["blocks"]["scan"][pos].items()}
-    blocks[repeats * c:] = tree["blocks"]["tail"]
+    blocks = _unstack_layers(cfg, tree["blocks"])
     pairs = [(module.embed, tree["embed"])]
     pairs += [(p, tree["final_norm"][k]) for k, p in module.final_norm.items()]
     for block, bt in zip(module.blocks, blocks):
@@ -242,3 +376,32 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> Decoder:
                 raise ValueError(f"shape {a.shape} does not fit {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(a, np.float32)))
     return module
+
+
+def cache_to_numpy(cfg: ArchConfig, cache: list) -> dict:
+    """A decode cache as the reference's tree of (B, length, KV, Dh) numpy
+    arrays (layers laid out as :func:`_stack_layers` does); bf16 entries
+    widen to f32 (numpy has no bf16)."""
+    def host(t):
+        t = t.detach().transpose(1, 2).cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return _stack_layers(cfg, [{k: host(t) for k, t in c.items()}
+                               for c in cache])
+
+
+def cache_from_numpy(cfg: ArchConfig, tree: dict, device=None,
+                     dtype=None) -> list:
+    """The reference's decode-cache tree as the port's list of ``{"k",
+    "v"}`` on ``device`` (``None`` means ``"cuda"``), in ``dtype`` (the
+    arrays' own when ``None``; f32 for the ``bfloat16`` arrays of JAX)."""
+    from ..core.vmp import resolve_device
+    device = resolve_device(device)
+
+    def dev(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        t = torch.from_numpy(np.ascontiguousarray(a.swapaxes(1, 2)))
+        return t.to(device, dtype or t.dtype)
+    return [{k: dev(a) for k, a in layer.items()}
+            for layer in _unstack_layers(cfg, tree)]

@@ -42,7 +42,8 @@ def test_fence_covers_the_port():
             "session.py", "gibbs.py", "baselines.py", "posterior.py",
             "foldin.py", "server.py", "validate.py", "audit.py",
             "explain.py", "ql.py", "plan.py", "admission.py", "compact.py",
-            "gateway.py", "partition.py", "dist.py", "elastic.py"} <= names
+            "gateway.py", "partition.py", "dist.py", "elastic.py",
+            "serve.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -70,7 +71,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.gateway, repro_torch.analysis.explain\n"
             "import repro_torch.analysis.audit, repro_torch.analysis.validate\n"
             "import repro_torch.core.partition, repro_torch.launch.dist\n"
-            "import repro_torch.launch.elastic\n"
+            "import repro_torch.launch.elastic, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "assert not bad, bad\n"

@@ -1,7 +1,7 @@
 """The LM slice of the port on the CPU: configs, layers, the decoder's loss
-and gradients, the optimizer, ``TokenStream`` and three training steps, held
-to the JAX reference on the same numpy inputs and weights
-(``params_from_numpy``).
+and gradients, the optimizer, ``TokenStream``, three training steps and the
+trainer's checkpoints, held to the JAX reference on the same numpy inputs
+and weights (``params_from_numpy``).
 
 Tolerances, each with its reason (all in f32, ``RunConfig(dtype="float32")``):
 
@@ -12,7 +12,8 @@ Tolerances, each with its reason (all in f32, ``RunConfig(dtype="float32")``):
   file's gradient tolerance (a backward pass compounds those orders);
 - layers alone: rtol = atol = 1e-5, one layer's f32 rounding; bf16 score
   blocks in ``_sdpa_flash``: rtol = atol = 2**-7, two bf16 ulps;
-- configs, ``TokenStream`` and the weight round trip: equal.
+- configs, ``TokenStream``, the weight round trip and a resumed run against
+  an uninterrupted one: equal.
 
 The flash kernel's path runs here through its plain version (a CPU tensor);
 ``chip_smoke.py`` runs the CUDA kernel on the card.
@@ -28,11 +29,13 @@ import torch
 
 from repro import optim as joptim
 from repro.configs import ARCHS as J_ARCHS
+from repro.checkpoint import CheckpointStore as JCheckpointStore
 from repro.configs import RunConfig as JRun
 from repro.data import TokenStream as JTokenStream
 from repro.models import layers as JL
 from repro.models import make_model as j_make_model
 from repro_torch import optim as toptim
+from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import ARCHS, RunConfig, get_arch
 from repro_torch.data import TokenStream
 from repro_torch.launch import steps as tsteps
@@ -43,7 +46,7 @@ from repro_torch.models import make_model, params_from_numpy, params_to_numpy
 LOSS_TOL = dict(rtol=1e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-6)
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
-RUNNABLE = ("olmo-1b", "phi3-medium-14b")
+RUNNABLE = ("olmo-1b", "phi3-medium-14b", "gemma3-4b", "h2o-danube-1.8b")
 
 
 def _cfg(name, layers=2):
@@ -283,7 +286,11 @@ def test_params_round_trip_is_bitwise(name):
 def test_port_init_has_the_reference_tree_and_scales(name):
     """The port's own initialisation: the reference's tree of shapes, f32,
     and its scales (1/sqrt(fan_in); wo at 1/sqrt(h*dh); embed 0.02)."""
-    cfg = dataclasses.replace(_cfg(name, layers=3), d_model=128, d_ff=256)
+    # a full block cycle and a tail layer, so that both the scan and the
+    # tail count
+    layers = max(3, len(get_arch(name).pattern) + 1)
+    cfg = dataclasses.replace(_cfg(name, layers=layers), d_model=128,
+                              d_ff=256)
     run, jrun = _runs()
     gen = torch.Generator().manual_seed(0)
     ours = params_to_numpy(cfg, make_model(cfg)["init"](run, gen, "cpu"))
@@ -395,6 +402,109 @@ def test_three_train_steps_match_reference(flash):
 
 
 # ---------------------------------------------------------------------------
+# the trainer's checkpoints
+# ---------------------------------------------------------------------------
+
+def _leaves_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_resumed_run_is_bitwise_the_uninterrupted_one(tmp_path):
+    """4 steps straight through against 2 steps saved at step 2 and 2
+    resumed in a fresh ``train`` call: losses, parameters and AdamW state
+    bitwise; the restored state is bitwise the saved one."""
+    run, _ = _runs(warmup=1)
+    cfg = _cfg("olmo-1b")
+    p4, o4, l4, _ = ttrain.train(cfg, run, 4, device="cpu", log_every=0)
+    d = str(tmp_path / "ck")
+    p2, o2, l2, _ = ttrain.train(cfg, run, 2, device="cpu", log_every=0,
+                                 checkpoint_dir=d, checkpoint_every=2)
+    assert CheckpointStore(d).latest() == 2
+    rp, ro, rstep = ttrain.restore_state(cfg, CheckpointStore(d), "cpu")
+    assert rstep == 2 and ro["count"] == o2["count"] == 2
+    assert _leaves_equal(rp.parameters(), p2.parameters())
+    assert _leaves_equal(ro["mu"], o2["mu"]) and _leaves_equal(ro["nu"],
+                                                               o2["nu"])
+    pr, orr, lr_, _ = ttrain.train(cfg, run, 2, device="cpu", log_every=0,
+                                   checkpoint_dir=d, checkpoint_every=2)
+    assert l2 + lr_ == l4
+    assert orr["count"] == o4["count"] == 4
+    assert _leaves_equal(pr.parameters(), p4.parameters())
+    assert _leaves_equal(orr["mu"], o4["mu"])
+    assert _leaves_equal(orr["nu"], o4["nu"])
+    assert CheckpointStore(d).latest() == 4
+    with pytest.raises(ValueError, match="both give the start"):
+        ttrain.train(cfg, run, 1, device="cpu", params=pr, checkpoint_dir=d)
+
+
+def test_start_step_overrides_the_resume_step(tmp_path):
+    run, _ = _runs(warmup=1)
+    cfg = _cfg("olmo-1b")
+    d = str(tmp_path / "ck")
+    ttrain.train(cfg, run, 2, device="cpu", log_every=0, checkpoint_dir=d,
+                 checkpoint_every=2)
+    params, _, _ = ttrain.restore_state(cfg, CheckpointStore(d), "cpu")
+    batch = tsteps.batch_to(TokenStream(
+        vocab=cfg.vocab, seq_len=run.seq_len, batch=run.global_batch,
+        seed=run.seed).batch_at(5), "cpu")
+    with torch.no_grad():
+        want = float(make_model(cfg)["train_loss"](params, batch, run))
+    _, opt, losses, _ = ttrain.train(cfg, run, 1, device="cpu", log_every=0,
+                                     checkpoint_dir=d, checkpoint_every=2,
+                                     start_step=5)
+    assert losses == [want] and opt["count"] == 3
+    assert CheckpointStore(d).latest() == 6
+
+
+def test_lm_trainer_end_to_end(tmp_path):
+    """The mirror of ``tests/test_system.py::test_lm_trainer_end_to_end``:
+    8 steps with checkpoints every 4, then a resume from step 8."""
+    cfg = _cfg("olmo-1b")
+    run = RunConfig(seq_len=32, global_batch=4, dtype="float32",
+                    learning_rate=3e-3, warmup=0)
+    d = str(tmp_path / "ck")
+    _, _, losses, tel = ttrain.train(cfg, run, 8, device="cpu",
+                                     checkpoint_dir=d, checkpoint_every=4,
+                                     log_every=0)
+    assert len(losses) == 8 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0] + 0.1
+    assert tel.summary()["steps"] == 8
+    assert CheckpointStore(d).latest() == 8
+    _, opt, losses2, _ = ttrain.train(cfg, run, 2, device="cpu",
+                                      checkpoint_dir=d, checkpoint_every=4,
+                                      log_every=0)
+    assert len(losses2) == 2 and np.isfinite(losses2).all()
+    assert opt["count"] == 10
+
+
+def test_port_checkpoint_feeds_the_reference(tmp_path):
+    """The reference's store reads a port checkpoint into its own trees;
+    its ``train_loss`` on the saved parameters is the port's loss."""
+    run, jrun = _runs(warmup=1)
+    cfg, jcfg = _cfg("gemma3-4b", layers=7), _jcfg("gemma3-4b", layers=7)
+    d = str(tmp_path / "ck")
+    params, opt, _, _ = ttrain.train(cfg, run, 2, device="cpu", log_every=0,
+                                     checkpoint_dir=d, checkpoint_every=2)
+    jparams = j_make_model(jcfg)["init"](jrun, jax.random.PRNGKey(1))
+    tree = JCheckpointStore(d).restore({
+        "params": jparams, "opt": joptim.adamw_init(jparams),
+        "step": np.int32(0)})
+    assert int(tree["step"]) == 2 and int(tree["opt"]["count"]) == 2
+    _assert_trees_close(_np_tree(tree["params"]), params_to_numpy(cfg, params),
+                        rtol=0, atol=0)
+    _assert_trees_close(_np_tree(tree["opt"]["nu"]),
+                        params_to_numpy(cfg, params, opt["nu"]), rtol=0, atol=0)
+    batch = _batch(cfg, 2, run.seq_len, seed=3)
+    jloss = j_make_model(jcfg)["train_loss"](
+        jax.tree_util.tree_map(jnp.asarray, tree["params"]),
+        {k: jnp.asarray(v) for k, v in batch.items()}, jrun)
+    with torch.no_grad():
+        loss = make_model(cfg)["train_loss"](params, tsteps.batch_to(
+            batch, "cpu"), run)
+    np.testing.assert_allclose(float(loss), float(jloss), **LOSS_TOL)
+
+
+# ---------------------------------------------------------------------------
 # what the slice does not run, and the device rule
 # ---------------------------------------------------------------------------
 
@@ -419,19 +529,11 @@ def test_later_slice_run_knobs_raise(knob):
             _batch(cfg, 1, 8), "cpu"), run)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(checkpoint_dir="ckpt"),
-                                dict(checkpoint_every=5)])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_later_slice_train_options_raise(kw):
     run, _ = _runs()
     with pytest.raises(NotImplementedError, match="slice of the port"):
         ttrain.train(_cfg("olmo-1b"), run, 1, device="cpu", **kw)
-
-
-@pytest.mark.parametrize("entry", ["prefill", "init_cache", "decode_step"])
-def test_serving_entry_points_raise(entry):
-    with pytest.raises(NotImplementedError, match="serving"):
-        make_model(_cfg("olmo-1b"))[entry](None, None, None)
 
 
 def test_device_none_means_cuda(monkeypatch):
@@ -451,3 +553,15 @@ def test_train_cli_runs_on_the_cpu(capsys):
                  "--layers", "1", "--seq", "16", "--batch", "2"])
     out = capsys.readouterr().out
     assert "[train] first loss" in out and "telemetry" in out
+
+
+def test_train_cli_checkpoints(tmp_path, capsys):
+    d = str(tmp_path / "ck")
+    argv = ["--device", "cpu", "--steps", "2", "--d-model", "64", "--layers",
+            "1", "--seq", "16", "--batch", "2", "--ckpt-dir", d,
+            "--ckpt-every", "1"]
+    ttrain.main(argv)
+    assert CheckpointStore(d).latest() == 2
+    ttrain.main(argv)
+    assert CheckpointStore(d).latest() == 4
+    assert capsys.readouterr().out.count("[train] first loss") == 2
