@@ -185,7 +185,33 @@ Phases, each of which exits non-zero on a failed check:
      route (Dh 256, launches counted), the loss against the plain path's,
      the kernel timed at the inputs the path handed it; and olmo-1b at 2
      layers trained 4 steps straight against 2 saved and 2 resumed through
-     ``train``'s checkpoints.
+     ``train``'s checkpoints;
+  12. DCM-LDA (``dcmlda``, run after naive Bayes' phases):
+     ``benchmarks/bench_vmp.py``'s settings (K = 16, V = 2,000, the repo's
+     priors, mean length 120) at 10,000 documents (about 1.2M tokens, phi
+     on 160,000 docs x topics rows), 10 steps through ``Model.infer`` and
+     ``get_result``: ``zstats`` once a step on its strided route (the one
+     ``explain_plan(backend="cuda")`` names), the ELBO monotone, the stats
+     sums, the digest, the kernels at the inputs the last step and
+     ``get_result`` handed them (the Elog pass on phi timed too), ms a step
+     and device time;
+  13. experts (``lm_moe``, after ``lm_serve``): qwen3-moe-30b-a3b at full
+     width and 16 of its 48 layers through ``serve`` (8 x 4,096, 64 new
+     tokens, bf16: prefill, decode, tokens/s, the decode profile, peak
+     memory, a decode step twice bitwise, the share of dropped
+     assignments in a prefill and a decode step at the default capacity);
+     qwen3-moe and moonshot-v1-16b-a3b at 2 layers in f32: decode against
+     prefill of the growing prefix at ``moe_capacity = E/k`` with the
+     zeroed-key control, and at the default capacity every layer's
+     routing arrays (``take``, ``w_slot``) in one prefill and one decode
+     call against a host recomputation from the same router logits;
+     qwen3-moe training at 2 layers, 4 x 2,048 tokens, through
+     ``train`` and the flash kernel (wgmma, launches counted): the plain
+     run twice, remat full and dots bitwise it, microbatch 2 (its first
+     loss bitwise its halves' composition and within 1e-4 nats of the
+     plain one), ms a step, tokens/s and peak memory of each, the kernel
+     at the inputs the path handed it; and a MoE trainer (16 experts,
+     one layer, vocabulary 16,384) checkpointed and resumed bitwise.
 
 Each VMP path, and the SVI fit, logs a sha256 of its final posteriors and
 ELBO trace, so that two trees can be shown to give the same output bit for
@@ -194,7 +220,8 @@ bit.
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, lda_svi, query,
 gateway, lda_ooc, gibbs, lda_dist, lda_multihost, slda, slda_svi,
-slda_query, naive_bayes, naive_bayes_svi, lm_train, lm_train_gemma3; the
+slda_query, naive_bayes, naive_bayes_svi, dcmlda, lm_train,
+lm_train_gemma3, lm_moe_train; the
 flash entries' ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
@@ -238,7 +265,8 @@ NB_CLASSES, NB_VOCAB, NB_DOCS, NB_STEPS = 20, 61188, 18774, 5
 # documents, many longer than a piece (PIECE = 256 tokens)
 EXPECTED_ROUTE = {"main": "flat passes=pieces",
                   "slda": "zmap passes=pieces logits=group",
-                  "naive_bayes": "zmap passes=pieces logits=warp"}
+                  "naive_bayes": "zmap passes=pieces logits=warp",
+                  "dcmlda": "flat passes=strided"}
 
 ZSTATS_TOL = dict(rtol=2e-4, atol=2e-4, lse_rtol=2e-5)
 DE_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -337,6 +365,35 @@ GEMMA_SEQ, GEMMA_STEPS = 4096, 3
 # element by lr times its normalised gradient, and the loss over 8,192
 # tokens by far less than 1e-3 nats
 CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, RESUME_TOL = 2, 4, 2, 1e-3
+# DCM-LDA (the paper's Figure 22) at benchmarks/bench_vmp.py's settings (K =
+# 16, V = 2,000, the repo's priors, mean length 120), depth raised from 400
+# to 10,000 documents (about 1.2M tokens; phi on docs x topics rows is then
+# (160,000, 2,000) f32, 1.28 GB); zstats takes its strided route
+DCM_DOCS, DCM_TOPICS, DCM_VOCAB, DCM_MEAN_LEN, DCM_STEPS = 10000, 16, 2000, \
+    120, 10
+# experts: qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B) at full width, serving
+# at depth 16 of 48 (48 f32 layers, about 120 GB, do not fit the card's 80),
+# 8 prompts of 4,096 tokens, 64 new tokens; the f32 serving checks at 2
+# layers for it and moonshot-v1-16b-a3b (hf:moonshotai/Moonlight-16B-A3B);
+# training at 2 layers, batch 4 x 2,048, 4 steps a variant
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_SERVE_BATCH = "qwen3-moe-30b-a3b", 16, 8
+MOE_CHECK_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
+MOE_LAYERS, MOE_SEQ, MOE_BATCH, MOE_STEPS = 2, 2048, 4, 4
+MOE_TRAIN_RUNS = (("plain", {}), ("plain again", {}),
+                  ("remat full", dict(remat="full")),
+                  ("remat dots", dict(remat="dots")),
+                  ("microbatch 2", dict(microbatch=2)))
+# microbatch 2's first loss against the plain run's, in nats: the mean of two
+# half-batch means against one mean over 8,192 tokens, each half routed under
+# its own capacity
+MOE_MB_TOL = 1e-4
+# the checkpoint resume: one layer, its experts cut from 128 to 16 (top-8
+# kept) and the vocabulary to 16,384, so that its four passes through the
+# store (about 0.2 GB/s on the card's machine) move about 8 GB rather than
+# the 88 GB of the full width's optimizer state
+MOE_CKPT_LAYERS, MOE_CKPT_EXPERTS, MOE_CKPT_VOCAB = 1, 16, 16384
+# the routing's softmax weights against a host recomputation in f64
+ROUTE_W_TOL = 1e-6
 SHAPES = [(1, 2), (3, 5), (7, 128), (33, 96), (128, 130), (257, 4),
           (64, 300), (1000, 3), (5, 102660), (70000, 16)]
 
@@ -3615,7 +3672,7 @@ def _tol_units(got, want, vocab):
                                   * want.abs()))[:, :vocab].max().item()
 
 
-def serve_checks(name, cfg, params, greedy):
+def serve_checks(name, cfg, params, greedy, **run_kw):
     """f32 compute at batch 2, for each of SERVE_CHECK_CASES (a prompt
     length, its attn_chunk, and a window for the local layers or the
     model's own): SERVE_CHECK_STEPS decode steps, teacher forced, after a
@@ -3627,7 +3684,8 @@ def serve_checks(name, cfg, params, greedy):
     tolerance in both cases.  With
     ``greedy``, ``serve``'s greedy continuation of the 2 prompts against
     the argmax of prefill over the growing sequence, with the least top-2
-    logit margin beside the largest logit shift of the control."""
+    logit margin beside the largest logit shift of the control.
+    ``run_kw`` sets further run knobs (an expert capacity)."""
     import dataclasses
     from repro_torch.configs import RunConfig
     from repro_torch.data import TokenStream
@@ -3638,7 +3696,7 @@ def serve_checks(name, cfg, params, greedy):
         c = cfg if window is None or not cfg.window else \
             dataclasses.replace(cfg, window=window)
         run = RunConfig(seq_len=s0, global_batch=2, dtype="float32",
-                        attn_chunk=chunk)
+                        attn_chunk=chunk, **run_kw)
         model = make_model(c)
         seq = torch.from_numpy(TokenStream(
             vocab=c.vocab, seq_len=s0 + k, batch=2, seed=SEED + 1)
@@ -3883,6 +3941,494 @@ def phase_lm_serve(report):
     return [entry]
 
 
+# ---------------------------------------------------------------------------
+# DCM-LDA: per-document topic-word tables through zstats' strided route
+# ---------------------------------------------------------------------------
+
+def phase_dcmlda(report):
+    """DCM-LDA at benchmarks/bench_vmp.py's settings, depth DCM_DOCS
+    documents: DCM_STEPS steps through ``Model.infer`` and ``get_result``
+    with the launch counts set to 0 just before and read just after
+    (``zstats`` once a step on the route ``explain_plan(backend="cuda")``
+    names, the strided one over the docs x topics child table), the ELBO
+    monotone, both posteriors' stats summing to N, q(z) rows to 1, the
+    digest; ``zstats``, the Elog passes and ``zstep`` against their plain
+    versions at the inputs that the last step and ``get_result`` handed
+    them (recorded as they ran), timed beside their bound; ms a step and
+    the device's busy time under the profiler."""
+    from repro_torch.core import models
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.kernels import dirichlet_expectation as de
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    corpus = SyntheticCorpus(n_docs=DCM_DOCS, vocab=DCM_VOCAB,
+                             n_topics=DCM_TOPICS, mean_len=DCM_MEAN_LEN,
+                             seed=SEED).generate()
+    m = models.make("dcmlda", alpha=ALPHA, beta=BETA, K=DCM_TOPICS,
+                    V=DCM_VOCAB)
+    m["x"].observe(corpus["tokens"], segment_ids=corpus["doc_ids"])
+    prog = m.compile()
+    n = len(corpus["tokens"])
+    log(f"[dcmlda] corpus D={DCM_DOCS} V={DCM_VOCAB} K={DCM_TOPICS} N={n} "
+        f"tokens (phi on {DCM_DOCS * DCM_TOPICS} docs x topics rows), made "
+        f"and compiled in {time.perf_counter() - t0:.1f} s")
+    ops.reset_launch_counts()
+    with recording("zstats", "dirichlet_expectation", "zstep") as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.infer(steps=DCM_STEPS, seed=SEED, device=DEV)
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t0
+        after_infer, routes = ops.launch_counts(), ops.route_counts()
+        r = m["z"].get_result()
+    counts = ops.launch_counts()
+    trace = m.elbo_trace
+    log(f"[dcmlda] infer(steps={DCM_STEPS}) {infer_s:.2f} s; ELBO "
+        f"{trace[0]:.6e} -> {trace[-1]:.6e}; launches {counts}")
+    check(after_infer["zstats"] == DCM_STEPS,
+          f"dcmlda: zstats launched {after_infer['zstats']} times in "
+          f"{DCM_STEPS} steps")
+    check(counts["dirichlet_expectation"] > 0 and counts["zstep"] == 1,
+          f"dcmlda: get_result('z') did not run the Triton kernels: {counts}")
+    diffs = np.diff(trace)
+    check(bool((diffs >= -1e-6 * abs(trace[-1])).all()),
+          f"dcmlda: ELBO not monotone within 1e-6 relative: {diffs.tolist()}")
+    posts = {name: m[name].get_result() for name in ("theta", "phi")}
+    digest = output_digest(posts, trace)
+    log(f"[dcmlda] sha256 of the final posteriors and ELBO trace: {digest}")
+    sums = {"theta": float(posts["theta"].sum(dtype=np.float64)) -
+            posts["theta"].size * ALPHA,
+            "phi": float(posts["phi"].sum(dtype=np.float64)) -
+            posts["phi"].size * BETA}
+    for name, s in sums.items():
+        log(f"[dcmlda] sum of {name} stats {s:.1f} vs N = {n} "
+            f"(rel {abs(s - n) / n:.2e}, tol 1e-5); {name} "
+            f"{posts[name].shape}")
+        check(abs(s - n) <= 1e-5 * n, f"dcmlda: {name} stats do not sum to N")
+    row_err = float(np.abs(r.sum(axis=1, dtype=np.float64) - 1.0).max())
+    check(r.shape == (n, DCM_TOPICS) and np.isfinite(r).all() and
+          row_err <= 1e-5, "dcmlda: q(z) rows do not sum to 1")
+    explain_check("dcmlda", m, routes, EXPECTED_ROUTE["dcmlda"])
+    del posts, r
+    log("[kernels vs plain] dcmlda: the inputs of its last step and of "
+        "get_result('z')")
+    entries = flat_recorded("dcmlda", calls, counts, "theta's (D, K) rows")
+    theta_shape = (DCM_DOCS, DCM_TOPICS)
+    (a, kw, _), = [v for (name, shape), v in calls.items()
+                   if name == "dirichlet_expectation" and shape != theta_shape]
+    phi = a[0]
+    t_phi = time_ms(lambda: de.dirichlet_expectation(phi, **kw), reps=20)
+    t_phi_dev = device_ms(lambda: de.dirichlet_expectation(phi, **kw))
+    t_phi_plain = time_ms(lambda: de_plain(phi, kw.get("transpose", False))
+                          .contiguous(), reps=5)
+    phi_bound = bound(phi.numel() * 8, DIGAMMA_OPS * phi.numel())
+    log(f"  dirichlet_expectation on phi {tuple(phi.shape)} {kw}: "
+        f"{t_phi:.4f} ms, device {t_phi_dev:.4f} ms, plain {t_phi_plain:.4f} "
+        f"ms, bound {phi_bound[0]:.4f} ms ({phi_bound[1]})")
+    del calls, a, phi
+    t_step, step, st = time_steps(prog, m._state)
+    trace_steps = phase_trace(step, st)
+    log(f"[dcmlda] VMP step {t_step:.2f} ms, {n / t_step * 1e3:.4e} tokens/s, "
+        f"device busy {trace_steps['busy_ms']:.3f} ms a step")
+    report["dcmlda"] = dict(
+        n_tokens=n, launches=counts, routes=routes, elbo_trace=trace,
+        digest=digest, stats_sums=sums, infer_s=infer_s, step_ms=t_step,
+        tokens_per_s=n / t_step * 1e3, trace=trace_steps,
+        phi_elog=dict(ms=t_phi, device_ms=t_phi_dev, plain_ms=t_phi_plain,
+                      bound_ms=phi_bound[0], bound_by=phi_bound[1]))
+    del m, prog, step, st, corpus
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# experts: qwen3-moe and moonshot serving and training
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_routes():
+    """While the block runs, every routing call of ``models/layers.py``
+    (``_route_from_logits``) passes through unchanged and is kept in call
+    order: ``[(logits, k, cap, take, w_slot)]``, tensors on the card."""
+    from repro_torch.models import layers as L
+    orig, calls = L._route_from_logits, []
+
+    def route(logits, k, cap):
+        out = orig(logits, k, cap)
+        calls.append((logits, k, cap, out[0], out[1]))
+        return out
+    L._route_from_logits = route
+    try:
+        yield calls
+    finally:
+        L._route_from_logits = orig
+
+
+def dropped_share(calls):
+    """The share of the calls' (token, expert) assignments that found no
+    slot."""
+    kept = sum(int((take < logits.shape[0]).sum())
+               for logits, _, _, take, _ in calls)
+    total = sum(logits.shape[0] * k for logits, k, _, _, _ in calls)
+    return 1 - kept / total
+
+
+def np_route(logits, k, cap):
+    """``_moe_route`` of the reference recomputed on the host from router
+    logits (n, E) f32: top-k by a stable sort (the lower expert first on a
+    tie), an f64 softmax over the selected logits, a stable sort of the
+    expert ids, slots ``pos < cap``; ``(take, w_slot)``."""
+    n, e = logits.shape
+    ids = np.argsort(-logits, axis=-1, kind="stable")[:, :k]
+    top = np.take_along_axis(logits, ids, -1).astype(np.float64)
+    w = np.exp(top - top.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    flat_e = ids.reshape(-1)
+    order = np.argsort(flat_e, kind="stable")
+    se = flat_e[order]
+    st = np.repeat(np.arange(n), k)[order]
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(se, minlength=e))[:-1]])
+    pos = np.arange(n * k) - offsets[se]
+    keep = pos < cap
+    slot = se[keep] * cap + pos[keep]
+    take, w_slot = np.full(e * cap, n), np.zeros(e * cap)
+    take[slot], w_slot[slot] = st[keep], w.reshape(-1)[order][keep]
+    return take.reshape(e, cap), w_slot.reshape(e, cap)
+
+
+def moe_routing_check(name, cfg, params):
+    """At the default capacity in f32, batch 2: a 1,024-token prefill and
+    one decode step, the routing arrays of every layer's call (``take``,
+    ``w_slot``) against :func:`np_route` on the same router logits (take
+    bitwise, w_slot within ROUTE_W_TOL), the share of dropped assignments
+    in each, and the decode step twice from one cache bitwise."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data import TokenStream
+    from repro_torch.models import make_model
+    s0 = SERVE_CHECK_CASES[0][0]
+    run = RunConfig(seq_len=s0, global_batch=2, dtype="float32",
+                    attn_chunk=SERVE_CHECK_CASES[0][1])
+    model = make_model(cfg)
+    seq = torch.from_numpy(TokenStream(vocab=cfg.vocab, seq_len=s0 + 1,
+                                       batch=2, seed=SEED + 2)
+                           .batch_at(0)["tokens"]).to(DEV, torch.int64)
+    with torch.inference_mode():
+        with moe_routes() as pre:
+            _, cache = model["prefill"](params, {"tokens": seq[:, :s0]}, run,
+                                        s0 + 1)
+        twins = [[{k: t.clone() for k, t in c.items()} for c in cache]
+                 for _ in range(2)]
+        with moe_routes() as dec:
+            out = model["decode_step"](params, twins[0], seq[:, s0:], s0, run)
+        again = model["decode_step"](params, twins[1], seq[:, s0:], s0, run)
+    check(torch.equal(out[0], again[0]) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(*twins) for k in a),
+        f"{name}: a decode step twice from one cache differs")
+    worst = 0.0
+    for what, calls in (("prefill", pre), ("decode", dec)):
+        check(len(calls) == cfg.n_layers, f"{name}: {len(calls)} routing "
+              f"calls in one {what}, not one a layer")
+        for logits, k, cap, take, w_slot in calls:
+            want_t, want_w = np_route(logits.cpu().numpy(), k, cap)
+            check(np.array_equal(take.cpu().numpy(), want_t),
+                  f"{name}: the card's take in {what} is not the host's")
+            err = float(np.abs(w_slot.double().cpu().numpy() - want_w).max())
+            check(err <= ROUTE_W_TOL, f"{name}: w_slot in {what} off the "
+                  f"host's by {err:.3e}")
+            worst = max(worst, err)
+    shares = {"prefill": dropped_share(pre), "decode": dropped_share(dec)}
+    caps = {"prefill": pre[0][2], "decode": dec[0][2]}
+    log(f"[lm_moe] {name}: routing at the default capacity (f32, 2 x {s0} "
+        f"prefill, one decode step of 2 tokens; slots an expert {caps}): "
+        f"take bitwise and w_slot within {worst:.3e} of the host's "
+        f"recomputation in all {2 * cfg.n_layers} calls; dropped "
+        f"assignments {shares}; a decode step twice bitwise")
+    return dict(w_slot_worst=worst, dropped_share=shares, capacity=caps)
+
+
+def moe_serve(report):
+    """qwen3-moe at full width, depth MOE_SERVE_LAYERS, through ``serve``
+    (:func:`serve_perf`: prefill, decode, tokens/s, the decode profile,
+    peak memory, a decode step twice bitwise), then the share of dropped
+    assignments at the default capacity in one prefill of its prompts and
+    one decode step after it."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import make_model
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_SERVE_LAYERS)
+    params = make_model(cfg)["init"](RunConfig(), device=DEV)
+    log(f"[lm_moe] {cfg.name}: {cfg.n_layers} of 48 layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv) of "
+        f"{cfg.head_dim_}, {cfg.n_experts} experts top-{cfg.experts_per_tok} "
+        f"of d_ff {cfg.d_ff}, vocab {cfg.vocab}; "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B f32 "
+        f"parameters")
+    out = serve_perf(cfg.name, MOE_SERVE_BATCH, params, cfg)
+    run = RunConfig(seq_len=SERVE_PROMPT, global_batch=MOE_SERVE_BATCH)
+    model = make_model(cfg)
+    tokens = torch.from_numpy(TokenStream(
+        vocab=cfg.vocab, seq_len=SERVE_PROMPT, batch=MOE_SERVE_BATCH,
+        seed=SEED).batch_at(0)["tokens"]).to(DEV, torch.int64)
+    with torch.inference_mode():
+        with moe_routes() as pre:
+            logits, cache = model["prefill"](params, {"tokens": tokens}, run,
+                                             SERVE_PROMPT + 1)
+        with moe_routes() as dec:
+            model["decode_step"](params, cache, torch.argmax(logits, -1)[
+                :, None], SERVE_PROMPT, run)
+        shares = {"prefill": dropped_share(pre), "decode": dropped_share(dec)}
+        caps = {"prefill": pre[0][2], "decode": dec[0][2]}
+    del pre, dec, cache, params
+    torch.cuda.empty_cache()
+    log(f"[lm_moe] {cfg.name}: dropped assignments at the default capacity "
+        f"{RunConfig().moe_capacity} (slots an expert {caps}): {shares}")
+    out.update(dropped_share=shares, capacity=caps, layers=cfg.n_layers)
+    report["lm_moe"]["serve"] = out
+
+
+def moe_checks(report, name):
+    """``name`` at full width, MOE_LAYERS layers, f32: :func:`serve_checks`
+    at ``moe_capacity = E/k`` (decode against prefill of the growing prefix
+    within DECODE_TOL, with the zeroed-key control), then
+    :func:`moe_routing_check` at the default capacity."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models import make_model
+    cfg = dataclasses.replace(get_arch(name), n_layers=MOE_LAYERS)
+    params = make_model(cfg)["init"](RunConfig(), device=DEV)
+    no_drop = cfg.n_experts / cfg.experts_per_tok
+    log(f"[lm_moe] {name}: {cfg.n_experts} experts top-"
+        f"{cfg.experts_per_tok}, {cfg.n_heads} heads ({cfg.n_kv_heads} kv), "
+        f"d_ff {cfg.d_ff}, {MOE_LAYERS} layers; decode against prefill at "
+        f"moe_capacity = E/k = {no_drop:.4f}, where no assignment is dropped")
+    out = serve_checks(name, cfg, params, greedy=False, moe_capacity=no_drop)
+    out["routing"] = moe_routing_check(name, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    report["lm_moe"][name] = out
+
+
+def host_params(module):
+    return [p.detach().cpu() for p in module.parameters()]
+
+
+def microbatch_loss(cfg, run):
+    """The first step's loss of ``run.microbatch`` slices as the trainer
+    must compose it: each slice of batch 0 through ``train_loss`` at the
+    initial parameters, ``loss / k`` added to an f32 zero in slice
+    order."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.models import make_model
+    model, k = make_model(cfg), run.microbatch
+    params = model["init"](run, device=DEV)
+    batch = batch_to(TokenStream(vocab=cfg.vocab, seq_len=run.seq_len,
+                                 batch=run.global_batch, seed=run.seed)
+                     .batch_at(0), DEV)
+    b = run.global_batch
+    total = torch.zeros((), dtype=torch.float32, device=DEV)
+    with torch.no_grad():
+        for i in range(k):
+            part = {key: v[i * b // k:(i + 1) * b // k]
+                    for key, v in batch.items()}
+            total = total + model["train_loss"](params, part, run) / k
+    del params
+    return float(total)
+
+
+def moe_train(report):
+    """qwen3-moe at full width, MOE_LAYERS layers, through ``train`` with
+    the flash kernel (the wgmma route), MOE_STEPS steps from the port's
+    seeded initialisation for each of MOE_TRAIN_RUNS, launch counts set to
+    0 just before each and read just after: the plain run twice bitwise
+    (losses and parameters), the remat runs bitwise the plain run,
+    microbatch 2's first loss within MOE_MB_TOL of it; ms a step, tokens/s
+    and peak memory of each; the kernel at the inputs the plain run handed
+    it against its plain version, timed beside its bound, the mma route
+    and SDPA."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.train import train
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    base = RunConfig(seq_len=MOE_SEQ, global_batch=MOE_BATCH, warmup=1,
+                     flash_kernel=True)
+    tokens = MOE_BATCH * MOE_SEQ
+    runs, launches, plain, flash_calls = {}, {}, None, None
+    for label, kw in MOE_TRAIN_RUNS:
+        run = dataclasses.replace(base, **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with recording("flash_attention") as calls:
+            params, opt, losses, tel = train(cfg, run, MOE_STEPS, device=DEV,
+                                             log_every=0)
+        counts, routes = ops.launch_counts(), ops.route_counts()[
+            "flash_attention"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # once a layer a forward; remat's recompute and each microbatch
+        # forward launch it again
+        want = cfg.n_layers * MOE_STEPS * (1 if label.startswith("plain")
+                                           else 2)
+        check(counts["flash_attention"] == want and
+              routes == {"wgmma": want, "mma": 0},
+              f"lm_moe {label}: flash_attention launched "
+              f"{counts['flash_attention']} times by route {routes}, not "
+              f"{want} on wgmma")
+        launches[label] = counts["flash_attention"]
+        host = host_params(params)
+        del params, opt
+        step_ms = tel.summary()["mean_s"] * 1e3
+        runs[label] = dict(losses=losses, step_ms=step_ms,
+                           tokens_per_s=tokens / step_ms * 1e3,
+                           peak_memory_gb=peak_gb, step_times_s=tel.times,
+                           launches=counts["flash_attention"])
+        if plain is None:
+            plain, flash_calls = (losses, host), calls
+            check(all(np.isfinite(losses)), f"lm_moe: losses {losses}")
+        elif label.startswith("microbatch"):
+            diff = abs(losses[0] - plain[0][0])
+            halves = microbatch_loss(cfg, run)
+            runs[label].update(first_loss_diff=diff, halves_loss=halves)
+            check(losses[0] == halves, f"lm_moe: microbatch 2's first loss "
+                  f"{losses[0]} is not its halves' {halves}")
+            check(diff <= MOE_MB_TOL and all(np.isfinite(losses)),
+                  f"lm_moe: microbatch 2's first loss {losses[0]} is "
+                  f"{diff:.3e} off the plain run's {plain[0][0]}")
+        else:
+            same_p = bitwise(host, plain[1])
+            runs[label]["bitwise"] = losses == plain[0] and same_p
+            check(losses == plain[0] and same_p,
+                  f"lm_moe: {label}'s losses {losses} or parameters are not "
+                  f"bitwise the plain run's {plain[0]}")
+        del host
+        log(f"[lm_moe] train {label}: losses {losses}; {step_ms:.2f} ms a step "
+            f"(mean of steps 1-{MOE_STEPS - 1}), {tokens / step_ms * 1e3:.4e} "
+            f"tokens/s, peak memory {peak_gb:.2f} GB; flash launches "
+            f"{launches[label]}"
+            + ("" if label == "plain" else
+               f"; first loss bitwise (0 + l0 / 2) + l1 / 2 of its halves' "
+               f"losses, {runs[label]['first_loss_diff']:.3e} off the plain "
+               f"run's" if label.startswith("microbatch") else
+               "; losses and parameters bitwise the plain run's"))
+    del plain
+    (a, _, _), = flash_calls.values()
+    q, k, v = (t.detach() for t in a)
+    bh, s, dh = q.shape
+    check(fa.route(q, k, v) == "wgmma", f"lm_moe: {tuple(q.shape)} not on "
+          f"wgmma")
+    err = compare("flash_attention", f"qwen3-moe {tuple(q.shape)} wgmma",
+                  fa.launch(q, k, v, True), ref.flash_attention(q, k, v),
+                  FLASH_BF16_TOL)
+    t_k = time_ms(lambda: fa.launch(q, k, v, True), reps=20)
+    t_m = time_ms(lambda: fa.launch(q, k, v, True, route="mma"), reps=20)
+    t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=5)
+    q4, k4, v4 = (t.view(MOE_BATCH, bh // MOE_BATCH, s, dh) for t in (q, k, v))
+    t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), reps=20)
+    flops = flash_ops(bh, s, s, dh, True)
+    bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
+    log(f"[times] flash_attention on qwen3-moe's layers ({bh}, {s}, {dh}) "
+        f"bf16 causal: wgmma {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s, "
+        f"{bms / t_k:.3f} of the bound), mma {t_m:.4f}, plain {t_p:.4f}, SDPA "
+        f"{t_l:.4f}, bound {bms:.4f} ms ({by})")
+    total = sum(launches.values())
+    report["lm_moe"]["train"] = dict(
+        runs=runs, launches=launches, flash_ms=t_k, mma_ms=t_m, plain_ms=t_p,
+        library_ms=t_l, bound_ms=bms, bound_by=by, err=err)
+    del q, k, v, q4, k4, v4, a, flash_calls
+    torch.cuda.empty_cache()
+    entry = kernel_entry(
+        "lm_moe_train", "flash_attention", "cuda",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:106", total, err, t_k, t_p,
+        bms, by, t_l)
+    entry.update(variant="wgmma", mma_ms=t_m)
+    return entry
+
+
+def moe_checkpoint(report):
+    """qwen3-moe at MOE_CKPT_LAYERS layers, experts and vocabulary cut to
+    MOE_CKPT_EXPERTS and MOE_CKPT_VOCAB: MOE_STEPS steps straight through,
+    against half of them saved and the rest resumed in a fresh ``train``
+    call; the restored state bitwise the saved one, the resumed losses and
+    final parameters bitwise the uninterrupted run's."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.train import restore_state, train
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_CKPT_LAYERS,
+                              n_experts=MOE_CKPT_EXPERTS, vocab=MOE_CKPT_VOCAB)
+    run = RunConfig(seq_len=MOE_SEQ, global_batch=MOE_BATCH, warmup=1,
+                    flash_kernel=True)
+    half = MOE_STEPS // 2
+    t0 = time.perf_counter()
+    p, _, straight, _ = train(cfg, run, MOE_STEPS, device=DEV, log_every=0)
+    want = host_params(p)
+    del p
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="moe_ckpt-") as d:
+        p1, o1, first, _ = train(cfg, run, half, device=DEV, log_every=0,
+                                 checkpoint_dir=d, checkpoint_every=half)
+        rp, ro, step = restore_state(cfg, CheckpointStore(d), DEV)
+        check(step == half and ro["count"] == o1["count"] and
+              bitwise(list(rp.parameters()), list(p1.parameters())) and
+              bitwise(ro["mu"], o1["mu"]) and bitwise(ro["nu"], o1["nu"]),
+              "lm_moe: the restored parameters or AdamW state are not "
+              "bitwise the saved ones")
+        del p1, o1, rp, ro
+        torch.cuda.empty_cache()
+        p2, o2, resumed, _ = train(cfg, run, MOE_STEPS - half, device=DEV,
+                                   log_every=0, checkpoint_dir=d,
+                                   checkpoint_every=half)
+        latest = CheckpointStore(d).latest()
+    same_p = bitwise(host_params(p2), want)
+    del p2, o2, want
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[lm_moe] checkpoint: {cfg.name} at {cfg.n_layers} layer(s), "
+        f"{cfg.n_experts} experts top-{cfg.experts_per_tok}, vocab "
+        f"{cfg.vocab}: {MOE_STEPS} steps straight {straight}; {half} saved + "
+        f"{MOE_STEPS - half} resumed {first + resumed} (latest step {latest}); "
+        f"the restored state bitwise the saved one; losses "
+        f"{'bitwise' if first + resumed == straight else 'NOT bitwise'}, "
+        f"parameters {'bitwise' if same_p else 'NOT bitwise'}; {secs:.1f} s")
+    check(latest == MOE_STEPS and first + resumed == straight and same_p,
+          "lm_moe: the resumed run is not bitwise the uninterrupted one")
+    report["lm_moe"]["checkpoint"] = dict(
+        straight=straight, resumed=first + resumed, bitwise=True,
+        layers=cfg.n_layers, experts=cfg.n_experts, vocab=cfg.vocab,
+        seconds=secs)
+
+
+def phase_lm_moe(report):
+    """Experts on the card: qwen3-moe serving at full width (depth
+    MOE_SERVE_LAYERS), the f32 serving and routing checks of qwen3-moe and
+    moonshot at MOE_LAYERS layers, qwen3-moe's training runs (plain, remat
+    full and dots, microbatch 2) through the flash kernel, and a resumed
+    MoE trainer."""
+    report["lm_moe"] = {}
+    stage_s = report["lm_moe"]["stage_s"] = {}
+
+    def timed(key, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        stage_s[key] = time.perf_counter() - t0
+        return out
+    torch.cuda.empty_cache()
+    timed(f"{MOE_ARCH} serve", moe_serve, report)
+    for name in MOE_CHECK_ARCHS:
+        timed(f"{name} checks", moe_checks, report, name)
+    entry = timed("train", moe_train, report)
+    timed("checkpoint", moe_checkpoint, report)
+    log(f"[lm_moe] seconds by stage: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in stage_s.items())}")
+    return [entry]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--docs", type=int, default=30000,
@@ -3949,13 +4495,15 @@ def main(argv=None) -> int:
     kernels += timed("naive_bayes_svi", phase_segment_svi, "naive_bayes",
                      nb, report, bitwise_vmp=True)[0]
     del nb
+    kernels += timed("dcmlda", phase_dcmlda, report)
     kernels += phase_lm_train(report, phase_flash(report))
     kernels += timed("lm_serve", phase_lm_serve, report)
+    kernels += timed("lm_moe", phase_lm_moe, report)
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))
     log(f"[done] {report['seconds']:.1f} s (kernel builds "
-        f"{report['build_s']:.1f} s; SVI, query, gateway and Gibbs phases "
+        f"{report['build_s']:.1f} s; timed phases "
         f"{sum(phase_s.values()):.1f} s: "
         f"{', '.join(f'{k} {v:.1f}' for k, v in phase_s.items())}); report "
         f"in {REPORT}")

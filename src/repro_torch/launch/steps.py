@@ -4,7 +4,8 @@
 :func:`build_infer_step` builds the probabilistic-inference step, full-batch
 VMP or SVI (over a resident or a sharded corpus).  :func:`build_train_step`
 builds the LM step: the loss and its gradient (``torch.autograd.grad``, so
-no ``.grad`` state is kept between steps), the clip to the global norm, the
+no ``.grad`` state is kept between steps; with ``run.microbatch > 1``
+accumulated over slices of the batch), the clip to the global norm, the
 learning rate from the schedule and AdamW in place.
 :func:`build_prefill_step` and :func:`build_decode_step` build the serving
 steps.  PyTorch runs them eagerly on one device.
@@ -93,20 +94,47 @@ def build_train_step(cfg: ArchConfig, run: RunConfig, device=None) -> dict:
     batch of tensors on ``device`` and the step number; it updates the
     parameters and the state in place and returns ``(params, opt_state,
     {"loss", "gnorm", "lr"})``, the loss and norm as 0-d tensors.
-    ``device=None`` means ``"cuda"``."""
+    ``device=None`` means ``"cuda"``.
+
+    ``run.microbatch = k > 1`` splits the batch into k slices along dim 0
+    and adds each slice's ``loss / k`` and ``grad / k`` to f32 zeros in
+    slice order, as the reference's ``lax.scan`` does; a batch that k does
+    not divide raises ``ValueError``."""
     check_slice(cfg, run)
     device = resolve_device(device)
     model = make_model(cfg)
+    k = run.microbatch
+    if k > 1 and run.global_batch % k:
+        raise ValueError(f"microbatch {k} does not divide the global batch "
+                         f"of {run.global_batch}")
+
+    def loss_and_grads(params, batch):
+        leaves = list(params.parameters())
+        if k <= 1:
+            loss = model["train_loss"](params, batch, run)
+            return loss.detach(), list(torch.autograd.grad(loss, leaves))
+        b = len(batch["tokens"])
+        if b % k:
+            raise ValueError(f"microbatch {k} does not divide a batch of {b}")
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        for i in range(k):
+            mb = {key: v[i * b // k:(i + 1) * b // k]
+                  for key, v in batch.items()}
+            li = model["train_loss"](params, mb, run)
+            gi = torch.autograd.grad(li, leaves)
+            loss = loss + li.detach() / k
+            grads = [a + g / k for a, g in zip(grads, gi)]
+        return loss, grads
 
     def train_step(params, opt_state, batch, step: int):
         leaves = list(params.parameters())
-        loss = model["train_loss"](params, batch, run)
-        grads = list(torch.autograd.grad(loss, leaves))
+        loss, grads = loss_and_grads(params, batch)
         grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
         lr = lr_schedule(step, run.learning_rate, run.warmup)
         _, opt_state = adamw_update(leaves, grads, opt_state, lr=lr,
                                     weight_decay=run.weight_decay)
-        return params, opt_state, {"loss": loss.detach(), "gnorm": gnorm,
+        return params, opt_state, {"loss": loss, "gnorm": gnorm,
                                    "lr": lr}
 
     return {"fn": train_step, "device": device}

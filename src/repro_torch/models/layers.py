@@ -1,5 +1,5 @@
-"""Neural building blocks of the port's LM slice: the dense part of
-``repro.models.layers``, op for op.
+"""Neural building blocks of the port's LM slices: the attention and
+feed-forward parts of ``repro.models.layers``, op for op.
 
 ``init_*`` build f32 parameters as ``nn.ParameterDict``s, drawn from an
 explicit ``torch.Generator`` at the reference's scales; the apply functions
@@ -10,8 +10,10 @@ at its use, and norms and softmax run in f32, as in the reference.
 Blocks: RMS/LayerNorm (with olmo's non-parametric one), RoPE, GQA attention
 (full and sliding-window: dense, flash-style chunked for long sequences, or
 the flash kernel for full causal layers; one token against a decode cache,
-a ring buffer of ``window`` slots for sliding-window layers) and the
-SwiGLU/GEGLU/GELU MLPs.  Experts, RG-LRU and SSD belong to later slices.
+a ring buffer of ``window`` slots for sliding-window layers), the
+SwiGLU/GEGLU/GELU MLPs and the token-choice top-k experts (``moe_mlp``,
+whose dispatch and combine sum in a fixed order, so that every run is
+bitwise repeatable).  RG-LRU and SSD belong to a later slice.
 """
 
 from __future__ import annotations
@@ -348,3 +350,149 @@ def mlp(p, x: torch.Tensor, cfg: ArchConfig, run: RunConfig) -> torch.Tensor:
     dt = _dtype(run)
     h = _act(x @ p["wi"].to(dt), cfg)
     return h @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# experts (token-choice top-k, sort-based dispatch, static capacity)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
+    """``router`` (d, E), ``wi`` (E, d, 2f or f) and ``wo`` (E, f, d), each
+    at the reference's 1/sqrt(shape[0])."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gated = cfg.act in ("swiglu", "geglu")
+    return nn.ParameterDict({
+        "router": _init(gen, (d, e), device),
+        "wi": _init(gen, (e, d, 2 * f if gated else f), device),
+        "wo": _init(gen, (e, f, d), device)})
+
+
+def _route_from_logits(logits: torch.Tensor, k: int, cap: int):
+    """The reference's routing of one group from its router logits (n, E)
+    f32: ``(take (E, cap), w_slot (E, cap) f32, inv (n, k))``.
+
+    Top-k by a stable descending sort (a tie goes to the lower expert, as
+    ``lax.top_k`` breaks it; ``torch.topk`` does not promise that), a
+    softmax over the k selected logits, then a stable sort of the flattened
+    expert ids: an assignment keeps its place ``pos`` among its expert's
+    assignments in token order, and ``pos < cap`` keeps it in slot
+    ``e * cap + pos``.  ``take`` names each slot's token (``n``, the zero
+    pad row, when empty) and ``w_slot`` its weight (0 when empty).
+    ``inv`` is the port's inverse map: each token's k slots in slot order,
+    which is expert order, ``E * cap`` for a dropped assignment."""
+    n, e = logits.shape
+    dev = logits.device
+    vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    top_w = torch.softmax(vals[:, :k], dim=-1)
+    flat_e = ids[:, :k].reshape(-1)
+    flat_t = torch.arange(n, device=dev).repeat_interleave(k)
+    se, order = torch.sort(flat_e, stable=True)
+    st, sw = flat_t[order], top_w.reshape(-1)[order]
+    offsets = torch.searchsorted(se, torch.arange(e, device=dev))
+    pos = torch.arange(n * k, device=dev) - offsets[se]
+    keep = pos < cap
+    slot = torch.where(keep, se * cap + pos, e * cap)     # overflow slot
+    take = torch.full((e * cap + 1,), n, dtype=torch.int64,
+                      device=dev).index_put((slot,), st)
+    w_slot = torch.zeros(e * cap + 1, dtype=torch.float32,
+                         device=dev).index_put((slot,), sw * keep)
+    inv = torch.empty_like(slot).index_put((order,), slot)
+    inv = torch.sort(inv.view(n, k), dim=-1).values
+    return (take[:e * cap].view(e, cap), w_slot[:e * cap].view(e, cap),
+            inv)
+
+
+def _moe_route(xt: torch.Tensor, router: torch.Tensor, k: int, cap: int,
+               dt: torch.dtype):
+    """Routing for one group, as the reference's: ``xt`` (n, d) through
+    the router in ``dt``, the logits in f32, then
+    :func:`_route_from_logits`: ``(take, w_slot, inv)``."""
+    return _route_from_logits((xt @ router.to(dt)).float(), k, cap)
+
+
+def _ordered_sum(rows: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """``out[g, t] = rows[g, inv[g, t, 0]] + rows[g, inv[g, t, 1]] + ...``,
+    added from zero in that order in ``rows``' dtype; the index ``M``
+    (``rows.shape[1]``) reads a zero row.  rows (G, M, d), inv (G, n, k).
+    A fixed order and no atomics: the same bits on every run."""
+    g, _, d = rows.shape
+    rows = torch.cat([rows, rows.new_zeros(g, 1, d)], dim=1)
+    gidx = torch.arange(g, device=rows.device)[:, None]
+    out = rows.new_zeros(g, inv.shape[1], d)
+    for j in range(inv.shape[2]):
+        out = out + rows[gidx, inv[..., j]]
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """``hb[g, e, c] = xt[g, take[g, e, c]]``, the token ``n`` a zero pad
+    row (the reference's ``xt_pad[gidx, take]``).  Its backward gives each
+    token the sum of its slots' gradients in slot order
+    (:func:`_ordered_sum`), where a scatter-add would use atomics."""
+
+    @staticmethod
+    def forward(ctx, xt, take, inv):
+        g, _, d = xt.shape
+        ctx.save_for_backward(inv)
+        xt_pad = torch.cat([xt, xt.new_zeros(g, 1, d)], dim=1)
+        gidx = torch.arange(g, device=xt.device)[:, None, None]
+        return xt_pad[gidx, take]
+
+    @staticmethod
+    def backward(ctx, grad):
+        inv, = ctx.saved_tensors
+        g, e, c, d = grad.shape
+        return _ordered_sum(grad.reshape(g, e * c, d), inv), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``out[g, t]``: the sum of token ``t``'s slot contributions in slot
+    order, from zero, in their dtype (the reference's
+    ``zeros(dt).at[gidx, take].add(contrib)``, whose scatter adds them in
+    that order); an empty or dropped slot adds nothing.  Its backward is
+    the gather ``grad[g, take[g, e, c]]``, 0 for an empty slot."""
+
+    @staticmethod
+    def forward(ctx, contrib, take, inv):
+        g, e, c, d = contrib.shape
+        ctx.save_for_backward(take)
+        return _ordered_sum(contrib.reshape(g, e * c, d), inv)
+
+    @staticmethod
+    def backward(ctx, grad):
+        take, = ctx.saved_tensors
+        g, _, d = grad.shape
+        pad = torch.cat([grad, grad.new_zeros(g, 1, d)], dim=1)
+        gidx = torch.arange(g, device=grad.device)[:, None, None]
+        return pad[gidx, take], None, None
+
+
+def moe_mlp(p, x: torch.Tensor, cfg: ArchConfig, run: RunConfig):
+    """x (B, S, d) -> (B, S, d): each token's top-k experts by the router,
+    softmax weights over the selected ones (qwen3-style), a gather-based
+    dispatch into each expert's ``cap`` slots, the expert products as
+    batched matmuls over the expert dimension, and the weighted combine.
+
+    ``run.moe_groups > 1`` routes each group of tokens on its own (when
+    the groups divide the tokens), with its own capacity of
+    ``ceil(n/groups * k / E * run.moe_capacity)`` slots an expert.  The
+    reference's sharding constraints (``sharding_ctx.constrain``,
+    ``run.moe_ep_local``) place its buffers on a mesh and change no value;
+    on one device they change nothing there, and the port has no
+    counterpart to them.  The dispatch's backward and the combine sum in
+    slot order (``_Dispatch``, ``_Combine``), so that a step run twice
+    gives the same bits."""
+    dt = _dtype(run)
+    b, s, d = x.shape
+    n = b * s
+    e, k = cfg.n_experts, cfg.experts_per_tok
+    g = run.moe_groups if run.moe_groups and n % run.moe_groups == 0 else 1
+    cap = max(1, int(math.ceil(n // g * k / e * run.moe_capacity)))
+    xt = x.reshape(g, n // g, d)
+    take, w_slot, inv = (torch.stack(t) for t in zip(*[
+        _moe_route(xt[i], p["router"], k, cap, dt) for i in range(g)]))
+    hb = _Dispatch.apply(xt, take, inv)                 # (G, E, C, d)
+    h = _act(torch.einsum("gecd,edf->gecf", hb, p["wi"].to(dt)), cfg)
+    yb = torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))
+    contrib = yb * w_slot[..., None].to(dt)
+    return _Combine.apply(contrib, take, inv).reshape(b, s, d)

@@ -1,8 +1,10 @@
-"""Model assembly of the port's LM slice: the dense decoder-only LM of
-``repro.models.transformer``, op for op, as an ``nn.Module``.
+"""Model assembly of the port's LM slices: the decoder-only LMs of
+``repro.models.transformer`` with attention layers and a dense or expert
+feed-forward, op for op, as an ``nn.Module``.
 
 :class:`Decoder` holds the f32 parameters: ``embed`` (V_padded, d), one
-:class:`Block` per layer (``norm1``, ``attn``, ``norm2``, ``ffn``),
+:class:`Block` per layer (``norm1``, ``attn``, ``norm2``, ``ffn``: the MLP's
+``wi``, ``wo``, or with experts ``router``, ``wi``, ``wo``),
 ``final_norm`` and, untied, ``lm_head`` (d, V_padded).  The reference
 stacks its blocks for ``lax.scan`` over repeats of the block cycle; here
 they are a ``ModuleList`` in layer order, and :func:`params_from_numpy` /
@@ -11,7 +13,8 @@ reference's ``blocks.scan[pos][r]``, then ``blocks.tail`` in order).
 
 Entry points: :func:`init_params` (the port's own initialisation, from a
 ``torch.Generator``, at the reference's scales), :func:`train_loss`
-(full-sequence forward + masked CE), and serving: :func:`init_cache`,
+(full-sequence forward + masked CE; ``run.remat`` checkpoints each repeat
+of the block cycle, as the reference's scan body), and serving: :func:`init_cache`,
 :func:`prefill` (the prompt's forward, building the decode cache) and
 :func:`decode_step` (one token against the cache, updated in place).  The
 cache is a list of ``{"k", "v"}``, one per layer in layer order, each
@@ -29,6 +32,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig, RunConfig
 from . import layers as L
@@ -37,17 +42,14 @@ from . import layers as L
 _ARCH_SLICE = (
     (lambda c: any(k in ("rglru", "ssd") for k in c.layer_kinds()),
      "'rglru' and 'ssd' layers", "recurrent (rglru, ssd)"),
-    (lambda c: c.n_experts > 0, "experts", "experts"),
     (lambda c: c.n_enc_layers > 0 or c.family == "encdec", "an encoder",
      "encoder and frontend"),
     (lambda c: c.frontend is not None, "a modality frontend",
      "encoder and frontend"),
-    (lambda c: c.family != "dense", "a family other than 'dense'",
-     "non-dense family"),
+    (lambda c: c.family not in ("dense", "moe"),
+     "a family other than 'dense' and 'moe'", "non-dense family"),
 )
 _RUN_SLICE = (
-    (lambda r: r.remat != "none", "remat", "remat and microbatch"),
-    (lambda r: r.microbatch > 1, "microbatch > 1", "remat and microbatch"),
     (lambda r: r.fsdp, "fsdp", "LM sharding"),
     (lambda r: r.act_shard != "none", "act_shard", "LM sharding"),
     (lambda r: r.param_dtype != "float32", "param_dtype other than float32",
@@ -62,9 +64,9 @@ def later_slice(what: str, slice_name: str):
 
 def check_slice(cfg: ArchConfig | None = None, run: RunConfig | None = None):
     """Raise ``NotImplementedError`` on what this slice does not run: an
-    architecture other than a dense decoder of "global" and "local"
-    attention layers, or a run knob of a later slice set away from its
-    default."""
+    architecture other than a decoder of "global" and "local" attention
+    layers with a dense or expert feed-forward, or a run knob of a later
+    slice (LM sharding, bf16 parameters) set away from its default."""
     for test, what, slice_name in _ARCH_SLICE if cfg is not None else ():
         if test(cfg):
             later_slice(f"{cfg.name}: {what}", slice_name)
@@ -79,7 +81,8 @@ def check_slice(cfg: ArchConfig | None = None, run: RunConfig | None = None):
 
 class Block(nn.Module):
     """One pre-norm decoder block of attention ``kind`` ("global" or
-    "local"): attention then the MLP, each added to the residual stream."""
+    "local"): attention then the feed-forward (the MLP, or the experts when
+    ``cfg.n_experts``), each added to the residual stream."""
 
     def __init__(self, cfg: ArchConfig, gen, device, kind: str):
         super().__init__()
@@ -87,14 +90,21 @@ class Block(nn.Module):
         self.norm1 = L.init_norm(cfg, device)
         self.attn = L.init_attention(gen, cfg, device)
         self.norm2 = L.init_norm(cfg, device)
-        self.ffn = L.init_mlp(gen, cfg, device)
+        self.ffn = (L.init_moe(gen, cfg, device) if cfg.n_experts
+                    else L.init_mlp(gen, cfg, device))
+
+    def feed_forward(self, x, cfg: ArchConfig, run: RunConfig):
+        """The block's second half: ``x`` plus the feed-forward of its
+        norm."""
+        h2 = L.apply_norm(self.norm2, x, cfg)
+        ffn = L.moe_mlp if cfg.n_experts else L.mlp
+        return x + ffn(self.ffn, h2, cfg, run)
 
     def forward(self, x, cfg: ArchConfig, run: RunConfig, positions):
         h = L.apply_norm(self.norm1, x, cfg)
         x = x + L.attention_train(self.attn, h, cfg, run, kind=self.kind,
                                   positions=positions)
-        h2 = L.apply_norm(self.norm2, x, cfg)
-        return x + L.mlp(self.ffn, h2, cfg, run)
+        return self.feed_forward(x, cfg, run)
 
 
 class Decoder(nn.Module):
@@ -158,9 +168,46 @@ def _ce_loss(logits, labels):
     return losses.sum() / valid.sum().clamp_min(1)
 
 
+# "dots": the reference's dots_with_no_batch_dims_saveable.  A product
+# without batch dimensions is an ``mm`` here ((B, S, d) @ (d, n) folds to
+# one); the batched ones (attention's, the experts') are ``bmm`` and are
+# recomputed with everything else
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(fn, run: RunConfig):
+    """``fn`` under the reference's ``jax.checkpoint`` of ``run.remat``:
+    "full" saves only its inputs and recomputes the rest in the backward,
+    "dots" also saves the outputs of the products without batch
+    dimensions."""
+    if run.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if run.remat == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False, context_fn=lambda:
+            create_selective_checkpoint_contexts(_DOTS_SAVED))
+    if run.remat != "none":
+        raise ValueError(f"remat {run.remat!r} not in ('none', 'full', "
+                         f"'dots')")
+    return fn
+
+
 def _apply_stack(params: Decoder, x, cfg: ArchConfig, run: RunConfig,
                  positions):
-    for block in params.blocks:
+    """The blocks in layer order: each repeat of the block cycle as one
+    body under :func:`_remat`, then the tail unchecked, as the reference's
+    scan and its unrolled tail."""
+    c, repeats = _cycle_info(cfg)
+    blocks = list(params.blocks)
+
+    def cycle(xc, r):
+        for block in blocks[r * c:(r + 1) * c]:
+            xc = block(xc, cfg, run, positions)
+        return xc
+    body = _remat(cycle, run)
+    for r in range(repeats):
+        x = body(x, r)
+    for block in blocks[repeats * c:]:
         x = block(x, cfg, run, positions)
     return x
 
@@ -225,9 +272,7 @@ def _block_prefill(block: Block, x, cfg: ArchConfig, run: RunConfig,
     h = L.apply_norm(block.norm1, x, cfg)
     out, cache = _attn_with_cache(block.attn, h, cfg, run, block.kind,
                                   positions, cache_len)
-    x = x + out
-    h2 = L.apply_norm(block.norm2, x, cfg)
-    return x + L.mlp(block.ffn, h2, cfg, run), cache
+    return block.feed_forward(x + out, cfg, run), cache
 
 
 def _block_decode(block: Block, x, cache: dict, cfg: ArchConfig,
@@ -235,9 +280,7 @@ def _block_decode(block: Block, x, cache: dict, cfg: ArchConfig,
     h = L.apply_norm(block.norm1, x, cfg)
     out, cache = L.attention_decode(block.attn, h, cache, pos, cfg, run,
                                     kind=block.kind)
-    x = x + out
-    h2 = L.apply_norm(block.norm2, x, cfg)
-    return x + L.mlp(block.ffn, h2, cfg, run), cache
+    return block.feed_forward(x + out, cfg, run), cache
 
 
 def _apply_stack_prefill(params: Decoder, x, cfg: ArchConfig, run: RunConfig,

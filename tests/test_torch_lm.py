@@ -46,7 +46,8 @@ from repro_torch.models import make_model, params_from_numpy, params_to_numpy
 LOSS_TOL = dict(rtol=1e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-6)
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
-RUNNABLE = ("olmo-1b", "phi3-medium-14b", "gemma3-4b", "h2o-danube-1.8b")
+RUNNABLE = ("olmo-1b", "phi3-medium-14b", "gemma3-4b", "h2o-danube-1.8b",
+            "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 
 
 def _cfg(name, layers=2):
@@ -285,7 +286,9 @@ def test_params_round_trip_is_bitwise(name):
 @pytest.mark.parametrize("name", RUNNABLE)
 def test_port_init_has_the_reference_tree_and_scales(name):
     """The port's own initialisation: the reference's tree of shapes, f32,
-    and its scales (1/sqrt(fan_in); wo at 1/sqrt(h*dh); embed 0.02)."""
+    and its scales (1/sqrt(shape[0]), fan_in for a matrix, the expert count
+    for the experts' (E, ., .) weights; attention's wo at 1/sqrt(h*dh);
+    embed 0.02)."""
     # a full block cycle and a tail layer, so that both the scan and the
     # tail count
     layers = max(3, len(get_arch(name).pattern) + 1)
@@ -306,7 +309,9 @@ def test_port_init_has_the_reference_tree_and_scales(name):
     np.testing.assert_allclose(attn["wq"].std(), cfg.d_model ** -0.5, rtol=0.05)
     np.testing.assert_allclose(attn["wo"].std(), (h * dh) ** -0.5, rtol=0.05)
     ffn = ours["blocks"]["scan"][0]["ffn"]
-    np.testing.assert_allclose(ffn["wo"].std(), cfg.d_ff ** -0.5, rtol=0.05)
+    fan = ffn["wo"].shape[1]        # (repeats, f, d) or (repeats, E, f, d)
+    assert fan == (cfg.n_experts or cfg.d_ff)
+    np.testing.assert_allclose(ffn["wo"].std(), fan ** -0.5, rtol=0.05)
     for norm in [ours["final_norm"], ours["blocks"]["scan"][0]["norm1"]]:
         for v in norm.values():
             np.testing.assert_array_equal(v, np.zeros_like(v))  # rmsnorm 1+s
@@ -399,6 +404,128 @@ def test_three_train_steps_match_reference(flash):
     _assert_trees_close(params_to_numpy(cfg, params), want_params, **GRAD_TOL)
     moved = params_to_numpy(cfg, params)["embed"] - tree["embed"]
     assert np.abs(moved).max() > 1e-5
+
+
+# ---------------------------------------------------------------------------
+# remat and gradient microbatching
+# ---------------------------------------------------------------------------
+
+# gemma3's 7 reduced layers: one LLLLLG cycle under remat and a tail layer
+# outside it; qwen3-moe's 2: two cycles of one layer, with experts
+REMAT_ARCHS = (("gemma3-4b", 7), ("qwen3-moe-30b-a3b", 2))
+
+
+def _loss_and_grads(module, cfg, run, batch):
+    loss = make_model(cfg)["train_loss"](module, tsteps.batch_to(batch, "cpu"),
+                                         run)
+    return loss.detach(), torch.autograd.grad(loss, list(module.parameters()))
+
+
+@pytest.mark.parametrize("name,layers", REMAT_ARCHS)
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_is_bitwise_the_plain_run_and_matches_reference(name, layers,
+                                                              remat):
+    """The loss and every gradient bitwise those of ``remat="none"``, and
+    within GRAD_TOL of the reference's own remat."""
+    run, jrun = _runs(remat=remat, flash_kernel=True)
+    cfg, jcfg = _cfg(name, layers), _jcfg(name, layers)
+    tree = _jax_params(jcfg, jrun)
+    batch = _batch(cfg, 2, 16)
+    module = params_from_numpy(cfg, tree, device="cpu")
+    loss, grads = _loss_and_grads(module, cfg, run, batch)
+    plain = _loss_and_grads(module, cfg, dataclasses.replace(run, remat="none"),
+                            batch)
+    assert torch.equal(loss, plain[0])
+    assert all(torch.equal(a, b) for a, b in zip(grads, plain[1]))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, jgrads = jax.value_and_grad(lambda p: j_make_model(jcfg)[
+        "train_loss"](p, jbatch, jrun))(jax.tree_util.tree_map(jnp.asarray,
+                                                               tree))
+    np.testing.assert_allclose(float(loss), float(jloss), **LOSS_TOL)
+    _assert_trees_close(_grads_tree(cfg, module, grads), _np_tree(jgrads),
+                        **GRAD_TOL)
+
+
+def test_remat_dots_saves_the_products_without_batch_dims():
+    """The ops that the backward runs, recomputation included: "dots" runs
+    the plain backward's ``mm``s and no more (the forward's are saved) and
+    recomputes the ``bmm``s (attention's, the experts'); "full" recomputes
+    both."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen[func] += 1
+            return func(*args, **(kwargs or {}))
+    cfg = _cfg("qwen3-moe-30b-a3b")
+    batch = tsteps.batch_to(_batch(cfg, 2, 16), "cpu")
+    seen = {}
+    for remat in ("none", "full", "dots"):
+        run, _ = _runs(remat=remat)
+        module = make_model(cfg)["init"](run, torch.Generator().manual_seed(0),
+                                         "cpu")
+        loss = make_model(cfg)["train_loss"](module, batch, run)
+        with Ops() as ops:
+            torch.autograd.grad(loss, list(module.parameters()))
+        seen[remat] = ops.seen
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    assert seen["dots"][mm] == seen["none"][mm] < seen["full"][mm]
+    assert seen["none"][bmm] < seen["dots"][bmm] == seen["full"][bmm]
+
+
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_microbatch_step_matches_reference(name, k):
+    """One step at ``microbatch = k`` over a batch of 4 against the
+    reference's ``build_train_step`` (its ``lax.scan`` over the slices) on
+    one state: the loss, the grad norm and the accumulated gradients, at
+    the tolerances of ``test_three_train_steps_match_reference``.  With
+    experts each slice routes under its own capacity, in both packages.
+
+    The gradients are read from AdamW's first moment, ``(1 - b1) g`` after
+    one step.  The parameters themselves are not compared: AdamW's first
+    step moves each by ``lr g / (|g| + eps)``, and an embedding gradient
+    that the slices' sum cancels to ~1e-10 (rounding noise, of either sign
+    in either framework) moves its parameter by up to lr ``|g| / eps``."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.launch.steps import build_train_step as j_build_train_step
+    from repro.launch.steps import jit_train_step
+    run, jrun = _runs(global_batch=4, microbatch=k, warmup=1)
+    cfg, jcfg = _cfg(name), _jcfg(name)
+    tree = _jax_params(jcfg, jrun)
+    batch = JTokenStream(vocab=cfg.vocab, seq_len=16, batch=4,
+                         seed=0).batch_at(1)
+    mesh = make_host_mesh()
+    built = j_build_train_step(jcfg, jrun, mesh)
+    fn = jit_train_step(built, mesh, jax.tree_util.tree_map(
+        lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), batch))
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    _, jo, jm = fn(jparams, joptim.adamw_init(jparams), batch, jnp.int32(1))
+    module = params_from_numpy(cfg, tree, "cpu")
+    step = tsteps.build_train_step(cfg, run, device="cpu")["fn"]
+    params, opt, m = step(module, toptim.adamw_init(list(module.parameters())),
+                          tsteps.batch_to(batch, "cpu"), 1)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), **LOSS_TOL)
+    np.testing.assert_allclose(float(m["gnorm"]), float(jm["gnorm"]),
+                               **GRAD_TOL)
+    assert opt["count"] == 1
+    b1 = 0.1                       # 1 - beta1, AdamW's default in both
+    grads = jax.tree_util.tree_map(
+        lambda m: m / b1, params_to_numpy(cfg, params, opt["mu"]))
+    _assert_trees_close(grads, jax.tree_util.tree_map(
+        lambda m: np.asarray(m) / b1, jo["mu"]), **GRAD_TOL)
+
+
+def test_microbatch_must_divide_the_batch():
+    run, _ = _runs(global_batch=4, microbatch=3)
+    with pytest.raises(ValueError, match="does not divide"):
+        tsteps.build_train_step(_cfg("olmo-1b"), run, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -514,8 +641,7 @@ def test_later_slice_archs_raise(name):
         make_model(get_arch(name).reduced())
 
 
-@pytest.mark.parametrize("knob", [dict(remat="full"), dict(remat="dots"),
-                                  dict(microbatch=2), dict(fsdp=True),
+@pytest.mark.parametrize("knob", [dict(fsdp=True),
                                   dict(act_shard="seq"),
                                   dict(param_dtype="bfloat16")])
 def test_later_slice_run_knobs_raise(knob):
