@@ -211,7 +211,25 @@ Phases, each of which exits non-zero on a failed check:
      loss bitwise its halves' composition and within 1e-4 nats of the
      plain one), ms a step, tokens/s and peak memory of each, the kernel
      at the inputs the path handed it; and a MoE trainer (16 experts,
-     one layer, vocabulary 16,384) checkpointed and resumed bitwise.
+     one layer, vocabulary 16,384) checkpointed and resumed bitwise;
+  14. recurrent layers (``lm_recurrent``, after ``lm_moe``):
+     recurrentgemma-2b (26 layers, RG-LRU and local attention) and
+     mamba2-370m (48 SSD layers) at full width and depth through
+     ``serve`` (8 x 4,096, 64 new tokens, bf16: prefill first and warm,
+     decode ms a step, tokens/s, the decode profile and its launches a
+     step, peak memory, a decode step twice bitwise), each one's first
+     recurrent layer alone at 8 x 4,096 (the RG-LRU's scan apart); at full
+     width and reduced depth in f32 (recurrentgemma one cycle and its
+     2-layer tail, mamba2 2 layers), at the initialisation's weights and
+     at a long-memory edit of ``lam`` and ``dt_bias``: a 1,024-token
+     prefill and a decode step each twice bitwise, 128 teacher-forced
+     decode steps against one training forward within 2e-3, and at long
+     memory a zeroed ``h`` and a zeroed ``conv`` state that must leave
+     it; training at 4 x 2,048 (mamba2 at 48 layers, plain and
+     ``remat="full"`` bitwise it; recurrentgemma at 8 layers), step 0's
+     loss and every gradient finite, ms a step, tokens/s, peak memory.
+     No kernel of the port is on this path; the phase's launch counts
+     stay 0.
 
 Each VMP path, and the SVI fit, logs a sha256 of its final posteriors and
 ELBO trace, so that two trees can be shown to give the same output bit for
@@ -394,6 +412,32 @@ MOE_MB_TOL = 1e-4
 MOE_CKPT_LAYERS, MOE_CKPT_EXPERTS, MOE_CKPT_VOCAB = 1, 16, 16384
 # the routing's softmax weights against a host recomputation in f64
 ROUTE_W_TOL = 1e-6
+# recurrent layers: recurrentgemma-2b (arXiv:2402.19427; 26 layers, the
+# RG-LRU at width 2,560 and local MQA attention, window 2,048) and
+# mamba2-370m (arXiv:2405.21060; 48 SSD layers, state 128) at full width
+# and depth through serve, 8 prompts of 4,096 tokens, 64 new tokens; f32
+# checks at full width and reduced depth (recurrentgemma one cycle and its
+# 2-layer tail, mamba2 2 layers): a prefill of 1,024 tokens (a multiple of
+# SSD's 128-token chunk), 128 teacher-forced decode steps against one
+# training forward over the 1,152 tokens, at the initialisation's weights
+# and at a long-memory edit (lam -4: the RG-LRU's a in 0.87-1; dt_bias -5:
+# SSD's decay about 0.993 a step), where zeroing one layer's h, or its
+# conv state, must leave the tolerance
+RECUR_SERVE = (("recurrentgemma-2b", 8), ("mamba2-370m", 8))
+RECUR_CHECK_LAYERS = {"recurrentgemma-2b": 5, "mamba2-370m": 2}
+RECUR_PROMPT, RECUR_DECODE, RECUR_CHUNK = 1024, 128, 256
+RECUR_LONG_MEMORY = {"lam": -4.0, "dt_bias": -5.0}
+# training at 4 x 2,048: mamba2 at full depth, plain and remat="full";
+# recurrentgemma at 8 of 26 layers (two cycles and the 2-layer tail): all 26
+# hold 2.894B f32 parameters, 46.3 GB with the AdamW moments before any
+# activation; beside the 256,000-column head's f32 logits and about 3-4 GB
+# of activations a layer, 11 layers ran out of the card's 79.18 GiB, and 8
+# peaked at 78.48 GB (73.1 GiB) on an NVIDIA H100 80GB HBM3 at 700 W
+RECUR_TRAIN = (("mamba2-370m", 48, ("plain", "remat full")),
+               ("recurrentgemma-2b", 8, ("plain",)))
+# RECUR_STEPS steps a run; the first (allocation, autotuning) is dropped
+# from the step times, and the mean and median of the other seven are kept
+RECUR_SEQ, RECUR_BATCH, RECUR_STEPS = 2048, 4, 8
 SHAPES = [(1, 2), (3, 5), (7, 128), (33, 96), (128, 130), (257, 4),
           (64, 300), (1000, 3), (5, 102660), (70000, 16)]
 
@@ -3580,7 +3624,7 @@ def attention_routes():
         L._sdpa_flash, L._sdpa_window = orig["_sdpa_flash"], orig["_sdpa_window"]
 
 
-def serve_perf(name, batch, params, cfg):
+def serve_perf(name, batch, params, cfg, tag="lm_serve"):
     """``serve`` at ``batch`` x SERVE_PROMPT tokens and SERVE_NEW new
     tokens in bf16 compute: the prefill's attention routes, no kernel
     launched, tokens in the vocabulary; prefill ms, decode ms a step,
@@ -3604,8 +3648,9 @@ def serve_perf(name, batch, params, cfg):
     counts = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_local = kinds.count("local")
-    want = {"flash": 0, "flash_skip": len(kinds) - n_local, "window": n_local}
-    log(f"[lm_serve] {name}: serve({batch} x {SERVE_PROMPT}, {SERVE_NEW} new "
+    want = {"flash": 0, "flash_skip": kinds.count("global"),
+            "window": n_local}
+    log(f"[{tag}] {name}: serve({batch} x {SERVE_PROMPT}, {SERVE_NEW} new "
         f"tokens, {run.dtype} compute): prefill routes {routes} (want "
         f"{want}); launches {counts}")
     check(routes == want, f"{name}: prefill took routes {routes}, not {want}")
@@ -3615,7 +3660,7 @@ def serve_perf(name, batch, params, cfg):
           (toks < cfg.vocab).all(), f"{name}: generated tokens {toks.shape} "
           f"outside [0, {cfg.vocab})")
     decode_ms = stats["decode_s"] / SERVE_NEW * 1e3
-    log(f"[lm_serve] {name}: prefill {stats['prefill_s'] * 1e3:.2f} ms, "
+    log(f"[{tag}] {name}: prefill {stats['prefill_s'] * 1e3:.2f} ms, "
         f"decode {decode_ms:.3f} ms a step, {stats['tokens_per_s']:.1f} "
         f"tokens/s, peak memory {peak_gb:.2f} GB; continuation of prompt 0: "
         f"{toks[0, :8].tolist()}")
@@ -3630,7 +3675,7 @@ def serve_perf(name, batch, params, cfg):
                                          s0 + SERVE_NEW)
         torch.cuda.synchronize()
         warm_ms = (time.perf_counter() - t0) * 1e3
-        log(f"[lm_serve] {name}: prefill again, warm: {warm_ms:.2f} ms")
+        log(f"[{tag}] {name}: prefill again, warm: {warm_ms:.2f} ms")
         tok = torch.argmax(logits, -1)[:, None]
         twins = [[{k: t.clone() for k, t in c.items()} for c in cache]
                  for _ in range(2)]
@@ -3639,7 +3684,7 @@ def serve_perf(name, batch, params, cfg):
             torch.equal(a[k], b[k]) for a, b in zip(*twins) for k in a),
             f"{name}: a decode step twice from one cache differs")
         del twins, outs
-        log(f"[lm_serve] {name}: a decode step twice from one cache: "
+        log(f"[{tag}] {name}: a decode step twice from one cache: "
             f"logits and caches bitwise equal")
         state = {"tok": tok, "pos": s0}
 
@@ -3652,7 +3697,7 @@ def serve_perf(name, batch, params, cfg):
         decode_steps()                                  # warm
         t0 = time.perf_counter()
         trace = profile_steps(decode_steps, SERVE_PROFILE_STEPS,
-                              label=f"lm_serve {name} decode trace")
+                              label=f"{tag} {name} decode trace")
         trace["seconds"] = time.perf_counter() - t0
         del cache
     idle = 1 - trace["busy_ms"] / trace["step_ms"] if trace["kernels"] \
@@ -4429,6 +4474,296 @@ def phase_lm_moe(report):
     return [entry]
 
 
+# ---------------------------------------------------------------------------
+# recurrent layers: recurrentgemma-2b (RG-LRU + local attention) and
+# mamba2-370m (SSD) serving and training
+# ---------------------------------------------------------------------------
+
+def recurrent_layer_times(name, cfg, params):
+    """The first recurrent layer of the served model alone, at
+    SERVE_PROMPT tokens of batch 8 in bf16 compute, as prefill runs it
+    (plain torch, no kernel of the port): the whole layer and, for the
+    RG-LRU, its scan over f32 (a, b) pairs; ms by CUDA events, device busy
+    ms and launches under the profiler."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import layers as L
+    run = RunConfig()
+    block = next(b for b in params.blocks if b.kind in ("rglru", "ssd"))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    x = torch.randn((8, SERVE_PROMPT, cfg.d_model), generator=gen,
+                    device=DEV).to(L._dtype(run))
+    out = {}
+    with torch.inference_mode():
+        h = L.apply_norm(block.norm1, x, cfg)
+        if block.kind == "rglru":
+            p = block.rglru
+            _, _, xf, r, i = L._rglru_inputs(p, h, run)
+            fns = {"rglru layer": lambda: L.rglru_train(p, h, cfg, run),
+                   "rglru scan": lambda: L._rglru_core(xf, r, i, p["lam"])}
+        else:
+            fns = {"ssd layer": lambda: L.ssd_train(block.ssd, h, cfg, run)}
+        for key, fn in fns.items():
+            ms = time_ms(fn, reps=5)
+            trace = profile_steps(fn, 1, label=f"lm_recurrent {name} {key}")
+            launches = sum(k["calls_per_step"] for k in trace["kernels"])
+            out[key] = dict(ms=ms, busy_ms=trace["busy_ms"], launches=launches)
+            log(f"[lm_recurrent] {name}: {key} at 8 x {SERVE_PROMPT} bf16: "
+                f"{ms:.3f} ms (CUDA events), device busy {trace['busy_ms']:.3f}"
+                f" ms in {launches} launches")
+    return out
+
+
+def recurrent_serve(report, name, batch):
+    """``name`` at full width and depth through ``serve``
+    (:func:`serve_perf`: prefill first and warm, decode ms a step,
+    tokens/s, the decode profile with its launches a step, peak memory, a
+    decode step twice bitwise), then its recurrent layer alone
+    (:func:`recurrent_layer_times`)."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.models import make_model
+    cfg = get_arch(name)
+    params = make_model(cfg)["init"](RunConfig(), device=DEV)
+    log(f"[lm_recurrent] {name}: {cfg.n_layers} layers "
+        f"{''.join(k[0].upper() for k in cfg.layer_kinds())}, d_model "
+        f"{cfg.d_model}, inner width {cfg.d_inner}, ssm heads "
+        f"{cfg.ssm_heads if 'ssd' in cfg.pattern else 0}, state "
+        f"{cfg.ssm_state}, window {cfg.window}, vocab {cfg.vocab}; "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f}B f32 "
+        f"parameters")
+    out = serve_perf(name, batch, params, cfg, tag="lm_recurrent")
+    out["decode_launches_per_step"] = sum(
+        k["calls_per_step"] for k in out["decode_trace"]["kernels"])
+    log(f"[lm_recurrent] {name}: {out['decode_launches_per_step']} kernel "
+        f"launches a decode step")
+    out["layer_times"] = recurrent_layer_times(name, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    report["lm_recurrent"][name] = out
+
+
+def long_memory(params):
+    """Every RG-LRU layer's ``lam`` and every SSD layer's ``dt_bias`` set
+    to RECUR_LONG_MEMORY's values, in place."""
+    with torch.no_grad():
+        for b in params.blocks:
+            if b.kind == "rglru":
+                b.rglru["lam"].fill_(RECUR_LONG_MEMORY["lam"])
+            elif b.kind == "ssd":
+                b.ssd["dt_bias"].fill_(RECUR_LONG_MEMORY["dt_bias"])
+
+
+def recurrent_checks(report, name):
+    """``name`` at full width, RECUR_CHECK_LAYERS layers, f32, batch 2,
+    at the initialisation's weights and then at the long-memory edit: a
+    prefill of RECUR_PROMPT tokens twice bitwise (logits and caches); a
+    decode step twice from one cache bitwise; RECUR_DECODE teacher-forced
+    decode steps, each step's logits against the position's logits of one
+    training forward (``transformer.forward``) over all the tokens, within
+    DECODE_TOL; the controls: the first decode step from a copy of the
+    cache with the first recurrent layer's ``h``, and separately its
+    ``conv``, zeroed, which must leave the tolerance at long memory."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.models import make_model
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch(name),
+                              n_layers=RECUR_CHECK_LAYERS[name])
+    s0, k = RECUR_PROMPT, RECUR_DECODE
+    run = RunConfig(seq_len=s0 + k, global_batch=2, dtype="float32",
+                    attn_chunk=RECUR_CHUNK)
+    model = make_model(cfg)
+    params = model["init"](run, device=DEV)
+    seq = torch.from_numpy(TokenStream(vocab=cfg.vocab, seq_len=s0 + k,
+                                       batch=2, seed=SEED + 3)
+                           .batch_at(0)["tokens"]).to(DEV, torch.int64)
+    kinds = cfg.layer_kinds()
+    first = next(i for i, kind in enumerate(kinds) if kind in ("rglru", "ssd"))
+    out = {"layers": cfg.n_layers, "kinds": kinds}
+    for setting in ("default", "long memory"):
+        if setting == "long memory":
+            long_memory(params)
+        with torch.inference_mode():
+            full = T.forward(params, seq, cfg, run)
+            with attention_routes() as routes:
+                l1, cache = model["prefill"](params, {"tokens": seq[:, :s0]},
+                                             run, s0 + k)
+            l2, again = model["prefill"](params, {"tokens": seq[:, :s0]},
+                                         run, s0 + k)
+            check(routes["window"] == kinds.count("local") and
+                  routes["flash_skip"] == 0, f"{name}: the {s0}-token "
+                  f"prefill took routes {routes}")
+            check(torch.equal(l1, l2) and all(
+                torch.equal(a[n], b[n]) for a, b in zip(cache, again)
+                for n in a), f"{name} ({setting}): a prefill twice differs")
+            controls = {}
+            for part in ("h", "conv"):
+                faulty = [{n: t.clone() for n, t in c.items()} for c in cache]
+                faulty[first][part].zero_()
+                ctl, _ = model["decode_step"](params, faulty,
+                                              seq[:, s0:s0 + 1], s0, run)
+                controls[part] = _tol_units(ctl, full[:, s0], cfg.vocab)
+                del faulty
+            twice, _ = model["decode_step"](params, again, seq[:, s0:s0 + 1],
+                                            s0, run)
+            worst = 0.0
+            for i in range(k):
+                pos = s0 + i
+                dec, _ = model["decode_step"](params, cache,
+                                              seq[:, pos:pos + 1], pos, run)
+                if i == 0:
+                    check(torch.equal(dec, twice) and all(
+                        torch.equal(a[n], b[n]) for a, b in zip(cache, again)
+                        for n in a), f"{name} ({setting}): a decode step "
+                          f"twice from one cache differs")
+                worst = max(worst, _tol_units(dec, full[:, pos], cfg.vocab))
+            del full, cache, again
+        log(f"[lm_recurrent] {name} at {cfg.n_layers} layers "
+            f"({''.join(c[0].upper() for c in kinds)}), f32, {setting} "
+            f"weights: a prefill of 2 x {s0} tokens (routes {routes}) and "
+            f"a decode step each twice bitwise; {k} teacher-forced decode "
+            f"steps against one training forward over {s0 + k} tokens: "
+            f"worst |diff| {worst:.3e} of atol + rtol |ref| (rtol = atol = "
+            f"2e-3); the first step with layer {first}'s h zeroed "
+            f"{controls['h']:.3e} of it, its conv zeroed "
+            f"{controls['conv']:.3e}")
+        check(worst <= 1.0, f"{name} ({setting}): decode differs from the "
+              f"training forward by {worst:.3e} of the tolerance")
+        if setting == "long memory":
+            check(min(controls.values()) > 1.0, f"{name}: a zeroed state "
+                  f"moves the first decode step by only {controls} of the "
+                  f"tolerance at long memory")
+        out[setting] = dict(teacher_forced_worst=worst, controls=controls)
+    del params
+    torch.cuda.empty_cache()
+    report["lm_recurrent"][f"{name} checks"] = out
+
+
+def recurrent_grads_finite(cfg, run):
+    """Step 0's loss and gradient at the port's initialisation from
+    ``run.seed``, on the trainer's first batch: ``(loss, global norm,
+    the names of the leaves with a non-finite entry)``."""
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.models import make_model
+    model = make_model(cfg)
+    params = model["init"](run, device=DEV)
+    batch = batch_to(TokenStream(vocab=cfg.vocab, seq_len=run.seq_len,
+                                 batch=run.global_batch, seed=run.seed)
+                     .batch_at(0), DEV)
+    loss = model["train_loss"](params, batch, run)
+    names = [n for n, _ in params.named_parameters()]
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    bad = [n for n, g in zip(names, grads) if not torch.isfinite(g).all()]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads])).item()
+    loss = float(loss.detach())
+    del params, grads
+    torch.cuda.empty_cache()
+    return loss, norm, bad
+
+
+def recurrent_train(report):
+    """Each of RECUR_TRAIN at full width and its depth, batch RECUR_BATCH x
+    RECUR_SEQ, bf16 compute, through ``train`` (RECUR_STEPS steps from the
+    port's initialisation): step 0's loss and every gradient finite
+    (:func:`recurrent_grads_finite`), every loss finite, the remat run
+    bitwise the plain run (losses and parameters), ms a step, tokens/s and
+    peak memory."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.train import train
+    tokens = RECUR_BATCH * RECUR_SEQ
+    out = {}
+    for name, layers, variants in RECUR_TRAIN:
+        cfg = dataclasses.replace(get_arch(name), n_layers=layers)
+        base = RunConfig(seq_len=RECUR_SEQ, global_batch=RECUR_BATCH,
+                         warmup=1)
+        torch.cuda.empty_cache()
+        loss0, gnorm, bad = recurrent_grads_finite(cfg, base)
+        log(f"[lm_recurrent] train {name} at {layers} layers: step 0's loss "
+            f"{loss0:.6f}, gradient norm {gnorm:.4e}, non-finite leaves "
+            f"{bad}")
+        check(np.isfinite(loss0) and np.isfinite(gnorm) and not bad,
+              f"{name}: step 0's loss {loss0} or gradient is not finite "
+              f"({bad})")
+        runs, plain = {}, None
+        for label in variants:
+            run = dataclasses.replace(base, remat="full") \
+                if label == "remat full" else base
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params, opt, losses, tel = train(cfg, run, RECUR_STEPS,
+                                             device=DEV, log_every=0)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            del opt
+            host = host_params(params)
+            del params
+            torch.cuda.empty_cache()
+            summ = tel.summary()
+            step_ms, p50_ms = summ["mean_s"] * 1e3, summ["p50_s"] * 1e3
+            spread = [t * 1e3 for t in tel.times[1:]]
+            check(all(np.isfinite(losses)) and
+                  all(torch.isfinite(p).all() for p in host),
+                  f"{name} {label}: losses {losses} or parameters not finite")
+            runs[label] = dict(losses=losses, step_ms=step_ms,
+                               step_p50_ms=p50_ms,
+                               tokens_per_s=tokens / step_ms * 1e3,
+                               peak_memory_gb=peak_gb, step_times_s=tel.times)
+            if plain is None:
+                plain = (losses, host)
+            else:
+                same = losses == plain[0] and bitwise(host, plain[1])
+                runs[label]["bitwise"] = same
+                check(same, f"{name}: {label}'s losses {losses} or "
+                      f"parameters are not bitwise the plain run's "
+                      f"{plain[0]}")
+            del host
+            log(f"[lm_recurrent] train {name} {label} ({layers} layers, "
+                f"{RECUR_BATCH} x {RECUR_SEQ}): losses {losses}; "
+                f"{step_ms:.2f} ms a step (mean of steps 1-"
+                f"{RECUR_STEPS - 1}; median {p50_ms:.2f}, least "
+                f"{min(spread):.2f}, most {max(spread):.2f}), "
+                f"{tokens / step_ms * 1e3:.4e} tokens/s, "
+                f"peak memory {peak_gb:.2f} GB"
+                + ("; losses and parameters bitwise the plain run's"
+                   if label != "plain" else ""))
+        del plain
+        out[name] = dict(layers=layers, loss0=loss0, grad_norm=gnorm,
+                         runs=runs)
+    report["lm_recurrent"]["train"] = out
+
+
+def phase_lm_recurrent(report):
+    """Recurrent layers on the card: recurrentgemma-2b and mamba2-370m at
+    full width and depth through ``serve``, their f32 decode checks at
+    reduced depth with their controls, and their training steps.  No
+    kernel of the port is on this path; the ``kernels`` line gains no
+    entry."""
+    from repro_torch.kernels import ops
+    report["lm_recurrent"] = {}
+    stage_s = report["lm_recurrent"]["stage_s"] = {}
+
+    def timed(key, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        stage_s[key] = time.perf_counter() - t0
+        return out
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    for name, batch in RECUR_SERVE:
+        timed(f"{name} serve", recurrent_serve, report, name, batch)
+    for name, _ in RECUR_SERVE:
+        timed(f"{name} checks", recurrent_checks, report, name)
+    timed("train", recurrent_train, report)
+    counts = ops.launch_counts()
+    check(sum(counts.values()) == 0, f"lm_recurrent launched {counts}: its "
+          f"path reaches no kernel")
+    log(f"[lm_recurrent] kernel launches over the phase {counts}; seconds "
+        f"by stage: {', '.join(f'{k} {v:.1f}' for k, v in stage_s.items())}")
+    return []
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--docs", type=int, default=30000,
@@ -4499,6 +4834,7 @@ def main(argv=None) -> int:
     kernels += phase_lm_train(report, phase_flash(report))
     kernels += timed("lm_serve", phase_lm_serve, report)
     kernels += timed("lm_moe", phase_lm_moe, report)
+    kernels += timed("lm_recurrent", phase_lm_recurrent, report)
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))

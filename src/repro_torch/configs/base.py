@@ -4,8 +4,9 @@ configuration the same way.
 
 Every assigned architecture is a frozen :class:`ArchConfig`; reduced smoke
 variants derive from the full config via :meth:`ArchConfig.reduced`.  The
-port's LM slice runs the dense family with "global" attention; the other
-fields are carried as data, and the model raises on what it does not run.
+port's LM slices run the decoder families (dense, experts, hybrid, SSM);
+the encoder's and frontends' fields are carried as data, and the model
+raises on them.
 """
 
 from __future__ import annotations

@@ -6,9 +6,13 @@ new_tokens``), then decodes one token a step against the cache, which each
 step updates in place.  It runs under ``torch.inference_mode()``.  A mesh
 belongs to a later slice of the port and raises.
 
-Usage (a reduced olmo on the CPU; on the card drop ``--device``):
+Usage (a reduced olmo on the CPU; on the card drop ``--device``; ``--arch``
+names any decoder of the registry, recurrentgemma-2b and mamba2-370m too,
+whose SSD layers take prompts of at most 128 tokens or a multiple of 128):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --batch 2 --prompt-len 8 --new-tokens 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch mamba2-370m --batch 2 --prompt-len 8 --new-tokens 4
 """
 
 from __future__ import annotations

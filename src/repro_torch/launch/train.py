@@ -10,9 +10,12 @@ through ``checkpoint.CheckpointStore`` in the reference's trees and file
 format, so that either package reads the other's parameters.  A mesh
 belongs to a later slice of the port and raises.
 
-Usage (a reduced olmo on the CPU; on the card drop ``--device``):
+Usage (a reduced olmo on the CPU; on the card drop ``--device``; ``--arch``
+names any decoder of the registry, recurrentgemma-2b and mamba2-370m too):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 \\
       --d-model 64 --layers 2 --seq 32 --batch 4
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 \\
+      --arch recurrentgemma-2b --d-model 64 --layers 3 --seq 32 --batch 4
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Neural building blocks of the port's LM slices: the attention and
-feed-forward parts of ``repro.models.layers``, op for op.
+"""Neural building blocks of the port's LM slices: the attention,
+feed-forward and recurrent parts of ``repro.models.layers``, op for op.
 
 ``init_*`` build f32 parameters as ``nn.ParameterDict``s, drawn from an
 explicit ``torch.Generator`` at the reference's scales; the apply functions
@@ -13,7 +13,11 @@ the flash kernel for full causal layers; one token against a decode cache,
 a ring buffer of ``window`` slots for sliding-window layers), the
 SwiGLU/GEGLU/GELU MLPs and the token-choice top-k experts (``moe_mlp``,
 whose dispatch and combine sum in a fixed order, so that every run is
-bitwise repeatable).  RG-LRU and SSD belong to a later slice.
+bitwise repeatable), Griffin's RG-LRU and Mamba2's SSD (chunked over 128
+tokens), each with a depthwise causal conv and a one-token decode against
+its state.  The recurrences are plain tensor ops: the RG-LRU's scan is
+``lax.associative_scan``'s odd/even recursion (log depth, linear work, an
+autograd graph of its own), SSD's chunk states a loop over the chunks.
 """
 
 from __future__ import annotations
@@ -496,3 +500,275 @@ def moe_mlp(p, x: torch.Tensor, cfg: ArchConfig, run: RunConfig):
     yb = torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))
     contrib = yb * w_slot[..., None].to(dt)
     return _Combine.apply(contrib, take, inv).reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent block (recurrentgemma / Griffin)
+# ---------------------------------------------------------------------------
+
+def init_rglru(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
+    """``wx``, ``wgate`` (d, L), ``conv`` (W, L) at 0.5, ``wr``, ``wi``
+    (L, L), ``lam`` (L,) at 0.5 and ``wo`` (L, d); L = ``cfg.d_inner``."""
+    d, width = cfg.d_model, cfg.d_inner
+    return nn.ParameterDict({
+        "wx": _init(gen, (d, width), device),
+        "wgate": _init(gen, (d, width), device),
+        "conv": _init(gen, (cfg.ssm_conv, width), device, scale=0.5),
+        "wr": _init(gen, (width, width), device),
+        "wi": _init(gen, (width, width), device),
+        "lam": nn.Parameter(torch.full((width,), 0.5, dtype=torch.float32,
+                                       device=device)),
+        "wo": _init(gen, (width, d), device)})
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state=None):
+    """Depthwise causal conv over time in ``x``'s dtype.  x: (B, S, C), w:
+    (W, C): ``(y, None)``, the taps summed in order i = 0 .. W-1.  With
+    ``state`` (B, W-1, C), the inputs before ``x``: one decode step,
+    ``(y (B, 1, C), the new state)``."""
+    wdt = w.to(x.dtype)
+    if state is not None:
+        xin = torch.cat([state, x], dim=1)                     # (B, W, C)
+        y = (xin * wdt[None]).sum(dim=1, keepdim=True)
+        return y, xin[:, 1:]
+    width, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    y = xp[:, :s] * wdt[0]
+    for i in range(1, width):
+        y = y + xp[:, i:i + s] * wdt[i]
+    return y, None
+
+
+def _combine(a1, b1, a2, b2):
+    """The RG-LRU's pair (a, b) after (a1, b1) then (a2, b2):
+    ``h -> a2 (a1 h + b1) + b2``."""
+    return a1 * a2, a2 * b1 + b2
+
+
+def _scan_pairs(a: torch.Tensor, b: torch.Tensor):
+    """The inclusive scan of the pairs (a, b) along dim 1 under
+    :func:`_combine`, by ``lax.associative_scan``'s recursion: combine
+    adjacent pairs, scan the half, then fill in the even places.  Depth
+    2 log2(S), linear work; elementwise ops only, so every run gives the
+    same bits."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2])
+    oa, ob = _scan_pairs(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+    else:
+        ea, eb = _combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    ea, eb = torch.cat([a[:, :1], ea], 1), torch.cat([b[:, :1], eb], 1)
+
+    def interleave(even, odd):
+        if odd.shape[1] < even.shape[1]:
+            odd = torch.cat([odd, even[:, -1:]], 1)        # cut off below
+        return torch.stack([even, odd], 2).flatten(1, 2)[:, :n]
+    return interleave(ea, oa), interleave(eb, ob)
+
+
+def _rglru_gates(xf, r, i, lam):
+    """``(a, b)`` of ``h_t = a_t h_{t-1} + b_t``: ``a = exp(-8 softplus(lam)
+    r)``, ``b = sqrt(max(1 - a^2, 1e-12)) (i x)``, in f32."""
+    log_a = -8.0 * F.softplus(lam) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * \
+        (i * xf)
+    return a, b
+
+
+def _rglru_core(xf, r, i, lam):
+    """h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t x_t) from h_{-1} = 0, over
+    (B, S, L) f32."""
+    return _scan_pairs(*_rglru_gates(xf, r, i, lam))[1]
+
+
+def _rglru_inputs(p, x, run: RunConfig):
+    """What the scan reads over a sequence: ``(the pre-conv inputs (B, S,
+    L), gate, and the f32 x, r, i of :func:`_rglru_core`)``."""
+    dt = _dtype(run)
+    xb_pre = x @ p["wx"].to(dt)
+    xb, _ = _causal_conv(xb_pre, p["conv"])
+    gate = F.gelu(x @ p["wgate"].to(dt), approximate="tanh")
+    xf = xb.float()
+    r = torch.sigmoid(xf @ p["wr"])
+    i = torch.sigmoid(xf @ p["wi"])
+    return xb_pre, gate, xf, r, i
+
+
+def _rglru_forward(p, x, cfg: ArchConfig, run: RunConfig):
+    """The RG-LRU over a sequence: ``(y (B, S, d), h (B, S, L) f32, the
+    pre-conv inputs (B, S, L))``."""
+    dt = _dtype(run)
+    xb_pre, gate, xf, r, i = _rglru_inputs(p, x, run)
+    h = _rglru_core(xf, r, i, p["lam"])
+    y = (gate.float() * h).to(dt) @ p["wo"].to(dt)
+    return y, h, xb_pre
+
+
+def rglru_train(p, x, cfg: ArchConfig, run: RunConfig) -> torch.Tensor:
+    return _rglru_forward(p, x, cfg, run)[0]
+
+
+def init_rglru_cache(cfg: ArchConfig, run: RunConfig, batch: int,
+                     device=None) -> dict:
+    """``{"h": (B, L) f32, "conv": (B, W-1, L)}`` zeros, the conv state in
+    the run dtype."""
+    width = cfg.d_inner
+    return {"h": torch.zeros((batch, width), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, width),
+                                dtype=_dtype(run), device=device)}
+
+
+def rglru_decode(p, x, cache: dict, cfg: ArchConfig, run: RunConfig):
+    """One token ``x`` (B, 1, d) against ``cache``, which takes the new
+    state in place: ``(y (B, 1, d), cache)``."""
+    dt = _dtype(run)
+    xb = x @ p["wx"].to(dt)                                   # (B, 1, L)
+    xb, conv_state = _causal_conv(xb, p["conv"], cache["conv"])
+    gate = F.gelu(x @ p["wgate"].to(dt), approximate="tanh")
+    xf = xb[:, 0].float()
+    r = torch.sigmoid(xf @ p["wr"])
+    i = torch.sigmoid(xf @ p["wi"])
+    a, b = _rglru_gates(xf, r, i, p["lam"])
+    h = a * cache["h"] + b
+    y = (gate[:, 0].float() * h).to(dt) @ p["wo"].to(dt)
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv_state)
+    return y[:, None], cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD block (chunked state-space dual form)
+# ---------------------------------------------------------------------------
+
+SSD_CHUNK = 128
+
+
+def init_ssd(gen, cfg: ArchConfig, device) -> nn.ParameterDict:
+    """``in_proj`` (d, 2 d_inner + 2 N + H), ``conv`` (W, d_inner + 2 N) at
+    0.5, ``a_log`` 0, ``d_skip`` 1, ``dt_bias`` 0 (H,) and ``out_proj``
+    (d_inner, d)."""
+    d, din, nst, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return nn.ParameterDict({
+        "in_proj": _init(gen, (d, 2 * din + 2 * nst + nh), device),
+        "conv": _init(gen, (cfg.ssm_conv, din + 2 * nst), device, scale=0.5),
+        "a_log": nn.Parameter(torch.zeros(nh, **f32)),
+        "d_skip": nn.Parameter(torch.ones(nh, **f32)),
+        "dt_bias": nn.Parameter(torch.zeros(nh, **f32)),
+        "out_proj": _init(gen, (din, d), device)})
+
+
+def _ssd_split(p, x, cfg: ArchConfig, run: RunConfig):
+    """``(z, xBC, dt)`` of the input projection, in the run dtype."""
+    din, nst = cfg.d_inner, cfg.ssm_state
+    zxbcdt = x @ p["in_proj"].to(_dtype(run))
+    return (zxbcdt[..., :din], zxbcdt[..., din:2 * din + 2 * nst],
+            zxbcdt[..., 2 * din + 2 * nst:])
+
+
+def _ssd_forward(p, x, cfg: ArchConfig, run: RunConfig):
+    """Chunked SSD over a sequence: ``(y (B, S, d), the final state (B, H,
+    N, P) f32, the pre-conv xBC (B, S, d_inner + 2N))``.
+
+    Within a chunk the quadratic form ``Y_i = sum_{j <= i} C_i.B_j
+    exp(cum_i - cum_j) x_j dt_j``, with ``exp`` taken after the entries
+    above the diagonal are set to -inf: their decay is positive and
+    overflows f32 at full width, and the reference's ``where`` after the
+    ``exp`` gives the same values but a backward of 0 * inf.  Across chunks
+    ``H_c = exp(tot_c) H_{c-1} + S_c`` in a loop over the chunks.  A
+    sequence longer than ``SSD_CHUNK`` and not a multiple of it raises
+    ``ValueError``, where the reference's reshape fails."""
+    dt_ = _dtype(run)
+    b, s, _ = x.shape
+    din, nst, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    q = min(SSD_CHUNK, s)
+    if s % q:
+        raise ValueError(f"SSD runs in chunks of {SSD_CHUNK} tokens: a "
+                         f"sequence of {s} is neither at most one "
+                         f"{SSD_CHUNK}-token chunk nor a multiple of it")
+    nc = s // q
+    z, xbc_pre, dtr = _ssd_split(p, x, cfg, run)
+    xbc, _ = _causal_conv(xbc_pre, p["conv"])
+    xs = xbc[..., :din]
+    b_c = xbc[..., din:din + nst].float().reshape(b, nc, q, nst)
+    c_c = xbc[..., din + nst:].float().reshape(b, nc, q, nst)
+    dt = F.softplus(dtr.float() + p["dt_bias"])                # (B, S, H)
+    da = dt * -torch.exp(p["a_log"])
+    xh = xs.reshape(b, s, nh, hp).float()
+    xdt_c = (xh * dt[..., None]).reshape(b, nc, q, nh, hp)
+    cum = torch.cumsum(da.reshape(b, nc, q, nh), dim=2)       # (B, nc, q, H)
+    tot = cum[:, :, -1]                                       # (B, nc, H)
+
+    # intra-chunk, head-major: (B, nc, H, q, q) weights on (B, nc, H, q, P)
+    cum_h = cum.transpose(2, 3)
+    decay = cum_h[..., :, None] - cum_h[..., None, :]
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    att = c_c @ b_c.transpose(-1, -2)                         # (B, nc, q, q)
+    w = torch.exp(decay.masked_fill(~causal, float("-inf"))) * att[:, :, None]
+    y_intra = (w @ xdt_c.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
+
+    # chunk states S_c = sum_j exp(tot - cum_j) B_j (x_j dt_j)^T
+    xw = torch.exp(tot[:, :, None] - cum)[..., None] * xdt_c  # (B,nc,q,H,P)
+    states = torch.einsum("bcjn,bcjhp->bchnp", b_c, xw)
+
+    # inter-chunk: H_c = exp(tot_c) H_{c-1} + S_c, each chunk reading H_{c-1}
+    h = torch.zeros((b, nh, nst, hp), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * torch.exp(tot[:, c])[..., None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, 1)                           # (B,nc,H,N,P)
+    y_inter = torch.einsum("bcin,bchnp->bcihp", c_c, h_prev) * \
+        torch.exp(cum)[..., None]
+
+    y = (y_intra + y_inter).reshape(b, s, nh, hp) + p["d_skip"][:, None] * xh
+    y = (y.reshape(b, s, din) * F.silu(z.float())).to(dt_)
+    return y @ p["out_proj"].to(dt_), h, xbc_pre
+
+
+def ssd_train(p, x, cfg: ArchConfig, run: RunConfig) -> torch.Tensor:
+    return _ssd_forward(p, x, cfg, run)[0]
+
+
+def init_ssd_cache(cfg: ArchConfig, run: RunConfig, batch: int,
+                   device=None) -> dict:
+    """``{"conv": (B, W-1, d_inner + 2N) in the run dtype, "h": (B, H, N,
+    P) f32}`` zeros."""
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1,
+                                 cfg.d_inner + 2 * cfg.ssm_state),
+                                dtype=_dtype(run), device=device),
+            "h": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state,
+                              cfg.ssm_head_dim), dtype=torch.float32,
+                             device=device)}
+
+
+def ssd_decode(p, x, cache: dict, cfg: ArchConfig, run: RunConfig):
+    """One token ``x`` (B, 1, d) against ``cache``, which takes the new
+    state in place: ``(y (B, 1, d), cache)``."""
+    dt_ = _dtype(run)
+    b = x.shape[0]
+    din, nst, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    z, xbc, dtr = _ssd_split(p, x, cfg, run)
+    xbc, conv_state = _causal_conv(xbc, p["conv"], cache["conv"])
+    xs = xbc[:, 0, :din].reshape(b, nh, hp).float()
+    bvec = xbc[:, 0, din:din + nst].float()
+    cvec = xbc[:, 0, din + nst:].float()
+    dt = F.softplus(dtr[:, 0].float() + p["dt_bias"])         # (B, H)
+    da = torch.exp(dt * -torch.exp(p["a_log"]))
+    xh = xs * dt[..., None]
+    h = cache["h"] * da[..., None, None] + bvec[:, None, :, None] * \
+        xh[:, :, None, :]
+    y = (cvec[:, None, None, :] @ h)[:, :, 0]                 # (B, H, P)
+    y = y + p["d_skip"][None, :, None] * xs
+    y = y.reshape(b, din) * F.silu(z[:, 0].float())
+    y = y.to(dt_) @ p["out_proj"].to(dt_)
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv_state)
+    return y[:, None], cache

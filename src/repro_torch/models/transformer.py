@@ -1,28 +1,33 @@
 """Model assembly of the port's LM slices: the decoder-only LMs of
-``repro.models.transformer`` with attention layers and a dense or expert
-feed-forward, op for op, as an ``nn.Module``.
+``repro.models.transformer`` (dense, experts, hybrid and SSM), op for op,
+as an ``nn.Module``.
 
 :class:`Decoder` holds the f32 parameters: ``embed`` (V_padded, d), one
-:class:`Block` per layer (``norm1``, ``attn``, ``norm2``, ``ffn``: the MLP's
-``wi``, ``wo``, or with experts ``router``, ``wi``, ``wo``),
-``final_norm`` and, untied, ``lm_head`` (d, V_padded).  The reference
-stacks its blocks for ``lax.scan`` over repeats of the block cycle; here
-they are a ``ModuleList`` in layer order, and :func:`params_from_numpy` /
+:class:`Block` per layer, ``final_norm`` and, untied, ``lm_head`` (d,
+V_padded).  A block's parts follow its kind (``_PARTS``): an attention
+layer ("global", "local") has ``norm1``, ``attn``, ``norm2`` and ``ffn``
+(the MLP's ``wi``, ``wo``, or with experts ``router``, ``wi``, ``wo``); an
+"rglru" layer ``norm1``, ``rglru``, ``norm2`` and an MLP ``ffn``; an "ssd"
+layer ``norm1`` and ``ssd``.  The reference stacks its blocks for
+``lax.scan`` over repeats of the block cycle; here they are a
+``ModuleList`` in layer order, and :func:`params_from_numpy` /
 :func:`params_to_numpy` carry weights across (layer ``r * c + pos`` is the
 reference's ``blocks.scan[pos][r]``, then ``blocks.tail`` in order).
 
 Entry points: :func:`init_params` (the port's own initialisation, from a
-``torch.Generator``, at the reference's scales), :func:`train_loss`
-(full-sequence forward + masked CE; ``run.remat`` checkpoints each repeat
-of the block cycle, as the reference's scan body), and serving: :func:`init_cache`,
-:func:`prefill` (the prompt's forward, building the decode cache) and
-:func:`decode_step` (one token against the cache, updated in place).  The
-cache is a list of ``{"k", "v"}``, one per layer in layer order, each
-(B, KV, length, Dh); :func:`cache_from_numpy` / :func:`cache_to_numpy`
-carry it across from and to the reference's ``{"scan", "tail"}`` tree of
-(B, length, KV, Dh) arrays by the parameters' rule.
-What this slice does not run raises ``NotImplementedError`` naming the
-slice that will (:func:`check_slice`).
+``torch.Generator``, at the reference's scales), :func:`forward` (every
+position's logits) and :func:`train_loss` (its masked CE; ``run.remat``
+checkpoints each repeat of the block cycle, as the reference's scan body),
+and serving: :func:`init_cache`, :func:`prefill` (the prompt's forward,
+building the decode cache) and :func:`decode_step` (one token against the
+cache, updated in place).  The cache is a list, one entry per layer in
+layer order: ``{"k", "v"}`` of (B, KV, length, Dh) for an attention
+layer, the reference's ``{"h", "conv"}`` for a recurrent one (the state in
+f32, the conv tail of pre-conv inputs in the run dtype).
+:func:`cache_from_numpy` / :func:`cache_to_numpy` carry it across from and
+to the reference's ``{"scan", "tail"}`` tree (K/V there (B, length, KV,
+Dh)) by the parameters' rule.  What this slice does not run raises
+``NotImplementedError`` naming the slice that will (:func:`check_slice`).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -40,14 +46,10 @@ from . import layers as L
 
 # what the slice does not run, and the slice that will: cfg and run knobs
 _ARCH_SLICE = (
-    (lambda c: any(k in ("rglru", "ssd") for k in c.layer_kinds()),
-     "'rglru' and 'ssd' layers", "recurrent (rglru, ssd)"),
     (lambda c: c.n_enc_layers > 0 or c.family == "encdec", "an encoder",
      "encoder and frontend"),
     (lambda c: c.frontend is not None, "a modality frontend",
      "encoder and frontend"),
-    (lambda c: c.family not in ("dense", "moe"),
-     "a family other than 'dense' and 'moe'", "non-dense family"),
 )
 _RUN_SLICE = (
     (lambda r: r.fsdp, "fsdp", "LM sharding"),
@@ -64,9 +66,9 @@ def later_slice(what: str, slice_name: str):
 
 def check_slice(cfg: ArchConfig | None = None, run: RunConfig | None = None):
     """Raise ``NotImplementedError`` on what this slice does not run: an
-    architecture other than a decoder of "global" and "local" attention
-    layers with a dense or expert feed-forward, or a run knob of a later
-    slice (LM sharding, bf16 parameters) set away from its default."""
+    architecture with an encoder or a modality frontend, or a run knob of
+    a later slice (LM sharding, bf16 parameters) set away from its
+    default."""
     for test, what, slice_name in _ARCH_SLICE if cfg is not None else ():
         if test(cfg):
             later_slice(f"{cfg.name}: {what}", slice_name)
@@ -79,32 +81,56 @@ def check_slice(cfg: ArchConfig | None = None, run: RunConfig | None = None):
 # the module
 # ---------------------------------------------------------------------------
 
+# a block's parts by its kind, in the order they are applied
+_PARTS = {"global": ("norm1", "attn", "norm2", "ffn"),
+          "local": ("norm1", "attn", "norm2", "ffn"),
+          "rglru": ("norm1", "rglru", "norm2", "ffn"),
+          "ssd": ("norm1", "ssd")}
+
+
 class Block(nn.Module):
-    """One pre-norm decoder block of attention ``kind`` ("global" or
-    "local"): attention then the feed-forward (the MLP, or the experts when
-    ``cfg.n_experts``), each added to the residual stream."""
+    """One pre-norm decoder block of ``kind``: attention ("global" or
+    "local") or the RG-LRU ("rglru"), then the feed-forward (the MLP, or
+    for attention the experts when ``cfg.n_experts``), each added to the
+    residual stream; or SSD alone ("ssd")."""
 
     def __init__(self, cfg: ArchConfig, gen, device, kind: str):
         super().__init__()
+        if kind not in _PARTS:
+            raise ValueError(f"block kind {kind!r} not in {sorted(_PARTS)}")
         self.kind = kind
         self.norm1 = L.init_norm(cfg, device)
-        self.attn = L.init_attention(gen, cfg, device)
+        if kind == "ssd":
+            self.ssd = L.init_ssd(gen, cfg, device)
+            return
+        if kind == "rglru":
+            self.rglru = L.init_rglru(gen, cfg, device)
+        else:
+            self.attn = L.init_attention(gen, cfg, device)
         self.norm2 = L.init_norm(cfg, device)
-        self.ffn = (L.init_moe(gen, cfg, device) if cfg.n_experts
+        self.ffn = (L.init_moe(gen, cfg, device)
+                    if cfg.n_experts and kind != "rglru"
                     else L.init_mlp(gen, cfg, device))
 
     def feed_forward(self, x, cfg: ArchConfig, run: RunConfig):
         """The block's second half: ``x`` plus the feed-forward of its
-        norm."""
+        norm; ``x`` itself for SSD, which has none."""
+        if self.kind == "ssd":
+            return x
         h2 = L.apply_norm(self.norm2, x, cfg)
-        ffn = L.moe_mlp if cfg.n_experts else L.mlp
+        ffn = L.moe_mlp if "router" in self.ffn else L.mlp
         return x + ffn(self.ffn, h2, cfg, run)
 
     def forward(self, x, cfg: ArchConfig, run: RunConfig, positions):
         h = L.apply_norm(self.norm1, x, cfg)
-        x = x + L.attention_train(self.attn, h, cfg, run, kind=self.kind,
-                                  positions=positions)
-        return self.feed_forward(x, cfg, run)
+        if self.kind == "rglru":
+            out = L.rglru_train(self.rglru, h, cfg, run)
+        elif self.kind == "ssd":
+            out = L.ssd_train(self.ssd, h, cfg, run)
+        else:
+            out = L.attention_train(self.attn, h, cfg, run, kind=self.kind,
+                                    positions=positions)
+        return self.feed_forward(x + out, cfg, run)
 
 
 class Decoder(nn.Module):
@@ -212,17 +238,23 @@ def _apply_stack(params: Decoder, x, cfg: ArchConfig, run: RunConfig,
     return x
 
 
+def forward(params: Decoder, tokens, cfg: ArchConfig,
+            run: RunConfig) -> torch.Tensor:
+    """The training forward of ``tokens`` (B, S): every position's logits
+    (B, S, V_padded) f32."""
+    check_slice(cfg, run)
+    x = _embed(params, tokens, cfg, run)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _apply_stack(params, x, cfg, run, positions)
+    return _logits(params, x, cfg, run)
+
+
 def train_loss(params: Decoder, batch: dict, cfg: ArchConfig,
                run: RunConfig) -> torch.Tensor:
     """Mean next-token CE of ``batch`` (``tokens`` and ``labels``, (B, S)
     int tensors on the parameters' device) as an f32 scalar."""
-    check_slice(cfg, run)
-    tokens = batch["tokens"]
-    x = _embed(params, tokens, cfg, run)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = _apply_stack(params, x, cfg, run, positions)
-    logits = _logits(params, x, cfg, run)
-    return _ce_loss(logits, batch["labels"])
+    return _ce_loss(forward(params, batch["tokens"], cfg, run),
+                    batch["labels"])
 
 
 # ---------------------------------------------------------------------------
@@ -267,19 +299,46 @@ def _attn_with_cache(p, h, cfg: ArchConfig, run: RunConfig, kind: str,
     return y, cache
 
 
+def _conv_state(x_pre, cfg: ArchConfig):
+    """The decode conv state after a prompt: its last W-1 pre-conv inputs
+    (B, W-1, C), zeros before a prompt shorter than that."""
+    width = cfg.ssm_conv - 1
+    return F.pad(x_pre, (0, 0, max(0, width - x_pre.shape[1]), 0))[:, -width:]
+
+
+def _rglru_with_cache(p, h, cfg: ArchConfig, run: RunConfig):
+    out, hs, xb_pre = L._rglru_forward(p, h, cfg, run)
+    return out, {"h": hs[:, -1], "conv": _conv_state(xb_pre, cfg)}
+
+
+def _ssd_with_cache(p, h, cfg: ArchConfig, run: RunConfig):
+    out, h_final, xbc_pre = L._ssd_forward(p, h, cfg, run)
+    return out, {"conv": _conv_state(xbc_pre, cfg), "h": h_final}
+
+
 def _block_prefill(block: Block, x, cfg: ArchConfig, run: RunConfig,
                    positions, cache_len: int):
     h = L.apply_norm(block.norm1, x, cfg)
-    out, cache = _attn_with_cache(block.attn, h, cfg, run, block.kind,
-                                  positions, cache_len)
+    if block.kind == "rglru":
+        out, cache = _rglru_with_cache(block.rglru, h, cfg, run)
+    elif block.kind == "ssd":
+        out, cache = _ssd_with_cache(block.ssd, h, cfg, run)
+    else:
+        out, cache = _attn_with_cache(block.attn, h, cfg, run, block.kind,
+                                      positions, cache_len)
     return block.feed_forward(x + out, cfg, run), cache
 
 
 def _block_decode(block: Block, x, cache: dict, cfg: ArchConfig,
                   run: RunConfig, pos: int):
     h = L.apply_norm(block.norm1, x, cfg)
-    out, cache = L.attention_decode(block.attn, h, cache, pos, cfg, run,
-                                    kind=block.kind)
+    if block.kind == "rglru":
+        out, cache = L.rglru_decode(block.rglru, h, cache, cfg, run)
+    elif block.kind == "ssd":
+        out, cache = L.ssd_decode(block.ssd, h, cache, cfg, run)
+    else:
+        out, cache = L.attention_decode(block.attn, h, cache, pos, cfg, run,
+                                        kind=block.kind)
     return block.feed_forward(x + out, cfg, run), cache
 
 
@@ -303,12 +362,20 @@ def _apply_stack_decode(params: Decoder, caches: list, x, cfg: ArchConfig,
 def init_cache(cfg: ArchConfig, run: RunConfig, batch: int, max_len: int,
                device=None) -> list:
     """A zeroed decode cache for ``batch`` sequences of up to ``max_len``
-    positions on ``device`` (``None`` means ``"cuda"``): one ``{"k", "v"}``
-    per layer (:func:`layers.init_attn_cache`)."""
+    positions on ``device`` (``None`` means ``"cuda"``): one entry per
+    layer, ``{"k", "v"}`` for attention (:func:`layers.init_attn_cache`),
+    ``{"h", "conv"}`` for the RG-LRU and SSD."""
     from ..core.vmp import resolve_device
     device = resolve_device(device)
-    return [L.init_attn_cache(cfg, run, batch, max_len, kind, device=device)
-            for kind in cfg.layer_kinds()]
+
+    def one(kind):
+        if kind == "rglru":
+            return L.init_rglru_cache(cfg, run, batch, device=device)
+        if kind == "ssd":
+            return L.init_ssd_cache(cfg, run, batch, device=device)
+        return L.init_attn_cache(cfg, run, batch, max_len, kind,
+                                 device=device)
+    return [one(kind) for kind in cfg.layer_kinds()]
 
 
 @torch.inference_mode()
@@ -383,7 +450,7 @@ def params_to_numpy(cfg: ArchConfig, module: Decoder, leaves=None) -> dict:
     def host(p):
         return values.get(id(p), p).detach().cpu().numpy()
     trees = [{name: {k: host(p) for k, p in getattr(b, name).items()}
-              for name in ("norm1", "attn", "norm2", "ffn")}
+              for name in _PARTS[b.kind]}
              for b in module.blocks]
     tree = {"embed": host(module.embed),
             "final_norm": {k: host(p) for k, p in module.final_norm.items()},
@@ -404,7 +471,10 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> Decoder:
     pairs = [(module.embed, tree["embed"])]
     pairs += [(p, tree["final_norm"][k]) for k, p in module.final_norm.items()]
     for block, bt in zip(module.blocks, blocks):
-        for name in ("norm1", "attn", "norm2", "ffn"):
+        if set(bt) != set(_PARTS[block.kind]):
+            raise ValueError(f"a {block.kind!r} layer has parts "
+                             f"{list(_PARTS[block.kind])}, not {sorted(bt)}")
+        for name in _PARTS[block.kind]:
             sub = getattr(block, name)
             if set(sub.keys()) != set(bt[name]):
                 raise ValueError(f"{name}: parameters {sorted(bt[name])} do "
@@ -421,30 +491,39 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> Decoder:
     return module
 
 
+# cache entries laid out head-major in the port, (B, length, KV, Dh) in the
+# reference; the recurrent states ("h", "conv") have one layout in both
+_KV = ("k", "v")
+
+
 def cache_to_numpy(cfg: ArchConfig, cache: list) -> dict:
-    """A decode cache as the reference's tree of (B, length, KV, Dh) numpy
-    arrays (layers laid out as :func:`_stack_layers` does); bf16 entries
-    widen to f32 (numpy has no bf16)."""
-    def host(t):
-        t = t.detach().transpose(1, 2).cpu()
+    """A decode cache as the reference's tree of numpy arrays (layers laid
+    out as :func:`_stack_layers` does, K/V as (B, length, KV, Dh)); bf16
+    entries widen to f32 (numpy has no bf16)."""
+    def host(k, t):
+        t = t.detach()
+        t = (t.transpose(1, 2) if k in _KV else t).cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return _stack_layers(cfg, [{k: host(t) for k, t in c.items()}
+    return _stack_layers(cfg, [{k: host(k, t) for k, t in c.items()}
                                for c in cache])
 
 
 def cache_from_numpy(cfg: ArchConfig, tree: dict, device=None,
                      dtype=None) -> list:
-    """The reference's decode-cache tree as the port's list of ``{"k",
-    "v"}`` on ``device`` (``None`` means ``"cuda"``), in ``dtype`` (the
-    arrays' own when ``None``; f32 for the ``bfloat16`` arrays of JAX)."""
+    """The reference's decode-cache tree as the port's list of per-layer
+    entries on ``device`` (``None`` means ``"cuda"``), in ``dtype`` (the
+    arrays' own when ``None``; f32 for the ``bfloat16`` arrays of JAX).  A
+    recurrent state ``h`` stays f32 whatever ``dtype`` says, as the
+    reference keeps it."""
     from ..core.vmp import resolve_device
     device = resolve_device(device)
 
-    def dev(a):
+    def dev(k, a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
-        t = torch.from_numpy(np.ascontiguousarray(a.swapaxes(1, 2)))
-        return t.to(device, dtype or t.dtype)
-    return [{k: dev(a) for k, a in layer.items()}
+        t = torch.from_numpy(np.ascontiguousarray(
+            a.swapaxes(1, 2) if k in _KV else a))
+        return t.to(device, torch.float32 if k == "h" else dtype or t.dtype)
+    return [{k: dev(k, a) for k, a in layer.items()}
             for layer in _unstack_layers(cfg, tree)]

@@ -47,7 +47,8 @@ LOSS_TOL = dict(rtol=1e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-6)
 LAYER_TOL = dict(rtol=1e-5, atol=1e-5)
 RUNNABLE = ("olmo-1b", "phi3-medium-14b", "gemma3-4b", "h2o-danube-1.8b",
-            "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
+            "qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "recurrentgemma-2b",
+            "mamba2-370m")
 
 
 def _cfg(name, layers=2):
@@ -288,7 +289,8 @@ def test_port_init_has_the_reference_tree_and_scales(name):
     """The port's own initialisation: the reference's tree of shapes, f32,
     and its scales (1/sqrt(shape[0]), fan_in for a matrix, the expert count
     for the experts' (E, ., .) weights; attention's wo at 1/sqrt(h*dh);
-    embed 0.02)."""
+    the recurrent convs at 0.5, ``lam`` 0.5, ``a_log`` and ``dt_bias`` 0,
+    ``d_skip`` 1; embed 0.02)."""
     # a full block cycle and a tail layer, so that both the scan and the
     # tail count
     layers = max(3, len(get_arch(name).pattern) + 1)
@@ -303,16 +305,35 @@ def test_port_init_has_the_reference_tree_and_scales(name):
     rl, rdef = jax.tree_util.tree_flatten(ref)
     assert odef == rdef
     assert [a.shape for a in ol] == [tuple(s.shape) for s in rl]
-    h, dh = cfg.n_heads, cfg.head_dim_
+    h, dh, d = cfg.n_heads, cfg.head_dim_, cfg.d_model
     np.testing.assert_allclose(ours["embed"].std(), 0.02, rtol=0.05)
-    attn = ours["blocks"]["scan"][0]["attn"]
-    np.testing.assert_allclose(attn["wq"].std(), cfg.d_model ** -0.5, rtol=0.05)
-    np.testing.assert_allclose(attn["wo"].std(), (h * dh) ** -0.5, rtol=0.05)
-    ffn = ours["blocks"]["scan"][0]["ffn"]
-    fan = ffn["wo"].shape[1]        # (repeats, f, d) or (repeats, E, f, d)
-    assert fan == (cfg.n_experts or cfg.d_ff)
-    np.testing.assert_allclose(ffn["wo"].std(), fan ** -0.5, rtol=0.05)
-    for norm in [ours["final_norm"], ours["blocks"]["scan"][0]["norm1"]]:
+    scan = ours["blocks"]["scan"]
+
+    def part(key):
+        """``key`` of the first scan position that has it, or None."""
+        return next((b[key] for b in scan if key in b), None)
+    attn, ffn, rglru, ssd = map(part, ("attn", "ffn", "rglru", "ssd"))
+    if attn is not None:
+        np.testing.assert_allclose(attn["wq"].std(), d ** -0.5, rtol=0.05)
+        np.testing.assert_allclose(attn["wo"].std(), (h * dh) ** -0.5,
+                                   rtol=0.05)
+    if ffn is not None:
+        fan = ffn["wo"].shape[1]    # (repeats, f, d) or (repeats, E, f, d)
+        assert fan == (cfg.n_experts or cfg.d_ff)
+        np.testing.assert_allclose(ffn["wo"].std(), fan ** -0.5, rtol=0.05)
+    if rglru is not None:
+        for key, scale in (("wx", d ** -0.5), ("wr", cfg.d_inner ** -0.5),
+                           ("conv", 0.5)):
+            np.testing.assert_allclose(rglru[key].std(), scale, rtol=0.1)
+        np.testing.assert_array_equal(rglru["lam"], 0.5)
+    if ssd is not None:
+        for key, scale in (("in_proj", d ** -0.5), ("conv", 0.5),
+                           ("out_proj", cfg.d_inner ** -0.5)):
+            np.testing.assert_allclose(ssd[key].std(), scale, rtol=0.1)
+        for key, value in (("a_log", 0.0), ("d_skip", 1.0), ("dt_bias", 0.0)):
+            np.testing.assert_array_equal(ssd[key], value)
+    assert attn is not None or rglru is not None or ssd is not None
+    for norm in [ours["final_norm"], scan[0]["norm1"]]:
         for v in norm.values():
             np.testing.assert_array_equal(v, np.zeros_like(v))  # rmsnorm 1+s
     again = params_to_numpy(cfg, make_model(cfg)["init"](
