@@ -229,7 +229,30 @@ Phases, each of which exits non-zero on a failed check:
      ``remat="full"`` bitwise it; recurrentgemma at 8 layers), step 0's
      loss and every gradient finite, ms a step, tokens/s, peak memory.
      No kernel of the port is on this path; the phase's launch counts
-     stay 0.
+     stay 0;
+  15. the encoder and the frontends (``lm_encoder``, after
+     ``lm_recurrent``): whisper-large-v3 (32 encoder and 32 decoder
+     layers, layernorm, gelu; 8 streams of 1,500 frames stubbed as
+     embeddings, a 4-token start-of-transcript prompt) and internvl2-1b
+     (24 layers; 8 x (256 patches + 3,840 tokens)) at full width and depth
+     through ``build_prefill_step`` and ``build_decode_step`` (``serve``
+     takes tokens only), 64 greedy tokens, bf16: prefill first and warm
+     (whisper's encoder alone too), decode ms a step, tokens/s, the decode
+     profile and its launches a step, peak memory, a decode step twice
+     bitwise, no kernel launched; in f32 at full width and reduced depth
+     (whisper 2 + 2 layers, internvl2 2 layers, batch 2): the prefill's
+     logits against the training forward's (the reference's prefill
+     skips the encoder), 32 teacher-forced decode steps against the
+     training forward within 2e-3, and controls that must leave it (one
+     layer's cross K zeroed, one key zeroed in every layer, the frames or
+     patches zeroed); training at full depth through ``build_train_step``
+     with the flash kernel (internvl2 4 x (256 + 1,792), whisper 3 x
+     (1,500 frames + 448 tokens)), 8 steps: the decoder's launches all on
+     the wgmma route at Dh 64, step 0's loss at the chance level of its
+     logits, every loss and gradient norm finite, the median step,
+     tokens/s and peak memory, the kernel at the inputs the path handed
+     it against its plain version, the mma route and SDPA (entries
+     ``lm_whisper_train``, ``lm_internvl_train``).
 
 Each VMP path, and the SVI fit, logs a sha256 of its final posteriors and
 ELBO trace, so that two trees can be shown to give the same output bit for
@@ -239,7 +262,7 @@ The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, lda_svi, query,
 gateway, lda_ooc, gibbs, lda_dist, lda_multihost, slda, slda_svi,
 slda_query, naive_bayes, naive_bayes_svi, dcmlda, lm_train,
-lm_train_gemma3, lm_moe_train; the
+lm_train_gemma3, lm_moe_train, lm_whisper_train, lm_internvl_train; the
 flash entries' ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
@@ -438,6 +461,32 @@ RECUR_TRAIN = (("mamba2-370m", 48, ("plain", "remat full")),
 # RECUR_STEPS steps a run; the first (allocation, autotuning) is dropped
 # from the step times, and the mean and median of the other seven are kept
 RECUR_SEQ, RECUR_BATCH, RECUR_STEPS = 2048, 4, 8
+# the encoder and the frontends: whisper-large-v3 (arXiv:2212.04356; 32
+# encoder and 32 decoder layers, d 1,280, 20 heads of 64, layernorm, gelu,
+# vocab 51,866) and internvl2-1b (arXiv:2404.16821; 24 layers, d 896, 14
+# query heads over 2 kv heads of 64, vocab 151,655, a prefix of 256 patch
+# embeddings) at full width and depth, bf16 compute.  Serving: 8 streams;
+# whisper's 1,500 frames (30 s of audio after its stride-2 convolution,
+# stubbed as embeddings from a numpy seed) and its start-of-transcript
+# prompt (<|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>,
+# whisper-large-v3's token ids), internvl2's 256 patches and 3,840 tokens;
+# 64 greedy tokens, 8 decode steps profiled
+ENC_WHISPER, ENC_VLM = "whisper-large-v3", "internvl2-1b"
+ENC_FRAMES, ENC_SOT = 1500, (50258, 50259, 50360, 50364)
+ENC_SERVE_BATCH, ENC_VLM_TEXT, ENC_NEW, ENC_PROFILE_STEPS = 8, 3840, 64, 8
+# f32 checks at full width, batch 2, (encoder, decoder) layers: whisper's
+# 4-token prompt, internvl2's 256 patches and 768 tokens (1,024 positions,
+# chunk 256: the chunked prefill); 32 teacher-forced decode steps
+ENC_CHECK_LAYERS = {ENC_WHISPER: (2, 2), ENC_VLM: (0, 2)}
+ENC_CHECK_VLM_PROMPT, ENC_CHECK_CHUNK, ENC_CHECK_STEPS = 768, 256, 32
+# training at full depth through build_train_step: internvl2 4 x (256
+# patches + 1,792 tokens); whisper 1,500 frames and 448 tokens (its
+# decoder's limit) a stream, at the largest batch that fits the card: the
+# encoder's dense attention saves f32 scores and softmax and bf16 weights
+# of 20 x 1,500^2 a layer and stream; batch 4 ran out of the card's 79.18
+# GiB, 3 peaked at 72.17 GB (NVIDIA H100 80GB HBM3, 700 W)
+ENC_TRAIN = ((ENC_VLM, 4, 1792), (ENC_WHISPER, 3, 448))
+ENC_TRAIN_STEPS = 8
 SHAPES = [(1, 2), (3, 5), (7, 128), (33, 96), (128, 130), (257, 4),
           (64, 300), (1000, 3), (5, 102660), (70000, 16)]
 
@@ -4764,6 +4813,415 @@ def phase_lm_recurrent(report):
     return []
 
 
+# ---------------------------------------------------------------------------
+# the encoder and the modality frontends: whisper-large-v3 and internvl2-1b
+# ---------------------------------------------------------------------------
+
+def clone_cache(cache):
+    """A copy of a decode cache, a layer's ``"cross"`` entries too."""
+    return [{n: ({m: u.clone() for m, u in t.items()} if isinstance(t, dict)
+                 else t.clone()) for n, t in c.items()} for c in cache]
+
+
+def caches_equal(a, b):
+    """Bitwise equality of two decode caches, ``"cross"`` entries too."""
+    def flat(cache):
+        return [u for c in cache for t in c.values()
+                for u in (t.values() if isinstance(t, dict) else (t,))]
+    return bitwise(flat(a), flat(b))
+
+
+def encoder_batch(cfg, batch, text, seed, tokens=None):
+    """A numpy batch of ``cfg``'s model: ``tokens`` (or ``text`` tokens and
+    their labels from TokenStream), and the stub's frames (ENC_FRAMES) or
+    patches (``cfg.n_patches``) as normal draws from ``seed``."""
+    from repro_torch.data import TokenStream
+    out = TokenStream(vocab=cfg.vocab, seq_len=text, batch=batch,
+                      seed=seed).batch_at(0) if tokens is None else \
+        {"tokens": tokens}
+    n, key = (ENC_FRAMES, "frames") if cfg.family == "encdec" else \
+        (cfg.n_patches, "patches")
+    out[key] = np.random.default_rng(seed).normal(
+        size=(batch, n, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def encoder_serve(report, name):
+    """``name`` at full width and depth through ``build_prefill_step`` and
+    ``build_decode_step`` (``serve`` takes tokens only), bf16 compute,
+    ENC_SERVE_BATCH streams: whisper's ENC_FRAMES frames and its 4-token
+    start-of-transcript prompt, internvl2's 256 patches and ENC_VLM_TEXT
+    tokens; ENC_NEW greedy tokens.  Prefill first and warm (whisper's
+    encoder alone too), decode ms a step and tokens/s, a decode step twice
+    from one cache bitwise, ENC_PROFILE_STEPS decode steps under the
+    profiler with their launches a step, peak memory; no kernel
+    launched."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (batch_to, build_decode_step,
+                                          build_prefill_step)
+    from repro_torch.models import make_model
+    from repro_torch.models import transformer as T
+    cfg = get_arch(name)
+    b = ENC_SERVE_BATCH
+    if cfg.family == "encdec":
+        text, prefix = len(ENC_SOT), 0
+        nb = encoder_batch(cfg, b, text, SEED, tokens=np.tile(
+            np.asarray(ENC_SOT, np.int32), (b, 1)))
+    else:
+        text, prefix = ENC_VLM_TEXT, cfg.n_patches
+        nb = encoder_batch(cfg, b, text, SEED)
+        del nb["labels"]
+    run = RunConfig(seq_len=text, global_batch=b)
+    torch.cuda.empty_cache()
+    params = make_model(cfg)["init"](run, device=DEV)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[lm_encoder] {name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} kv heads of {cfg.head_dim_}, d_ff {cfg.d_ff}, "
+        f"{cfg.norm}, {cfg.act}, vocab {cfg.vocab}; {n_params / 1e9:.4f}B f32 "
+        f"parameters ({n_params * 4 / 1e9:.2f} GB)")
+    prefill = build_prefill_step(cfg, run, DEV)["fn"]
+    decode = build_decode_step(cfg, run, DEV)["fn"]
+    cache_len = prefix + text + ENC_NEW
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = {"batch": b, "prefix": prefix, "prompt_len": text,
+           "new_tokens": ENC_NEW, "params": n_params}
+    with torch.inference_mode(), attention_routes() as routes:
+        batch = batch_to(nb, DEV)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, batch, cache_len)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.update(prefill_ms=times[0], prefill_warm_ms=times[1])
+        if cfg.family == "encdec":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = T._encode(params, batch["frames"], cfg, run)
+            torch.cuda.synchronize()
+            out["encoder_ms"] = (time.perf_counter() - t0) * 1e3
+            check(tuple(enc.shape) == (b, ENC_FRAMES, cfg.d_model) and
+                  bool(torch.isfinite(enc).all()), f"{name}: the encoder's "
+                  f"output {tuple(enc.shape)} is not finite")
+            del enc
+            cross = cache[0]["cross"]["k"].shape
+            check(tuple(cross) == (b, cfg.n_kv_heads, ENC_FRAMES,
+                                   cfg.head_dim_), f"{name}: cross cache "
+                  f"{tuple(cross)}")
+        tok = torch.argmax(logits, -1)[:, None]
+        # a decode step twice from one cache, at the first new position
+        twins = [clone_cache(cache), clone_cache(cache)]
+        outs = [decode(params, c, tok, prefix + text)[0] for c in twins]
+        check(torch.equal(*outs) and caches_equal(*twins),
+              f"{name}: a decode step twice from one cache differs")
+        del twins, outs
+        gen = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ENC_NEW):
+            gen.append(tok[:, 0])
+            logits, cache = decode(params, cache, tok, prefix + text + i)
+            tok = torch.argmax(logits, -1)[:, None]
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        toks = torch.stack(gen, 1).cpu().numpy()
+        check(toks.shape == (b, ENC_NEW) and (toks >= 0).all() and
+              (toks < cfg.vocab).all() and bool(torch.isfinite(
+                  logits[:, :cfg.vocab]).all()), f"{name}: generated tokens "
+              f"{toks.shape} outside [0, {cfg.vocab}) or logits not finite")
+        out.update(decode_ms=decode_s / ENC_NEW * 1e3,
+                   tokens_per_s=b * ENC_NEW / decode_s,
+                   continuation=toks[0].tolist())
+        # the last ENC_PROFILE_STEPS positions again, warm, then profiled
+        start = cache_len - ENC_PROFILE_STEPS
+        state = {"tok": tok}
+
+        def decode_steps():
+            for pos in range(start, cache_len):
+                lg, _ = decode(params, cache, state["tok"], pos)
+                state["tok"] = torch.argmax(lg, -1)[:, None]
+        decode_steps()
+        trace = profile_steps(decode_steps, ENC_PROFILE_STEPS,
+                              label=f"lm_encoder {name} decode trace")
+        del cache, batch
+    counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # two prefills: a prompt of more than two chunks, a multiple of the
+    # chunk (internvl2's 4,096 positions), takes the chunked route with the
+    # causal skip, whisper's 4 tokens the dense one
+    s = prefix + text
+    chunked = s > 2 * run.attn_chunk and s % run.attn_chunk == 0
+    want = {"flash": 0, "flash_skip": 2 * cfg.n_layers if chunked else 0,
+            "window": 0}
+    check(routes == want, f"{name}: prefill took routes {routes}, not {want}")
+    check(sum(counts.values()) == 0, f"{name}: serving launched {counts}: "
+          f"its path reaches no kernel")
+    launches = sum(k["calls_per_step"] for k in trace["kernels"])
+    idle = 1 - trace["busy_ms"] / trace["step_ms"] if trace["kernels"] \
+        else "not measured"
+    out.update(decode_trace=trace, decode_idle_share=idle,
+               decode_launches_per_step=launches, peak_memory_gb=peak_gb,
+               routes=routes)
+    log(f"[lm_encoder] {name}: {b} x ({prefix} + {text}) prompt, {ENC_NEW} "
+        f"new tokens, bf16: prefill {out['prefill_ms']:.2f} ms, warm "
+        f"{out['prefill_warm_ms']:.2f} ms"
+        + (f" (the encoder alone {out['encoder_ms']:.2f} ms)"
+           if "encoder_ms" in out else "")
+        + f"; decode {out['decode_ms']:.3f} ms a step, "
+        f"{out['tokens_per_s']:.1f} tokens/s; {ENC_PROFILE_STEPS} steps "
+        f"profiled: {trace['step_ms']:.3f} ms a step, busy "
+        f"{trace['busy_ms']:.3f} ms, idle share "
+        f"{idle if isinstance(idle, str) else f'{idle:.3f}'}, {launches} "
+        f"launches a step; peak memory {peak_gb:.2f} GB; a decode step twice "
+        f"bitwise; prefill routes {routes}, launches {counts}; continuation "
+        f"of stream 0: {toks[0, :8].tolist()}")
+    del params
+    torch.cuda.empty_cache()
+    report["lm_encoder"][name] = out
+
+
+def encoder_checks(report, name):
+    """``name`` at full width and ENC_CHECK_LAYERS depth in f32, batch 2:
+    the prefill's last logits against the training forward's
+    (``transformer.forward``) at that position, the check of the
+    reference's defect on the card's own path; ENC_CHECK_STEPS
+    teacher-forced decode steps against that forward within DECODE_TOL;
+    the controls, each of which must leave it: the first decode step with
+    one layer's cross K zeroed (whisper), with the last prompt position's
+    key and value zeroed in every layer, and the prefill's logits with the
+    frames or patches zeroed."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.models import make_model
+    from repro_torch.models import transformer as T
+    enc_layers, layers = ENC_CHECK_LAYERS[name]
+    cfg = dataclasses.replace(get_arch(name), n_layers=layers,
+                              n_enc_layers=enc_layers)
+    k = ENC_CHECK_STEPS
+    if cfg.family == "encdec":
+        prefix, s0, key = 0, len(ENC_SOT), "frames"
+    else:
+        prefix, s0, key = cfg.n_patches, ENC_CHECK_VLM_PROMPT, "patches"
+    run = RunConfig(seq_len=s0 + k, global_batch=2, dtype="float32",
+                    attn_chunk=ENC_CHECK_CHUNK)
+    model = make_model(cfg)
+    params = model["init"](run, device=DEV)
+    nb = encoder_batch(cfg, 2, s0 + k, SEED + 5)
+    if cfg.family == "encdec":
+        nb["tokens"][:, :s0] = ENC_SOT
+    batch = batch_to(nb, DEV)
+    seq = batch["tokens"]
+    prompt = {"tokens": seq[:, :s0], key: batch[key]}
+    out = {"layers": layers, "enc_layers": enc_layers, "prompt": s0,
+           "prefix": prefix}
+    with torch.inference_mode():
+        full = T.forward(params, seq, cfg, run, **{key: batch[key]})
+        with attention_routes() as routes:
+            l0, cache = model["prefill"](params, prompt, run,
+                                         prefix + s0 + k)
+        s = prefix + s0
+        want_routes = cfg.n_layers if s > 2 * run.attn_chunk and \
+            s % run.attn_chunk == 0 else 0
+        check(routes["flash_skip"] == want_routes, f"{name}: the "
+              f"{prefix + s0}-position prefill took routes {routes}")
+        prefill_err = _tol_units(l0, full[:, s0 - 1], cfg.vocab)
+        zeroed, _ = model["prefill"](params, dict(prompt, **{
+            key: torch.zeros_like(batch[key])}), run, prefix + s0 + k)
+        ctl = {"inputs zeroed": _tol_units(zeroed, l0, cfg.vocab)}
+        faulty = clone_cache(cache)
+        for layer in faulty:
+            layer["k"][:, :, prefix + s0 - 1] = 0
+            layer["v"][:, :, prefix + s0 - 1] = 0
+        first = full[:, s0]
+        tok0 = seq[:, s0:s0 + 1]
+        ctl["one key zeroed"] = _tol_units(model["decode_step"](
+            params, faulty, tok0, prefix + s0, run)[0], first, cfg.vocab)
+        if cfg.family == "encdec":
+            faulty = clone_cache(cache)
+            faulty[0]["cross"]["k"].zero_()
+            ctl["cross k zeroed"] = _tol_units(model["decode_step"](
+                params, faulty, tok0, prefix + s0, run)[0], first, cfg.vocab)
+        del faulty, zeroed
+        worst = 0.0
+        for i in range(k):
+            pos = s0 + i
+            dec, _ = model["decode_step"](params, cache, seq[:, pos:pos + 1],
+                                          prefix + pos, run)
+            worst = max(worst, _tol_units(dec, full[:, pos], cfg.vocab))
+        del full, cache
+    out.update(prefill_vs_forward=prefill_err, teacher_forced_worst=worst,
+               controls=ctl, routes=routes)
+    log(f"[lm_encoder] {name} at {enc_layers} + {layers} layers, f32, batch "
+        f"2: prefill of {prefix} + {s0} positions ({routes}) against the "
+        f"training forward at its last position {prefill_err:.3e} of atol + "
+        f"rtol |ref| (rtol = atol = 2e-3); {k} teacher-forced decode steps "
+        f"against the training forward: worst {worst:.3e} of it; controls "
+        + ", ".join(f"{c} {v:.3e}" for c, v in ctl.items()))
+    check(prefill_err <= 1.0, f"{name}: prefill is {prefill_err:.3e} of the "
+          f"tolerance off the training forward")
+    check(worst <= 1.0, f"{name}: decode differs from the training forward "
+          f"by {worst:.3e} of the tolerance")
+    check(min(ctl.values()) > 1.0, f"{name}: a control stays within the "
+          f"tolerance: {ctl}")
+    del params
+    torch.cuda.empty_cache()
+    report["lm_encoder"][f"{name} checks"] = out
+
+
+def encoder_train(report, name, batch, text):
+    """``name`` at full width and depth through ``build_train_step`` with
+    the flash kernel (``train`` takes tokens only), bf16 compute, f32
+    parameters and AdamW from the port's seeded initialisation,
+    ENC_TRAIN_STEPS steps at ``batch`` x ``text`` tokens and the stub's
+    frames or patches, launch counts set to 0 just before and read just
+    after: the decoder's causal self-attention through the kernel once a
+    layer a forward, all on the wgmma route (Dh 64); step 0's loss against
+    the chance level of the initial logits on its batch, every loss and
+    gradient norm finite; ms a step (median of steps 1-7), tokens/s, peak
+    memory; the kernel at the inputs the path handed it against its plain
+    version, timed beside the mma route, its bound and SDPA (a yardstick
+    the port never calls)."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import batch_to, build_train_step
+    from repro_torch.models import make_model
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = get_arch(name)
+    run = RunConfig(seq_len=text, global_batch=batch, warmup=1,
+                    flash_kernel=True)
+    batches = [encoder_batch(cfg, batch, text, SEED + 20 + i)
+               for i in range(ENC_TRAIN_STEPS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = make_model(cfg)["init"](run, device=DEV)
+    key = T.modality_inputs(cfg)[0]
+    with torch.no_grad():
+        b0 = batch_to(batches[0], DEV)
+        z = T.forward(params, b0["tokens"], cfg, run,
+                      **{key: b0[key]})[..., :cfg.vocab]
+        chance = float((torch.logsumexp(z, -1) - z.mean(-1)).mean())
+        del z, b0
+    opt = adamw_init(list(params.parameters()))
+    step = build_train_step(cfg, run, DEV)["fn"]
+    losses, gnorms, times = [], [], []
+    ops.reset_launch_counts()
+    with recording("flash_attention") as calls:
+        for i, nb in enumerate(batches):
+            tb = batch_to(nb, DEV)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, tb, i)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["gnorm"]))
+            times.append(time.perf_counter() - t0)
+    counts, routes = ops.launch_counts(), ops.route_counts()["flash_attention"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt
+    torch.cuda.empty_cache()
+    want = cfg.n_layers * ENC_TRAIN_STEPS
+    check(counts["flash_attention"] == want and
+          routes == {"wgmma": want, "mma": 0},
+          f"{name}: flash_attention launched {counts['flash_attention']} "
+          f"times by route {routes}, not {want} on wgmma")
+    n_tok = batch * text
+    ln_v = float(np.log(cfg.vocab))
+    tol = 5 / np.sqrt(n_tok)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{name}: losses {losses} or gradient norms {gnorms} not finite")
+    check(abs(losses[0] - chance) <= tol and abs(chance - ln_v) <= 1.0,
+          f"{name}: step 0's loss {losses[0]} is not the chance level "
+          f"{chance} of its logits within {tol:.3f}, or that is not near "
+          f"ln V = {ln_v}")
+    steady = [t * 1e3 for t in times[1:]]
+    med = float(np.median(steady))
+    positions = batch * (text + (ENC_FRAMES if cfg.family == "encdec"
+                                 else cfg.n_patches))
+    (a, _, _), = calls.values()
+    q, k, v = (t.detach() for t in a)
+    bh, s, dh = q.shape
+    check(fa.route(q, k, v) == "wgmma", f"{name}: {tuple(q.shape)} not on "
+          f"wgmma")
+    err = compare("flash_attention", f"{name} {tuple(q.shape)} wgmma",
+                  fa.launch(q, k, v, True), ref.flash_attention(q, k, v),
+                  FLASH_BF16_TOL)
+    t_k = time_ms(lambda: fa.launch(q, k, v, True), reps=20)
+    t_m = time_ms(lambda: fa.launch(q, k, v, True, route="mma"), reps=20)
+    t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=5)
+    q4, k4, v4 = (t.view(batch, bh // batch, s, dh) for t in (q, k, v))
+    t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), reps=20)
+    flops = flash_ops(bh, s, s, dh, True)
+    bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
+    out = dict(batch=batch, text=text, losses=losses, grad_norms=gnorms,
+               chance_level=chance, ln_v=ln_v, step_times_s=times,
+               step_median_ms=med, step_mean_ms=float(np.mean(steady)),
+               tokens_per_s=n_tok / med * 1e3,
+               positions_per_s=positions / med * 1e3, peak_memory_gb=peak_gb,
+               launches=counts["flash_attention"], routes=routes,
+               flash_shape=[bh, s, dh], flash_ms=t_k, mma_ms=t_m,
+               plain_ms=t_p, library_ms=t_l, bound_ms=bms, bound_by=by,
+               err=err)
+    log(f"[lm_encoder] train {name}: {batch} x {text} tokens"
+        + (f" + {ENC_FRAMES} frames" if cfg.family == "encdec" else
+           f" after {cfg.n_patches} patches")
+        + f", {cfg.n_enc_layers} + {cfg.n_layers} layers, flash kernel: "
+        f"losses {losses}; step 0 {losses[0]:.4f} against the chance level "
+        f"{chance:.4f} of its logits (tol {tol:.3f}; ln V {ln_v:.4f}); "
+        f"gradient norms finite; {med:.2f} ms a step (median of steps 1-"
+        f"{ENC_TRAIN_STEPS - 1}; mean {out['step_mean_ms']:.2f}, least "
+        f"{min(steady):.2f}, most {max(steady):.2f}), "
+        f"{out['tokens_per_s']:.4e} tokens/s ({out['positions_per_s']:.4e} "
+        f"positions/s), peak memory {peak_gb:.2f} GB; flash launches "
+        f"{counts['flash_attention']} {routes}")
+    log(f"[times] flash_attention on {name}'s decoder ({bh}, {s}, {dh}) bf16 "
+        f"causal: wgmma {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s, "
+        f"{bms / t_k:.3f} of the bound), mma {t_m:.4f}, plain {t_p:.4f}, SDPA "
+        f"{t_l:.4f}, bound {bms:.4f} ms ({by})")
+    report["lm_encoder"][f"{name} train"] = out
+    del q, k, v, q4, k4, v4, a, calls
+    torch.cuda.empty_cache()
+    entry = kernel_entry(
+        "lm_whisper_train" if cfg.family == "encdec" else "lm_internvl_train",
+        "flash_attention", "cuda",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:106", counts["flash_attention"],
+        err, t_k, t_p, bms, by, t_l)
+    entry.update(variant="wgmma", mma_ms=t_m)
+    return entry
+
+
+def phase_lm_encoder(report):
+    """The encoder and the modality frontends on the card: whisper-large-v3
+    and internvl2-1b at full width and depth serving, their f32 decode
+    checks at reduced depth with their controls, and their training steps
+    through the flash kernel (entries ``lm_whisper_train`` and
+    ``lm_internvl_train``)."""
+    report["lm_encoder"] = {}
+    stage_s = report["lm_encoder"]["stage_s"] = {}
+
+    def timed(key, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        stage_s[key] = time.perf_counter() - t0
+        return out
+    for name in (ENC_WHISPER, ENC_VLM):
+        timed(f"{name} serve", encoder_serve, report, name)
+    for name in (ENC_WHISPER, ENC_VLM):
+        timed(f"{name} checks", encoder_checks, report, name)
+    entries = [timed(f"{name} train", encoder_train, report, name, batch,
+                     text) for name, batch, text in ENC_TRAIN]
+    log(f"[lm_encoder] seconds by stage: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in stage_s.items())}")
+    return entries
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--docs", type=int, default=30000,
@@ -4835,6 +5293,7 @@ def main(argv=None) -> int:
     kernels += timed("lm_serve", phase_lm_serve, report)
     kernels += timed("lm_moe", phase_lm_moe, report)
     kernels += timed("lm_recurrent", phase_lm_recurrent, report)
+    kernels += timed("lm_encoder", phase_lm_encoder, report)
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))

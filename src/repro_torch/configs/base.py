@@ -4,9 +4,8 @@ configuration the same way.
 
 Every assigned architecture is a frozen :class:`ArchConfig`; reduced smoke
 variants derive from the full config via :meth:`ArchConfig.reduced`.  The
-port's LM slices run the decoder families (dense, experts, hybrid, SSM);
-the encoder's and frontends' fields are carried as data, and the model
-raises on them.
+port's LM slices run every family of the registry: the decoders (dense,
+experts, hybrid, SSM), the vision prefix and the encoder-decoder.
 """
 
 from __future__ import annotations

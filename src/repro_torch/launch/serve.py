@@ -8,7 +8,9 @@ belongs to a later slice of the port and raises.
 
 Usage (a reduced olmo on the CPU; on the card drop ``--device``; ``--arch``
 names any decoder of the registry, recurrentgemma-2b and mamba2-370m too,
-whose SSD layers take prompts of at most 128 tokens or a multiple of 128):
+whose SSD layers take prompts of at most 128 tokens or a multiple of 128;
+whisper-large-v3 and internvl2-1b also read frames or patches and are
+served through ``steps.build_prefill_step`` and ``build_decode_step``):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --batch 2 --prompt-len 8 --new-tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -26,7 +28,7 @@ import torch
 from ..configs import RunConfig, get_arch
 from ..models import make_model
 from ..models.transformer import later_slice
-from .steps import build_decode_step, build_prefill_step
+from .steps import build_decode_step, build_prefill_step, tokens_only
 
 
 def _sync(device):
@@ -43,12 +45,15 @@ def serve(cfg, run: RunConfig, prompts: np.ndarray, new_tokens: int = 32,
     ``Decoder`` on that device) replaces the initialisation from
     ``run.seed``.  Decoding is greedy, as the reference's: its
     ``greedy`` argument takes no other value here, and ``greedy=False``
-    raises ``ValueError``."""
+    raises ``ValueError``, as does an architecture whose batch needs
+    ``frames`` or ``patches`` (whisper, internvl2): the prompts are
+    tokens only, as the reference's ``serve`` builds them."""
     if not greedy:
         raise ValueError("serve decodes greedily only; the reference's "
                          "serve takes the argmax whatever greedy says")
     if mesh is not None:
         later_slice("a mesh", "LM sharding")
+    tokens_only(cfg, "serve", "build_prefill_step and build_decode_step")
     built_p = build_prefill_step(cfg, run, device)
     device = built_p["device"]
     built_d = build_decode_step(cfg, run, device)

@@ -13,20 +13,38 @@ steps.  PyTorch runs them eagerly on one device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, RunConfig
 from ..core.vmp import resolve_device
 from ..models import make_model
-from ..models.transformer import check_slice
+from ..models.transformer import check_slice, modality_inputs
 from ..optim import adamw_update, clip_by_global_norm, lr_schedule
 
 
 def batch_to(batch: dict, device) -> dict:
-    """A numpy batch (``TokenStream.batch_at``) as int64 tensors on
-    ``device``."""
-    return {k: torch.from_numpy(v).to(device, torch.int64)
-            for k, v in batch.items()}
+    """A numpy batch (``TokenStream.batch_at``, with an encoder-decoder's
+    ``frames`` or a vision model's ``patches``) as tensors on ``device``:
+    integer entries as int64, floating ones as f32."""
+    def one(v):
+        v = np.asarray(v)
+        dt = torch.float32 if np.issubdtype(v.dtype, np.floating) \
+            else torch.int64
+        return torch.from_numpy(v).to(device, dt)
+    return {k: one(v) for k, v in batch.items()}
+
+
+def tokens_only(cfg: ArchConfig, driver: str, builders: str):
+    """Raise ``ValueError`` when ``cfg``'s batch needs more than tokens
+    (``frames``, ``patches``): ``driver`` builds batches of tokens only,
+    as the reference's does, and such a model runs through ``builders``."""
+    extra = modality_inputs(cfg)
+    if extra:
+        raise ValueError(f"{driver} builds batches of tokens only and "
+                         f"{cfg.name} also reads {list(extra)}; run it "
+                         f"through {builders} (launch/steps.py) with a "
+                         f"batch that holds them")
 
 
 def build_infer_step(program, engine="vmp", corpus=None):

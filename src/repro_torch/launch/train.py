@@ -11,7 +11,9 @@ format, so that either package reads the other's parameters.  A mesh
 belongs to a later slice of the port and raises.
 
 Usage (a reduced olmo on the CPU; on the card drop ``--device``; ``--arch``
-names any decoder of the registry, recurrentgemma-2b and mamba2-370m too):
+names any decoder of the registry, recurrentgemma-2b and mamba2-370m too;
+whisper-large-v3 and internvl2-1b also read frames or patches and are
+trained through ``steps.build_train_step``):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 \\
       --d-model 64 --layers 2 --seq 32 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4 \\
@@ -33,7 +35,7 @@ from ..data import TokenStream
 from ..models import make_model, params_from_numpy, params_to_numpy
 from ..models.transformer import Decoder, later_slice
 from ..optim import adamw_init
-from .steps import batch_to, build_train_step
+from .steps import batch_to, build_train_step, tokens_only
 
 
 class StepTelemetry:
@@ -103,9 +105,12 @@ def train(cfg, run: RunConfig, steps: int, device=None, params=None,
     given state.  With ``checkpoint_dir`` the run resumes from its latest
     checkpoint (``params`` must then be ``None``) and saves one every
     ``checkpoint_every`` steps; ``start_step`` overrides the step it starts
-    from, as the reference's does."""
+    from, as the reference's does.  The batches are ``TokenStream``'s,
+    tokens only: an architecture whose batch needs ``frames`` or
+    ``patches`` (whisper, internvl2) raises ``ValueError``."""
     if mesh is not None:
         later_slice("a mesh", "LM sharding")
+    tokens_only(cfg, "train", "build_train_step")
     built = build_train_step(cfg, run, device)
     device = built["device"]
     stream = TokenStream(vocab=cfg.vocab, seq_len=run.seq_len,

@@ -10,7 +10,8 @@ at its use, and norms and softmax run in f32, as in the reference.
 Blocks: RMS/LayerNorm (with olmo's non-parametric one), RoPE, GQA attention
 (full and sliding-window: dense, flash-style chunked for long sequences, or
 the flash kernel for full causal layers; one token against a decode cache,
-a ring buffer of ``window`` slots for sliding-window layers), the
+a ring buffer of ``window`` slots for sliding-window layers; the encoder's
+unmasked self-attention and the decoder's cross-attention, dense), the
 SwiGLU/GEGLU/GELU MLPs and the token-choice top-k experts (``moe_mlp``,
 whose dispatch and combine sum in a fixed order, so that every run is
 bitwise repeatable), Griffin's RG-LRU and Mamba2's SSD (chunked over 128
@@ -247,18 +248,25 @@ def _flash_kernel_gqa(q, k, v):
 
 
 def attention_train(p, x, cfg: ArchConfig, run: RunConfig, *, kind: str,
-                    positions, causal: bool = True):
+                    positions, causal: bool = True, enc=None):
     """Full-sequence self-attention of a "global" or "local" (sliding
     window) layer, by the reference's route order: the flash kernel for
     full causal layers when ``run.flash_kernel``, then the windowed or the
-    flash-style chunks for long sequences, else dense."""
-    q, k, v = _qkv(p, x, x, cfg, run)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    flash-style chunks for long sequences, else dense.  ``enc`` (B, S_enc,
+    d) makes it cross-attention: queries from ``x``, keys and values from
+    ``enc``, no RoPE, dense and unmasked.  A non-causal self-attention (the
+    encoder's) is dense too, whatever its length."""
+    xkv = enc if enc is not None else x
+    q, k, v = _qkv(p, x, xkv, cfg, run)
+    if enc is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     s = x.shape[1]
     window = cfg.window if kind == "local" else 0
     chunked = s > 2 * run.attn_chunk and s % run.attn_chunk == 0
-    if run.flash_kernel and causal and not window:
+    if enc is not None:
+        out = _sdpa_dense(q, k, v, causal=False)
+    elif run.flash_kernel and causal and not window:
         out = _flash_kernel_gqa(q, k, v)
     elif window and chunked:
         out = _sdpa_window(q, k, v, window=window, chunk=run.attn_chunk)
@@ -326,6 +334,21 @@ def attention_decode(p, x, cache: dict, pos: int, cfg: ArchConfig,
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = (w @ cache["v"]).reshape(b, 1, h * dh)
     return out @ p["wo"].to(_dtype(run)), cache
+
+
+def cross_attention_decode(p, x, enc_cache: dict, cfg: ArchConfig,
+                           run: RunConfig) -> torch.Tensor:
+    """One token ``x`` (B, 1, d) against the encoder's K/V ``enc_cache``
+    (``{"k", "v"}`` of (B, KV, S_enc, Dh), head-major): ``y (B, 1, d)``.
+    No qk-norm, no RoPE and no mask, as the reference's."""
+    dt = _dtype(run)
+    h, dh, kvh = cfg.n_heads, cfg.head_dim_, cfg.n_kv_heads
+    b = x.shape[0]
+    q = (x @ p["wq"].to(dt)).reshape(b, kvh, h // kvh, dh)
+    scores = (q @ enc_cache["k"].transpose(-1, -2)) / math.sqrt(dh)
+    w = torch.softmax(scores.float(), dim=-1).to(dt)
+    out = (w @ enc_cache["v"]).reshape(b, 1, h * dh)
+    return out @ p["wo"].to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Arch registry of the port: resolve an ArchConfig to its model functions
-(decoders of attention, RG-LRU and SSD layers; an encoder or a modality
-frontend raises ``NotImplementedError``).
+(decoders of attention, RG-LRU and SSD layers, the vision prefix and the
+encoder-decoder: every architecture of the registry).
 
 The bundle has the reference's keys and signatures: ``init`` and
 ``train_loss`` for training; ``prefill``, ``init_cache`` and

@@ -656,12 +656,6 @@ def test_port_checkpoint_feeds_the_reference(tmp_path):
 # what the slice does not run, and the device rule
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(set(ARCHS) - set(RUNNABLE)))
-def test_later_slice_archs_raise(name):
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        make_model(get_arch(name).reduced())
-
-
 @pytest.mark.parametrize("knob", [dict(fsdp=True),
                                   dict(act_shard="seq"),
                                   dict(param_dtype="bfloat16")])
