@@ -196,7 +196,7 @@ Phases, each of which exits non-zero on a failed check:
      ``get_result`` handed them (the Elog pass on phi timed too), ms a step
      and device time;
   13. experts (``lm_moe``, after ``lm_serve``): qwen3-moe-30b-a3b at full
-     width and 16 of its 48 layers through ``serve`` (8 x 4,096, 64 new
+     width and 8 of its 48 layers through ``serve`` (8 x 4,096, 64 new
      tokens, bf16: prefill, decode, tokens/s, the decode profile, peak
      memory, a decode step twice bitwise, the share of dropped
      assignments in a prefill and a decode step at the default capacity);
@@ -225,7 +225,7 @@ Phases, each of which exits non-zero on a failed check:
      prefill and a decode step each twice bitwise, 128 teacher-forced
      decode steps against one training forward within 2e-3, and at long
      memory a zeroed ``h`` and a zeroed ``conv`` state that must leave
-     it; training at 4 x 2,048 (mamba2 at 48 layers, plain and
+     it; training at 4 x 2,048 (mamba2 at 24 layers, plain and
      ``remat="full"`` bitwise it; recurrentgemma at 8 layers), step 0's
      loss and every gradient finite, ms a step, tokens/s, peak memory.
      No kernel of the port is on this path; the phase's launch counts
@@ -252,7 +252,28 @@ Phases, each of which exits non-zero on a failed check:
      logits, every loss and gradient norm finite, the median step,
      tokens/s and peak memory, the kernel at the inputs the path handed
      it against its plain version, the mma route and SDPA (entries
-     ``lm_whisper_train``, ``lm_internvl_train``).
+     ``lm_whisper_train``, ``lm_internvl_train``);
+  16. LM sharding (``lm_shard``, after ``lm_encoder``): olmo-1b at full
+     width and depth on a (2 data x 2 model) mesh of virtual shards with
+     FSDP through ``train(mesh=)``, lm_train's batch and settings, 3 steps
+     each within LM_LOSS_TOL of lm_train's one-device loss, flash launched
+     once a layer, shard and step at the shard's shape (2 rows x 8 heads),
+     ms a step beside one device's, the shard group's payload a step by
+     key, peak memory, the kernel at the shard's inputs against its plain
+     version, the mma route and SDPA (entry ``lm_shard``); the elastic
+     re-mesh: olmo-1b at 2 layers checkpointed after 2 steps on (2, 2),
+     the restored tree bitwise the shards' slices gathered, step 2 resumed
+     on ``factor_mesh(2, want_model=2)`` = (1, 2) and on one device within
+     LM_LOSS_TOL of (2, 2)'s; qwen3-moe at lm_moe's training settings on
+     (1, 2), 64 experts a shard, 2 steps within LM_LOSS_TOL of lm_moe's one
+     device; two gloo processes on the card, each one shard of (1, 2) at
+     olmo-1b's full width and 2 layers, 2 steps bitwise this process
+     running both (a digest of every leaf and the losses), wire bytes and
+     seconds a step; olmo-1b served in f32 at full width and depth through
+     ``serve(mesh=)``, 8 streams on (1, 2) (the cache's heads over model)
+     and one on (2, 1) (its sequence over data), 512 + 32 tokens: the
+     greedy tokens equal one device's, prefill and decode times beside
+     one device's.
 
 Each VMP path, and the SVI fit, logs a sha256 of its final posteriors and
 ELBO trace, so that two trees can be shown to give the same output bit for
@@ -262,7 +283,8 @@ The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, lda_svi, query,
 gateway, lda_ooc, gibbs, lda_dist, lda_multihost, slda, slda_svi,
 slda_query, naive_bayes, naive_bayes_svi, dcmlda, lm_train,
-lm_train_gemma3, lm_moe_train, lm_whisper_train, lm_internvl_train; the
+lm_train_gemma3, lm_moe_train, lm_whisper_train, lm_internvl_train,
+lm_shard; the
 flash entries' ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
 ``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
@@ -413,11 +435,12 @@ CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, RESUME_TOL = 2, 4, 2, 1e-3
 DCM_DOCS, DCM_TOPICS, DCM_VOCAB, DCM_MEAN_LEN, DCM_STEPS = 10000, 16, 2000, \
     120, 10
 # experts: qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B) at full width, serving
-# at depth 16 of 48 (48 f32 layers, about 120 GB, do not fit the card's 80),
+# at depth 8 of 48 (48 f32 layers, about 120 GB, do not fit the card's 80;
+# 16 ran until the lm_shard phase needed the time),
 # 8 prompts of 4,096 tokens, 64 new tokens; the f32 serving checks at 2
 # layers for it and moonshot-v1-16b-a3b (hf:moonshotai/Moonlight-16B-A3B);
 # training at 2 layers, batch 4 x 2,048, 4 steps a variant
-MOE_ARCH, MOE_SERVE_LAYERS, MOE_SERVE_BATCH = "qwen3-moe-30b-a3b", 16, 8
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_SERVE_BATCH = "qwen3-moe-30b-a3b", 8, 8
 MOE_CHECK_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 MOE_LAYERS, MOE_SEQ, MOE_BATCH, MOE_STEPS = 2, 2048, 4, 4
 MOE_TRAIN_RUNS = (("plain", {}), ("plain again", {}),
@@ -450,13 +473,14 @@ RECUR_SERVE = (("recurrentgemma-2b", 8), ("mamba2-370m", 8))
 RECUR_CHECK_LAYERS = {"recurrentgemma-2b": 5, "mamba2-370m": 2}
 RECUR_PROMPT, RECUR_DECODE, RECUR_CHUNK = 1024, 128, 256
 RECUR_LONG_MEMORY = {"lam": -4.0, "dt_bias": -5.0}
-# training at 4 x 2,048: mamba2 at full depth, plain and remat="full";
+# training at 4 x 2,048: mamba2 at 24 of 48 layers (48 ran until the
+# lm_shard phase needed the time), plain and remat="full";
 # recurrentgemma at 8 of 26 layers (two cycles and the 2-layer tail): all 26
 # hold 2.894B f32 parameters, 46.3 GB with the AdamW moments before any
 # activation; beside the 256,000-column head's f32 logits and about 3-4 GB
 # of activations a layer, 11 layers ran out of the card's 79.18 GiB, and 8
 # peaked at 78.48 GB (73.1 GiB) on an NVIDIA H100 80GB HBM3 at 700 W
-RECUR_TRAIN = (("mamba2-370m", 48, ("plain", "remat full")),
+RECUR_TRAIN = (("mamba2-370m", 24, ("plain", "remat full")),
                ("recurrentgemma-2b", 8, ("plain",)))
 # RECUR_STEPS steps a run; the first (allocation, autotuning) is dropped
 # from the step times, and the mean and median of the other seven are kept
@@ -5222,6 +5246,399 @@ def phase_lm_encoder(report):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# LM sharding: a (data, model) mesh of virtual shards on the card
+# ---------------------------------------------------------------------------
+
+# olmo-1b at full width and depth on (2 data x 2 model) with FSDP, lm_train's
+# batch and settings, against lm_train's one-device losses
+SHARD_MESH, SHARD_STEPS = (2, 2), 3
+# the elastic re-mesh: olmo-1b at 2 of 16 layers, a checkpoint after 2 steps
+# on (2, 2) resumed on factor_mesh(2, want_model=2) = (1, 2) and on one device
+SHARD_CKPT_LAYERS, SHARD_CKPT_STEPS = 2, 2
+# experts: qwen3-moe at lm_moe's training settings (MOE_LAYERS of 48 layers,
+# full width, 128 experts) on (1, 2), 64 experts a shard, against lm_moe's
+# one-device losses
+SHARD_MOE_MESH, SHARD_MOE_STEPS = (1, 2), 2
+# two gloo processes on the one card, each running one shard of (1, 2):
+# olmo-1b at full width and 2 layers, bitwise one process running both
+SHARD_MP_MESH, SHARD_MP_LAYERS, SHARD_MP_STEPS = (1, 2), 2, 2
+# serving on a mesh: olmo-1b at full width and depth, f32 (greedy tokens
+# compared exactly), prompts of SHARD_SERVE_PROMPT tokens, SHARD_SERVE_NEW
+# new ones: 8 streams on (1, 2) (the cache's heads over model) and one on
+# (2, 1) (its sequence over data)
+SHARD_SERVE_CASES = ((8, (1, 2)), (1, (2, 1)))
+SHARD_SERVE_PROMPT, SHARD_SERVE_NEW = 512, 32
+
+SHARD_MP_CHILD = """
+import sys
+sys.path.insert(0, {src!r})
+import dataclasses, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sys.path.insert(0, {root!r})
+import chip_smoke
+from repro_torch.launch.dist import init_distributed
+init_distributed("127.0.0.1:{port}", 2, {rank})
+out = chip_smoke.shard_mp_run()
+print("RESULT", out["digest"], out["wire"], out["seconds"], out["step_ms"],
+      flush=True)
+print("DONE", flush=True)
+"""
+
+
+def shard_digest(layout, params, losses):
+    """sha256 of every leaf gathered whole from the shards and the losses:
+    two runs give one digest only if they give the same bits."""
+    from repro_torch.models.parallel import gather_leaves
+    h = hashlib.sha256(np.asarray(losses, np.float64).tobytes())
+    for t in gather_leaves(layout, params.shards):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def shard_mp_run():
+    """olmo-1b at SHARD_MP_LAYERS layers on a (1, 2) mesh over the current
+    process group (two gloo ranks, or this process alone): SHARD_MP_STEPS
+    steps; the digest, the group's wire bytes and seconds, ms a step."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import train
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=SHARD_MP_LAYERS)
+    run = RunConfig(seq_len=LM_SEQ, global_batch=LM_BATCH, flash_kernel=True)
+    mesh = Mesh(SHARD_MP_MESH, ("data", "model"))
+    params, _, losses, tel = train(cfg, run, SHARD_MP_STEPS, device=DEV,
+                                   mesh=mesh, log_every=0)
+    torch.cuda.synchronize()
+    g = mesh.group
+    return dict(digest=shard_digest(params.layout, params, losses),
+                losses=losses, wire=sum(g.wire.values()), seconds=g.seconds,
+                calls=g.calls, payload=g.payload_bytes,
+                step_ms=tel.summary()["mean_s"] * 1e3)
+
+
+def shard_olmo(report, one):
+    """olmo-1b at full width and depth on SHARD_MESH with FSDP through
+    ``train(mesh=)``: SHARD_STEPS steps from the seed's initialisation over
+    lm_train's batches, each loss within LM_LOSS_TOL of lm_train's
+    one-device loss; flash launched once a layer, shard and step; ms a step
+    beside lm_train's, the group's payload a step by key, peak memory; the
+    kernel at the shard's shape (the inputs the run handed it) against its
+    plain version, timed beside its bound, the mma route and SDPA."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import train
+    cfg = get_arch(LM_ARCH)
+    run = RunConfig(seq_len=LM_SEQ, global_batch=LM_BATCH, flash_kernel=True,
+                    fsdp=True)
+    mesh = Mesh(SHARD_MESH, ("data", "model"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with recording("flash_attention") as calls:
+        params, opt, losses, tel = train(cfg, run, SHARD_STEPS, device=DEV,
+                                         mesh=mesh, log_every=1)
+    torch.cuda.synchronize()
+    counts, routes = ops.launch_counts(), ops.route_counts()["flash_attention"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.n_layers * SHARD_STEPS * mesh.size
+    check(counts["flash_attention"] == want and
+          routes == {"wgmma": want, "mma": 0},
+          f"lm_shard: flash_attention launched {counts['flash_attention']} "
+          f"times by route {routes}, not {want} on wgmma")
+    gaps = [abs(a - b) for a, b in zip(losses, one["losses"])]
+    log(f"[lm_shard] {cfg.name} on {mesh.shape} with FSDP: losses {losses}; "
+        f"one device (lm_train) {one['losses'][:SHARD_STEPS]}; gaps "
+        f"{[f'{x:.2e}' for x in gaps]} (tol {LM_LOSS_TOL} nats)")
+    check(all(np.isfinite(losses)) and max(gaps) <= LM_LOSS_TOL,
+          f"lm_shard: losses {losses} not within {LM_LOSS_TOL} of one "
+          f"device's {one['losses']}")
+    step_ms = tel.summary()["mean_s"] * 1e3
+    payload = {k: v / SHARD_STEPS for k, v in mesh.group.payload.items()}
+    log(f"[lm_shard] {step_ms:.2f} ms a step (mean of steps 1-"
+        f"{SHARD_STEPS - 1}; one device {one['step_ms']:.2f}), "
+        f"{LM_BATCH * LM_SEQ / step_ms * 1e3:.4e} tokens/s; peak memory "
+        f"{peak_gb:.2f} GB (one device {one['peak_memory_gb']:.2f}); the "
+        f"group's payload a step {sum(payload.values()) / 1e9:.3f} GB: "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in payload.items()))
+    del params, opt
+    torch.cuda.empty_cache()
+    (a, _, _), = calls.values()
+    q, k, v = (t.detach() for t in a)
+    bh, s, dh = q.shape
+    check(bh == LM_BH // mesh.size and fa.route(q, k, v) == "wgmma",
+          f"lm_shard: the shard's flash shape {tuple(q.shape)} is not "
+          f"({LM_BH // mesh.size}, {LM_SEQ}, {cfg.head_dim_}) on wgmma")
+    err = compare("flash_attention", f"shard {tuple(q.shape)} wgmma",
+                  fa.launch(q, k, v, True), ref.flash_attention(q, k, v),
+                  FLASH_BF16_TOL)
+    t_k = time_ms(lambda: fa.launch(q, k, v, True), reps=20)
+    t_m = time_ms(lambda: fa.launch(q, k, v, True, route="mma"), reps=20)
+    t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=5)
+    b_row = LM_BATCH // mesh.n_data
+    q4, k4, v4 = (t.view(b_row, bh // b_row, s, dh) for t in (q, k, v))
+    t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), reps=20)
+    flops = flash_ops(bh, s, s, dh, True)
+    bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
+    log(f"[times] flash_attention at the shard's shape ({bh}, {s}, {dh}) bf16 "
+        f"causal: wgmma {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s, "
+        f"{bms / t_k:.3f} of the bound), mma {t_m:.4f}, plain {t_p:.4f}, SDPA "
+        f"{t_l:.4f}, bound {bms:.4f} ms ({by})")
+    report["lm_shard"]["olmo"] = dict(
+        mesh=list(SHARD_MESH), losses=losses, one_device=one["losses"],
+        gaps=gaps, step_ms=step_ms, one_device_step_ms=one["step_ms"],
+        step_times_s=tel.times, peak_memory_gb=peak_gb, payload=payload,
+        launches=counts["flash_attention"], flash_shape=[bh, s, dh],
+        flash_ms=t_k, mma_ms=t_m, plain_ms=t_p, library_ms=t_l, bound_ms=bms,
+        bound_by=by, err=err)
+    del q, k, v, q4, k4, v4, a, calls
+    torch.cuda.empty_cache()
+    entry = kernel_entry(
+        "lm_shard", "flash_attention", "cuda",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:106", counts["flash_attention"],
+        err, t_k, t_p, bms, by, t_l)
+    entry.update(variant="wgmma", mma_ms=t_m)
+    return entry
+
+
+def shard_elastic(report):
+    """olmo-1b at SHARD_CKPT_LAYERS layers on SHARD_MESH with FSDP:
+    SHARD_CKPT_STEPS steps checkpointed (the tree gathered whole), the
+    restored tree bitwise the shards' slices gathered, and the next step on
+    (2, 2) against the same step resumed from the checkpoint on
+    ``factor_mesh(2, want_model=2)`` (``train(checkpoint_dir=)``) and on
+    one device (the restored state, as ``train`` restores it), within
+    LM_LOSS_TOL."""
+    import dataclasses
+    import tempfile
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.elastic import factor_mesh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import (batch_to, build_train_step,
+                                          place_batch)
+    from repro_torch.launch.train import restore_state, train
+    from repro_torch.models.parallel import gather_leaves
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=SHARD_CKPT_LAYERS)
+    run = RunConfig(seq_len=LM_SEQ, global_batch=LM_BATCH, flash_kernel=True,
+                    fsdp=True)
+    mesh = Mesh(SHARD_MESH, ("data", "model"))
+    nxt = SHARD_CKPT_STEPS
+    with tempfile.TemporaryDirectory(prefix="lm_shard-") as ck:
+        t0 = time.perf_counter()
+        params, opt, first, _ = train(
+            cfg, run, SHARD_CKPT_STEPS, device=DEV, mesh=mesh,
+            checkpoint_dir=ck, checkpoint_every=SHARD_CKPT_STEPS, log_every=0)
+        saved_s = time.perf_counter() - t0
+        built = build_train_step(cfg, run, DEV, mesh=mesh)
+        batch = TokenStream(vocab=cfg.vocab, seq_len=LM_SEQ, batch=LM_BATCH,
+                            seed=run.seed).batch_at(nxt)
+        whole = gather_leaves(params.layout, params.shards)
+        nu = gather_leaves(params.layout, opt["nu"])
+        _, _, m = built["fn"](params, opt, place_batch(
+            batch, mesh, built["rules"], DEV), nxt)
+        on_22 = float(m["loss"])
+        del params, opt
+        # one device resumes as train does: restore_state, then the step
+        module, ropt, step = restore_state(cfg, CheckpointStore(ck), DEV)
+        same = step == nxt and ropt["count"] == nxt and all(
+            torch.equal(a, b) for a, b in zip(module.parameters(), whole)) \
+            and all(torch.equal(a, b) for a, b in zip(ropt["nu"], nu))
+        check(same, "lm_shard: the checkpoint restored is not bitwise the "
+                    "shards' slices gathered")
+        del whole, nu
+        one = build_train_step(cfg, run, DEV)
+        resumed = {"one device": float(one["fn"](
+            module, ropt, batch_to(batch, DEV), nxt)[2]["loss"])}
+        del module, ropt, one
+        torch.cuda.empty_cache()
+        resumed["(1, 2)"] = train(cfg, run, 1, device=DEV,
+                                  mesh=factor_mesh(2, want_model=2),
+                                  checkpoint_dir=ck, log_every=0)[2][0]
+        total_s = time.perf_counter() - t0
+    gaps = {k: abs(v - on_22) for k, v in resumed.items()}
+    log(f"[lm_shard] elastic: {cfg.name} at {cfg.n_layers} layers on "
+        f"{mesh.shape}: losses {first}, checkpoint at step {nxt} restored "
+        f"bitwise the slices gathered; step {nxt} on (2, 2) {on_22:.6f}, "
+        f"resumed " + ", ".join(f"on {k} {v:.6f} (gap {gaps[k]:.2e})"
+                                for k, v in resumed.items())
+        + f" (tol {LM_LOSS_TOL}); {saved_s:.1f} s to the checkpoint, "
+        f"{total_s:.1f} s in all")
+    check(all(g <= LM_LOSS_TOL for g in gaps.values()),
+          f"lm_shard: resumed losses {resumed} not within {LM_LOSS_TOL} of "
+          f"the (2, 2) run's {on_22}")
+    report["lm_shard"]["elastic"] = dict(
+        losses=first, next_loss=on_22, resumed=resumed, gaps=gaps,
+        restored_bitwise=same, seconds=total_s)
+
+
+def shard_moe(report, one):
+    """qwen3-moe at lm_moe's training settings on SHARD_MOE_MESH (the
+    experts split over the model shards): SHARD_MOE_STEPS steps, each loss
+    within LM_LOSS_TOL of lm_moe's one-device plain run."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import train
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    run = RunConfig(seq_len=MOE_SEQ, global_batch=MOE_BATCH, warmup=1,
+                    flash_kernel=True)
+    mesh = Mesh(SHARD_MOE_MESH, ("data", "model"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, losses, tel = train(cfg, run, SHARD_MOE_STEPS, device=DEV,
+                                     mesh=mesh, log_every=0)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layout = params.layout
+    del params, opt
+    torch.cuda.empty_cache()
+    gaps = [abs(a - b) for a, b in zip(losses, one["losses"])]
+    step_ms = float(np.mean(tel.times[1:] or tel.times)) * 1e3
+    log(f"[lm_shard] experts: {cfg.name} at {cfg.n_layers} layers on "
+        f"{mesh.shape} ({cfg.n_experts // mesh.n_model} experts a shard, "
+        f"split: attention {layout.attn}, experts {layout.moe}, vocabulary "
+        f"{layout.vocab}): losses {losses}, one device {one['losses'][:2]}, "
+        f"gaps {[f'{x:.2e}' for x in gaps]} (tol {LM_LOSS_TOL}); "
+        f"{step_ms:.2f} ms a step (one device {one['step_ms']:.2f}), peak "
+        f"memory {peak_gb:.2f} GB")
+    check(layout.moe and all(np.isfinite(losses))
+          and max(gaps) <= LM_LOSS_TOL,
+          f"lm_shard: qwen3-moe on {mesh.shape}: losses {losses} not within "
+          f"{LM_LOSS_TOL} of {one['losses']}")
+    report["lm_shard"]["moe"] = dict(losses=losses, gaps=gaps,
+                                     step_ms=step_ms, peak_memory_gb=peak_gb)
+
+
+def shard_two_processes(report):
+    """Two gloo ranks on the card (the ``lda_multihost`` pattern), each
+    running one shard of (1, 2) at olmo-1b's full width and
+    SHARD_MP_LAYERS layers: SHARD_MP_STEPS steps bitwise this process
+    running both shards (one digest of every leaf and the losses); each
+    rank's wire bytes and seconds a step."""
+    import socket
+    torch.cuda.empty_cache()
+    one = shard_mp_run()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_MP_CHILD.format(
+            src=str(ROOT / "src"), root=str(ROOT), port=port, rank=r)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    got = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=CHILD_TIMEOUT)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        check(p.returncode == 0 and "DONE" in out,
+              f"lm_shard: gloo rank failed ({p.returncode}):\n{err[-3000:]}")
+        line = [x for x in out.splitlines() if x.startswith("RESULT")][0]
+        digest, wire, secs, ms = line.split()[1:]
+        got.append(dict(digest=digest, wire=int(wire), seconds=float(secs),
+                        step_ms=float(ms)))
+    same = all(g["digest"] == one["digest"] for g in got)
+    n = SHARD_MP_STEPS
+    wire = ", ".join(f"{g['wire'] / n / 1e9:.3f}" for g in got)
+    secs = ", ".join(f"{g['seconds'] / n:.3f}" for g in got)
+    ms = ", ".join(f"{g['step_ms']:.1f}" for g in got)
+    log(f"[lm_shard] two gloo processes on one card, (1, 2) at "
+        f"{SHARD_MP_LAYERS} layers: digests "
+        f"{[g['digest'][:16] for g in got]} against one process's "
+        f"{one['digest'][:16]} ({'bitwise' if same else 'DIFFERENT'}); per "
+        f"rank a step: wire [{wire}] GB, exchange seconds [{secs}], "
+        f"[{ms}] ms a step (one process {one['step_ms']:.1f} ms, payload "
+        f"{one['payload'] / n / 1e9:.3f} GB a step)")
+    check(same, "lm_shard: two gloo processes are not bitwise one")
+    report["lm_shard"]["two_processes"] = dict(one=one, ranks=got,
+                                               bitwise=same)
+
+
+def shard_serve(report):
+    """olmo-1b at full width and depth served in f32 through
+    ``serve(mesh=)`` for each of SHARD_SERVE_CASES: the greedy tokens equal
+    one device's ``serve`` from the same parameters; the cache's placement,
+    prefill and decode times beside one device's."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.shardings import Rules
+    from repro_torch.models import make_model
+    cfg = get_arch(LM_ARCH)
+    out = {}
+    for b, shape in SHARD_SERVE_CASES:
+        run = RunConfig(seq_len=SHARD_SERVE_PROMPT, global_batch=b,
+                        dtype="float32")
+        torch.cuda.empty_cache()
+        params = make_model(cfg)["init"](run, device=DEV)
+        prompts = np.random.default_rng(70 + b).integers(
+            0, cfg.vocab, (b, SHARD_SERVE_PROMPT))
+        want, one = serve(cfg, run, prompts, SHARD_SERVE_NEW, device=DEV,
+                          params=params)
+        mesh = Mesh(shape, ("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        got, st = serve(cfg, run, prompts, SHARD_SERVE_NEW, device=DEV,
+                        params=params, mesh=mesh)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        same = bool(np.array_equal(got, want))
+        spec = Rules(cfg, run, mesh).cache_leaf("k", (
+            b, SHARD_SERVE_PROMPT + SHARD_SERVE_NEW, cfg.n_kv_heads,
+            cfg.head_dim_))
+        log(f"[lm_shard] serve {cfg.name} f32, {b} x {SHARD_SERVE_PROMPT} + "
+            f"{SHARD_SERVE_NEW} on {mesh.shape}: K/V placed {spec} over (B, "
+            f"S, KV, Dh); greedy tokens {'equal' if same else 'DIFFER from'}"
+            f" one device's; prefill {st['prefill_s'] * 1e3:.1f} ms (one "
+            f"device {one['prefill_s'] * 1e3:.1f}), decode "
+            f"{st['decode_s'] / SHARD_SERVE_NEW * 1e3:.2f} ms a step (one "
+            f"device {one['decode_s'] / SHARD_SERVE_NEW * 1e3:.2f}), "
+            f"{st['tokens_per_s']:.1f} tokens/s, peak memory {peak_gb:.2f} "
+            f"GB")
+        check(same, f"lm_shard: serve on {mesh.shape} gives other tokens "
+                    f"than one device")
+        out[f"{b} on {shape}"] = dict(
+            spec=spec, tokens_equal=same, stats=st, one_device=one,
+            peak_memory_gb=peak_gb)
+    report["lm_shard"]["serve"] = out
+
+
+def phase_lm_shard(report):
+    """LM sharding on the card: olmo-1b at full width and depth on a
+    (2, 2) mesh with FSDP against lm_train's one device (entry
+    ``lm_shard``), the elastic re-mesh from a checkpoint, qwen3-moe's
+    experts split over (1, 2) against lm_moe's one device, two gloo
+    processes bitwise one, and serving on (1, 2) and (2, 1) against one
+    device's tokens."""
+    report["lm_shard"] = {}
+    stage_s = report["lm_shard"]["stage_s"] = {}
+
+    def timed(key, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        stage_s[key] = time.perf_counter() - t0
+        return out
+    entry = timed("olmo", shard_olmo, report, report["lm_train"])
+    timed("elastic", shard_elastic, report)
+    timed("moe", shard_moe, report, report["lm_moe"]["train"]["runs"]["plain"])
+    timed("two processes", shard_two_processes, report)
+    timed("serve", shard_serve, report)
+    log(f"[lm_shard] seconds by stage: "
+        f"{', '.join(f'{k} {v:.1f}' for k, v in stage_s.items())}")
+    return [entry]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--docs", type=int, default=30000,
@@ -5294,6 +5711,7 @@ def main(argv=None) -> int:
     kernels += timed("lm_moe", phase_lm_moe, report)
     kernels += timed("lm_recurrent", phase_lm_recurrent, report)
     kernels += timed("lm_encoder", phase_lm_encoder, report)
+    kernels += timed("lm_shard", phase_lm_shard, report)
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))

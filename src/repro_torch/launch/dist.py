@@ -18,7 +18,8 @@ hosts.  An ``all_reduce`` would not do: its order of summation is the
 backend's.  gloo gathers CPU tensors only, so a card's tensors are staged
 through pinned host buffers on the way out and copied back to the card on
 the way in.  NCCL needs a card per rank (two ranks on one card are
-refused), so it belongs to the LM-sharding slice; asking for it raises.
+refused), so asking for it raises until the port runs on such a machine.
+The LM's mesh (``launch/mesh.py``) meets over the same group.
 """
 
 from __future__ import annotations

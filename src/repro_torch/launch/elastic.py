@@ -1,18 +1,70 @@
-"""Elastic scaling of the statistical engines: re-plan the shards for a
-changed topology and resume from the newest session.
+"""Elastic scaling: re-plan the mesh (or the shard plan) for a changed
+topology and resume from the newest checkpoint or session.
 
-The port of ``repro.launch.elastic``'s SVI entry points.  On a real
-cluster the controller detects lost or added hosts and relaunches the job
-with a different host set; everything the job needs to continue is (a) a
-shard plan for the new count, (b) the ownership map re-derived from the new
-topology (rendezvous hashing moves only the minimal shards), and (c) the
-newest valid session (host arrays, read by every host).  The LM trainer's
-mesh re-planning belongs to the LM-sharding slice of the port.
+The port of ``repro.launch.elastic``.  On a real cluster the controller
+detects lost or added hosts and relaunches the job with a different host
+set; everything the job needs to continue is (a) a factorisation of the
+new count into a mesh (:func:`factor_counts`, :func:`factor_mesh`), or for
+the statistical engines a shard plan with the ownership map re-derived
+from the new topology (rendezvous hashing moves only the minimal shards),
+(b) the shardings re-derived from it (``shardings.Rules`` is
+mesh-parametric), and (c) the newest valid checkpoint or session, held
+whole on the host, which every shard slices anew
+(:func:`remesh_and_resume`, :func:`remesh_and_resume_svi`).
 """
 
 from __future__ import annotations
 
 from .dist import init_distributed, process_count, process_index
+
+
+def factor_counts(n_devices: int, want_model: int = 0) -> tuple:
+    """The ``(data, model)`` axis sizes :func:`factor_mesh` realizes.
+    Greedy: model axis gets the largest power-of-2 divisor of ``n_devices``
+    that is ``<= want_model``, which may be *smaller* than ``want_model``
+    (n=6, want_model=4 -> model=2, data=3), so validation must run against
+    this, not against the request."""
+    model = 1
+    if want_model > 1:
+        m = min(want_model, n_devices)
+        while m > 1:
+            if n_devices % m == 0:
+                model = m
+                break
+            m //= 2
+    return n_devices // model, model
+
+
+def factor_mesh(n_devices: int, want_model: int = 0):
+    """A ``(data, model)`` :class:`~repro_torch.launch.mesh.Mesh` of
+    ``n_devices`` shards, factored by :func:`factor_counts`."""
+    from .mesh import Mesh
+    data, model = factor_counts(n_devices, want_model)
+    return Mesh((data, model), ("data", "model"))
+
+
+def remesh_and_resume(cfg, run, checkpoint_dir: str,
+                      n_devices: int | None = None, want_model: int = 0,
+                      steps: int = 10, device=None):
+    """Rebuild on a new mesh of ``n_devices`` shards (one a process of the
+    current group when None) and continue training from the checkpoint.
+
+    Batch divisibility is validated against the factorization
+    :func:`factor_mesh` will actually pick, not the requested
+    ``want_model``, which it may round down, so an invalid config fails
+    here with the real numbers instead of deep inside ``train``."""
+    from .train import train
+    n = n_devices or process_count()
+    data, model = factor_counts(n, want_model)
+    if run.global_batch % data:
+        raise ValueError(
+            f"global batch {run.global_batch} not divisible by the data-"
+            f"parallel degree {data} ({n} devices factor as data={data} x "
+            f"model={model} for want_model={want_model})")
+    return train(cfg, run, steps, device=device,
+                 mesh=factor_mesh(n, want_model),
+                 checkpoint_dir=checkpoint_dir,
+                 checkpoint_every=max(steps // 2, 1))
 
 
 def remesh_and_resume_svi(model, engine_cfg, checkpoint_dir: str,

@@ -3,8 +3,9 @@
 ``serve`` prefills a batch of prompts, building each layer's decode cache
 for the prompt and every token to come (``cache_len = prompt length +
 new_tokens``), then decodes one token a step against the cache, which each
-step updates in place.  It runs under ``torch.inference_mode()``.  A mesh
-belongs to a later slice of the port and raises.
+step updates in place.  It runs under ``torch.inference_mode()``.  With
+``mesh=`` the cache and the parameters are the mesh's shards'
+(``models.parallel_serve``), the tokens the same on every shard.
 
 Usage (a reduced olmo on the CPU; on the card drop ``--device``; ``--arch``
 names any decoder of the registry, recurrentgemma-2b and mamba2-370m too,
@@ -26,8 +27,7 @@ import numpy as np
 import torch
 
 from ..configs import RunConfig, get_arch
-from ..models import make_model
-from ..models.transformer import later_slice
+from ..models import Decoder, make_model
 from .steps import build_decode_step, build_prefill_step, tokens_only
 
 
@@ -51,14 +51,19 @@ def serve(cfg, run: RunConfig, prompts: np.ndarray, new_tokens: int = 32,
     if not greedy:
         raise ValueError("serve decodes greedily only; the reference's "
                          "serve takes the argmax whatever greedy says")
-    if mesh is not None:
-        later_slice("a mesh", "LM sharding")
     tokens_only(cfg, "serve", "build_prefill_step and build_decode_step")
-    built_p = build_prefill_step(cfg, run, device)
+    built_p = build_prefill_step(cfg, run, device, mesh=mesh)
     device = built_p["device"]
-    built_d = build_decode_step(cfg, run, device)
     if params is None:
         params = make_model(cfg)["init"](run, device=device)
+    if mesh is None:
+        built_d = build_decode_step(cfg, run, device)
+    else:
+        from ..models.parallel import ShardedParams
+        server = built_p["server"]
+        built_d = dict(built_p, fn=server.decode)
+        if isinstance(params, Decoder):
+            params = ShardedParams.from_module(server.layout, params)
 
     b, s0 = prompts.shape
     batch = {"tokens": torch.from_numpy(np.asarray(prompts)).to(

@@ -7,8 +7,11 @@ steps over ``TokenStream`` batches, recording each step's host time (the
 loss's ``float`` ends each step, so the time covers the device's work).
 Every ``checkpoint_every`` steps it saves ``{"params", "opt", "step"}``
 through ``checkpoint.CheckpointStore`` in the reference's trees and file
-format, so that either package reads the other's parameters.  A mesh
-belongs to a later slice of the port and raises.
+format, so that either package reads the other's parameters.  With
+``mesh=`` (a :class:`~repro_torch.launch.mesh.Mesh`) each shard stores and
+updates what ``shardings.Rules`` gives it (``steps.build_mesh_train_step``)
+and a checkpoint holds the tree gathered whole, written by rank 0: it
+resumes on any mesh, or on none.
 
 Usage (a reduced olmo on the CPU; on the card drop ``--device``; ``--arch``
 names any decoder of the registry, recurrentgemma-2b and mamba2-370m too;
@@ -33,9 +36,11 @@ from ..checkpoint import CheckpointStore
 from ..configs import RunConfig, get_arch
 from ..data import TokenStream
 from ..models import make_model, params_from_numpy, params_to_numpy
-from ..models.transformer import Decoder, later_slice
+from ..models.transformer import Decoder
 from ..optim import adamw_init
-from .steps import batch_to, build_train_step, tokens_only
+from .dist import process_index
+from .steps import (batch_to, build_train_step, mesh_adamw_init, place_batch,
+                    tokens_only)
 
 
 class StepTelemetry:
@@ -75,6 +80,32 @@ def state_to_numpy(cfg, params, opt_state, step: int) -> dict:
             "step": np.int32(step)}
 
 
+def mesh_state_to_numpy(layout, params, opt_state, step: int) -> dict:
+    """:func:`state_to_numpy` of a mesh run: the parameters and moments
+    gathered whole from every shard's slices (every rank takes part)."""
+    from ..models.parallel import gather_leaves
+    shell = Decoder(layout.cfg, None, "meta")
+    mu, nu = (gather_leaves(layout, opt_state[k], "cpu") for k in ("mu", "nu"))
+    return {"params": params_to_numpy(
+                layout.cfg, shell, gather_leaves(layout, params.shards, "cpu")),
+            "opt": {"mu": params_to_numpy(layout.cfg, shell, mu),
+                    "nu": params_to_numpy(layout.cfg, shell, nu),
+                    "count": np.int32(opt_state["count"])},
+            "step": np.int32(step)}
+
+
+def to_mesh(layout, params, opt_state):
+    """A one-device ``(Decoder, AdamW state)`` placed as the mesh's shards
+    store it (``opt_state`` None: zero moments)."""
+    from ..models.parallel import ShardedParams
+    sharded = ShardedParams.from_module(layout, params)
+    if opt_state is None:
+        return sharded, mesh_adamw_init(sharded)
+    moments = {k: ShardedParams.from_leaves(layout, opt_state[k]).shards
+               for k in ("mu", "nu")}
+    return sharded, dict(moments, count=opt_state["count"])
+
+
 def restore_state(cfg, store: CheckpointStore, device):
     """``(params, opt_state, step)`` from ``store``'s latest checkpoint,
     on ``device``."""
@@ -107,11 +138,12 @@ def train(cfg, run: RunConfig, steps: int, device=None, params=None,
     ``checkpoint_every`` steps; ``start_step`` overrides the step it starts
     from, as the reference's does.  The batches are ``TokenStream``'s,
     tokens only: an architecture whose batch needs ``frames`` or
-    ``patches`` (whisper, internvl2) raises ``ValueError``."""
-    if mesh is not None:
-        later_slice("a mesh", "LM sharding")
+    ``patches`` (whisper, internvl2) raises ``ValueError``.  With ``mesh``
+    the parameters returned are the shards'
+    (:class:`~repro_torch.models.parallel.ShardedParams`; ``params=`` may
+    still be a ``Decoder``, which is placed), the state their moments."""
     tokens_only(cfg, "train", "build_train_step")
-    built = build_train_step(cfg, run, device)
+    built = build_train_step(cfg, run, device, mesh=mesh)
     device = built["device"]
     stream = TokenStream(vocab=cfg.vocab, seq_len=run.seq_len,
                          batch=run.global_batch, seed=run.seed)
@@ -126,6 +158,8 @@ def train(cfg, run: RunConfig, steps: int, device=None, params=None,
             params, opt_state, first = restore_state(cfg, store, device)
     if params is None:
         params = make_model(cfg)["init"](run, device=device)
+    if mesh is not None and isinstance(params, Decoder):
+        params, opt_state = to_mesh(built["layout"], params, opt_state)
     if opt_state is None:
         opt_state = adamw_init(list(params.parameters()))
     if start_step is not None:
@@ -134,7 +168,8 @@ def train(cfg, run: RunConfig, steps: int, device=None, params=None,
     telemetry = StepTelemetry()
     losses = []
     for i in range(first, first + steps):
-        batch = batch_to(stream.batch_at(i), device)
+        batch = batch_to(stream.batch_at(i), device) if mesh is None else \
+            place_batch(stream.batch_at(i), mesh, built["rules"], device)
         t0 = time.time()
         params, opt_state, metrics = built["fn"](params, opt_state, batch, i)
         loss = float(metrics["loss"])
@@ -143,8 +178,11 @@ def train(cfg, run: RunConfig, steps: int, device=None, params=None,
         losses.append(loss)
         if store is not None and checkpoint_every and \
                 (i + 1) % checkpoint_every == 0:
-            store.maybe_save(i + 1, state_to_numpy(cfg, params, opt_state,
-                                                   i + 1))
+            tree = state_to_numpy(cfg, params, opt_state, i + 1) \
+                if mesh is None else mesh_state_to_numpy(
+                    built["layout"], params, opt_state, i + 1)
+            if process_index() == 0:
+                store.maybe_save(i + 1, tree)
         if log_every and (i % log_every == 0 or straggle):
             print(f"[train] step {i:5d} loss {loss:8.4f} "
                   f"{dt*1e3:7.1f} ms{'  STRAGGLER' if straggle else ''}")

@@ -20,7 +20,6 @@ def make_model(cfg: ArchConfig) -> dict:
     run, cache_len=0)`` the last logits and the decode cache,
     ``init_cache(run, batch, max_len, device=None)`` a zeroed cache and
     ``decode_step(params, cache, tokens, pos, run)`` one token's logits."""
-    T.check_slice(cfg)
     return {
         "init": lambda run, generator=None, device=None: T.init_params(
             cfg, run, generator, device),

@@ -40,8 +40,9 @@ values, in a decoder layer of an encoder-decoder), the reference's
 pre-conv inputs in the run dtype).  :func:`cache_from_numpy` /
 :func:`cache_to_numpy` carry it across from and to the reference's
 ``{"scan", "tail"}`` tree (K/V there (B, length, KV, Dh)) by the
-parameters' rule.  What the port does not run yet raises
-``NotImplementedError`` naming the slice that will (:func:`check_slice`).
+parameters' rule.  The parameters are f32 whatever ``run.param_dtype``
+says, as the reference's ``_init`` makes them; on a mesh the model runs
+through :mod:`models.parallel`.
 """
 
 from __future__ import annotations
@@ -57,30 +58,6 @@ from torch.utils.checkpoint import (checkpoint,
 
 from ..configs.base import ArchConfig, RunConfig
 from . import layers as L
-
-# the run knobs the port does not run yet, and the slice that will
-_RUN_SLICE = (
-    (lambda r: r.fsdp, "fsdp", "LM sharding"),
-    (lambda r: r.act_shard != "none", "act_shard", "LM sharding"),
-    (lambda r: r.param_dtype != "float32", "param_dtype other than float32",
-     "mixed-precision parameter"),
-)
-
-
-def later_slice(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} arrives with the {slice_name} slice "
-                              f"of the port")
-
-
-def check_slice(cfg: ArchConfig | None = None, run: RunConfig | None = None):
-    """Raise ``NotImplementedError`` on a run knob of a later slice (LM
-    sharding, bf16 parameters) set away from its default.  Every
-    architecture of the registry runs: ``cfg`` is taken for the callers'
-    sake and admits all of them."""
-    for test, what, slice_name in _RUN_SLICE if run is not None else ():
-        if test(run):
-            later_slice(what, slice_name)
-
 
 def modality_inputs(cfg: ArchConfig) -> tuple:
     """The batch entries besides ``tokens`` (and ``labels``) that the
@@ -193,7 +170,6 @@ class Decoder(nn.Module):
 
     def __init__(self, cfg: ArchConfig, generator=None, device=None):
         super().__init__()
-        check_slice(cfg)
         self.cfg = cfg
         d, vp = cfg.d_model, cfg.vocab_padded
         cross = cfg.family == "encdec"
@@ -348,7 +324,6 @@ def forward(params: Decoder, tokens, cfg: ArchConfig, run: RunConfig, *,
     logits (B, S, V_padded) f32.  A vision model also takes ``patches``
     (B, P, d), the prefix before the text; an encoder-decoder ``frames``
     (B, S_enc, d), which the encoder reads."""
-    check_slice(cfg, run)
     x, positions, enc, offset = _inputs(
         params, {"tokens": tokens, "patches": patches, "frames": frames},
         cfg, run)

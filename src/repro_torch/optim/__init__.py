@@ -2,4 +2,5 @@
 ``repro.optim``."""
 
 from .adamw import (adamw_init, adamw_update,  # noqa: F401
-                    clip_by_global_norm, lr_schedule)
+                    clip_by_global_norm, compress_decompress, compress_init,
+                    lr_schedule)

@@ -653,28 +653,40 @@ def test_port_checkpoint_feeds_the_reference(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what the slice does not run, and the device rule
+# bf16 parameters (f32 in both packages), and the device rule
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("knob", [dict(fsdp=True),
-                                  dict(act_shard="seq"),
-                                  dict(param_dtype="bfloat16")])
-def test_later_slice_run_knobs_raise(knob):
-    run, _ = _runs(**knob)
-    cfg = _cfg("olmo-1b")
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        tsteps.build_train_step(cfg, run, device="cpu")
-    module = make_model(cfg)["init"](_runs()[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        make_model(cfg)["train_loss"](module, tsteps.batch_to(
-            _batch(cfg, 1, 8), "cpu"), run)
-
-
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
-def test_later_slice_train_options_raise(kw):
-    run, _ = _runs()
-    with pytest.raises(NotImplementedError, match="slice of the port"):
-        ttrain.train(_cfg("olmo-1b"), run, 1, device="cpu", **kw)
+@pytest.mark.parametrize("name", ["olmo-1b", "qwen3-moe-30b-a3b"])
+def test_param_dtype_keeps_f32_parameters_as_the_reference(name):
+    """The reference reads ``param_dtype`` nowhere: its ``_init`` makes f32
+    parameters whatever it says, so a bf16 run's loss is its default's.
+    The port's loss and train step are bitwise its default's, and match
+    the reference's loss."""
+    run, jrun = _runs(param_dtype="bfloat16")
+    run0, jrun0 = _runs()
+    cfg, jcfg = _cfg(name), _jcfg(name)
+    batch = _batch(cfg, 2, run.seq_len)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jmodel = j_make_model(jcfg)
+    jp = jmodel["init"](jrun, jax.random.PRNGKey(0))
+    assert all(x.dtype == jnp.float32 for x in jax.tree_util.tree_leaves(jp))
+    jloss = jmodel["train_loss"](jp, jbatch, jrun)
+    assert float(jloss) == float(jmodel["train_loss"](jp, jbatch, jrun0))
+    tree = _np_tree(jp)
+    tbatch = tsteps.batch_to(batch, "cpu")
+    out = {}
+    for r in (run, run0):
+        module = params_from_numpy(cfg, tree, device="cpu")
+        assert all(p.dtype == torch.float32 for p in module.parameters())
+        built = tsteps.build_train_step(cfg, r, device="cpu")
+        opt = toptim.adamw_init(list(module.parameters()))
+        _, _, m = built["fn"](module, opt, tbatch, 1)
+        out[r.param_dtype] = (m["loss"], [p.detach().clone()
+                                          for p in module.parameters()])
+    (lb, pb), (lf, pf) = out["bfloat16"], out["float32"]
+    assert torch.equal(lb, lf)
+    assert all(torch.equal(a, b) for a, b in zip(pb, pf))
+    np.testing.assert_allclose(float(lb), float(jloss), **LOSS_TOL)
 
 
 def test_device_none_means_cuda(monkeypatch):

@@ -417,8 +417,10 @@ def test_serve_is_greedy_only():
 
 
 def test_serve_mesh_raises():
+    """``mesh=`` takes a ``launch.mesh.Mesh`` (serving on one runs in
+    ``tests/test_torch_lm_mesh.py``); anything else raises."""
     cfg, _ = _cfgs("olmo-1b")
-    with pytest.raises(NotImplementedError, match="slice of the port"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         tserve.serve(cfg, _runs()[0], _tokens(cfg, 1, 4), 2, device="cpu",
                      mesh=object())
 
