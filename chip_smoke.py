@@ -152,14 +152,16 @@ Phases, each of which exits non-zero on a failed check:
      the ``group`` logits, the route the launches took;
   9. both ``flash_attention`` kernels against ``ref.flash_attention``: the
      reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
-     256, ragged and multi-tile cases at Dh 64 and 128, and the trainer's
+     256, ragged and multi-tile cases at Dh 64 and 128, gemma3-4b's global
+     layer at Dh 256 ((8, 4,096) and (32, 2,048)), and the trainer's
      shape (BH = 64, S = 2,048, Dh = 128), each in bf16 and f32 through the
      route ``flash_attention.route`` gives it (checked), the bf16 cases at
-     Dh 64 and 128 also through the ``mma`` route; two launches of each
-     route bitwise; the autograd Function's gradients bitwise those of the
-     plain version for one cotangent; both routes timed in turns beside the
-     bound, the plain version's and SDPA's (a yardstick the port never
-     calls);
+     Dh 64, 128 and 256 also through the ``mma`` route; two launches of
+     each route bitwise; the autograd Function's gradients bitwise those of
+     the plain version for one cotangent; both routes timed in turns beside
+     the bound, the plain version's and SDPA's (a yardstick the port never
+     calls) at the trainer's shape and at both Dh-256 shapes, where the
+     wgmma route must beat the mma route;
   10. the LM trainer: olmo-1b at full width and depth through
      ``launch.train.train`` (4 steps, batch 4 x 2,048 tokens, bf16 compute,
      f32 parameters from the port's own initialisation, attention through
@@ -181,9 +183,10 @@ Phases, each of which exits non-zero on a failed check:
      growing prefix (gemma3's rings wrap), each with a power control (the
      first step with one key zeroed must leave the tolerance), and olmo-1b's greedy ``serve`` against prefill's argmax over
      the growing sequence at both lengths; gemma3-4b's training step at one block cycle,
-     batch 1 x 4,096, its global layer through the flash kernel's mma
+     batch 1 x 4,096, its global layer through the flash kernel's wgmma
      route (Dh 256, launches counted), the loss against the plain path's,
-     the kernel timed at the inputs the path handed it; and olmo-1b at 2
+     the kernel timed at the inputs the path handed it (both routes in
+     turns); and olmo-1b at 2
      layers trained 4 steps straight against 2 saved and 2 resumed through
      ``train``'s checkpoints;
   12. DCM-LDA (``dcmlda``, run after naive Bayes' phases):
@@ -408,6 +411,10 @@ FLASH_SHAPES = [(1, 32, 16), (2, 64, 16), (1, 100, 32), (3, 96, 8), (2, 48, 64)]
 FLASH_WGMMA_CASES = [(1, 1, 1, 64, True), (2, 257, 257, 128, True),
                      (2, 48, 300, 128, True), (2, 300, 200, 64, True),
                      (3, 70, 333, 128, False), (2, 512, 512, 64, True)]
+# (bh, s) of the causal bf16 shapes timed at Dh 256: gemma3-4b's global
+# layer at batch 1 x 4,096 (the training cycle's and the server's prefill
+# shape) and under lm_train's batch 4 x 2,048; both are also checked
+FLASH_DH256_TIMED = [(8, 4096), (32, 2048)]
 # serving: olmo-1b at batch 8 and gemma3-4b (arXiv:2503.19786) at batch 4,
 # full width and depth, prompts of 4,096 tokens from TokenStream, 64 new
 # tokens, 8 decode steps profiled; checks in f32 at batch 2, 8 decode steps
@@ -3430,13 +3437,14 @@ def flash_ops(bh, sq, sk, dh, causal):
 def phase_flash(report):
     """``flash_attention`` against ``ref.flash_attention`` on the card: the
     reference's FLASH_SHAPES, Sq != Sk, a non-causal ragged Sk, Dh = 80 and
-    256, ragged and multi-tile cases at Dh 64 and 128, and the trainer's
-    shape, in bf16 and f32, each through the route ``route()`` gives it (and
-    checked to have taken it), and the bf16 cases at Dh 64 and 128 also
-    through the "mma" route; two launches of each route bitwise; the
-    Function's gradients bitwise those of the plain version for one g; both
-    routes timed in turns at the trainer's shape beside the bound, the plain
-    version and SDPA (a yardstick the port never calls)."""
+    256, ragged and multi-tile cases at Dh 64 and 128, FLASH_DH256_TIMED and
+    the trainer's shape, in bf16 and f32, each through the route ``route()``
+    gives it (and checked to have taken it), and the bf16 cases at Dh 64,
+    128 and 256 also through the "mma" route; two launches of each route
+    bitwise; the Function's gradients bitwise those of the plain version
+    for one g; both routes timed in turns at the trainer's shape beside the
+    bound, the plain version and SDPA (a yardstick the port never calls),
+    and at FLASH_DH256_TIMED (:func:`flash_dh256_times`)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     log("[flash] flash_attention against ref.flash_attention")
@@ -3444,7 +3452,9 @@ def phase_flash(report):
     cases = [(b, n, n, d, True) for b, n, d in FLASH_SHAPES] + [
         (2, 48, 100, 32, True), (2, 100, 48, 16, True), (3, 70, 100, 32, False),
         (2, 130, 130, 80, True), (2, 64, 96, 80, False), (2, 300, 300, 256, True),
-        (2, 100, 77, 256, False)] + FLASH_WGMMA_CASES + [(bh, s, s, dh, True)]
+        (2, 100, 77, 256, False)] + FLASH_WGMMA_CASES + [
+        (b, n, n, 256, True) for b, n in FLASH_DH256_TIMED] + [
+        (bh, s, s, dh, True)]
     worst = {}
     for i, (b, sq, sk, d, causal) in enumerate(cases):
         for dt, tol in ((torch.bfloat16, FLASH_BF16_TOL),
@@ -3514,7 +3524,58 @@ def phase_flash(report):
     out = dict(ms=t_k, mma_ms=t_m, turns=turns, plain_ms=t_p, library_ms=t_l,
                bound_ms=bms, bound_by=by, err=err, mma_err=worst[
                    f"({bh},{s},{s},{dh}) causal bfloat16 mma"])
-    report["flash"] = dict(out, cases=worst)
+    del q, k, v, q4, k4, v4
+    report["flash"] = dict(out, cases=worst, dh256=flash_dh256_times(worst))
+    return out
+
+
+def flash_dh256_times(worst):
+    """At each of FLASH_DH256_TIMED (Dh 256, bf16, causal): two launches of
+    each route bitwise, both routes timed in turns beside SDPA (a yardstick
+    the port never calls), the plain version and the bound, and the wgmma
+    route checked to beat the mma route."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    out = {}
+    for bh, s in FLASH_DH256_TIMED:
+        q, k, v = flash_inputs(bh, s, s, 256, torch.bfloat16, 603)
+        check(fa.route(q, k, v) == "wgmma", f"({bh}, {s}, 256) bf16 is not "
+              f"on the wgmma route")
+        for rt in ("wgmma", "mma"):
+            a = fa.launch(q, k, v, True, route=rt)
+            check(torch.equal(a, fa.launch(q, k, v, True, route=rt)),
+                  f"two flash_attention launches ({rt}) at ({bh}, {s}, 256) "
+                  f"differ")
+        del a
+        q4, k4, v4 = (t.view(1, bh, s, 256) for t in (q, k, v))
+        runs = {"wgmma": lambda: fa.launch(q, k, v, True, route="wgmma"),
+                "mma": lambda: fa.launch(q, k, v, True, route="mma"),
+                "SDPA": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True)}
+        turns = {r: [] for r in runs}
+        for r in ("mma", "wgmma", "SDPA", "SDPA", "wgmma", "mma"):
+            turns[r].append(time_ms(runs[r], reps=20))
+        t = {r: sum(x) / 2 for r, x in turns.items()}
+        t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=3)
+        flops = flash_ops(bh, s, s, 256, True)
+        bms, by = bound(4 * bh * s * 256 * 2, flops, BF16_PEAK)
+        log(f"[times] flash_attention at ({bh}, {s}, 256) bf16, causal; "
+            f"two launches of each route bitwise; the routes in turns")
+        for r in runs:
+            log(f"  {r:<6} {t[r]:9.4f} ms  {flops / t[r] / 1e9:8.1f} TFLOP/s"
+                f"  {bms / t[r]:.3f} of the bound")
+        log(f"  turns (ms): {turns}")
+        log(f"  plain {t_p:9.4f} ms  bound {bms:8.4f} ms ({by})")
+        check(t["wgmma"] < t["mma"], f"at ({bh}, {s}, 256) the wgmma kernel "
+              f"({t['wgmma']:.4f} ms) is not faster than the mma kernel "
+              f"({t['mma']:.4f} ms)")
+        label = f"({bh},{s},{s},256) causal bfloat16"
+        out[f"({bh}, {s}, 256)"] = dict(
+            ms=t["wgmma"], mma_ms=t["mma"], library_ms=t["SDPA"], turns=turns,
+            plain_ms=t_p, bound_ms=bms, bound_by=by, err=worst[label],
+            mma_err=worst[label + " mma"])
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3891,10 +3952,10 @@ def serve_checks(name, cfg, params, greedy, **run_kw):
 def gemma_train_step(report):
     """gemma3-4b at full width, one block cycle (5 local layers and 1
     global), batch 1 x 4,096, through ``train`` with ``flash_kernel``: the
-    global layer's attention through the flash kernel's mma route (Dh 256),
-    once a forward; step 0's loss against the same step without the kernel;
-    the kernel at the inputs the path handed it, against the plain version,
-    timed beside its bound and SDPA."""
+    global layer's attention through the flash kernel's wgmma route (Dh
+    256), once a forward; step 0's loss against the same step without the
+    kernel; the kernel at the inputs the path handed it, against the plain
+    version, timed beside the mma route, its bound and SDPA."""
     import dataclasses
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.data import TokenStream
@@ -3926,9 +3987,9 @@ def gemma_train_step(report):
         f"{cfg.layer_kinds()}, batch 1 x {GEMMA_SEQ}, flash kernel): losses "
         f"{losses}; launches {counts}, flash routes {routes}")
     check(counts["flash_attention"] == GEMMA_STEPS and
-          routes == {"wgmma": 0, "mma": GEMMA_STEPS},
+          routes == {"wgmma": GEMMA_STEPS, "mma": 0},
           f"gemma3-4b: flash_attention launched {counts['flash_attention']} "
-          f"times by route {routes}, not once a forward on mma")
+          f"times by route {routes}, not once a forward on wgmma")
     log(f"[lm_serve] gemma3-4b step 0's loss {losses[0]:.6f} through the "
         f"flash kernel, {l_plain:.6f} without (|diff| "
         f"{abs(losses[0] - l_plain):.2e}, tol {LM_LOSS_TOL} nats)")
@@ -3938,11 +3999,15 @@ def gemma_train_step(report):
     (key, (a, kw, _)), = calls.items()
     q, k, v = (t.detach() for t in a)
     bh, s, dh = q.shape
-    check(fa.route(q, k, v) == "mma", f"gemma3-4b: {key} not on mma")
-    err = compare("flash_attention", f"gemma3-4b {tuple(q.shape)} mma",
-                  fa.launch(q, k, v, True), ref.flash_attention(q, k, v), 
+    check(fa.route(q, k, v) == "wgmma", f"gemma3-4b: {key} not on wgmma")
+    err = compare("flash_attention", f"gemma3-4b {tuple(q.shape)} wgmma",
+                  fa.launch(q, k, v, True), ref.flash_attention(q, k, v),
                   FLASH_BF16_TOL)
-    t_k = time_ms(lambda: fa.launch(q, k, v, True), reps=20)
+    turns = {"wgmma": [], "mma": []}
+    for rt in ("mma", "wgmma", "wgmma", "mma"):
+        turns[rt].append(time_ms(lambda: fa.launch(q, k, v, True, route=rt),
+                                 reps=20))
+    t_k, t_m = (sum(turns[r]) / 2 for r in ("wgmma", "mma"))
     t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=5)
     q4, k4, v4 = (t.view(1, bh, s, dh) for t in (q, k, v))
     t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -3950,15 +4015,16 @@ def gemma_train_step(report):
     flops = flash_ops(bh, s, s, dh, True)
     bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
     log(f"[times] flash_attention on gemma3-4b's global layer ({bh}, {s}, "
-        f"{dh}) bf16 causal, mma route: {t_k:.4f} ms ({flops / t_k / 1e9:.1f} "
-        f"TFLOP/s, {bms / t_k:.3f} of the bound), plain {t_p:.4f}, SDPA "
-        f"{t_l:.4f}, bound {bms:.4f} ms ({by}); step {step_ms:.2f} ms "
-        f"(mean of steps 1-{GEMMA_STEPS - 1}), peak memory {peak_gb:.2f} GB")
+        f"{dh}) bf16 causal, wgmma route: {t_k:.4f} ms ({flops / t_k / 1e9:.1f} "
+        f"TFLOP/s, {bms / t_k:.3f} of the bound), mma {t_m:.4f}, plain "
+        f"{t_p:.4f}, SDPA {t_l:.4f}, bound {bms:.4f} ms ({by}); step "
+        f"{step_ms:.2f} ms (mean of steps 1-{GEMMA_STEPS - 1}), peak memory "
+        f"{peak_gb:.2f} GB")
     report["lm_serve"]["gemma3_train"] = dict(
         losses=losses, loss_plain=l_plain, launches=counts, routes=routes,
         step_ms=step_ms, step_times_s=tel.times, peak_memory_gb=peak_gb,
-        flash_ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=bms, bound_by=by,
-        err=err)
+        flash_ms=t_k, mma_ms=t_m, turns=turns, plain_ms=t_p, library_ms=t_l,
+        bound_ms=bms, bound_by=by, err=err)
     del q, k, v, q4, k4, v4, calls
     torch.cuda.empty_cache()
     entry = kernel_entry(
@@ -3966,7 +4032,7 @@ def gemma_train_step(report):
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:106", counts["flash_attention"],
         err, t_k, t_p, bms, by, t_l)
-    entry.update(variant="mma")
+    entry.update(variant="wgmma", mma_ms=t_m)
     return entry
 
 
@@ -4023,7 +4089,7 @@ def lm_checkpoint(report):
 def phase_lm_serve(report):
     """olmo-1b and gemma3-4b at full width and depth through ``serve``
     (bf16 compute; numbers and a decode profile), their f32 checks,
-    gemma3-4b's training step through the flash kernel's mma route, and
+    gemma3-4b's training step through the flash kernel's wgmma route, and
     the trainer's checkpoint and resume."""
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.models import make_model

@@ -7,6 +7,7 @@
     python3 scripts/torch_numerics.py ab-zstats PARENT
     python3 scripts/torch_numerics.py ab-steps PARENT
     python3 scripts/torch_numerics.py ab-zmap PARENT [TREE ...]
+    python3 scripts/torch_numerics.py ab-flash PARENT [TREE]
     python3 scripts/torch_numerics.py de-sweep
 
 TREE is a checkout of the repo (by default the one holding this script)
@@ -46,6 +47,17 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
   Timed with CUDA events in turns (parent, this, this, parent), each output
   said bitwise equal to the parent's or not; the Elog passes also by device
   time (``chip_smoke.device_ms``).
+- ``ab-flash``: ``flash_attention`` in bf16, causal, at AB_FLASH_SHAPES
+  (the trainer's and qwen3-moe's Dh-128 shapes, a Dh-64 shape, gemma3-4b's
+  Dh-256 global layer at batch 1 x 4,096 and 4 x 2,048): TREE's kernel
+  (this checkout's by default) against PARENT's, each package building its
+  library from its own ``csrc/flash_attention.cu`` and launching the route
+  its own ``route()`` picks, on the same inputs, timed with CUDA events in
+  turns (parent, this, this, parent, 20 calls each), each output said
+  bitwise equal to the parent's or not; at Dh 256 also TREE's "mma" route
+  against PARENT's.  It fails unless the Dh-64 and Dh-128 outputs are
+  bitwise the parent's.  It also says, kernel by kernel, whether the two
+  libraries' machine code (``cuobjdump -sass``) is identical.
 - ``de-sweep``: the Elog pass's two launches on phi's shape (100 x
   102,660, as (V, K)) and theta's (30,000 x 100), by device time, over
   the module's knobs: the row-sum programs per SM (and so the chunks a
@@ -141,7 +153,7 @@ def ab_zstats(cs, parent: Path):
     return 0
 
 
-def _ab(cs, label, runs, reps=10):
+def _ab(cs, label, runs, reps=10, tag="ab-zmap"):
     """Time ``runs["parent"]`` and ``runs["this"]`` in turns (parent, this,
     this, parent) after one call of each, and say whether their outputs (a
     tensor or a tuple of tensors, nested) are bitwise equal."""
@@ -157,11 +169,72 @@ def _ab(cs, label, runs, reps=10):
     for who in ("parent", "this", "this", "parent"):
         times[who].append(cs.time_ms(runs[who], reps=reps))
     t_this, t_parent = (sum(times[w]) / 2 for w in ("this", "parent"))
-    print(f"[ab-zmap] {label}: parent {t_parent:.4f} ms, this {t_this:.4f} ms "
+    print(f"[{tag}] {label}: parent {t_parent:.4f} ms, this {t_this:.4f} ms "
           f"per call ({t_parent / t_this:.2f}x); outputs bitwise equal: "
           f"{same}; turns (ms) parent {times['parent']}, this "
           f"{times['this']}", flush=True)
     return t_this, t_parent, same
+
+
+# (bh, s, dh) of ab-flash, bf16 and causal
+AB_FLASH_SHAPES = [(64, 2048, 128), (128, 2048, 128), (56, 2048, 64),
+                   (8, 4096, 256), (32, 2048, 256)]
+
+
+def _sass(lib: Path) -> dict:
+    """``{kernel: its SASS}`` of a built library, from ``cuobjdump``."""
+    import os
+    import re
+    import subprocess
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    out = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
+                          "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)\n", out)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def ab_flash(cs, parent: Path, tree: Path = HERE):
+    import importlib
+    import torch
+    _load_package(parent, "parent_repro_torch")
+    pkgs = {"parent": "parent_repro_torch", "this": "repro_torch"}
+    if tree.resolve() != HERE:
+        _load_package(tree, "tree_repro_torch")
+        pkgs["this"] = "tree_repro_torch"
+    fa = {w: importlib.import_module(p + ".kernels.flash_attention")
+          for w, p in pkgs.items()}
+    for w, m in fa.items():
+        print(f"[ab-flash] {w}: {m._SRC} -> {m.build()[0].name}", flush=True)
+    sass = {w: _sass(m.build()[0]) for w, m in fa.items()}
+    for name in sorted(sass["parent"].keys() | sass["this"].keys()):
+        if name in sass["parent"] and name in sass["this"]:
+            print(f"[ab-flash] {name}: machine code identical to the "
+                  f"parent's: {sass['parent'][name] == sass['this'][name]}")
+        else:
+            print(f"[ab-flash] {name}: only in "
+                  f"{'parent' if name in sass['parent'] else 'this'}")
+    print(f"[ab-flash] {cs.device_line()}", flush=True)
+    same_64_128 = True
+    for bh, s, dh in AB_FLASH_SHAPES:
+        q, k, v = cs.flash_inputs(bh, s, s, dh, torch.bfloat16, 604)
+        routes = {w: m.route(q, k, v) for w, m in fa.items()}
+        runs = {w: (lambda m=m: m.launch(q, k, v, True)) for w, m in fa.items()}
+        label = (f"({bh}, {s}, {dh}) parent {routes['parent']}, this "
+                 f"{routes['this']}")
+        t_this, t_parent, same = _ab(cs, label, runs, reps=20, tag="ab-flash")
+        if dh in (64, 128):
+            same_64_128 &= same
+        else:
+            _ab(cs, f"({bh}, {s}, {dh}) mma route in both", {
+                w: (lambda m=m: m.launch(q, k, v, True, route="mma"))
+                for w, m in fa.items()}, reps=20, tag="ab-flash")
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(f"[ab-flash] Dh 64 and 128 outputs bitwise the parent's: "
+          f"{same_64_128}", flush=True)
+    return 0 if same_64_128 else 1
 
 
 def _parent_de_passes(pde, alpha):
@@ -460,25 +533,32 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("check", choices=["digest", "zmap-precision",
                                       "ab-zstats", "ab-steps", "ab-zmap",
-                                      "de-sweep"])
+                                      "ab-flash", "de-sweep"])
     p.add_argument("tree", nargs="?", default=str(HERE),
                    help="checkout whose src/repro_torch runs (ab-zstats, "
-                        "ab-steps, ab-zmap: the parent's, beside this "
-                        "checkout's)")
+                        "ab-steps, ab-zmap, ab-flash: the parent's, beside "
+                        "this checkout's)")
     p.add_argument("more", nargs="*",
                    help="ab-zmap: further checkouts (variants), each timed "
-                        "against this one")
+                        "against this one; ab-flash: the checkout timed "
+                        "against the parent (this one by default)")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("torch_numerics: no CUDA device", file=sys.stderr)
         return 2
-    ab = {"ab-zstats": ab_zstats, "ab-steps": ab_steps, "ab-zmap": ab_zmap}
+    ab = {"ab-zstats": ab_zstats, "ab-steps": ab_steps, "ab-zmap": ab_zmap,
+          "ab-flash": ab_flash}
     if args.check in ab:
         if Path(args.tree).resolve() == HERE:
             p.error(f"{args.check} needs the parent's checkout")
         if args.check == "ab-zmap":
             return ab_zmap(_setup(HERE), Path(args.tree), args.more)
+        if args.check == "ab-flash":
+            if len(args.more) > 1:
+                p.error("ab-flash takes PARENT and at most one TREE")
+            return ab_flash(_setup(HERE), Path(args.tree),
+                            Path(args.more[0]) if args.more else HERE)
         return ab[args.check](_setup(HERE), Path(args.tree))
     cs = _setup(Path(args.tree))
     if args.check == "de-sweep":

@@ -11,8 +11,8 @@
 // statistics on chip for the whole loop.  Two routes, chosen on the host
 // (flash_attention.py: route) from dtype and Dh alone:
 //
-//   - "wgmma", bf16 at Dh 64 and 128 (the LM trainer's path): the Hopper
-//     kernel at the end of this file (TMA, mbarriers, wgmma, warp
+//   - "wgmma", bf16 at Dh 64, 128 and 256 (the LM trainer's path): the
+//     Hopper kernel at the end of this file (TMA, mbarriers, wgmma, warp
 //     specialisation, a persistent grid);
 //   - "mma", every other input: for bf16, 4 warps, 16 query rows each (a
 //     64-row tile), kv tiles of 64 keys (32 at Dh > 128).  Q k^T and P v
@@ -343,7 +343,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 
 // ---------------------------------------------------------------------------
-// bf16 at Dh = 64 and 128 on Hopper: TMA, mbarriers, wgmma, warp
+// bf16 at Dh = 64, 128 and 256 on Hopper: TMA, mbarriers, wgmma, warp
 // specialisation (the "wgmma" route; the kernel above is the "mma" route)
 // ---------------------------------------------------------------------------
 //
@@ -353,28 +353,43 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 // so the blocks' loads even out:
 //   - warpgroup 0, the producer, gives up registers (setmaxnreg 24) and one
 //     of its threads issues every TMA load: each item's Q tile, then its K
-//     and V tiles (128 keys each) into a ring of 2 stages, with an
+//     and V tiles (kBk keys each) into a ring of 2 stages, with an
 //     arrival and a release barrier for each K and each V buffer and
 //     for Q; the ring's slots and phases run on across items, so the next
 //     item's loads overlap this item's last products and its epilogue;
 //   - warpgroups 1 and 2, the consumers (setmaxnreg 240), own 64 query rows
-//     each.  Per kv tile: S = Q K^T as Dh / 16 wgmma m64n128k16 with both
+//     each.  Per kv tile: S = Q K^T as Dh / 16 wgmma m64n(kBk)k16 with both
 //     operands in 128-byte-swizzled shared memory and f32 accumulators in
 //     registers; the online softmax on those registers (exp2 with the scale
 //     folded in); P rounded to bf16 stays in registers as the A operand of
-//     O += P V, 8 wgmma m64nDk16 whose B operand is V in its natural
-//     (keys, Dh) layout read through the transpose bit.  P never touches
-//     shared memory.  A consumer issues S of tile t and P V of tile t - 1
-//     together and waits for S alone, so its softmax of tile t runs while
-//     the tensor cores do its P V (and the other consumer's products); it
-//     releases each K buffer after its S, each V buffer after its P V, and
-//     Q after the item's last S.
+//     O += P V, kBk / 16 wgmma m64nDk16 (two m64n128k16 at Dh 256) whose B
+//     operand is V in its natural (keys, Dh) layout read through the
+//     transpose bit.  P never touches shared memory.  A consumer issues S
+//     of tile t and P V of tile t - 1 together and waits for S alone, so
+//     its softmax of tile t runs while the tensor cores do its P V (and
+//     the other consumer's products); it releases each K buffer after its
+//     S, each V buffer after its P V, and Q after the item's last S.
 // The accumulator layout of wgmma is the layout of its register A operand
 // for 16-bit types, so P needs no shuffle.  TMA fills rows past Sq or Sk
-// with zeros; the causal mask stops the kv loop at the diagonal, and only
-// the diagonal tile and a ragged last tile are masked (-inf), as above.
-// Every sum runs in a fixed order with no atomics, so two launches are
-// bitwise equal.
+// with zeros; the causal mask stops the kv loop after the last tile that
+// holds a key <= the item's last query, and only the tiles that the
+// diagonal crosses (any key past the consumer's first row) and a ragged
+// last tile are masked (-inf), as above.  Every sum runs in a fixed order
+// with no atomics, so two launches are bitwise equal.
+//
+// Dh 256 (gemma3's global layers) runs the same design with kv tiles of 80
+// keys (Tiles): Q (64 KiB) and a 2-stage ring of 80-key K and V tiles (40
+// KiB each) make 230,480 bytes with the barriers and the alignment, just
+// under the 232,448 a block may have, where 128-key tiles would need 321
+// KiB (64-key tiles, 197,712 bytes, measured 1-4% slower).  Each tile row
+// is 4 swizzled boxes of 64 columns, and S is Dh / 16 = 16 wgmma
+// m64n80k16 a tile.  With kBk < kBq the diagonal crosses up to three kv
+// tiles of an item; a tile all masked for consumer 0 adds exactly 0.  A
+// consumer holds O (128 f32), one S tile (40), P (20) and its row
+// statistics, inside setmaxnreg 240 (no spills).  Its blocks take their
+// items in snake order (item() in the kernel): the grid's balance, not the
+// tile, was the larger gain (0.1735 -> 0.1274 ms at (8, 4096, 256) with
+// 64-key tiles).
 //
 // At the trainer's shape it reaches about 0.42 of the bound, some 10%
 // behind SDPA (PERF.md); ping-pong turns between the two consumers and a
@@ -383,13 +398,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 namespace flash_hopper {
 
 constexpr int kBq = 128;               // query rows per block, 64 per consumer
-constexpr int kBk = 128;               // keys per kv tile
 constexpr int kStages = 2;             // K and V buffers in the ring
 constexpr int kThreads = 384;          // 3 warpgroups
 constexpr int kCols = 64;              // bf16 columns in one 128-byte swizzled box
 
 template <int D>
+struct Tiles {
+  // keys per kv tile: 128 at Dh 64 and 128; 80 at Dh 256, where Q and a
+  // ring of 128-key tiles would need 321 KiB
+  static constexpr int kBk = D <= 128 ? 128 : 80;
+  // at Dh 256 the rounds of items alternate in direction (see item())
+  static constexpr bool kSnake = D > 128;
+};
+
+template <int D>
 struct Smem {
+  static constexpr int kBk = Tiles<D>::kBk;
   static constexpr int kQ = kBq * D * 2;           // bytes of the Q tile
   static constexpr int kKV = kBk * D * 2;          // bytes of one K or V tile
   static constexpr int kBars = 2 + 4 * kStages;    // mbarriers
@@ -509,6 +533,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D (m64 x n80, f32) (+)= A (m64 x k16, shared) * B (k16 x n80, shared), both K-major
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D (m64 x n128, f32) += A (m64 x k16, bf16 registers) * B (k16 x n128, shared,
 // MN-major: the transpose bit)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -562,11 +609,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 }
 
 
-template <int D>
+// S (m64 x nN) (+)= Q K^T over one k-step: N keys of the kv tile
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 128) wgmma_ss_n128(s, da, db, accumulate);
+  else wgmma_ss_n80(s, da, db, accumulate);
+}
+
+// O += P V over one k-step of 16 keys; v_row addresses the k-step's rows
+// of V's first 64-column box, and the boxes lie lbo = BK * 128 bytes
+// apart.  At Dh 256, two n128 products: columns 0-127 (boxes 0 and 1) and
+// 128-255 (boxes 2 and 3), whose registers in that order are an n256
+// product's accumulator (one m64n256k16 measured no faster).
+template <int D, int BK>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_n128(o, a, db);
-  else wgmma_rs_n64(o, a, db);
+                                         uint32_t v_row, uint32_t lbo) {
+  if constexpr (D == 256) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), a,
+                  gmma_desc(v_row, lbo, 1024));
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), a,
+                  gmma_desc(v_row + 2 * BK * 128, lbo, 1024));
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128(o, a, gmma_desc(v_row, lbo, 1024));
+  } else {
+    wgmma_rs_n64(o, a, gmma_desc(v_row, lbo, 1024));
+  }
 }
 
 template <int D>
@@ -576,6 +644,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv, uint16_t* __restrict__ o,
                    int bh_count, int sq, int sk, int causal, float scale_log2) {
   using S = Smem<D>;
+  constexpr int kBk = Tiles<D>::kBk;
   constexpr int kCB = D / kCols;       // 128-byte column blocks of a tile row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = reinterpret_cast<uint8_t*>(
@@ -590,10 +659,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* v_free = k_free + kStages;
 
   // work item w: query tile n_qt - 1 - w / bh_count (the longest first) of
-  // head w % bh_count; block b takes items b, b + gridDim.x, ...
+  // head w % bh_count; block b takes items b, b + gridDim.x, ..., one a
+  // round of gridDim.x items.  At Dh 256 the rounds alternate in
+  // direction, counted back from the last (maybe partial) round, which
+  // runs forwards: block b takes a backward round's item gridDim.x - 1 -
+  // b, so that the block with one round's longest item gets the next
+  // round's shortest.  The busiest block's kv tiles fall from 1.5 to 1.0
+  // times the mean at (8, 4096, 256) (256 items on 132 blocks), from 1.22
+  // to 1.03 at (32, 2048, 256).
   const int n_qt = (sq + kBq - 1) / kBq;
   const int n_work = n_qt * bh_count;
   auto item = [&](int w, int& bh, int& q0) {
+    if constexpr (Tiles<D>::kSnake) {
+      const int g = gridDim.x, r = w / g;
+      if (((n_work - 1) / g - r) & 1) w = r * g + g - 1 - w % g;
+    }
     bh = w % bh_count;
     q0 = (n_qt - 1 - w / bh_count) * kBq;
     int last_key = sk - 1;
@@ -676,7 +756,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32;
-          wgmma_ss_n128(s, gmma_desc(q_addr + (kk / 4) * kBq * 128 + off, 16, 1024),
+          wgmma_qk<kBk>(s, gmma_desc(q_addr + (kk / 4) * kBq * 128 + off, 16, 1024),
                         gmma_desc(k_addr + (kk / 4) * kBk * 128 + off, 16, 1024), kk > 0);
         }
       };
@@ -686,7 +766,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const uint32_t v_addr = smem_u32(vs + (i % kStages) * S::kKV);
 #pragma unroll
         for (int kk = 0; kk < kBk / 16; ++kk)
-          wgmma_pv<D>(o_acc, p[kk], gmma_desc(v_addr + kk * 16 * 128, kBk * 128, 1024));
+          wgmma_pv<D, kBk>(o_acc, p[kk], v_addr + kk * 16 * 128, kBk * 128);
       };
       // the online softmax of tile t on S, in place: exp2 with the scale
       // folded in, the shift in log2 units; c0, c1 rescale the rows' O
@@ -863,6 +943,7 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int sq,
                    int sk, int causal, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
+  constexpr int kBk = Tiles<D>::kBk;
   if (!make_map(&tq, q, bh, sq, D, kBq) || !make_map(&tk, k, bh, sk, D, kBk) ||
       !make_map(&tv, v, bh, sk, D, kBk))
     return cudaErrorInvalidValue;
@@ -920,7 +1001,7 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // The wgmma route: bf16 q (bh, sq, dh), k and v (bh, sk, dh), o like q,
-// contiguous on the device, 16-byte aligned, dh 64 or 128.  Returns
+// contiguous on the device, 16-byte aligned, dh 64, 128 or 256.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
 // the kernel does not take, or when no tensor-map encoder is found).
 int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* o,
@@ -930,6 +1011,7 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh == 64) return (int)flash_hopper::launch<64>(q, k, v, o, bh, sq, sk, causal, st);
   if (dh == 128) return (int)flash_hopper::launch<128>(q, k, v, o, bh, sq, sk, causal, st);
+  if (dh == 256) return (int)flash_hopper::launch<256>(q, k, v, o, bh, sq, sk, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -937,6 +1019,7 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void*
 int flash_attention_wgmma_smem(int dh) {
   if (dh == 64) return flash_hopper::Smem<64>::kAlloc;
   if (dh == 128) return flash_hopper::Smem<128>::kAlloc;
+  if (dh == 256) return flash_hopper::Smem<256>::kAlloc;
   return 0;
 }
 

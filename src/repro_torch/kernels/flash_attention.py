@@ -11,9 +11,9 @@ shape the plain version takes (bf16 or f32, ``Sq`` may differ from ``Sk``,
 any ``Dh`` that is a multiple of 8 up to 256).  Two kernels share the work,
 chosen by :func:`route` on dtype and ``Dh`` alone:
 
-  - ``"wgmma"``: bf16 at ``Dh`` 64 or 128 (the LM trainer's path), a
+  - ``"wgmma"``: bf16 at ``Dh`` 64, 128 or 256 (the LM trainer's path), a
     Hopper kernel with TMA loads, a producer warpgroup and two consumer
-    warpgroups running ``wgmma``;
+    warpgroups running ``wgmma`` (kv tiles of 128 keys, 64 at ``Dh`` 256);
   - ``"mma"``: every other input (f32, other ``Dh``), an ``mma.sync``
     kernel for bf16 and an FMA kernel for f32.
 
@@ -52,7 +52,7 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DH = 256
 #: head dims of the "wgmma" route (bf16 only)
-WGMMA_DH = (64, 128)
+WGMMA_DH = (64, 128, 256)
 
 
 def build(verbose: bool = False) -> tuple[Path, str]:
@@ -78,7 +78,8 @@ def library() -> ctypes.CDLL:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes these inputs, from dtype and ``Dh`` alone:
-    ``"wgmma"`` for bf16 at ``Dh`` 64 or 128, ``"mma"`` for the rest."""
+    ``"wgmma"`` for bf16 at ``Dh`` 64, 128 or 256, ``"mma"`` for the
+    rest."""
     if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_DH:
         return "wgmma"
     return "mma"

@@ -67,12 +67,24 @@ def remesh_and_resume(cfg, run, checkpoint_dir: str,
                  checkpoint_every=max(steps // 2, 1))
 
 
+def svi_plan(n_devices: int | None = None, want_model: int = 0):
+    """The inferspark :class:`~repro_torch.core.partition.ShardingPlan`
+    that :func:`remesh_and_resume_svi` resumes on: one shard for each
+    ``data`` slot of :func:`factor_counts` (``n_devices, want_model``), as
+    the reference wraps its mesh's data axis.  ``n_devices=None`` means one
+    device a process of the current group."""
+    from ..core.partition import ShardingPlan
+    data, _ = factor_counts(n_devices or process_count(), want_model)
+    return ShardingPlan(data, "inferspark")
+
+
 def remesh_and_resume_svi(model, engine_cfg, checkpoint_dir: str,
-                          n_shards: int | None = None):
+                          n_devices: int | None = None, want_model: int = 0):
     """Continue an SVI fit from ``checkpoint_dir``'s newest valid
-    :class:`~repro_torch.checkpoint.TrainSession` on an inferspark
-    :class:`~repro_torch.core.partition.ShardingPlan` of ``n_shards``
-    shards (one per process of the current group when None).
+    :class:`~repro_torch.checkpoint.TrainSession` on the inferspark plan
+    :func:`svi_plan` gives for ``n_devices`` devices (one a process of the
+    current group when None) factored with ``want_model``: as many shards
+    as the ``data`` axis has, the reference's arguments and plan.
 
     ``engine_cfg`` is anything :func:`~repro_torch.core.engine.make_engine`
     accepts (its ``steps`` is the *total* budget — only the remainder past
@@ -84,9 +96,7 @@ def remesh_and_resume_svi(model, engine_cfg, checkpoint_dir: str,
     unchanged shard count it is bitwise.
     """
     from ..core.engine import make_engine
-    from ..core.partition import ShardingPlan
-    plan = ShardingPlan(n_shards or process_count(), "inferspark")
-    eng = make_engine(engine_cfg, sharding=plan,
+    eng = make_engine(engine_cfg, sharding=svi_plan(n_devices, want_model),
                       checkpoint_dir=checkpoint_dir, resume=True)
     return eng.fit(model)
 

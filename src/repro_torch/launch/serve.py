@@ -37,13 +37,14 @@ def _sync(device):
 
 
 def serve(cfg, run: RunConfig, prompts: np.ndarray, new_tokens: int = 32,
-          device=None, params=None, greedy: bool = True, mesh=None):
+          mesh=None, params=None, greedy: bool = True, *, device=None):
     """prompts: (B, S0) ints.  Returns ``(generated (B, new_tokens) int64,
     stats)``; ``stats`` holds ``prefill_s``, ``decode_s``, ``tokens_per_s``
     (B * new_tokens over ``decode_s``), ``batch``, ``prompt_len`` and
-    ``new_tokens``.  ``device=None`` means ``"cuda"``; ``params`` (a
-    ``Decoder`` on that device) replaces the initialisation from
-    ``run.seed``.  Decoding is greedy, as the reference's: its
+    ``new_tokens``.  The positional parameters are the reference's, in its
+    order; ``device`` is the port's own, by keyword only.  ``device=None``
+    means ``"cuda"``; ``params`` (a ``Decoder`` on that device) replaces
+    the initialisation from ``run.seed``.  Decoding is greedy, as the reference's: its
     ``greedy`` argument takes no other value here, and ``greedy=False``
     raises ``ValueError``, as does an architecture whose batch needs
     ``frames`` or ``patches`` (whisper, internvl2): the prompts are

@@ -126,11 +126,13 @@ def restore_state(cfg, store: CheckpointStore, device):
         int(tree["step"])
 
 
-def train(cfg, run: RunConfig, steps: int, device=None, params=None,
-          mesh=None, checkpoint_dir: str | None = None,
-          checkpoint_every: int = 0, log_every: int = 10,
-          start_step: int | None = None):
-    """Returns ``(params, opt_state, losses, telemetry)``.  ``device=None``
+def train(cfg, run: RunConfig, steps: int, mesh=None,
+          checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+          log_every: int = 10, start_step: int | None = None, *,
+          device=None, params=None):
+    """Returns ``(params, opt_state, losses, telemetry)``.  The positional
+    parameters are the reference's, in its order; ``device`` and
+    ``params`` are the port's own, by keyword only.  ``device=None``
     means ``"cuda"``; ``params`` (a ``Decoder`` on that device, updated in
     place) replaces the initialisation, so that a caller can start from a
     given state.  With ``checkpoint_dir`` the run resumes from its latest

@@ -215,14 +215,16 @@ def _meta(bh, sq, sk, dh, dtype):
 @pytest.mark.parametrize("bh,sq,sk,dh", [
     (64, 2048, 2048, 128), (64, 2048, 2048, 64),     # the trainer's shape
     (2, 257, 257, 128), (2, 48, 300, 128),           # ragged Sq, Sq < Sk
-    (2, 300, 200, 64), (3, 70, 333, 128), (1, 1, 1, 64)])
-def test_route_takes_bf16_dh64_and_128_to_wgmma(bh, sq, sk, dh):
+    (2, 300, 200, 64), (3, 70, 333, 128), (1, 1, 1, 64),
+    (2, 300, 300, 256), (2, 100, 77, 256),           # Dh 256: ragged, Sq > Sk
+    (32, 2048, 2048, 256)])                          # gemma3-4b under lm_train
+def test_route_takes_bf16_dh64_128_and_256_to_wgmma(bh, sq, sk, dh):
     assert tfa.route(*_meta(bh, sq, sk, dh, torch.bfloat16)) == "wgmma"
 
 
 @pytest.mark.parametrize("bh,sq,sk,dh,dtype", [
     (64, 2048, 2048, 128, torch.float32), (2, 48, 300, 64, torch.float32),
-    (2, 130, 130, 80, torch.bfloat16), (2, 300, 300, 256, torch.bfloat16),
+    (2, 130, 130, 80, torch.bfloat16), (2, 300, 300, 256, torch.float32),
     (3, 96, 96, 8, torch.bfloat16), (2, 64, 96, 32, torch.bfloat16)])
 def test_route_takes_the_rest_to_mma(bh, sq, sk, dh, dtype):
     assert tfa.route(*_meta(bh, sq, sk, dh, dtype)) == "mma"
@@ -238,8 +240,8 @@ def test_route_answers_every_input_check_inputs_takes():
                            for n in (sq, sk, sk))
                 with pytest.raises(ValueError, match="no kernel for device"):
                     tfa.check_inputs(q, k, v)
-                want = "wgmma" if dtype == torch.bfloat16 and dh in (64, 128) \
-                    else "mma"
+                want = "wgmma" if dtype == torch.bfloat16 and \
+                    dh in (64, 128, 256) else "mma"
                 assert tfa.route(q, k, v) == want
 
 

@@ -453,7 +453,45 @@ def test_remesh_and_resume_svi_continues_on_a_new_shard_count(tmp_path):
     first = make_engine(cfg, sharding=ShardingPlan(2), checkpoint_dir=ck
                         ).fit(lda())
     assert first.meta["group"]["calls"] > 0
-    cont = remesh_and_resume_svi(lda(), dict(cfg, steps=8), ck, n_shards=1)
+    cont = remesh_and_resume_svi(lda(), dict(cfg, steps=8), ck, n_devices=1)
     assert cont.meta["resumed_from_step"] == 4
     assert cont.elbo_trace[:4] == first.elbo_trace
     assert len(cont.elbo_trace) == 8 and np.isfinite(cont.elbo_trace).all()
+
+
+@pytest.mark.parametrize("n_devices, want_model",
+                         [(1, 0), (2, 0), (4, 2), (6, 4), (8, 2)])
+def test_remesh_svi_plan_shards_the_references_data_axis(n_devices,
+                                                         want_model):
+    """The plan ``remesh_and_resume_svi`` resumes on has as many shards as
+    the reference's ``factor_counts`` gives its data axis: 4 devices with
+    ``want_model=2`` run 2 shards in both packages."""
+    from repro.launch.elastic import factor_counts as ref_factor_counts
+    from repro_torch.launch.elastic import svi_plan
+    plan = svi_plan(n_devices, want_model)
+    assert plan.strategy == "inferspark"
+    assert plan.n_shards == ref_factor_counts(n_devices, want_model)[0]
+
+
+@pytest.mark.parametrize("name", ["launch.train:train", "launch.serve:serve",
+                                  "launch.elastic:remesh_and_resume_svi"])
+def test_entry_points_take_the_references_positional_parameters(name):
+    """The port's ``train``, ``serve`` and ``remesh_and_resume_svi`` list the
+    reference's parameters in its order with its defaults, so that a
+    positional ``mesh`` binds to ``mesh``; only the port's keyword-only
+    ``device`` and ``params`` are its own."""
+    import importlib
+    import inspect
+    mod, fn = name.split(":")
+    sig = {pkg: inspect.signature(getattr(
+        importlib.import_module(f"{pkg}.{mod}"), fn))
+        for pkg in ("repro", "repro_torch")}
+    ref = [(p.name, p.kind, p.default)
+           for p in sig["repro"].parameters.values()]
+    port = [(p.name, p.kind, p.default)
+            for p in sig["repro_torch"].parameters.values()
+            if p.kind != p.KEYWORD_ONLY]
+    assert port == ref
+    own = {p.name for p in sig["repro_torch"].parameters.values()
+           if p.kind == p.KEYWORD_ONLY}
+    assert own <= {"device", "params"}
