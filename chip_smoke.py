@@ -19,7 +19,10 @@ Phases, each of which exits non-zero on a failed check:
      for segment latents its ZMAP_KERNEL_CASES, its alpha "zmap" case, two
      zmap children, an unsorted zmap, an empty and an all-masked instance,
      instances of more than PIECE tokens, K = 1024), elog and alpha tables,
-     bf16 tables, and each path's shapes;
+     bf16 tables, and each path's shapes; strided children on their
+     passes: DCM-LDA layouts at K = 16 on the "runs" pass (a hot word, one
+     (document, word) run of 1,500 tokens, masks), ``strided-base`` on the
+     per-column "strided" pass; two launches of each pass bitwise;
   4. repeatability: two ``zstats`` calls, and two 3-step runs from one
      state, must be bitwise equal;
   5. the main path: LDA at the NYTimes bag-of-words widths (K = 100,
@@ -193,8 +196,9 @@ Phases, each of which exits non-zero on a failed check:
      ``benchmarks/bench_vmp.py``'s settings (K = 16, V = 2,000, the repo's
      priors, mean length 120) at 10,000 documents (about 1.2M tokens, phi
      on 160,000 docs x topics rows), 10 steps through ``Model.infer`` and
-     ``get_result``: ``zstats`` once a step on its strided route (the one
-     ``explain_plan(backend="cuda")`` names), the ELBO monotone, the stats
+     ``get_result``: ``zstats`` once a step with phi's stats on the "runs"
+     pass (the route ``explain_plan(backend="cuda")`` names), the ELBO
+     monotone, the stats
      sums, the digest, the kernels at the inputs the last step and
      ``get_result`` handed them (the Elog pass on phi timed too), ms a step
      and device time;
@@ -328,11 +332,24 @@ SENT_LEN = 7
 NB_CLASSES, NB_VOCAB, NB_DOCS, NB_STEPS = 20, 61188, 18774, 5
 # the route each VMP path takes on the card (``ops.route_label``): LDA's flat
 # passes; SLDA's sentences of 7 tokens, one piece an instance; naive Bayes'
-# documents, many longer than a piece (PIECE = 256 tokens)
+# documents, many longer than a piece (PIECE = 256 tokens); DCM-LDA's phi
+# on docs x topics rows (base doc * K, stride 1: one row for each (base,
+# k)), a lane group for each (document, word) run
 EXPECTED_ROUTE = {"main": "flat passes=pieces",
                   "slda": "zmap passes=pieces logits=group",
                   "naive_bayes": "zmap passes=pieces logits=warp",
-                  "dcmlda": "flat passes=strided"}
+                  "dcmlda": "flat passes=runs"}
+# each path's sha256 at full depth from the run of commit 4685efb; a
+# documented change of a sum's order changes one, and the log says which
+KNOWN_DIGESTS = {
+    "main": "d0ad08fa4f6303d2cc6bdc9c7b5fb4b4a1b6cc136669e3b65a6f6a72528c0e2d",
+    "slda": "072c12e5cd365395467d151c85b0c4726a3afe8c3cf7caf64250984d56995ed0",
+    "naive_bayes":
+        "56eabdf72141712e455ab5165bea6b1276938bb40fc6149f996b01e6eecda82c",
+    "lda_svi":
+        "edae20df45a7500206cf8cc55b79b5356683661ae322e588b6eb82a63dc5e1b2",
+    "dcmlda": "165659cb944f802ef32b692678fe9cbcfbf8c05b0cab5c3aad58ba43dbd24ebc",
+}
 
 ZSTATS_TOL = dict(rtol=2e-4, atol=2e-4, lse_rtol=2e-5)
 DE_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -366,6 +383,20 @@ ZSTATS_CASES = {
     "k96-long-pieces": (3000, 96, 3, [(96, 5, 1, False, False, False)], False,
                         None),
 }
+# strided children of a DCM-LDA layout (seed, documents, K, V, mean length,
+# hot word share, long run, masked): phi's rows are docs x topics (base doc *
+# K, stride 1), so each takes the "runs" pass; a word in 30% of all tokens;
+# document 0 holding 1,500 tokens of one word (one run); masks and zmask
+RUNS_CASES = {
+    "dcm-hot-word": (500, 400, 16, 2000, 120, 0.3, 0, False),
+    "dcm-run-1500": (501, 50, 16, 500, 60, 0.0, 1500, False),
+    "dcm-masked": (502, 300, 16, 1000, 90, 0.1, 300, True),
+}
+# the pass each edge case's strided child must take (``ops.route_label``)
+STRIDED_ROUTES = {"strided-base": "flat passes=strided",
+                  "stride1-base": "flat passes=runs",
+                  "multi-child": "flat passes=pieces,runs",
+                  "k100-multi": "flat passes=pieces,strided"}
 # segment latents: the reference's ZMAP_KERNEL_CASES (masked specialized,
 # strided with base, zmap child beside a flat child), two zmap children,
 # naive Bayes' long instances (about 500 tokens each, over PIECE) and K = 1024
@@ -382,6 +413,13 @@ ZMAP_CASES = {
     "zmap-k100": (3000, 100, 9, [(100, 50, 1, False, True, True),
                                  (300, 11, 2, True, True, False)], True, 300),
 }
+# the passes of the segment-latent cases with a strided child: a zmap
+# child's is per column; a flat one takes "runs" where its rows are one to
+# one over (base, k) (zmap+flat: bases 0..6 at stride 7, K = 3) and
+# "strided" where they collide (zmap-k100: stride 2 under K = 100)
+ZMAP_ROUTES = {"zmap-strided": "zmap passes=strided logits=group",
+               "zmap+flat": "zmap passes=pieces,runs logits=group",
+               "zmap-k100": "zmap passes=pieces,strided logits=group"}
 # the reference's ALPHA_CASES "zmap" (seed 24, concentration tables)
 ZMAP_ALPHA_CASE = (24, 240, 3, 10, [(3, 15, 1, False, True, True)], True, 40)
 # the LM trainer: olmo-1b (arXiv:2402.00838), the default --arch of the
@@ -438,7 +476,8 @@ CKPT_LAYERS, CKPT_STEPS, CKPT_EVERY, RESUME_TOL = 2, 4, 2, 1e-3
 # DCM-LDA (the paper's Figure 22) at benchmarks/bench_vmp.py's settings (K =
 # 16, V = 2,000, the repo's priors, mean length 120), depth raised from 400
 # to 10,000 documents (about 1.2M tokens; phi on docs x topics rows is then
-# (160,000, 2,000) f32, 1.28 GB); zstats takes its strided route
+# (160,000, 2,000) f32, 1.28 GB); zstats takes phi's stats on the "runs"
+# pass
 DCM_DOCS, DCM_TOPICS, DCM_VOCAB, DCM_MEAN_LEN, DCM_STEPS = 10000, 16, 2000, \
     120, 10
 # experts: qwen3-moe-30b-a3b (hf:Qwen/Qwen3-30B-A3B) at full width, serving
@@ -583,6 +622,26 @@ def zcase_np(seed, n, k, gp, cfgs, zmask=False, nz=None, positive=False):
     return et, rows, raw, zm
 
 
+def runs_case_np(seed, docs, k, vocab, mean_len, hot, run, masked):
+    """A :data:`RUNS_CASES` draw as :func:`zcase_np`'s numpy case: theta's
+    row is the document, phi's rows docs x topics; a share ``hot`` of the
+    tokens is word 0, and document 0 opens with ``run`` tokens of word 1."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(mean_len // 2, mean_len * 3 // 2 + 1, docs)
+    lens[0] += run
+    doc = np.repeat(np.arange(docs), lens).astype(np.int32)
+    words = rng.choice(vocab, len(doc), p=rng.dirichlet(
+        np.full(vocab, BETA))).astype(np.int32)
+    words[rng.random(len(doc)) < hot] = 0
+    words[:run] = 1
+    mask = (rng.random(len(doc)) > 0.25).astype(np.float32) if masked \
+        else None
+    zm = (rng.random(len(doc)) > 0.15).astype(np.float32) if masked else None
+    tab = rng.normal(size=(docs * k, vocab)).astype(np.float32)
+    return (rng.normal(size=(docs, k)).astype(np.float32), doc,
+            [(tab, words, 1, None, (doc * k).astype(np.int32), mask)], zm)
+
+
 def to_port(case, dtype=torch.float32, device="cuda"):
     """A numpy case as the port's ``(table_prior, prior_rows, children,
     zmask)`` on ``device``, tables in ``dtype``."""
@@ -653,6 +712,21 @@ def bitwise(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def flat_out(out):
+    """A ``zstats`` result ``(lse, prior stats, child stats)`` as one tuple
+    of tensors."""
+    return (out[0], out[1], *out[2])
+
+
+def digest_note(label, digest):
+    """``digest`` beside the path's known one (:data:`KNOWN_DIGESTS`)."""
+    known = KNOWN_DIGESTS.get(label)
+    if known is None:
+        return digest
+    return (f"{digest} ({'the same as' if digest == known else 'DIFFERENT FROM'}"
+            f" the known full-depth {known[:8]}…)")
+
+
 def time_ms(fn, reps, warmup=1):
     """Mean ms per call over ``reps`` calls, timed with CUDA events."""
     for _ in range(warmup):
@@ -711,15 +785,36 @@ def de_plain(a, transpose=False):
 def phase_kernels_vs_plain(report):
     from repro_torch.kernels import dirichlet_expectation as de
     from repro_torch.kernels import fused_zstats as fz
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import vmp_zstep as zs
     log("[kernels vs plain] edge cases")
-    for i, (label, case) in enumerate(ZSTATS_CASES.items()):
-        for tables in ("elog", "alpha"):
-            args = zcase(100 + i, *case, positive=tables == "alpha")
-            compare_zstats(f"{label}/{tables}",
-                           fz.zstats(*args, tables=tables),
+    cases = [(label, i, lambda t, i=i, c=case: zcase(
+        100 + i, *c, positive=t == "alpha")) for i, (label, case) in
+        enumerate(ZSTATS_CASES.items())]
+    cases += [(label, None, lambda t, c=case: to_port(runs_case_np(*c)))
+              for label, case in RUNS_CASES.items()]
+    twice = {}
+    for label, i, make in cases:
+        for tables in ("elog", "alpha") if i is not None else ("elog",):
+            args = make(tables)
+            got = fz.zstats(*args, tables=tables)
+            compare_zstats(f"{label}/{tables}", got,
                            ref.zstats(*args, tables=tables))
+            route = ops.routing(*args[:3], tables=tables).label
+            want = STRIDED_ROUTES.get(label, "flat passes=runs" if i is None
+                                      else None)
+            check(want is None or route == want,
+                  f"zstats {label}: route {route!r}, not {want!r}")
+            check(bitwise(flat_out(got), flat_out(fz.zstats(
+                *args, tables=tables))), f"zstats {label}/{tables}: two "
+                  f"launches differ")
+            for kind in route.split("passes=")[1].split(","):
+                twice.setdefault(kind, []).append(label)
+    check(set(twice) == {"pieces", "runs", "strided"},
+          f"zstats edge cases took the passes {sorted(twice)}")
+    log("  zstats: two launches bitwise on every case, by pass: " + "; ".join(
+        f"{k} {len(v)} ({', '.join(sorted(set(v)))})"
+        for k, v in sorted(twice.items())))
     for label in ("k4", "strided-masked", "child-v33000"):
         for tables in ("elog", "alpha"):
             args = zcase(200, *ZSTATS_CASES[label], positive=tables == "alpha",
@@ -793,6 +888,10 @@ def phase_zmap_kernels():
         for dt in dtypes:
             tag = label + ("/bf16" if dt == torch.bfloat16 else "")
             args = to_port(case, dt)
+            want = ZMAP_ROUTES.get(label.split("/")[0])
+            route = ops.routing(*args[:3], tables=tables).label
+            check(want is None or route == want,
+                  f"zstats_zmap {tag}: route {route!r}, not {want!r}")
             worst["zstats_zmap"] = max(worst["zstats_zmap"], compare_zstats(
                 tag, fzm.zstats_zmap(*args, tables=tables),
                 ref.zstats(*args, tables=tables), name="zstats_zmap"))
@@ -803,6 +902,8 @@ def phase_zmap_kernels():
                 fzm.zmap_logits(zkids, nz, k, tables=tables),
                 ref.zmap_logits(zkids, nz, k, tables=tables),
                 dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"])))
+    log("  strided children on their passes: " + ", ".join(
+        f"{k} {v.split()[1]}" for k, v in ZMAP_ROUTES.items()))
     args = to_port(zcase_np(420, *ZMAP_CASES["zmap+flat"]))
     plan = ops.zstats_plan(*args[:3])
     a = fzm.zstats_zmap(*args, plan=plan)
@@ -858,7 +959,8 @@ def phase_main(args, report, corpus, m, prog):
           f"ELBO not monotone within 1e-6 relative: {diffs.tolist()}")
     posts = {n: m[n].get_result() for n in ("theta", "phi")}
     digest = output_digest(posts, trace)
-    log(f"[main] sha256 of the final posteriors and ELBO trace: {digest}")
+    log(f"[main] sha256 of the final posteriors and ELBO trace: "
+        f"{digest_note('main', digest)}")
     theta, phi = (posts[n].astype(np.float64) for n in ("theta", "phi"))
     sums = {"theta": theta.sum() - theta.size * ALPHA,
             "phi": phi.sum() - phi.size * BETA}
@@ -1251,7 +1353,8 @@ def phase_segment(label, m, steps, latent, report):
         f"{rel:.2e} of f32 (tol 2e-2, the tables' bf16 rounding)")
     check(rel <= 2e-2, f"{label}: bf16 tables move the ELBO by {rel:.2e}")
     digest = output_digest(res.posteriors, trace)
-    log(f"[{label}] sha256 of the final posteriors and ELBO trace: {digest}")
+    log(f"[{label}] sha256 of the final posteriors and ELBO trace: "
+        f"{digest_note(label, digest)}")
     explain_check(label, m, fit_routes, EXPECTED_ROUTE[label])
     report[label] = dict(elbo_trace=trace, launches=counts, fit_s=fit_s,
                          routes=fit_routes,
@@ -1606,7 +1709,7 @@ def phase_lda_svi(report, prog, m):
     check(held[-1] > held[0], f"{label}: the held-out ELBO did not rise")
     digest = output_digest(vmp.state_to_numpy(state)[0], hist["elbo"] + held)
     log(f"[{label}] sha256 of the final posteriors, batch and held-out ELBO "
-        f"traces: {digest}")
+        f"traces: {digest_note(label, digest)}")
 
     entries = svi_flat_kernels(label, fit, state, counts)
     out.update(svi_step_times(label, fit, state, report["device"]))
@@ -1640,9 +1743,10 @@ def flat_kernel_entries(label, args, plan, theta, counts, rows, extra=()):
     from repro_torch.analysis.explain import zstats_bytes
     from repro_torch.kernels import dirichlet_expectation as de
     from repro_torch.kernels import fused_zstats as fz
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     zerr = compare_zstats(f"{label} inputs", fz.zstats(*args, plan=plan),
                           ref.zstats(*args))
+    variant = ops.routing(*args[:3], plan=plan).label
     de_err = compare("dirichlet_expectation", f"{label} theta rows "
                      f"{tuple(theta.shape)}",
                      de.dirichlet_expectation(theta), de_plain(theta),
@@ -1670,9 +1774,10 @@ def flat_kernel_entries(label, args, plan, theta, counts, rows, extra=()):
                                     counts[name], e, ms, pms, bms, by))
         log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
             f"{bms:8.4f} ms ({by})  launches {counts[name]}")
+    entries[0]["variant"] = variant
     entries[1]["device_ms"] = t_de_dev
-    log(f"  dirichlet_expectation on {rows}: device time {t_de_dev:.4f} ms a "
-        f"call (CUDA graph of 20 calls)")
+    log(f"  zstats took the route {variant}; dirichlet_expectation on {rows}: "
+        f"device time {t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
     return entries
 
 
@@ -4126,32 +4231,38 @@ def phase_lm_serve(report):
 
 
 # ---------------------------------------------------------------------------
-# DCM-LDA: per-document topic-word tables through zstats' strided route
+# DCM-LDA: per-document topic-word tables through zstats' "runs" pass
 # ---------------------------------------------------------------------------
 
-def phase_dcmlda(report):
-    """DCM-LDA at benchmarks/bench_vmp.py's settings, depth DCM_DOCS
-    documents: DCM_STEPS steps through ``Model.infer`` and ``get_result``
-    with the launch counts set to 0 just before and read just after
-    (``zstats`` once a step on the route ``explain_plan(backend="cuda")``
-    names, the strided one over the docs x topics child table), the ELBO
-    monotone, both posteriors' stats summing to N, q(z) rows to 1, the
-    digest; ``zstats``, the Elog passes and ``zstep`` against their plain
-    versions at the inputs that the last step and ``get_result`` handed
-    them (recorded as they ran), timed beside their bound; ms a step and
-    the device's busy time under the profiler."""
+def make_dcmlda():
+    """DCM-LDA at benchmarks/bench_vmp.py's settings over DCM_DOCS
+    documents: (corpus, model observed, its program)."""
     from repro_torch.core import models
     from repro_torch.data import SyntheticCorpus
-    from repro_torch.kernels import dirichlet_expectation as de
-    from repro_torch.kernels import ops
-    t0 = time.perf_counter()
     corpus = SyntheticCorpus(n_docs=DCM_DOCS, vocab=DCM_VOCAB,
                              n_topics=DCM_TOPICS, mean_len=DCM_MEAN_LEN,
                              seed=SEED).generate()
     m = models.make("dcmlda", alpha=ALPHA, beta=BETA, K=DCM_TOPICS,
                     V=DCM_VOCAB)
     m["x"].observe(corpus["tokens"], segment_ids=corpus["doc_ids"])
-    prog = m.compile()
+    return corpus, m, m.compile()
+
+
+def phase_dcmlda(report):
+    """DCM-LDA at benchmarks/bench_vmp.py's settings, depth DCM_DOCS
+    documents: DCM_STEPS steps through ``Model.infer`` and ``get_result``
+    with the launch counts set to 0 just before and read just after
+    (``zstats`` once a step on the route ``explain_plan(backend="cuda")``
+    names, the "runs" pass over the docs x topics child table), the ELBO
+    monotone, both posteriors' stats summing to N, q(z) rows to 1, the
+    digest; ``zstats``, the Elog passes and ``zstep`` against their plain
+    versions at the inputs that the last step and ``get_result`` handed
+    them (recorded as they ran), timed beside their bound; ms a step and
+    the device's busy time under the profiler."""
+    from repro_torch.kernels import dirichlet_expectation as de
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    corpus, m, prog = make_dcmlda()
     n = len(corpus["tokens"])
     log(f"[dcmlda] corpus D={DCM_DOCS} V={DCM_VOCAB} K={DCM_TOPICS} N={n} "
         f"tokens (phi on {DCM_DOCS * DCM_TOPICS} docs x topics rows), made "
@@ -4169,9 +4280,9 @@ def phase_dcmlda(report):
     trace = m.elbo_trace
     log(f"[dcmlda] infer(steps={DCM_STEPS}) {infer_s:.2f} s; ELBO "
         f"{trace[0]:.6e} -> {trace[-1]:.6e}; launches {counts}")
-    check(after_infer["zstats"] == DCM_STEPS,
+    check(after_infer["zstats"] == DCM_STEPS == routes["zstats"]["runs"],
           f"dcmlda: zstats launched {after_infer['zstats']} times in "
-          f"{DCM_STEPS} steps")
+          f"{DCM_STEPS} steps, by pass {routes['zstats']}")
     check(counts["dirichlet_expectation"] > 0 and counts["zstep"] == 1,
           f"dcmlda: get_result('z') did not run the Triton kernels: {counts}")
     diffs = np.diff(trace)
@@ -4179,7 +4290,8 @@ def phase_dcmlda(report):
           f"dcmlda: ELBO not monotone within 1e-6 relative: {diffs.tolist()}")
     posts = {name: m[name].get_result() for name in ("theta", "phi")}
     digest = output_digest(posts, trace)
-    log(f"[dcmlda] sha256 of the final posteriors and ELBO trace: {digest}")
+    log(f"[dcmlda] sha256 of the final posteriors and ELBO trace: "
+        f"{digest_note('dcmlda', digest)}")
     sums = {"theta": float(posts["theta"].sum(dtype=np.float64)) -
             posts["theta"].size * ALPHA,
             "phi": float(posts["phi"].sum(dtype=np.float64)) -

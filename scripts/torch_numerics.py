@@ -4,11 +4,12 @@
 
     python3 scripts/torch_numerics.py digest [TREE]
     python3 scripts/torch_numerics.py zmap-precision [TREE]
-    python3 scripts/torch_numerics.py ab-zstats PARENT
+    python3 scripts/torch_numerics.py ab-zstats PARENT [TREE ...]
     python3 scripts/torch_numerics.py ab-steps PARENT
     python3 scripts/torch_numerics.py ab-zmap PARENT [TREE ...]
     python3 scripts/torch_numerics.py ab-flash PARENT [TREE]
     python3 scripts/torch_numerics.py de-sweep
+    python3 scripts/torch_numerics.py zstats-split [TREE]
 
 TREE is a checkout of the repo (by default the one holding this script)
 whose ``src/repro_torch`` runs; the inputs and the work come from this
@@ -30,7 +31,13 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
   loaded beside it as the package ``parent_repro_torch``.  The two are
   timed with CUDA events in turns (parent, this, this, parent, 10 calls
   each); it says whether their outputs are bitwise equal (a change of the
-  sums' order makes them differ).
+  sums' order makes them differ).  Then the same at the DCM-LDA inputs of
+  ``chip_smoke.py`` (a strided child, 10,000 documents, after 2 VMP
+  steps), each tree with its own owner plan, and again with a fractional
+  mask on that child (each token weighted by a seeded draw in [0.05, 1),
+  where a fused multiply-add and a multiply then an add round
+  differently); at these two layouts also against each further checkout
+  given after PARENT (say a variant of this one).
 - ``ab-steps``: the VMP step of ``chip_smoke.py``'s three paths (LDA at the
   NYTimes widths, SLDA over the same corpus, naive Bayes at the 20
   Newsgroups widths), this checkout's package against PARENT's on one
@@ -63,6 +70,13 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
   the module's knobs: the row-sum programs per SM (and so the chunks a
   row), and the transposed pass's tile and warps; each output held to the
   plain version at DE_TOL.
+- ``zstats-split``: ``zstats`` at ``chip_smoke.py``'s DCM-LDA inputs
+  (after 2 VMP steps) on TREE's package: the child's value columns and
+  (base, value) runs counted, the call timed with CUDA events, its device
+  time by kernel under torch.profiler (each launch of the call apart: the
+  prior's pass, its finish, the lse sum, the zero fill, the child's pass),
+  and the count of FFMA, FMUL and FADD in the machine code of the strided
+  children's stats kernels.
 
 Imports the port only, never JAX nor the JAX package.
 """
@@ -103,8 +117,9 @@ def _load_package(tree: Path, name: str):
     return mod
 
 
-def ab_zstats(cs, parent: Path):
+def ab_zstats(cs, parent: Path, more=()):
     import importlib
+    import numpy as np
     import torch
     from repro_torch.core import vmp
     from repro_torch.kernels import dirichlet_expectation as de
@@ -150,6 +165,124 @@ def ab_zstats(cs, parent: Path):
     print(f"[ab-zstats] parent {t_parent:.4f} ms, this {t_this:.4f} ms per "
           f"call: {t_parent / t_this:.2f}x; outputs bitwise equal: {same}",
           flush=True)
+    del runs, plan, pplan, a, b
+    torch.cuda.empty_cache()
+    # DCM-LDA: a strided child, each tree with its own owner plan; then
+    # with a fractional mask on the child
+    mods = {"parent": (pfz, pref)}
+    for i, tree in enumerate(more, 1):
+        _load_package(Path(tree), f"tree{i}_repro_torch")
+        mods[f"tree{i}"] = tuple(importlib.import_module(
+            f"tree{i}_repro_torch.kernels.{n}") for n in ("fused_zstats",
+                                                          "ref"))
+        print(f"[ab-zstats] tree{i}: {tree}", flush=True)
+    args, plan = _dcmlda_zstats(cs)
+    c = args[2][0]
+    rng = np.random.default_rng(cs.SEED)
+    frac = torch.from_numpy(rng.uniform(0.05, 1.0, len(c.values)).astype(
+        np.float32)).to(c.values.device)
+    masked = (*args[:2], (c._replace(mask=frac), *args[2][1:]), args[3])
+    layouts = (("dcmlda", args, plan),
+               ("dcmlda fractional mask", masked,
+                ops.zstats_plan(*masked[:3])))
+    for label, a, pl in layouts:
+        print(f"[ab-zstats] {label}: N = {a[1].shape[0]}, child table "
+              f"{tuple(a[2][0].elog.shape)}; passes: this "
+              f"{ops.routing(a[0], plan=pl, children=a[2]).label}",
+              flush=True)
+        for who, (wfz, wref) in mods.items():
+            wa = (*a[:2], tuple(wref.ZChild(*x) for x in a[2]), a[3])
+            wplan = wfz.build_plan(wa[1], wa[2], tuple(a[0].shape)).to(
+                a[0].device)
+            tag = "" if who == "parent" else f" against {who}"
+            _ab(cs, f"zstats {label}{tag}", {
+                "this": lambda a=a, pl=pl: fz.zstats(*a[:3], a[3], plan=pl),
+                "parent": lambda f=wfz, wa=wa, wp=wplan: f.zstats(
+                    *wa[:3], wa[3], plan=wp)}, tag="ab-zstats")
+            del wplan
+            torch.cuda.empty_cache()
+    return 0
+
+
+def _dcmlda_zstats(cs, steps=2):
+    """The ``zstats`` call of ``chip_smoke.py``'s DCM-LDA path (its
+    DCM_DOCS documents, K = 16, V = 2,000) at the last of ``steps`` VMP
+    steps, as the step handed it: ``((table_prior, prior_rows, children,
+    zmask), plan)``."""
+    _, m, _ = cs.make_dcmlda()
+    with cs.recording("zstats") as calls:
+        m.infer(steps=steps, seed=cs.SEED, device="cuda")
+    (a, kw, _), = calls.values()
+    assert kw.get("tables", "elog") == "elog", kw.get("tables")
+    return (*a, kw.get("zmask")), kw.get("plan")
+
+
+def zstats_split(cs):
+    import re
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import fused_zstats as fz
+    from repro_torch.kernels import ops
+    args, plan = _dcmlda_zstats(cs)
+    c = args[2][0]
+    vals = c.values.cpu().numpy().astype(np.int64)
+    base = c.base.cpu().numpy().astype(np.int64)
+    kf = c.elog.shape[1]
+    col = np.bincount(vals, minlength=kf)
+    _, run_len = np.unique(base * kf + vals, return_counts=True)
+    print(f"[zstats-split] {cs.device_line()}; dcmlda N = {len(vals)}, "
+          f"child table {tuple(c.elog.shape)}, stride {c.stride}, "
+          f"{len(np.unique(base))} bases; route "
+          f"{ops.routing(args[0], plan=plan, children=args[2]).label}",
+          flush=True)
+    print(f"[zstats-split] value columns: hottest {col.max()} tokens, "
+          f"{(col >= 1000).sum()} of {kf} hold 1,000 or more; (base, value) "
+          f"runs {len(run_len)}: longest {run_len.max()}, mean "
+          f"{run_len.mean():.4f} tokens, {(run_len == 1).mean():.4f} of one "
+          f"token", flush=True)
+
+    def call():
+        return fz.zstats(*args[:3], args[3], plan=plan)
+    ms = cs.time_ms(call, reps=10)
+    reps = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                ev.self_device_time_total > 0:
+            rows.append((ev.self_device_time_total / reps / 1e3,
+                         ev.count / reps, ev.key))
+    rows.sort(reverse=True)
+    print(f"[zstats-split] a call: {ms:.4f} ms (CUDA events, 10 calls); "
+          f"device time by kernel under torch.profiler ({reps} calls), "
+          f"{sum(r[0] for r in rows):.4f} ms in all:", flush=True)
+    for t, n, key in rows:
+        print(f"  {t:9.4f} ms  x{n:g}  {key[:100]}", flush=True)
+    # the stats passes' adds at K = 16 (a lane holds four topics): what
+    # computes each stored value, a fused multiply-add or a multiply and an
+    # add
+    for name, code in sorted(_sass(fz.build()[0]).items()):
+        if not name.startswith(("_Z14strided_kernelILi1E",
+                                "_Z11runs_kernelILi1E")):
+            continue
+        ins = [x for x in re.findall(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", code)
+               if x]
+        opc = [x.split()[1] if x.startswith("@") else x.split()[0]
+               for x in ins]
+        print(f"[zstats-split] SASS {name}: " + ", ".join(
+            f"{op} {sum(o.startswith(op) for o in opc)}"
+            for op in ("FFMA", "FMUL", "FADD", "STG")), flush=True)
+        for j, o in enumerate(opc):
+            if o.startswith("STG"):
+                arith = [ins[i] for i in range(max(0, j - 8), j)
+                         if opc[i].startswith(("FFMA", "FMUL", "FADD"))]
+                print(f"    {ins[j]}  <- {arith[-2:]}", flush=True)
     return 0
 
 
@@ -533,15 +666,17 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("check", choices=["digest", "zmap-precision",
                                       "ab-zstats", "ab-steps", "ab-zmap",
-                                      "ab-flash", "de-sweep"])
+                                      "ab-flash", "de-sweep",
+                                      "zstats-split"])
     p.add_argument("tree", nargs="?", default=str(HERE),
                    help="checkout whose src/repro_torch runs (ab-zstats, "
                         "ab-steps, ab-zmap, ab-flash: the parent's, beside "
                         "this checkout's)")
     p.add_argument("more", nargs="*",
-                   help="ab-zmap: further checkouts (variants), each timed "
-                        "against this one; ab-flash: the checkout timed "
-                        "against the parent (this one by default)")
+                   help="ab-zmap, ab-zstats: further checkouts (variants), "
+                        "each timed against this one; ab-flash: the "
+                        "checkout timed against the parent (this one by "
+                        "default)")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -552,8 +687,8 @@ def main(argv=None) -> int:
     if args.check in ab:
         if Path(args.tree).resolve() == HERE:
             p.error(f"{args.check} needs the parent's checkout")
-        if args.check == "ab-zmap":
-            return ab_zmap(_setup(HERE), Path(args.tree), args.more)
+        if args.check in ("ab-zmap", "ab-zstats"):
+            return ab[args.check](_setup(HERE), Path(args.tree), args.more)
         if args.check == "ab-flash":
             if len(args.more) > 1:
                 p.error("ab-flash takes PARENT and at most one TREE")
@@ -563,6 +698,8 @@ def main(argv=None) -> int:
     cs = _setup(Path(args.tree))
     if args.check == "de-sweep":
         return de_sweep(cs)
+    if args.check == "zstats-split":
+        return zstats_split(cs)
     (digest if args.check == "digest" else zmap_precision)(cs)
     return 0
 

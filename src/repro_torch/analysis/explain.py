@@ -11,11 +11,12 @@ device:
     the key ``SVI.step`` keeps its step under, exactly);
   - the **kernel route** per latent, from ``kernels.ops.routing`` over the
     step's own index streams: ``plain`` on the CPU; on the card ``flat`` or
-    ``zmap``, each child's stats pass (``pieces`` or ``strided``) and each
-    zmap child's logits route (``group`` or ``warp``).  The logits route
-    depends on how the streams group, so the plan reads the owner plan the
-    step would build, from the functions the wrappers launch by: plan and
-    dispatch cannot drift;
+    ``zmap``, each child's stats pass (``pieces``, ``runs`` or
+    ``strided``) and each zmap child's logits route (``group`` or
+    ``warp``).  A strided child's pass and the logits route depend on the
+    streams (whether its rows meet across bases; how they group), so the
+    plan reads the owner plan the step would build, from the functions the
+    wrappers launch by: plan and dispatch cannot drift;
   - the **bytes** of the token-plate substep: ``hbm_fused`` is
     :func:`zstats_bytes`, the least the kernel must move on these streams
     (the byte count ``chip_smoke.py``'s bounds divide by), and
@@ -74,7 +75,7 @@ class KernelRoute:
     path: str                       # plain | flat | zmap
     backend: str                    # cuda | cpu
     table_dtype: str
-    passes: tuple                   # per child: pieces | strided
+    passes: tuple                   # per child: pieces | runs | strided
     logits: tuple                   # per zmap child: group | warp
     table_bytes: int                # the f32 Elog tables the passes gather
     l2_bytes: int                   # the card's L2, for information

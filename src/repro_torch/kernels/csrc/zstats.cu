@@ -33,9 +33,15 @@
 //     values, so r is bitwise the prior pass's;
 //   - zstats_finish: one warp per key adds its pieces in order and writes
 //     the key's row (prior stats) or column (specialized child stats);
-//   - zstats_strided: one warp per value column of a strided child walks
-//     that column's tokens in order and adds r into rows base + stride*k
-//     (slow for a hot value; strided children are off the main path);
+//   - zstats_runs: a strided child whose rows base + stride*k are one to
+//     one over its (base, k) (the host's test, once per program; DCM-LDA's
+//     per-document phi, base = doc * K, stride 1): the host groups its
+//     tokens by (base, value) run, and one lane group per run adds the
+//     run's r in token order in registers and stores the run's K cells
+//     once.  No other run reaches those cells, so no read-modify-write;
+//   - zstats_strided: any other strided child: one warp per value column
+//     walks that column's tokens in order and adds r into rows base +
+//     stride*k of the zeroed table (slow for a hot value);
 //   - zstats_sum: one block adds the per-piece lse sums in a fixed order.
 // Each pass reads its token streams (prior rows, values, base, masks) in
 // its own piece order: the host gathers them through the grouping once per
@@ -195,10 +201,9 @@ __device__ __forceinline__ int topic(int i, int q, int e) { return 4 * (i * QL +
 // Token t's logits (the lane's chunks; -inf past K): the prior row, then
 // (EXTRA, a segment latent's prior pass) the instance's row of the extra
 // logits, then each child's masked message, in that order.  The operand row
-// of `fixed` (-1: the prior, read with -inf past K; c >= 0: specialized
-// child c, read with 0 past K) is `frow`, the row the piece's owner key
-// selects, loaded once per piece; every other row is gathered.  fixed = -2
-// gathers every row.
+// of `fixed` (-1: the prior, read with -inf past K; c >= 0: child c, read
+// with 0 past K) is `frow`, the row the piece's owner key selects, loaded
+// once per piece; every other row is gathered.  fixed = -2 gathers every row.
 template <int QL, int CH, bool EXTRA, bool SIMPLE = false>
 __device__ __forceinline__ void token_logits(const ZArgs& a, int t, int q, bool vec, int fixed,
                                              const float (&frow)[CH][4], float (&x)[CH][4]) {
@@ -496,6 +501,79 @@ __global__ void strided_kernel(ZArgs a, int target, const int* __restrict__ key_
   }
 }
 
+// A strided child's message row for value v at rows b + stride * k (the
+// lane's chunks; 0 past K).
+template <int QL, int CH>
+__device__ __forceinline__ void strided_row(const ZChildArgs& ch, int v, int b, int q, int k,
+                                            float (&x)[CH][4]) {
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = topic<QL>(i, q, e);
+      x[i][e] = kk < k ? ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v] : 0.0f;
+    }
+}
+
+// One run of a strided child whose rows base + stride * k are one to one
+// over its (base, k): the run's tokens (stream positions key_start[run] ..)
+// share one base b and one value v, so the run alone reaches its K cells
+// (b + stride * k, v).  Lane q of the run's lane group loads the run's
+// message row once, walks the tokens in order (each token's logits as
+// token_logits builds them: the same values added in the same order; r from
+// the stored max and zm / sum, token_reuse) adding mask * r in registers,
+// and stores its cells once.  strided_kernel adds each product, rounded, into the
+// zeroed table (its add reads the table, so it does not contract: FMUL then
+// FADD), and so does this: each cell sums the same terms in the same order
+// from the same 0, bitwise.
+template <int QL, int CH, bool EXTRA>
+__device__ __forceinline__ void run_cells(const ZArgs& a, int target,
+                                          const int* __restrict__ key_start, int run, int q,
+                                          float* __restrict__ out) {
+  const ZChildArgs& ch = a.c[target];
+  const int k = a.k;
+  const bool vec = a.vec != 0;
+  const int t0 = key_start[run], t1 = key_start[run + 1];
+  const int v = ch.values[t0], b = ch.base ? ch.base[t0] : 0;
+  float mrow[CH][4], acc[CH][4];
+  strided_row<QL, CH>(ch, v, b, q, k, mrow);
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    float r[CH][4];
+    token_logits<QL, CH, EXTRA>(a, t, q, vec, target, mrow, r);
+    token_reuse<CH>(r, a.stats[a.spos ? a.spos[t] : t]);
+    const float w = ch.mask ? ch.mask[t] : 1.0f;
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = __fadd_rn(acc[i][e], __fmul_rn(r[i][e], w));
+  }
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = topic<QL>(i, q, e);
+      if (kk < k) out[(size_t)(b + ch.stride * kk) * ch.kf + v] = acc[i][e];
+    }
+}
+
+// The runs pass over a zeroed table: one lane group (QL lanes, the flat
+// passes' token layout) per run, PPW runs a warp.  The groups of a warp
+// share no shuffle: each runs as long as its own run.  (A block per base
+// that also wrote the zeros of the base's rows, whole rows coalesced, took
+// longer on the H100 at DCM-LDA than the zero fill and this together.)
+template <int KPL, bool EXTRA>
+__global__ void runs_kernel(ZArgs a, int target, const int* __restrict__ key_start, int n_runs,
+                            float* __restrict__ out) {
+  constexpr int QL = Lanes<KPL>::QL, CH = Lanes<KPL>::CH, PPW = 32 / QL;
+  const int warp = blockIdx.x * FLAT_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, run = warp * PPW + lane / QL;
+  if (run < n_runs) run_cells<QL, CH, EXTRA>(a, target, key_start, run, lane % QL, out);
+}
+
 // --- segment latents (a child with a zmap: SLDA sentences, naive Bayes
 // documents).  The ZArgs of these passes hold the zmap children only, and
 // each pass reads child `target`'s token streams (values, base, mask, zmap)
@@ -545,20 +623,6 @@ __device__ __forceinline__ int pieces_max(int v) {
 #pragma unroll
   for (int o = QL; o < 32; o <<= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// A strided child's message row for value v at rows b + stride * k (the
-// lane's chunks; 0 past K).
-template <int QL, int CH>
-__device__ __forceinline__ void strided_row(const ZChildArgs& ch, int v, int b, int q, int k,
-                                            float (&x)[CH][4]) {
-#pragma unroll
-  for (int i = 0; i < CH; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kk = topic<QL>(i, q, e);
-      x[i][e] = kk < k ? ch.table[(size_t)(b + ch.stride * kk) * ch.kf + v] : 0.0f;
-    }
 }
 
 // The walk of one piece (t0, len; `most` the warp's longest): for each of
@@ -931,6 +995,23 @@ static unsigned seg_blocks(int n_pieces, int k) {
 }
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+int zstats_runs(const void* args, int target, const void* key_start, int n_runs, void* out,
+                void* stream) {
+  const ZArgs a = *(const ZArgs*)args;
+  if (n_runs <= 0) return 0;
+  const unsigned grid = seg_blocks(n_runs, a.k);
+  cudaStream_t s = (cudaStream_t)stream;
+  return dispatch_kpl(a.k, [&](auto kpl) {
+    constexpr int KPL = decltype(kpl)::value;
+    auto go = [&](auto kernel) {
+      kernel<<<grid, 32 * FLAT_WARPS, 0, s>>>(a, target, (const int*)key_start, n_runs,
+                                              (float*)out);
+    };
+    if (a.extra) go(runs_kernel<KPL, true>);
+    else go(runs_kernel<KPL, false>);
+  });
+}
 
 // warp != 0: zmap_logits_warp_kernel, a warp per piece.
 int zmap_logits(const void* args, int target, const void* piece_key, const void* piece_start,

@@ -45,9 +45,10 @@ from . import fused_zstats as _fz
 
 #: ``zstats_zmap`` calls that launched the kernel
 launches = 0
-#: their child stats passes by kind (``fused_zstats.pass_kind``) and their
-#: zmap children's phase 1 by route (:func:`logits_route`)
-route_launches = {"pieces": 0, "strided": 0, "group": 0, "warp": 0}
+#: their child stats passes by kind (:func:`pass_kinds`) and their zmap
+#: children's phase 1 by route (:func:`logits_route`)
+route_launches = {"pieces": 0, "runs": 0, "strided": 0, "group": 0,
+                  "warp": 0}
 #: ``zmap_logits`` calls that launched phase 1 alone
 logits_launches = 0
 #: their children's phase 1 by route
@@ -180,6 +181,15 @@ def _pass_args(base, plan: ZmapPlan, name: str, j: int):
     return a
 
 
+def pass_kinds(children, plan: ZmapPlan) -> tuple:
+    """Per child in order, its stats pass: a zmap child's by
+    ``fused_zstats.pass_kind`` (``"pieces"`` or ``"strided"``), a child
+    without a zmap's as phase 2a's flat plan chose it (``ZPlan.kinds``)."""
+    flat = iter(plan.flat.kinds)
+    return tuple(_fz.pass_kind(c) if c.zmap is not None else next(flat)
+                 for c in children)
+
+
 def logits_route(g: _fz.Grouping) -> str:
     """Phase 1's kernel for a grouping by instance: "warp" (a warp a piece)
     where instances are cut into several pieces (naive Bayes' documents),
@@ -275,8 +285,8 @@ def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     cstats = tuple(next(zit) if c.zmap is not None else next(fit)
                    for c in children)
     launches += 1
-    for c in children:
-        route_launches[_fz.pass_kind(c)] += 1
+    for kind in pass_kinds(children, plan):
+        route_launches[kind] += 1
     for g in plan.by_latent:
         route_launches[logits_route(g)] += 1
     return lse_sum, pstats, cstats

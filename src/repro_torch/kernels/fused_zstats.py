@@ -12,10 +12,12 @@ This module holds the three parts around it:
   - :func:`group_tokens` / :func:`build_plan` — the host-side owner plan:
     the tokens grouped by key (the prior row, or a child's value) with a
     numpy stable argsort, each key's run cut into pieces of at most
-    :data:`PIECE` tokens, each pass's token streams gathered into its piece
-    order, and each token's slot in the softmax statistics that the prior's
-    pass hands to the children's.  It depends only on the program's static
-    index streams, so ``core/vmp.py`` builds it once per program.
+    :data:`PIECE` tokens (or, for a strided child whose rows are one to one
+    over its bases, grouped by base and value: :func:`group_runs`), each
+    pass's token streams gathered into its piece order, and each token's
+    slot in the softmax statistics that the prior's pass hands to the
+    children's.  It depends only on the program's static index streams, so
+    ``core/vmp.py`` builds it once per program.
   - the build: ``nvcc`` compiles ``csrc/zstats.cu`` into a shared library
     with a plain C interface under ``build/`` at the repo root (or
     ``$REPRO_TORCH_BUILD_DIR``) at the first launch, keyed by a hash of the
@@ -49,7 +51,7 @@ from . import dirichlet_expectation as _de
 #: calls that launched the kernel (one per wrapper call)
 launches = 0
 #: child stats passes those calls launched, by kind (:func:`pass_kind`)
-route_launches = {"pieces": 0, "strided": 0}
+route_launches = {"pieces": 0, "runs": 0, "strided": 0}
 
 #: most tokens one warp sums before its partial goes to the finishing pass
 PIECE = 256
@@ -128,18 +130,59 @@ def group_tokens(keys: np.ndarray, n_keys: int, piece: int = PIECE,
                     i32(piece_key), identity)
 
 
+def group_runs(values, base, n_values: int) -> Grouping:
+    """Tokens grouped by run, the tokens of one (base, value) pair
+    (``base`` None: all 0), runs in (base, value) order, each run's tokens
+    in their original order and never cut: piece ``p`` is run ``p``."""
+    values = np.asarray(values, np.int64)
+    if len(values) and (values.min() < 0 or values.max() >= n_values):
+        raise ValueError(f"values outside [0, {n_values})")
+    key = values if base is None else \
+        np.asarray(base, np.int64) * n_values + values
+    perm = np.argsort(key, kind="stable")
+    ks = key[perm]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]]) if len(ks) \
+        else np.zeros(0, np.int64)
+    key_start = np.append(starts, len(ks)).astype(np.int32)
+    runs = np.arange(len(starts) + 1, dtype=np.int32)
+    return Grouping(perm.astype(np.int32), key_start, key_start, runs,
+                    runs[:-1], bool(np.array_equal(perm, np.arange(len(ks)))))
+
+
+def rows_one_to_one(base, stride: int, k: int) -> bool:
+    """True where (b, kk) -> b + stride * kk is one to one over the distinct
+    bases b of ``base`` (None: all 0) and kk < K.  Two rows meet exactly
+    where two bases differ by stride * m with 0 < |m| < K: so the bases of
+    each residue mod |stride|, in order, must lie K or more strides apart."""
+    b = np.unique(np.asarray(base, np.int64)) if base is not None else \
+        np.zeros(1, np.int64)
+    s = abs(int(stride))
+    if k == 1 or len(b) == 0:
+        return True
+    if s == 0:
+        return False
+    res = b % s
+    order = np.argsort(res, kind="stable")
+    res, quo = res[order], b[order] // s
+    same = res[1:] == res[:-1]
+    return bool(np.all((quo[1:] - quo[:-1])[same] >= k))
+
+
 @dataclasses.dataclass
 class ZPlan:
     """The owner plan of one ``zstats`` call: the prior's grouping by row
-    and each child's grouping by value, each pass's token streams gathered
-    into its piece order (``streams``), and each pass's slots in the
-    per-token softmax statistics that the prior pass hands to the
-    children's (``"spos"`` in ``streams``), with their device copies."""
+    and each child's grouping by value (by run where its pass is
+    ``"runs"``), each pass's token streams gathered into its piece order
+    (``streams``), and each pass's slots in the per-token softmax
+    statistics that the prior pass hands to the children's (``"spos"`` in
+    ``streams``), with their device copies.  ``kinds`` names each child's
+    stats pass (:func:`pass_kind`)."""
     prior: Grouping
     children: tuple
     streams: dict = dataclasses.field(default_factory=dict)
     device: Optional[torch.device] = None
     tensors: dict = dataclasses.field(default_factory=dict)
+    kinds: tuple = ()
 
     def passes(self) -> list:
         """``[(name, grouping)]``: the prior's pass, then each child's."""
@@ -161,9 +204,9 @@ class ZPlan:
     def to(self, device) -> "ZPlan":
         """A copy whose index arrays also live on ``device``."""
         device = placed(device)
-        arrays = self.host_arrays()
-        return ZPlan(self.prior, self.children, self.streams, device,
-                     device_arrays(arrays, device))
+        return dataclasses.replace(
+            self, device=device,
+            tensors=device_arrays(self.host_arrays(), device))
 
 
 def placed(device) -> torch.device:
@@ -248,19 +291,28 @@ def build_plan(prior_rows, children, prior_shape: tuple,
     """The owner plan from the static index streams (tensors or arrays):
     ``prior_rows`` grouped over the (G, K) prior's G rows, each row's
     tokens ordered by the first specialized child's value, and each child's
-    ``values`` grouped over its parent table's value axis; each pass's
-    streams (the children's values, base and mask, the prior rows) in its
-    piece order.  Raises on an index the kernel would read or write out of
-    bounds."""
+    ``values`` grouped over its parent table's value axis, or, for a
+    strided child whose rows are one to one over its (base, k)
+    (:func:`rows_one_to_one`), by (base, value) run (:func:`group_runs`);
+    each pass's streams (the children's values, base and mask, the prior
+    rows) in its piece order.  Raises on an index the kernel would read or
+    write out of bounds."""
     g, k = prior_shape
     first = next((c for c in children if c.specialized), None)
     prior = group_tokens(host(prior_rows), g, piece,
                          host(first.values) if first is not None else None)
-    kids = []
+    kids, kinds = [], []
     for i, c in enumerate(children):
-        kids.append(group_tokens(host(c.values), c.elog.shape[1], piece))
         check_strided_rows(i, c, k)
-    plan = ZPlan(prior, tuple(kids))
+        base = host(c.base) if c.base is not None else None
+        kinds.append(pass_kind(c, not c.specialized and
+                               rows_one_to_one(base, c.stride, k)))
+        if kinds[-1] == "runs":
+            grp = group_runs(host(c.values), base, c.elog.shape[1])
+        else:
+            grp = group_tokens(host(c.values), c.elog.shape[1], piece)
+        kids.append(grp)
+    plan = ZPlan(prior, tuple(kids), kinds=tuple(kinds))
     streams = pass_streams("prior", prior, prior_rows, children, None)
     for i, gi in enumerate(kids):
         streams.update(pass_streams(f"child{i}", gi, prior_rows, children, i))
@@ -307,12 +359,13 @@ def library() -> ctypes.CDLL:
     lib.zstats_finish.argtypes = [p, p, i, i, p, ll, ll, i, p]
     lib.zstats_finish64.argtypes = [p, p, p, i, i, p, ll, ll, i, p]
     lib.zstats_strided.argtypes = [p, i, p, i, p, p]
+    lib.zstats_runs.argtypes = [p, i, p, i, p, p]
     lib.zstats_sum.argtypes = [p, i, p, p]
     lib.zmap_logits.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
     lib.zmap_stats.argtypes = [p, i, p, p, i, p, p]
     lib.zmap_strided.argtypes = [p, i, p, p, i, p, p]
     for fn in (lib.zstats_pieces, lib.zstats_finish, lib.zstats_finish64,
-               lib.zstats_strided,
+               lib.zstats_strided, lib.zstats_runs,
                lib.zstats_sum, lib.zmap_logits, lib.zmap_stats,
                lib.zmap_strided, lib.zstats_max_k, lib.zstats_max_children,
                lib.zstats_args_size):
@@ -462,18 +515,28 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     eprior, etabs = elog_tables(table_prior, children, tables)
     out = launch_flat(eprior, prior_rows, children, etabs, zmask, plan)
     launches += 1
-    for c in children:
-        route_launches[pass_kind(c)] += 1
+    for kind in plan.kinds:
+        route_launches[kind] += 1
     return out
 
 
-def pass_kind(child) -> str:
-    """The stats pass that takes a child: ``"pieces"`` for a specialized
-    child (owner warps over its tokens grouped by value, then the finishing
-    pass), ``"strided"`` for one whose rows are ``base + stride * k`` (a
-    thread a table column).  The wrappers launch by it and
-    ``ops.routing`` reports it."""
-    return "pieces" if child.specialized else "strided"
+def pass_kind(child, one_to_one: bool = False) -> str:
+    """The stats pass that takes a child:
+
+      - ``"pieces"``: a specialized child; owner warps over its tokens
+        grouped by value, then the finishing pass;
+      - ``"runs"``: a strided child (rows ``base + stride * k``) whose rows
+        the owner plan found ``one_to_one`` over its (base, k)
+        (:func:`rows_one_to_one`); a lane group owns each run of tokens
+        with one base and one value, and writes the run's K cells once;
+      - ``"strided"``: any other strided child; a warp walks each value
+        column of the table, adding token after token into its rows.
+
+    ``build_plan`` sets each child's in ``ZPlan.kinds``; the wrappers
+    launch by those and ``ops.routing`` reports them."""
+    if child.specialized:
+        return "pieces"
+    return "runs" if one_to_one else "strided"
 
 
 def pass_args(base: _Args, plan: ZPlan, name: str, g: Grouping, n_children,
@@ -544,15 +607,24 @@ def launch_flat(eprior, prior_rows, children, etabs, zmask, plan: ZPlan,
     cstats = []
     for i, (c, grp) in enumerate(zip(children, plan.children)):
         gf, kf = c.elog.shape
-        if pass_kind(c) == "pieces":
+        kind = plan.kinds[i]
+        if kind == "pieces":
             cs = torch.empty((gf, kf), **f32)
             pieces_then_finish(i, f"child{i}", grp, cs, 1, kf)
+            cstats.append(cs)
+            continue
+        # the cells that no token reaches stay 0
+        cs = torch.zeros((gf, kf), **f32)
+        name = f"child{i}"
+        args = pass_args(base, plan, name, grp, len(children), None, stats)
+        key_start = t[name, "key_start"].data_ptr()
+        if kind == "runs":
+            check_launch(lib.zstats_runs(
+                ctypes.addressof(args), i, key_start, grp.n_keys,
+                cs.data_ptr(), stream), "runs")
         else:
-            cs = torch.zeros((gf, kf), **f32)
-            args = pass_args(base, plan, f"child{i}", grp, len(children),
-                             None, stats)
             check_launch(lib.zstats_strided(
-                ctypes.addressof(args), i, t[f"child{i}", "key_start"].data_ptr(),
-                kf, cs.data_ptr(), stream), "strided")
+                ctypes.addressof(args), i, key_start, kf, cs.data_ptr(),
+                stream), "strided")
         cstats.append(cs)
     return lse_sum, pstats, tuple(cstats)

@@ -94,7 +94,8 @@ class RouteInfo(NamedTuple):
       - ``"zmap"``  -- ``fused_zmap.zstats_zmap`` (a child has a zmap).
 
     ``passes`` names, per child in order, its stats pass on the card
-    (``fused_zstats.pass_kind``: ``"pieces"`` or ``"strided"``); ``logits``,
+    (``fused_zstats.pass_kind``: ``"pieces"``, ``"runs"`` or
+    ``"strided"``, as the owner plan chose it); ``logits``,
     per child with a zmap, the route of phase 1 (``fused_zmap.logits_route``:
     ``"group"`` or ``"warp"``); both are empty for ``"plain"``.
     ``table_bytes`` is the f32 Elog tables the passes gather from, set
@@ -145,8 +146,11 @@ def routing(table_prior, prior_rows=None, children=(), *,
     instance of several pieces), not on shapes alone, so the route is read
     from the owner plan: ``plan`` (a :func:`host_plan` result), or one
     built here from ``prior_rows`` and the children's streams (numpy arrays
-    or tensors).  The passes and the logits routes come from the functions
-    the wrappers launch by, so this and the dispatch cannot drift.
+    or tensors).  So is a strided child's stats pass: ``"runs"`` where its
+    rows ``base + stride * k`` are one to one over the bases its tokens
+    use, else ``"strided"``.  The passes and the logits routes come from
+    the plan and the functions the wrappers launch by, so this and the
+    dispatch cannot drift.
     """
     if backend not in ("cuda", "cpu"):
         raise ValueError(f"backend must be 'cuda' or 'cpu', not {backend!r}")
@@ -168,17 +172,17 @@ def routing(table_prior, prior_rows=None, children=(), *,
             raise ValueError("routing(backend='cuda') reads the owner plan: "
                              "pass the index streams or plan=")
         plan = host_plan(table_prior.shape, prior_rows, children)
-    passes = [_fz.pass_kind(c) for c in children]
     if _segmented(children):
         logits = [_fzm.logits_route(g) for g in plan.by_latent]
-        return _route("zmap", passes, logits, plan.nbytes,
+        return _route("zmap", _fzm.pass_kinds(children, plan), logits,
+                      plan.nbytes,
                       "segment latent: phase 1 sums each instance's logits "
                       "over its tokens, then the flat passes and each zmap "
                       "child's stats pass (fused_zmap.zstats_zmap)")
-    return _route("flat", passes, (), plan.nbytes,
+    return _route("flat", plan.kinds, (), plan.nbytes,
                   "flat latent: owner passes over the tokens grouped by "
-                  "prior row, then by each child's value "
-                  "(fused_zstats.launch_flat)")
+                  "prior row, then by each child's value, or by (base, "
+                  "value) run on the runs pass (fused_zstats.launch_flat)")
 
 
 def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
@@ -257,9 +261,10 @@ def launch_counts() -> dict:
 def route_counts() -> dict:
     """Launches by route since the last :func:`reset_launch_counts`:
     ``zstats``' and ``zstats_zmap``'s child passes by kind (``"pieces"``,
-    ``"strided"``), ``zstats_zmap``'s and ``zmap_logits``' zmap children's
-    phase 1 by route (``"group"``, ``"warp"``), flash attention's kernel
-    (``"wgmma"``, ``"mma"``).  The routes :func:`routing` names."""
+    ``"runs"``, ``"strided"``), ``zstats_zmap``'s and ``zmap_logits``' zmap
+    children's phase 1 by route (``"group"``, ``"warp"``), flash
+    attention's kernel (``"wgmma"``, ``"mma"``).  The routes
+    :func:`routing` names."""
     return {"zstats": dict(_fz.route_launches),
             "zstats_zmap": dict(_fzm.route_launches),
             "zmap_logits": dict(_fzm.logits_route_launches),

@@ -14,9 +14,12 @@ model at every grid point (the reference's, and one of documents longer
 than a piece) ``routing(backend="cuda")`` equals the route read
 from the owner plan the step builds (``vmp.owner_plans``), and that route
 equals one worked out from first principles (a specialized child takes the
-"pieces" pass; phase 1 takes "warp" when the instances' pieces outnumber
-the instances).  The grid covers flat (pieces and strided) and zmap (group
-and warp); ``backend="cpu"`` gives "plain".
+"pieces" pass; a strided child without a zmap the "runs" pass where its
+rows base + stride * k are one to one over the bases its tokens use;
+phase 1 takes "warp" when the instances' pieces outnumber the instances).
+The grid covers flat (pieces and runs) and zmap (group and warp); a
+strided child whose rows meet across bases takes "strided";
+``backend="cpu"`` gives "plain".
 """
 
 import json
@@ -337,14 +340,29 @@ GRID = [
 ZOO = ["lda", "slda", "dcmlda", "naive_bayes", "two_coins"]
 
 
+def _rows_meet(base, stride, k):
+    """True where two (base, k) pairs of the distinct bases of ``base``
+    (None: all 0) name one row base + stride * k, counted row by row."""
+    b = np.unique(np.asarray(base)) if base is not None else np.zeros(1, int)
+    rows = b.astype(np.int64)[:, None] + stride * np.arange(k)[None, :]
+    return len(np.unique(rows)) < rows.size
+
+
 def _first_principles(spec, arrays):
     """The routes worked out without the kernel modules: a specialized
-    child (no base, stride 1) takes the "pieces" pass, any other the
-    "strided" one; a zmap child's phase 1 takes "warp" when its tokens, cut
-    into pieces of at most PIECE per instance, make more pieces than there
-    are instances."""
-    passes = tuple("pieces" if f.base is None and f.stride == 1
-                   else "strided" for f in spec.children)
+    child (no base, stride 1) takes the "pieces" pass; a strided child
+    without a zmap takes "runs" unless two of its (base, k) name one row,
+    and then, like a strided zmap child, "strided"; a zmap child's phase 1
+    takes "warp" when its tokens, cut into pieces of at most PIECE per
+    instance, make more pieces than there are instances."""
+    def kind(f):
+        if f.base is None and f.stride == 1:
+            return "pieces"
+        if f.zmap is None and not _rows_meet(arrays[f.x_name].get("base"),
+                                             f.stride, spec.k):
+            return "runs"
+        return "strided"
+    passes = tuple(kind(f) for f in spec.children)
     n_inst = len(np.asarray(arrays[spec.name]["prior_rows"]))
     logits = []
     for f in spec.children:
@@ -410,15 +428,73 @@ def test_plan_matches_reference_and_dispatch(grid_routes, model_name,
 
 
 def test_grid_covers_every_route(grid_routes):
-    """The zoo x grid matrix exercises every Hopper route: flat with the
-    pieces and the strided pass, zmap with the group and the warp logits."""
+    """The zoo x grid matrix exercises the Hopper routes of its models: flat
+    with the pieces and the runs pass (DCM-LDA's phi), zmap with the group
+    and the warp logits."""
     seen = set()
     for plan, *_ in grid_routes.values():
         for r in plan.routes:
             seen.add(r.path)
             seen.update(f"{r.path}/{p}" for p in r.passes + r.logits)
-    assert {"flat/pieces", "flat/strided", "zmap/group",
+    assert {"flat/pieces", "flat/runs", "zmap/group",
             "zmap/warp"} <= seen, seen
+
+
+@pytest.mark.parametrize("bases,stride,k,want", [
+    ([0, 5, 10], 1, 5, "runs"),          # DCM-LDA's base = doc * K
+    ([0, 4, 10], 1, 5, "strided"),       # rows 4 .. 4 of two bases meet
+    ([0, 1, 2], 3, 3, "runs"),           # interleaved, never meeting
+    ([0, 3, 9], 3, 3, "strided"),        # 0 + 3 * 1 = 3 + 3 * 0
+    ([2, 2, 2], 0, 1, "runs"),
+])
+def test_strided_child_routes_by_its_rows(bases, stride, k, want):
+    """A strided child's pass, from any host: "runs" where no two (base, k)
+    name one row, "strided" where two do; the same as first principles, and
+    on a segment latent's child without a zmap too."""
+    n = 12
+    rows = np.arange(n) % 3
+    base = np.asarray(bases, np.int32)[np.arange(n) % len(bases)]
+    gf = int(base.max()) + stride * (k - 1) + 1
+    child = tops.ZChild(elog=np.broadcast_to(np.float32(0), (gf, 7)),
+                        values=np.arange(n) % 7, stride=stride, base=base)
+    tab = np.broadcast_to(np.float32(0), (3, k))
+    assert (want == "runs") == (not _rows_meet(base, stride, k))
+    r = tops.routing(tab, rows, (child,))
+    assert r.label == f"flat passes={want}"
+    zkid = tops.ZChild(elog=np.broadcast_to(np.float32(0), (k, 5)),
+                       values=np.arange(2 * n) % 5,
+                       zmap=np.repeat(np.arange(n), 2))
+    r = tops.routing(tab, rows, (zkid, child))
+    assert r.passes == ("pieces", want)
+
+
+@pytest.mark.parametrize("spacing,want", [(1, "runs"), (2, "strided")],
+                         ids=["doc-times-k", "half-spaced"])
+def test_owner_plans_route_a_strided_child_as_dispatch(spacing, want):
+    """The DCM-LDA program's owner plans, as a step builds them
+    (``vmp.owner_plans``), route phi as the dispatch without a plan and
+    first principles do: with the program's bases (doc * K: "runs") and
+    with bases respaced to doc * K / 2, where the rows of neighbouring
+    documents meet ("strided").  A program of the DSL never gives a strided
+    child whose rows meet (its rows are mixed-radix indices), so the zoo x
+    grid matrix cannot reach the "strided" pass and this test does."""
+    prog = texplain.synthesize_model("dcmlda", **dict(GRID)["tiny"]).compile()
+    arrays = tvmp._program_arrays(prog, CPU)
+    spec, = prog.latents
+    f, = spec.children
+    arrays[f.x_name]["base"] = arrays[f.x_name]["base"] // spacing
+    plans = tvmp.owner_plans(prog, arrays, "cuda")
+    tabs = {n: np.broadcast_to(np.float32(0), (d.g, d.k))
+            for n, d in prog.dirichlets.items()}
+    kids = tvmp._latent_children(spec, tabs, arrays)
+    by_plan = tops.routing(tabs[spec.prior_dir], None, kids,
+                           plan=plans[spec.name])
+    dispatch = tops.routing(tabs[spec.prior_dir],
+                            arrays[spec.name]["prior_rows"], kids)
+    assert plans[spec.name].kinds == (want,)
+    assert (by_plan.path, by_plan.passes, by_plan.logits) == \
+        (dispatch.path, dispatch.passes, dispatch.logits) == \
+        _first_principles(spec, arrays) == ("flat", (want,), ())
 
 
 @pytest.mark.parametrize("model_name", ZOO)

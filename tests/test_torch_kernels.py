@@ -380,12 +380,13 @@ def _owner_emulation(case, piece):
         w = r * (c["mask"][:, None] if c["mask"] is not None else 1.0)
         if c["base"] is None and c["stride"] == 1:
             cstats.append(torch.from_numpy(owner(g, w).T.copy()))
-        else:                                  # column owner, token order
+        else:        # a value column's or a (base, value) run's owner
             out = np.zeros(c["table"].shape)
             base = c["base"] if c["base"] is not None else np.zeros_like(rows)
-            for v in range(g.n_keys):
-                for i in g.perm[g.key_start[v]:g.key_start[v + 1]]:
-                    out[base[i] + c["stride"] * np.arange(k), v] += w[i]
+            for s in range(g.n_keys):
+                for i in g.perm[g.key_start[s]:g.key_start[s + 1]]:
+                    out[base[i] + c["stride"] * np.arange(k),
+                        c["values"][i]] += w[i]
             cstats.append(torch.from_numpy(out))
     return (torch.tensor(lse.sum()), torch.from_numpy(pstats), tuple(cstats))
 
@@ -546,11 +547,12 @@ def _stream_emulation(case, piece):
                     g.piece_start[g.key_pieces[key] + 1:
                                   g.key_pieces[key + 1] + 1])]
                 out[:, key] = np.sum(parts, 0)
-            else:                         # the column's tokens in order
+            else:          # the column's, or the run's, tokens in order
                 b = stream(name, g, f"base{i}", c["base"])[ts] \
                     if c["base"] is not None else np.zeros(len(ts), int)
+                v = stream(name, g, f"values{i}", c["values"])[ts]
                 for j in range(len(ts)):
-                    out[b[j] + c["stride"] * np.arange(k), key] += w[j]
+                    out[b[j] + c["stride"] * np.arange(k), v[j]] += w[j]
         cstats.append(torch.from_numpy(out))
     return (torch.tensor(lse), torch.from_numpy(pstats), tuple(cstats)), pairs
 
@@ -568,6 +570,232 @@ def test_stream_emulation_reproduces_zstats(case):
     assert pairs
     for reused, recomputed in pairs:
         np.testing.assert_array_equal(reused, recomputed)
+
+
+# ---------------------------------------------------------------------------
+# strided children: the "runs" pass where rows base + stride * k are one to
+# one over the bases, the per-column "strided" pass elsewhere
+# ---------------------------------------------------------------------------
+
+def _dcm_case(seed=5, docs=60, k=16, vocab=200, masked=False):
+    """numpy inputs of a DCM-LDA layout: theta's row is the document, phi's
+    rows are documents x topics (base = doc * K, stride 1), words from a
+    skewed distribution; documents 0 and 1 run past PIECE tokens and one
+    word fills half of document 0 (a hot run of 200 tokens)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(20, 120, docs)
+    lens[:2] = (400, 300)
+    doc = np.repeat(np.arange(docs), lens).astype(np.int32)
+    words = rng.choice(vocab, len(doc),
+                       p=rng.dirichlet(np.full(vocab, 0.1))).astype(np.int32)
+    words[:400:2] = 7
+    child = {"values": words, "stride": 1, "base": (doc * k).astype(np.int32),
+             "mask": None, "zmap": None,
+             "table": rng.normal(size=(docs * k, vocab)).astype(np.float32)}
+    zm = None
+    if masked:
+        child["mask"] = (rng.random(len(doc)) > 0.25).astype(np.float32)
+        zm = (rng.random(len(doc)) > 0.15).astype(np.float32)
+    return rng.normal(size=(docs, k)).astype(np.float32), doc, [child], zm
+
+
+def _spaced_case(seed=6):
+    """A strided child at stride 3, K = 3, whose bases of each residue mod
+    3 lie 3 strides apart or more: rows one to one, bases not a range."""
+    data = _zcase(seed, *ZSTATS_CASES[5])
+    bases = np.array([0, 9, 18, 27, 1, 10, 20], np.int32)
+    data[2][0]["base"] = bases[np.random.default_rng(seed).integers(
+        0, len(bases), len(data[1]))]
+    data[2][0]["table"] = np.random.default_rng(seed + 1).normal(
+        size=(36, 11)).astype(np.float32)
+    return data
+
+
+RUNS_CASES = {
+    "stride1-base": lambda: _zcase(6, *ZSTATS_CASES[6]),
+    "multi-child": lambda: _zcase(7, *ZSTATS_CASES[7]),
+    "spaced-bases": _spaced_case,
+    "dcm": _dcm_case,
+    "dcm-masked": lambda: _dcm_case(8, masked=True),
+}
+
+
+def _f32_weights(case):
+    """Each token's f32 r (a softmax over the f32 logits, times zmask) and,
+    per child, r times the child's mask: the terms a stats pass adds."""
+    et, rows, children, zm = case
+    k = et.shape[1]
+    x = et[rows].astype(np.float32)
+    for c in children:
+        if _specialized(c):
+            e = c["table"][:, c["values"]].T
+        else:
+            b = c["base"][:, None] if c["base"] is not None else 0
+            e = c["table"][b + c["stride"] * np.arange(k)[None, :],
+                           c["values"][:, None]]
+        x = x + e * (c["mask"][:, None] if c["mask"] is not None
+                     else np.float32(1))
+    ex = np.exp(x - x.max(1, keepdims=True))
+    zmv = zm if zm is not None else np.ones(len(rows), np.float32)
+    r = ex * (zmv / ex.sum(1, dtype=np.float32))[:, None]
+    return [(r * (c["mask"][:, None] if c["mask"] is not None
+                  else np.float32(1))).astype(np.float32) for c in children]
+
+
+def _walk(c, g, w, k, by_run):
+    """A strided child's f32 stats from the terms ``w``, each key of ``g``
+    walked in its order: ``by_run``, each run summed from 0 on its own and
+    its K cells stored once (the runs pass); else each token added into the
+    zeroed table in turn (the per-column pass)."""
+    out = np.zeros(c["table"].shape, np.float32)
+    base = c["base"] if c["base"] is not None else np.zeros(len(w), np.int32)
+    rows = c["stride"] * np.arange(k)
+    for s in range(g.n_keys):
+        toks = g.perm[g.key_start[s]:g.key_start[s + 1]]
+        if by_run:
+            acc = np.zeros(k, np.float32)
+            for i in toks:
+                acc = acc + w[i]
+            out[base[toks[0]] + rows, c["values"][toks[0]]] = acc
+        else:
+            for i in toks:
+                out[base[i] + rows, c["values"][i]] += w[i]
+    return out
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("name", list(RUNS_CASES))
+def test_run_walk_is_bitwise_the_column_walk(name):
+    """Where the plan picks "runs", its runs (tokens of one (base, value),
+    in (base, value) order, each in token order) summed from 0 and stored
+    once give child stats bitwise equal to the per-column walk's token by
+    token adds into a zeroed table: each cell sums the same terms in the
+    same order."""
+    case = RUNS_CASES[name]()
+    et, rows, children, _ = case
+    k = et.shape[1]
+    plan = tfz.build_plan(rows, _torch_children(children), et.shape)
+    strided = [i for i, c in enumerate(children) if not _specialized(c)]
+    assert strided and all(plan.kinds[i] == "runs" for i in strided)
+    for i, w in zip(strided, [_f32_weights(case)[i] for i in strided]):
+        c, g = children[i], plan.children[i]
+        base = c["base"] if c["base"] is not None else np.zeros(len(rows))
+        keys = base.astype(np.int64) * c["table"].shape[1] + c["values"]
+        for s in range(g.n_keys):
+            toks = g.perm[g.key_start[s]:g.key_start[s + 1]]
+            assert len(toks) and (keys[toks] == keys[toks[0]]).all()
+            assert (np.diff(toks) > 0).all()
+        assert (np.diff(keys[g.perm]) >= 0).all()
+        cols = tfz.group_tokens(c["values"], c["table"].shape[1])
+        got = _walk(c, g, w, k, by_run=True)
+        want = _walk(c, cols, w, k, by_run=False)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_run_walk_loses_adds_where_rows_collide():
+    """The rule's reason: at strided-base (stride 3, bases 0..23, K = 3)
+    rows meet across bases, and runs stored on their own overwrite each
+    other's adds."""
+    case = _zcase(4, *ZSTATS_CASES[4])
+    et, rows, children, _ = case
+    c = children[0]
+    g = tfz.group_runs(c["values"], c["base"], c["table"].shape[1])
+    w = _f32_weights(case)[0]
+    cols = tfz.group_tokens(c["values"], c["table"].shape[1])
+    assert not np.array_equal(_walk(c, g, w, 3, by_run=True),
+                              _walk(c, cols, w, 3, by_run=False))
+
+
+def _one_to_one_by_count(base, stride, k):
+    b = np.unique(base) if base is not None else np.zeros(1, np.int64)
+    rows = b.astype(np.int64)[:, None] + stride * np.arange(k)[None, :]
+    return len(np.unique(rows)) == rows.size
+
+
+def test_rows_one_to_one_against_a_count_of_rows():
+    rng = np.random.default_rng(11)
+    seen = set()
+    for _ in range(400):
+        stride, k = int(rng.choice([0, 1, 2, 3, 5, 7])), int(rng.integers(1, 6))
+        base = rng.integers(0, 40, int(rng.integers(1, 6))) * \
+            int(rng.choice([1, k, 2 * k]))
+        want = _one_to_one_by_count(base, stride, k)
+        assert tfz.rows_one_to_one(base, stride, k) == want, (base, stride, k)
+        seen.add(want)
+    assert seen == {True, False}
+    assert tfz.rows_one_to_one(None, 0, 1) and not \
+        tfz.rows_one_to_one(None, 0, 2)
+    assert tfz.rows_one_to_one(np.zeros(0, np.int32), 3, 4)
+
+
+@pytest.mark.parametrize("name,make,kinds", [
+    ("strided-base", lambda: _zcase(4, *ZSTATS_CASES[4]), ("strided",)),
+    ("strided-masked", lambda: _zcase(5, *ZSTATS_CASES[5]), ("strided",)),
+    ("k100-multi", lambda: _zcase(9, 250, 100, 9, [
+        (100, 33, 1, False, False, False), (300, 11, 2, True, True, False)],
+        True), ("pieces", "strided")),
+    ("stride1-base", RUNS_CASES["stride1-base"], ("runs",)),
+    ("multi-child", RUNS_CASES["multi-child"], ("pieces", "runs")),
+    ("spaced-bases", _spaced_case, ("runs",)),
+    ("dcm", _dcm_case, ("runs",)),
+])
+def test_plan_takes_runs_exactly_where_rows_are_one_to_one(name, make, kinds):
+    """The plan's pass is "runs" exactly where (base, k) -> base + stride *
+    k is one to one over the bases the tokens use (counted here row by
+    row), and ``routing`` names it."""
+    et, rows, children, _ = make()
+    k = et.shape[1]
+    tkids = _torch_children(children)
+    plan = tfz.build_plan(rows, tkids, et.shape)
+    assert plan.kinds == kinds
+    for c, kind in zip(children, kinds):
+        if not _specialized(c):
+            assert (kind == "runs") == _one_to_one_by_count(
+                c["base"], c["stride"], k)
+    assert tops.routing(et, rows, tkids).passes == kinds
+    assert plan.to("cpu").kinds == kinds
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_dcmlda_zstats_matches_jax_ref(masked):
+    """A small DCM-LDA program of the port's DSL (K = 16, 60 documents, V =
+    200, two documents over PIECE tokens): its zstats call's index streams
+    with seeded Elog tables give, through the port's ``zstats`` (the plain
+    version here) and through the kernel's passes emulated over the plan
+    (the runs pass for phi), the JAX reference's results within its
+    tolerance; the plan routes phi to "runs"."""
+    from repro_torch.core import models as tmodels
+    from repro_torch.core import vmp as tvmp
+    et, doc, (child,), zm = _dcm_case(12, masked=masked)
+    k, vocab = et.shape[1], child["table"].shape[1]
+    m = tmodels.make("dcmlda", alpha=0.1, beta=0.05, K=k, V=vocab)
+    m["x"].observe(child["values"], segment_ids=doc)
+    prog = m.compile()
+    arrays = tvmp._program_arrays(prog, torch.device("cpu"))
+    spec = prog.latents[0]
+    (f,) = spec.children
+    got = dict(rows=arrays[spec.name]["prior_rows"].numpy(),
+               values=arrays[f.x_name]["values"].numpy(),
+               base=arrays[f.x_name]["base"].numpy())
+    np.testing.assert_array_equal(got["rows"], doc)
+    np.testing.assert_array_equal(got["values"], child["values"])
+    np.testing.assert_array_equal(got["base"], child["base"])
+    assert f.stride == child["stride"]
+    case = (et, got["rows"], [child], zm)
+    want = _run_jax(case, "elog")
+    _assert_zstats_close(_run_torch(case, "elog"), want)
+    emulated, pairs = _stream_emulation(case, piece=tfz.PIECE)
+    _assert_zstats_close(emulated, want)
+    for reused, recomputed in pairs:
+        np.testing.assert_array_equal(reused, recomputed)
+    tabs = {n: np.broadcast_to(np.float32(0), (d.g, d.k))
+            for n, d in prog.dirichlets.items()}
+    route = tops.routing(tabs[spec.prior_dir], got["rows"],
+                         tvmp._latent_children(spec, tabs, arrays))
+    assert route.label == "flat passes=runs"
 
 
 def test_build_plan_rejects_rows_outside_strided_table():

@@ -325,12 +325,14 @@ def _messages(c, k):
 
 
 def _column_walk(c, g, w, k):
-    """A strided child's stats: each value column's tokens in plan order."""
+    """A strided child's stats: each key's tokens (a value column's, or a
+    (base, value) run's) in plan order, into their rows of their value's
+    column."""
     out = np.zeros(c["table"].shape)
     base = c["base"] if c["base"] is not None else np.zeros(len(w), np.int64)
-    for v in range(g.n_keys):
-        for i in g.perm[g.key_start[v]:g.key_start[v + 1]]:
-            out[base[i] + c["stride"] * np.arange(k), v] += w[i]
+    for s in range(g.n_keys):
+        for i in g.perm[g.key_start[s]:g.key_start[s + 1]]:
+            out[base[i] + c["stride"] * np.arange(k), c["values"][i]] += w[i]
     return out
 
 
@@ -420,7 +422,8 @@ def _zmap_owner_emulation(case, piece):
         if c["base"] is None and c["stride"] == 1:
             return _owner(ident, w).T.copy()
         walk = dict(c, base=_stream(plan, name, g, c, "base")
-                    if c["base"] is not None else None)
+                    if c["base"] is not None else None,
+                    values=np.repeat(np.arange(g.n_keys), np.diff(g.key_start)))
         return _column_walk(walk, ident, w, k)
 
     out, zi, fi = [], iter(range(len(zkids))), iter(range(len(flat)))
