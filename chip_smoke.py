@@ -316,9 +316,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-DIGAMMA_OPS = 30                # f32 operations of one digamma (shift-by-8 + series)
 
 # the main path: LDA at the UCI NYTimes bag-of-words widths and the repo's
 # LDA priors (examples/lda_topics.py), depth cut from 300,000 documents
@@ -427,7 +424,6 @@ ZMAP_ALPHA_CASE = (24, 240, 3, 10, [(3, 15, 1, False, True, True)], True, 40)
 LM_ARCH, LM_SEQ, LM_BATCH, LM_STEPS = "olmo-1b", 2048, 4, 4
 LM_BH = LM_BATCH * 16           # batch x heads: the flash kernel's batch dim
 DEV = "cuda"                    # the LM phases' device
-BF16_PEAK = 989e12              # H100 SXM dense bf16 tensor-core rate
 # the reference's flash kernel tolerance (tests/test_kernels.py): f32 sums
 # in another order
 FLASH_F32_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -976,7 +972,8 @@ def phase_main(args, report, corpus, m, prog):
     tv = aligned_tv(phi / phi.sum(-1, keepdims=True), corpus["true_phi"])
     log(f"[main] aligned_tv(phi, planted) = {tv:.4f} after {steps} steps")
     explain_check("main", m, routes, EXPECTED_ROUTE["main"])
-    report.update(routes=routes, elbo_trace=trace, launches=counts, aligned_tv=tv,
+    report.update(routes=routes, infer_launches=after_infer,
+                  elbo_trace=trace, launches=counts, aligned_tv=tv,
                   infer_s=infer_s, stats_sums=sums, n_tokens=n, digest=digest)
     return counts
 
@@ -1040,19 +1037,14 @@ def phase_repeat_and_time(args, report, m, prog, counts):
     t_z = time_ms(lambda: fz.zstats(e_theta, rows, (child,), plan=plan),
                   reps=10)
     t_zp = time_ms(lambda: ref.zstats(e_theta, rows, (child,)), reps=3)
-    z_bytes = n * 8 + (g * k + k * v) * 4 * 2 + 4
-    z_ops = 8 * n * k
     t_de = time_ms(lambda: de.dirichlet_expectation(phi, transpose=True), reps=20)
     t_de_dev = device_ms(lambda: de.dirichlet_expectation(phi, transpose=True))
     t_dep = time_ms(lambda: de_plain(phi, transpose=True).contiguous(), reps=5)
-    d_bytes = k * v * 8
-    d_ops = DIGAMMA_OPS * k * v
     t_de_theta = time_ms(lambda: de.dirichlet_expectation(theta), reps=20)
     t_s = time_ms(lambda: zs.zstep(logits), reps=5)
     t_sp = time_ms(lambda: ref.zstep(logits), reps=3)
     t_softmax = time_ms(lambda: torch.softmax(logits, dim=-1), reps=5)
-    s_bytes = n * k * 8 + n * 4
-    s_ops = 5 * n * k
+    s_bound = work_bound("zstep", logits)
     del logits
     # VMP step: host clock around steps that end in a synchronize
     t_step, step, st = time_steps(prog, state)
@@ -1063,14 +1055,14 @@ def phase_repeat_and_time(args, report, m, prog, counts):
     for name, route, src, rep, ms, pms, (bms, by), err in [
         ("zstats", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
          "src/repro/kernels/fused_zstats.py:685", t_z, t_zp,
-         bound(z_bytes, z_ops), zs_err),
+         work_bound("zstats", e_theta, rows, (child,)), zs_err),
         ("dirichlet_expectation", "triton",
          "src/repro_torch/kernels/dirichlet_expectation.py",
          "src/repro/kernels/dirichlet_expectation.py:52", t_de, t_dep,
-         bound(d_bytes, d_ops), de_err),
+         work_bound("dirichlet_expectation", phi), de_err),
         ("zstep", "triton", "src/repro_torch/kernels/vmp_zstep.py",
-         "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp,
-         bound(s_bytes, s_ops), zstep_err),
+         "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp, s_bound,
+         zstep_err),
     ]:
         kernels.append(kernel_entry("lda", name, route, src, rep, counts[name],
                                     err, ms, pms, bms, by))
@@ -1084,7 +1076,8 @@ def phase_repeat_and_time(args, report, m, prog, counts):
     log(f"  dirichlet_expectation on phi as (V, K): device time {t_de_dev:.4f} "
         f"ms a call (CUDA graph of 20 calls)")
     log(f"  dirichlet_expectation at theta's (D, K) = ({g}, {k}): "
-        f"{t_de_theta:.4f} ms, bound {g * k * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        f"{t_de_theta:.4f} ms, bound "
+        f"{work_bound('dirichlet_expectation', theta)[0]:.4f} ms")
     de_split = {"phi": de_passes("phi", phi), "theta": de_passes(
         "theta", theta, transpose=False)}
     log(f"  torch.softmax beside zstep (not used by the port): "
@@ -1135,22 +1128,16 @@ def de_passes(label, alpha, transpose=True):
     return out
 
 
-def bound(nbytes, nops, peak=None):
-    """(least ms on the card, "bytes" or "operations"): the larger of the
-    bytes over the memory rate and the operations over their peak rate (f32
-    outside the tensor cores unless ``peak`` is given)."""
-    peak = peak or F32_OPS_PER_S
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def real_tokens(args):
-    """The tokens of the first child of a ``zstats`` call on ``args``
-    (table_prior, prior_rows, children, zmask) that count."""
-    from repro_torch.analysis.explain import counted
-    c = args[2][0]
-    keep = counted(c, args[3])
-    return len(c.values) if keep is None else int((keep > 0).sum())
+def work_bound(name, *args):
+    """(least ms on the card, "bytes" or "operations") of one call of kernel
+    ``name`` on ``args``: its work (``kernels/work.py``) over the card's
+    peaks (``launch/roofline.py:bound``), flash's products at the bf16
+    tensor-core rate, the other kernels' operations at f32's."""
+    from repro_torch.kernels import work
+    from repro_torch.launch.roofline import PEAK_FLOPS, bound
+    ops, nbytes = getattr(work, name)(*args)
+    return bound(nbytes, ops, PEAK_FLOPS if name == "flash_attention"
+                 else None)
 
 
 def kernel_entry(path, name, route, src, replaces, launches, err, ms, plain_ms,
@@ -1375,6 +1362,8 @@ def phase_segment_times(label, m, report, counts):
     from repro_torch.kernels import fused_zmap as fzm
     from repro_torch.kernels import ref
     from repro_torch.kernels import vmp_zstep as zs
+    from repro_torch.kernels import work
+    from repro_torch.launch.roofline import HBM_BW
     prog, state = m.compile(), m._state
     spec = prog.latents[0]
     n_inst, n_tok, k = spec.n, len(spec.children[0].values), spec.k
@@ -1426,12 +1415,9 @@ def phase_segment_times(label, m, report, counts):
     t_dep = time_ms(lambda: de_plain(phi, transpose=True).contiguous(), reps=5)
     t_s = time_ms(lambda: zs.zstep(logits), reps=5)
     t_sp = time_ms(lambda: ref.zstep(logits), reps=3)
+    s_bound = work_bound("zstep", logits)
     del logits
-    g = prior.shape[0]
-    v = children[0].elog.shape[1]
-    tables = (g * k + k * v) * 4
-    z_bytes = n_tok * 8 + n_inst * 4 + tables * 2 + 4
-    z_ops = 8 * n_inst * k + 4 * n_tok * k
+    z_bytes = work.zstats_zmap(prior, rows, children)[1]
     # logits and r (f32), and the f64 partials of the instances of several
     # pieces (phase 1 writes a one-piece instance's row itself), each
     # written and read once; the K-rows phases 1 and 2b gather, one each a
@@ -1440,25 +1426,21 @@ def phase_segment_times(label, m, report, counts):
                   for j in range(len(plan.by_latent)))
     inter = 2 * (2 * n_inst * k * 4 + n_parts * k * 8)
     gathered = 2 * n_tok * k * 4
-    l_bytes = n_tok * 8 + k * v * 4 + n_inst * k * 4
-    l_ops = 2 * n_tok * k
-    d_bytes, d_ops = phi.numel() * 8, DIGAMMA_OPS * phi.numel()
-    s_bytes, s_ops = n_inst * k * 8 + n_inst * 4, 5 * n_inst * k
     entries = []
     for name, route, src, rep, ms, pms, (bms, by), e in [
         ("zstats_zmap", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
          "src/repro/kernels/fused_zmap.py:236", t_z, t_zp,
-         bound(z_bytes, z_ops), err),
+         work_bound("zstats_zmap", prior, rows, children), err),
         ("zmap_logits", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
          "src/repro/kernels/fused_zmap.py:165", t_l, t_lp,
-         bound(l_bytes, l_ops), lerr),
+         work_bound("zmap_logits", children, n_inst, k), lerr),
         ("dirichlet_expectation", "triton",
          "src/repro_torch/kernels/dirichlet_expectation.py",
          "src/repro/kernels/dirichlet_expectation.py:52", t_de, t_dep,
-         bound(d_bytes, d_ops), de_err),
+         work_bound("dirichlet_expectation", phi), de_err),
         ("zstep", "triton", "src/repro_torch/kernels/vmp_zstep.py",
-         "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp,
-         bound(s_bytes, s_ops), zstep_err),
+         "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp, s_bound,
+         zstep_err),
     ]:
         entries.append(kernel_entry(label, name, route, src, rep,
                                     counts[name], e, ms, pms, bms, by))
@@ -1470,10 +1452,10 @@ def phase_segment_times(label, m, report, counts):
         f"{t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
     log(f"  zstats_zmap with its intermediates (f32 logits and r, "
         f"{n_parts} f64 partial rows of the logits, each written and read "
-        f"once): {(z_bytes + inter) / HBM_BYTES_PER_S * 1e3:.4f} ms of "
+        f"once): {(z_bytes + inter) / HBM_BW * 1e3:.4f} ms of "
         f"traffic; the K-rows that phases 1 and 2b gather (2 N K 4 bytes, "
         f"{gathered / 1e9:.2f} GB): "
-        f"{gathered / HBM_BYTES_PER_S * 1e3:.4f} ms at the memory rate")
+        f"{gathered / HBM_BW * 1e3:.4f} ms at the memory rate")
     de_split = de_passes(f"{label} {child_dir}", phi)
     t_step, step, st = time_steps(prog, state)
     log(f"  {label} VMP step: {t_step:.2f} ms, {n_tok / t_step * 1e3:.4e} "
@@ -1740,7 +1722,6 @@ def flat_kernel_entries(label, args, plan, theta, counts, rows, extra=()):
     (``(name, route, source, replaces, ms, plain_ms, (bound_ms, by),
     err)``): the kernels-line entries of path ``label`` with its launch
     ``counts``."""
-    from repro_torch.analysis.explain import zstats_bytes
     from repro_torch.kernels import dirichlet_expectation as de
     from repro_torch.kernels import fused_zstats as fz
     from repro_torch.kernels import ops, ref
@@ -1756,18 +1737,15 @@ def flat_kernel_entries(label, args, plan, theta, counts, rows, extra=()):
     t_de = time_ms(lambda: de.dirichlet_expectation(theta), reps=20)
     t_de_dev = device_ms(lambda: de.dirichlet_expectation(theta))
     t_dep = time_ms(lambda: de_plain(theta).contiguous(), reps=5)
-    # the bytes of zstats_bytes; the work of the real tokens
-    z_bytes, z_ops = zstats_bytes(*args), 8 * real_tokens(args) * theta.shape[1]
-    d_bytes, d_ops = theta.numel() * 8, DIGAMMA_OPS * theta.numel()
     entries = []
     for name, route, src, rep, ms, pms, (bms, by), e in [
         ("zstats", "cuda", "src/repro_torch/kernels/csrc/zstats.cu",
          "src/repro/kernels/fused_zstats.py:685", t_z, t_zp,
-         bound(z_bytes, z_ops), zerr),
+         work_bound("zstats", *args), zerr),
         ("dirichlet_expectation", "triton",
          "src/repro_torch/kernels/dirichlet_expectation.py",
          "src/repro/kernels/dirichlet_expectation.py:52", t_de, t_dep,
-         bound(d_bytes, d_ops), de_err),
+         work_bound("dirichlet_expectation", theta), de_err),
         *extra,
     ]:
         entries.append(kernel_entry(label, name, route, src, rep,
@@ -2197,7 +2175,6 @@ def phase_segment_svi(label, m, report, bitwise_vmp):
     padded batch's inputs, whose padding tokens map to instance 0 and whose
     padding instances hold no tokens.  Returns the path's kernels entry and
     the fit's final state."""
-    from repro_torch.analysis.explain import zstats_bytes
     from repro_torch.core import vmp
     from repro_torch.core.svi import SVI
     from repro_torch.kernels import fused_zmap as fzm
@@ -2240,9 +2217,7 @@ def phase_segment_svi(label, m, report, bitwise_vmp):
                    dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"]))
     t_z = time_ms(lambda: fzm.zstats_zmap(*args, plan=plan), reps=20)
     t_zp = time_ms(lambda: ref.zstats(*args), reps=3)
-    # the bytes of zstats_bytes; the work of the batch's real instances and
-    # tokens
-    bms, by = bound(zstats_bytes(*args), 8 * n_real * k + 4 * n_tok * k)
+    bms, by = work_bound("zstats_zmap", *args)
     entry = kernel_entry(name, "zstats_zmap", "cuda",
                          "src/repro_torch/kernels/csrc/zstats.cu",
                          "src/repro/kernels/fused_zmap.py:236",
@@ -2359,10 +2334,9 @@ def flat_recorded(label, calls, counts, rows):
                         dict(rtol=1e-5, atol=1e-5)))
     t_s = time_ms(lambda: zs.zstep(logits), reps=20)
     t_sp = time_ms(lambda: ref.zstep(logits), reps=5)
-    s_bytes = logits.numel() * 8 + logits.shape[0] * 4
     zstep = ("zstep", "triton", "src/repro_torch/kernels/vmp_zstep.py",
              "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp,
-             bound(s_bytes, 5 * logits.numel()), s_err)
+             work_bound("zstep", logits), s_err)
     return flat_kernel_entries(label, args, plan, theta, counts, rows,
                                extra=(zstep,))
 
@@ -2868,7 +2842,6 @@ def phase_slda_query(report, m, state, payloads):
     the warm score (a cached plan would feed B's kernels A's tokens);
     ``zstats_zmap`` and ``zmap_logits`` against their plain versions at the
     inputs that B's warm score handed them."""
-    from repro_torch.analysis.explain import gathered_bytes, zstats_bytes
     from repro_torch.core.engine import InferenceResult
     from repro_torch.kernels import fused_zmap as fzm
     from repro_torch.kernels import ops, ref
@@ -2913,7 +2886,6 @@ def phase_slda_query(report, m, state, payloads):
     args, plan = replayed(label, calls)
     (zkids, n_z, k), lkw, _ = [v for (n, _), v in calls.items()
                                if n == "zmap_logits"][0]
-    zmask = args[3]
     err = compare_zstats(f"{label} request", fzm.zstats_zmap(
         *args, plan=plan), ref.zstats(*args), name="zstats_zmap")
     lerr = compare("zmap_logits", f"{label} request",
@@ -2925,17 +2897,11 @@ def phase_slda_query(report, m, state, payloads):
     t_l = time_ms(lambda: fzm.zmap_logits(zkids, n_z, k, **lkw), reps=20)
     t_lp = time_ms(lambda: ref.zmap_logits(zkids, n_z, k), reps=3)
     del calls
-    n_real = int(zmask.sum()) if zmask is not None else n_z
-    n_tok = real_tokens(args)
-    # zstats_bytes; zmap_logits reads its children's streams and gathered
-    # cells and writes the (instances, K) logits
-    z_ops = 8 * n_real * k + 4 * n_tok * k
-    l_bytes = gathered_bytes(zkids, k) + n_z * k * 4
-    l_ops = 2 * n_tok * k
     entries = []
     for name, t, tp, (bms, by), e in [
-        ("zstats_zmap", t_z, t_zp, bound(zstats_bytes(*args), z_ops), err),
-        ("zmap_logits", t_l, t_lp, bound(l_bytes, l_ops), lerr),
+        ("zstats_zmap", t_z, t_zp, work_bound("zstats_zmap", *args), err),
+        ("zmap_logits", t_l, t_lp, work_bound("zmap_logits", zkids, n_z, k),
+         lerr),
     ]:
         rep = ("src/repro/kernels/fused_zmap.py:236" if name == "zstats_zmap"
                else "src/repro/kernels/fused_zmap.py:165")
@@ -3530,13 +3496,11 @@ def flash_inputs(bh, sq, sk, dh, dtype, seed):
         np.float32)).to(DEV, dtype) for n in (sq, sk, sk))
 
 
-def flash_ops(bh, sq, sk, dh, causal):
-    """Flops of Q k^T and P v over the (query, key) pairs the mask keeps."""
-    if causal:
-        pairs = sum(min(i + 1, sk) for i in range(sq))
-    else:
-        pairs = sq * sk
-    return 4 * bh * dh * pairs
+def flash_bound(q, k, v):
+    """(causal flash attention's FLOPs at q, k, v, its ``work_bound``)."""
+    from repro_torch.kernels import work
+    return (work.flash_attention(q, k, v, True)[0],
+            work_bound("flash_attention", q, k, v, True))
 
 
 def phase_flash(report):
@@ -3615,9 +3579,7 @@ def phase_flash(report):
     q4, k4, v4 = (t.view(LM_BATCH, bh // LM_BATCH, s, dh) for t in (q, k, v))
     t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), reps=20)
-    nbytes = 4 * bh * s * dh * 2
-    flops = flash_ops(bh, s, s, dh, True)
-    bms, by = bound(nbytes, flops, BF16_PEAK)
+    flops, (bms, by) = flash_bound(q, k, v)
     for name, t in (("wgmma", t_k), ("mma", t_m), ("SDPA", t_l)):
         log(f"  {name:<6} {t:9.4f} ms  {flops / t / 1e9:8.1f} TFLOP/s  "
             f"{bms / t:.3f} of the bound")
@@ -3662,8 +3624,7 @@ def flash_dh256_times(worst):
             turns[r].append(time_ms(runs[r], reps=20))
         t = {r: sum(x) / 2 for r, x in turns.items()}
         t_p = time_ms(lambda: ref.flash_attention(q, k, v), reps=3)
-        flops = flash_ops(bh, s, s, 256, True)
-        bms, by = bound(4 * bh * s * 256 * 2, flops, BF16_PEAK)
+        flops, (bms, by) = flash_bound(q, k, v)
         log(f"[times] flash_attention at ({bh}, {s}, 256) bf16, causal; "
             f"two launches of each route bitwise; the routes in turns")
         for r in runs:
@@ -3720,6 +3681,7 @@ def phase_lm_train(report, flash):
     from repro_torch.data import TokenStream
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.launch.steps import batch_to, build_train_step
     from repro_torch.launch.train import train
     from repro_torch.models import make_model
@@ -3796,10 +3758,11 @@ def phase_lm_train(report, flash):
     summ = tel.summary()
     step_s = summ["mean_s"]
     tokens = LM_BATCH * LM_SEQ
-    attn_flops = 3 * cfg.n_layers * flash_ops(LM_BH, LM_SEQ, LM_SEQ,
-                                              cfg.head_dim_, True)
+    attn_flops = 3 * cfg.n_layers * flash_bound(*[torch.empty(
+        (LM_BH, LM_SEQ, cfg.head_dim_), dtype=torch.bfloat16,
+        device="meta")] * 3)[0]
     model_flops = 6 * n_params * tokens + attn_flops
-    mfu = model_flops / step_s / BF16_PEAK
+    mfu = model_flops / step_s / PEAK_FLOPS
     log(f"[lm_train] step {step_s * 1e3:.2f} ms (mean of steps 1-"
         f"{LM_STEPS - 1}), {tokens / step_s:.4e} tokens/s; 6*N*tokens + "
         f"attention = {model_flops:.4e} flops, {mfu:.4f} of the bf16 peak; "
@@ -4117,8 +4080,7 @@ def gemma_train_step(report):
     q4, k4, v4 = (t.view(1, bh, s, dh) for t in (q, k, v))
     t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), reps=20)
-    flops = flash_ops(bh, s, s, dh, True)
-    bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
+    flops, (bms, by) = flash_bound(q, k, v)
     log(f"[times] flash_attention on gemma3-4b's global layer ({bh}, {s}, "
         f"{dh}) bf16 causal, wgmma route: {t_k:.4f} ms ({flops / t_k / 1e9:.1f} "
         f"TFLOP/s, {bms / t_k:.3f} of the bound), mma {t_m:.4f}, plain "
@@ -4317,7 +4279,7 @@ def phase_dcmlda(report):
     t_phi_dev = device_ms(lambda: de.dirichlet_expectation(phi, **kw))
     t_phi_plain = time_ms(lambda: de_plain(phi, kw.get("transpose", False))
                           .contiguous(), reps=5)
-    phi_bound = bound(phi.numel() * 8, DIGAMMA_OPS * phi.numel())
+    phi_bound = work_bound("dirichlet_expectation", phi)
     log(f"  dirichlet_expectation on phi {tuple(phi.shape)} {kw}: "
         f"{t_phi:.4f} ms, device {t_phi_dev:.4f} ms, plain {t_phi_plain:.4f} "
         f"ms, bound {phi_bound[0]:.4f} ms ({phi_bound[1]})")
@@ -4624,8 +4586,7 @@ def moe_train(report):
     q4, k4, v4 = (t.view(MOE_BATCH, bh // MOE_BATCH, s, dh) for t in (q, k, v))
     t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), reps=20)
-    flops = flash_ops(bh, s, s, dh, True)
-    bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
+    flops, (bms, by) = flash_bound(q, k, v)
     log(f"[times] flash_attention on qwen3-moe's layers ({bh}, {s}, {dh}) "
         f"bf16 causal: wgmma {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s, "
         f"{bms / t_k:.3f} of the bound), mma {t_m:.4f}, plain {t_p:.4f}, SDPA "
@@ -5359,8 +5320,7 @@ def encoder_train(report, name, batch, text):
     q4, k4, v4 = (t.view(batch, bh // batch, s, dh) for t in (q, k, v))
     t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), reps=20)
-    flops = flash_ops(bh, s, s, dh, True)
-    bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
+    flops, (bms, by) = flash_bound(q, k, v)
     out = dict(batch=batch, text=text, losses=losses, grad_norms=gnorms,
                chance_level=chance, ln_v=ln_v, step_times_s=times,
                step_median_ms=med, step_mean_ms=float(np.mean(steady)),
@@ -5562,8 +5522,7 @@ def shard_olmo(report, one):
     q4, k4, v4 = (t.view(b_row, bh // b_row, s, dh) for t in (q, k, v))
     t_l = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True), reps=20)
-    flops = flash_ops(bh, s, s, dh, True)
-    bms, by = bound(4 * bh * s * dh * 2, flops, BF16_PEAK)
+    flops, (bms, by) = flash_bound(q, k, v)
     log(f"[times] flash_attention at the shard's shape ({bh}, {s}, {dh}) bf16 "
         f"causal: wgmma {t_k:.4f} ms ({flops / t_k / 1e9:.1f} TFLOP/s, "
         f"{bms / t_k:.3f} of the bound), mma {t_m:.4f}, plain {t_p:.4f}, SDPA "
@@ -5817,6 +5776,142 @@ def phase_lm_shard(report):
     return [entry]
 
 
+# ---------------------------------------------------------------------------
+# the dry run: steps counted on meta tensors, held to the readings above
+# ---------------------------------------------------------------------------
+
+# the counted peak against max_memory_allocated: both readings so far were
+# within 0.6% (PERF.md), so a storage the count stops seeing fails here
+PEAK_TOL = 0.02
+
+
+def costs_line(label, costs, measured_ms, dev_line):
+    """Log a counted step beside its measured ms; returns its numbers."""
+    from repro_torch.launch import roofline as RL
+    d = costs.as_dict()
+    roof = RL.roofline({"flops": d["flops"], "bytes accessed":
+                        d["traffic_bytes"]},
+                       {"total_bytes": d["collective_bytes"]}, 1)
+    roof_ms = max(roof[k] for k in ("compute_s", "memory_s",
+                                    "collective_s")) * 1e3
+    log(f"[costs] {label}: counted {d['flops']:.4e} FLOPs, "
+        f"{d['traffic_bytes']:.4e} bytes, collective {d['collective_bytes']:.4e}"
+        f" bytes; roofline {roof_ms:.4f} ms ({roof['bottleneck']}); measured "
+        f"{measured_ms:.4f} ms, {measured_ms / roof_ms:.2f}x the roofline; "
+        f"peak {d['peak_bytes'] / 1e9:.3f} GB; traced in {costs.seconds:.2f} "
+        f"s; {dev_line}")
+    return dict(d, roofline_ms=roof_ms, measured_ms=measured_ms,
+                ratio=measured_ms / roof_ms, bottleneck=roof["bottleneck"],
+                trace_s=costs.seconds)
+
+
+def phase_costs(report, prog, steps):
+    """The dry run (``launch.step_cost.count``: each step traced once on
+    ``meta`` tensors, nothing launched on the card) of steps earlier phases
+    measured, held to their readings: the main path's VMP step (its
+    launches by kernel and route times ``steps`` equal to the launches of
+    ``phase_main``'s ``infer``), ``lda_dist``'s 2-shard step (the payload
+    by key equal to one measured step's), ``lm_train``'s olmo-1b step (flash
+    launches times LM_STEPS equal to its launches, all ``wgmma``; peak
+    bytes within PEAK_TOL of its ``max_memory_allocated``) and
+    ``lm_shard``'s (2, 2) FSDP step with every shard in one process, as
+    measured (payload by key equal to a measured step's, flash launches,
+    peak within PEAK_TOL); each with its counted FLOPs and bytes, the
+    roofline's ms, the measured ms and their ratio.  The dry run's fit
+    limit, ``launch.roofline.HBM_BYTES``, must not exceed the memory the
+    allocator sees on this card."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.core import runtime, vmp
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dryrun import train_costs, vmp_step
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.step_cost import count
+    dev_line = device_line()
+    out = report["costs"] = {}
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.total",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"[costs] device memory: total_memory {total} bytes, nvidia-smi "
+        f"memory.total {smi}; the dry run's fit limit HBM_BYTES "
+        f"{RL.HBM_BYTES}; {dev_line}")
+    check(RL.HBM_BYTES <= total,
+          f"costs: HBM_BYTES {RL.HBM_BYTES} is more than the card's "
+          f"{total} bytes")
+    out["memory"] = dict(total_memory=total, smi_total=smi,
+                         hbm_bytes=RL.HBM_BYTES)
+
+    def launches(costs, times):
+        return {k: v["count"] * times for k, v in costs.launches.items()}
+
+    def routes(costs, name, times):
+        row = costs.launches.get(name, {"routes": {}})["routes"]
+        return {k: v * times for k, v in row.items()}
+
+    state = vmp.init_state(prog, SEED, device="meta")
+    main = count(runtime.make_step(prog, device="meta"), state)
+    got, want = launches(main, steps), report["infer_launches"]
+    check(got == {k: v for k, v in want.items() if v} and
+          routes(main, "zstats", steps) ==
+          {k: v for k, v in report["routes"]["zstats"].items() if v},
+          f"costs: the main path's counted launches {got}, "
+          f"{main.launches} a step, are not infer's {want}, "
+          f"{report['routes']}")
+    out["main"] = costs_line("main VMP step", main, report["step_ms"],
+                             dev_line)
+
+    step, st = vmp_step(prog, DIST_SHARDS)
+    dist = count(step, st, group=step.plan.group)
+    moved = report["lda_dist"]["vmp"]["payload_per_step"][0]
+    check(step.plan.group.payload == moved,
+          f"costs: lda_dist's counted payload {step.plan.group.payload} is "
+          f"not the measured {moved}")
+    out["lda_dist"] = costs_line(
+        f"lda_dist VMP step ({DIST_SHARDS} shards; payload {moved} bytes, "
+        f"as measured)", dist, report["lda_dist"]["vmp"]["step_ms"][0],
+        dev_line)
+    del step, st, dist, main, state
+
+    cfg = get_arch(LM_ARCH)
+    run = RunConfig(seq_len=LM_SEQ, global_batch=LM_BATCH, flash_kernel=True)
+    seen = report["lm_train"]
+    out["lm_train"] = lm_costs("lm_train", train_costs(cfg, run), seen,
+                               seen["launches"]["flash_attention"],
+                               LM_STEPS, dev_line)
+    seen = report["lm_shard"]["olmo"]
+    mesh = Mesh(SHARD_MESH, ("data", "model"))     # every shard here, as run
+    costs = train_costs(cfg, dataclasses.replace(run, fsdp=True), mesh)
+    pay = {k: round(v) for k, v in seen["payload"].items()}
+    check(mesh.group.payload == pay,
+          f"costs: lm_shard's counted payload {mesh.group.payload} is not a "
+          f"measured step's {pay}")
+    out["lm_shard"] = lm_costs("lm_shard", costs, seen, seen["launches"],
+                               SHARD_STEPS, dev_line)
+
+
+def lm_costs(label, costs, seen, launches, times, dev_line):
+    """An LM step's counted flash launches (times ``times`` steps) against
+    the ``launches`` its phase measured, all on ``wgmma``, and its counted
+    peak against the phase's ``max_memory_allocated``; its costs line."""
+    flash = costs.launches["flash_attention"]
+    check(flash["count"] * times == launches and
+          flash["routes"] == {"wgmma": flash["count"]},
+          f"costs: {label}'s counted flash launches {flash} times {times} "
+          f"are not the {launches} measured")
+    peak, measured = costs.peak_bytes / 1e9, seen["peak_memory_gb"]
+    log(f"[costs] {label}: counted peak {peak:.3f} GB against "
+        f"max_memory_allocated {measured:.3f} GB ({peak / measured - 1:+.2%},"
+        f" tol {PEAK_TOL:.0%}); flash {flash['count']} launches a step, "
+        f"{flash['routes']}")
+    check(abs(peak / measured - 1) <= PEAK_TOL,
+          f"costs: {label}'s counted peak {peak:.3f} GB is not within "
+          f"{PEAK_TOL:.0%} of the measured {measured:.3f} GB")
+    return dict(costs_line(f"{label} step", costs, seen["step_ms"],
+                           dev_line), peak_memory_gb=measured)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--docs", type=int, default=30000,
@@ -5865,7 +5960,9 @@ def main(argv=None) -> int:
     kernels += timed("gibbs", phase_gibbs, report, m, prog, corpus,
                      svi_state, svi_held, len(svi_holdout))
     kernels += timed("lda_dist", phase_lda_dist, report, corpus, prog)
-    del m, prog, svi_state
+    del m, svi_state
+    prog.meta.pop("_zstats_plan", None)       # the card's plans; costs
+    # counts the program's step again on meta
     payloads = slda_payloads(corpus)
     slda = make_slda(corpus)
     del corpus
@@ -5890,6 +5987,7 @@ def main(argv=None) -> int:
     kernels += timed("lm_recurrent", phase_lm_recurrent, report)
     kernels += timed("lm_encoder", phase_lm_encoder, report)
     kernels += timed("lm_shard", phase_lm_shard, report)
+    timed("costs", phase_costs, report, prog, args.steps)
     report["seconds"] = time.perf_counter() - t_start
     REPORT.parent.mkdir(parents=True, exist_ok=True)
     REPORT.write_text(json.dumps(report, indent=1, default=float))

@@ -42,11 +42,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 from typing import Optional
 
 import numpy as np
-import torch
+
+from ..kernels.work import counted, gathered_bytes, zstats_bytes
 
 __all__ = ["explain_plan", "Plan", "KernelRoute", "synthesize_model",
            "routes_at", "zstats_bytes", "gathered_bytes", "counted"]
@@ -172,66 +172,6 @@ def _fmt(b: int) -> str:
             return f"{b:.1f}{unit}" if unit != "B" else f"{b}B"
         b /= 1024
     return f"{b}B"                                     # pragma: no cover
-
-
-# ---------------------------------------------------------------------------
-# the bytes a zstats call must move
-# ---------------------------------------------------------------------------
-
-def _t(a):
-    """An index stream or mask as a tensor (numpy arrays are wrapped)."""
-    if a is None or isinstance(a, torch.Tensor):
-        return a
-    return torch.as_tensor(np.asarray(a))
-
-
-def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in map(_t, ts)
-               if t is not None)
-
-
-def counted(child, zmask=None):
-    """The tokens of ``child`` that count: its own mask, else the latent's
-    ``zmask`` (through ``zmap`` for a segment latent), else None (all)."""
-    if child.mask is not None or zmask is None:
-        return _t(child.mask)
-    zmask = _t(zmask)
-    return zmask if child.zmap is None else zmask[_t(child.zmap).long()]
-
-
-def gathered_bytes(children, k: int, zmask=None) -> int:
-    """Each child's index streams read once, and of its table only the
-    cells that its counted tokens gather: one for each of the latent's
-    ``k`` values at each distinct (row base, value) pair.  Tables are read
-    for their shapes only (stand-ins do)."""
-    total = 0
-    for c in children:
-        key = _t(c.values).long()
-        if c.base is not None:
-            key = key + _t(c.base).long() * c.elog.shape[1]
-        keep = counted(c, zmask)
-        if keep is not None:
-            key = key[keep > 0]
-        cells = min(torch.unique(key).numel() * k, math.prod(c.elog.shape))
-        total += _nbytes(c.values, c.zmap, c.base, c.mask) + cells * 4
-    return total
-
-
-def zstats_bytes(table_prior, prior_rows, children, zmask=None) -> int:
-    """The least bytes a ``zstats`` call on these arguments moves: the prior
-    rows and zmask read once, the prior table's gathered rows, each child's
-    streams and gathered cells (:func:`gathered_bytes`), every stats table
-    written once as the dense table the function returns, the lse sum.
-    Streams may be tensors on any device or numpy arrays."""
-    k = table_prior.shape[1]
-    rows = _t(prior_rows).long()
-    used = rows if zmask is None else rows[_t(zmask) > 0]
-    prior_cells = min(torch.unique(used).numel() * k,
-                      math.prod(table_prior.shape))
-    return (_nbytes(prior_rows, zmask) + prior_cells * 4
-            + math.prod(table_prior.shape) * 4
-            + gathered_bytes(children, k, zmask)
-            + sum(math.prod(c.elog.shape) * 4 for c in children) + 4)
 
 
 # ---------------------------------------------------------------------------

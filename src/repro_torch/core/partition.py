@@ -269,7 +269,12 @@ def make_distributed_step(program: VMPProgram, plan: ShardingPlan,
     for the plan.  Each shard's step body runs the fused ``kops.zstats``
     substep on its block; the sum of the global stats in the plan's group
     is the only place shards meet.  ``step_fn.plan_ms`` holds the host ms
-    of each shard's owner plans."""
+    of each shard's owner plans.  Over a group across processes (gloo, or
+    a ``launch.dist.DryGroup``'s rank 0 on ``meta`` tensors) each rank runs
+    its own shards (``group.local_shards``), builds their owner plans only
+    and holds only their rows of the local Dirichlets, in that order; the
+    ranks meet in the group's sums, so every rank's rows are bitwise those
+    of one process running every shard."""
     from .runtime import _resolve_elog_dtype, make_step
     device = resolve_device(device)
     elog_dtype = _resolve_elog_dtype(elog_dtype)
@@ -280,10 +285,7 @@ def make_distributed_step(program: VMPProgram, plan: ShardingPlan,
     if plan.strategy == "replicated":
         return make_step(program, elog_dtype=elog_dtype, device=device), g0
     group = plan.group
-    if group.world_size > 1:
-        raise ValueError(
-            "full-batch VMP under a plan runs every shard in one process; "
-            "the multi-process path is SVI's (hosts=)")
+    local = group.local_shards
     if plan.strategy == "gspmd":
         layout, local_dirs, state0 = None, frozenset(), g0
         shadow, arrays = _flat_blocks(program, plan.n_shards)
@@ -292,9 +294,13 @@ def make_distributed_step(program: VMPProgram, plan: ShardingPlan,
         local_dirs, shadow, arrays = (layout.local_dirs, layout.shadow,
                                       layout.arrays)
         state0 = scatter_state(program, layout, g0)
+        if len(local) < plan.n_shards:
+            state0 = VMPState({n: p[local] if n in local_dirs else p
+                               for n, p in state0.posteriors.items()},
+                              state0.step)
 
     shards, plan_ms = {}, {}
-    for s in group.local_shards:
+    for s in local:
         host = _shard_arrays(arrays, s, "cpu")
         t0 = time.perf_counter()
         plans = owner_plans(shadow, host, device)
@@ -306,15 +312,13 @@ def make_distributed_step(program: VMPProgram, plan: ShardingPlan,
 
     def step(state: VMPState):
         by_shard = {s: (a, VMPState(
-            {n: p[s] if n in local_dirs else p
+            {n: p[i] if n in local_dirs else p
              for n, p in state.posteriors.items()}, state.step), pl)
-            for s, (a, pl) in shards.items()}
+            for i, (s, (a, pl)) in enumerate(shards.items())}
         new, elbo = _sharded_step_body(shadow, by_shard, group, elog_dtype,
                                        local_dirs=local_dirs)
-        posts = {n: (torch.stack([new[s].posteriors[n]
-                                  for s in group.local_shards])
-                     if n in local_dirs else new[group.local_shards[0]]
-                     .posteriors[n])
+        posts = {n: (torch.stack([new[s].posteriors[n] for s in local])
+                     if n in local_dirs else new[local[0]].posteriors[n])
                  for n in program.dirichlets}
         return VMPState(posts, state.step + 1), elbo
 
@@ -368,12 +372,17 @@ def _flat_blocks(program: VMPProgram, m: int):
 
 def gather_posterior(step, program: VMPProgram, state: VMPState, name: str):
     """Reassemble a Dirichlet posterior from a distributed state, as a
-    numpy array."""
+    numpy array.  A local Dirichlet needs every shard's rows: the state of
+    a process that runs every shard."""
     layout: Optional[_Layout] = getattr(step, "layout", None)
     post = state.posteriors[name].detach().cpu().numpy()
     if layout is None or name not in layout.local_dirs:
         return post
     info = layout.dir_row[name]
+    if len(post) != len(info["gather"]):
+        raise ValueError(f"{name}: the state holds {len(post)} of "
+                         f"{len(info['gather'])} shards' rows (this rank's); "
+                         f"reassembling needs them all")
     g = program.dirichlets[name].g
     out = np.zeros((g, post.shape[-1]), post.dtype)
     flat_idx = info["gather"].reshape(-1)

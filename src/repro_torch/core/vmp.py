@@ -156,11 +156,12 @@ def owner_plans(program: VMPProgram, arrays: dict, device,
     ``arrays``' index streams (numpy arrays or tensors), built on the host
     (``kops.host_plan``) and not yet moved to ``device``.  This is the one
     place that decides whether a step gets plans: off CUDA no kernel reads
-    one, and the result is ``{}``.  A plan reads only its tables' shapes: a
-    Dirichlet has ``caps[name]`` rows where ``caps`` names it (a minibatch's
-    local one), else its own ``g``, so each table is a zero-byte stand-in of
-    that shape."""
-    if torch.device(device).type != "cuda":
+    one, and the result is ``{}`` (``meta``, the card's stand-in in a dry
+    run, gets them: its kernels are counted at the plans' routes).  A plan
+    reads only its tables' shapes: a Dirichlet has ``caps[name]`` rows
+    where ``caps`` names it (a minibatch's local one), else its own ``g``,
+    so each table is a zero-byte stand-in of that shape."""
+    if torch.device(device).type not in ("cuda", "meta"):
         return {}
     caps = caps or {}
     tabs = {n: np.broadcast_to(np.float32(0), (caps.get(n, d.g), d.k))
@@ -183,8 +184,11 @@ def program_plans(program: VMPProgram, arrays: dict) -> dict:
     device = arrays[program.latents[0].name]["prior_rows"].device
     cache = program.meta.setdefault("_zstats_plan", {})
     if str(device) not in cache:
+        # meta arrays hold no values: the plan reads the program's own
+        host = _program_arrays(program, "cpu") if device.type == "meta" \
+            else arrays
         cache[str(device)] = {n: p.to(device) for n, p in owner_plans(
-            program, arrays, device).items()}
+            program, host, device).items()}
     return cache[str(device)]
 
 
@@ -257,7 +261,7 @@ def _step_stats(program: VMPProgram, arrays: dict, state: VMPState,
     for spec in program.latents:
         children = _latent_children(spec, tabs, arrays)
         plan = plans.get(spec.name)
-        if plan is None and device.type == "cuda":
+        if plan is None and device.type in ("cuda", "meta"):
             raise ValueError(f"no owner plan for latent {spec.name!r}: pass "
                              f"the step's plans (vmp.owner_plans)")
         lse_sum, pstats, cstats = kops.zstats(

@@ -2,11 +2,20 @@
 
 Dispatch goes by the tensor's device, never by an environment variable, and
 this module is the one place that looks: a CPU tensor runs the plain PyTorch
-version from ``ref.py``, any other tensor goes to the Hopper kernel's
-wrapper (CUDA C++ for ``zstats``, ``zstats_zmap``, ``zmap_logits`` and
-``flash_attention``, Triton for ``dirichlet_expectation`` and ``zstep``).  The wrappers take CUDA
-tensors only and raise on any other device: nothing on the card falls back
-to a plain version.  Each kernel module keeps a plain integer count of its
+version from ``ref.py``, a ``meta`` tensor is counted (below), any other
+tensor goes to the Hopper kernel's wrapper (CUDA C++ for ``zstats``,
+``zstats_zmap``, ``zmap_logits`` and ``flash_attention``, Triton for
+``dirichlet_expectation`` and ``zstep``).  The wrappers take CUDA tensors
+only and raise on any other device: nothing on the card falls back to a
+plain version.
+
+``meta`` tensors stand in for the card's in a dry run
+(``launch.step_cost.count``): there a kernel call returns empty ``meta``
+outputs of the kernel's shapes and dtypes and hands the count its kernel,
+the routes it would launch (those :func:`routing` names) and its work
+(``kernels/work.py``), one launch; ``flash_attention``'s backward still
+recomputes through the plain version, as on the card.  Outside a count a
+``meta`` tensor raises.  Each kernel module keeps a plain integer count of its
 launches (``<module>.launches``; ``fused_zmap.logits_launches`` for
 ``zmap_logits``) and of the routes they took (``route_counts``).
 :func:`routing` says, before anything runs, which route a ``zstats`` call
@@ -15,6 +24,7 @@ takes, from the same functions the wrappers launch by.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import NamedTuple
 
@@ -26,12 +36,33 @@ from . import fused_zmap as _fzm
 from . import fused_zstats as _fz
 from . import ref
 from . import vmp_zstep as _zs
+from . import work as _work
 from .ref import ZChild
 
 
 def _plain(t: torch.Tensor) -> bool:
     """True where the plain version runs: on a CPU tensor."""
     return t.device.type == "cpu"
+
+
+def _dry(t: torch.Tensor) -> bool:
+    """True where a cost count takes the call: on a ``meta`` tensor."""
+    return t.device.type == "meta"
+
+
+def _sink(name: str):
+    """The active cost count, which a kernel call on ``meta`` tensors needs:
+    outside one it raises."""
+    sink = _work.active()
+    if sink is None:
+        raise ValueError(f"{name}: a meta tensor runs no kernel; count the "
+                         f"call inside launch.step_cost.count")
+    return sink
+
+
+def _count(name: str, routes: dict, work: tuple) -> None:
+    """Hand one launch of kernel ``name`` to the active cost count."""
+    _sink(name).kernel(name, routes, *work)
 
 
 def dirichlet_expectation(alpha: torch.Tensor,
@@ -41,6 +72,12 @@ def dirichlet_expectation(alpha: torch.Tensor,
     table (f32 or bf16), as float32 ``(G, K)``, or ``(K, G)`` when
     ``transpose``.  The VMP step's Elog tables, which the token plate, the
     statics and the Dirichlet ELBO terms share."""
+    if _dry(alpha):
+        _count("dirichlet_expectation", {},
+               _work.dirichlet_expectation(alpha))
+        g, k = alpha.shape
+        return alpha.new_empty((k, g) if transpose else (g, k),
+                               dtype=torch.float32)
     if not _plain(alpha):
         return _de.dirichlet_expectation(alpha, transpose)
     out = ref.dirichlet_expectation(alpha.float())
@@ -51,6 +88,10 @@ def zstep(logits: torch.Tensor):
     """Rowwise softmax with its normalizer: ``(r, lse)`` where ``r`` is the
     ``(N, K)`` float32 responsibilities ``softmax(logits, -1)`` and ``lse``
     the ``(N,)`` float32 ``logsumexp(logits, -1)``."""
+    if _dry(logits):
+        _count("zstep", {}, _work.zstep(logits))
+        return (logits.new_empty(logits.shape, dtype=torch.float32),
+                logits.new_empty(logits.shape[:1], dtype=torch.float32))
     return ref.zstep(logits) if _plain(logits) else _zs.zstep(logits)
 
 
@@ -209,6 +250,9 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     if _plain(table_prior):
         return ref.zstats(table_prior, prior_rows, children, zmask,
                           tables=tables)
+    if _dry(table_prior):
+        return _dry_zstats(table_prior, prior_rows, children, zmask, tables,
+                           plan)
     run = _fzm.zstats_zmap if _segmented(children) else _fz.zstats
     return run(table_prior, prior_rows, children, zmask, tables=tables,
                plan=plan)
@@ -224,6 +268,15 @@ def zmap_logits(children: tuple, n_latent: int, k: int, *,
     ``fused_zmap`` kernel."""
     if _plain(children[0].elog):
         return ref.zmap_logits(children, n_latent, k, tables=tables)
+    if _dry(children[0].elog):
+        _sink("zmap_logits")
+        if plan is None:
+            raise ValueError("zmap_logits on meta tensors reads its route "
+                             "from the owner plan: pass plan=")
+        _count("zmap_logits", dict(collections.Counter(
+            _fzm.logits_route(g) for g in plan.by_latent)),
+            _work.zmap_logits(children, n_latent, k))
+        return children[0].elog.new_empty((n_latent, k), dtype=torch.float32)
     return _fzm.zmap_logits(children, n_latent, k, tables=tables, plan=plan)
 
 
@@ -238,7 +291,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backward recomputes through the plain version."""
     if _plain(q):
         return ref.flash_attention(q, k, v, causal=causal)
+    if _dry(q):
+        return _DryFlash.apply(q, k, v, causal)
     return _fa.flash_attention(q, k, v, causal=causal)
+
+
+def _dry_zstats(table_prior, prior_rows, children, zmask, tables, plan):
+    """:func:`zstats` on ``meta`` tensors: the kernel's outputs, empty, and
+    its launch counted at the route of ``plan`` (which a call on meta
+    tensors needs: its streams hold no values to plan from); with
+    ``tables="alpha"`` the wrapper's Elog pass over each table too."""
+    _sink("zstats")
+    if plan is None:
+        raise ValueError("zstats on meta tensors reads its route from the "
+                         "owner plan: pass plan= (vmp.owner_plans builds it "
+                         "on the host)")
+    info = routing(table_prior, prior_rows, children, tables=tables,
+                   plan=plan)
+    if tables == "alpha":
+        for t in (table_prior, *(c.elog for c in children)):
+            _count("dirichlet_expectation", {},
+                   _work.dirichlet_expectation(t))
+    seg = _segmented(children)
+    _count("zstats_zmap" if seg else "zstats",
+           dict(collections.Counter(info.passes + info.logits)),
+           (_work.zstats_zmap if seg else _work.zstats)(
+               table_prior, prior_rows, children, zmask))
+    f32 = dict(dtype=torch.float32)
+    return (table_prior.new_empty((), **f32),
+            table_prior.new_empty(table_prior.shape, **f32),
+            tuple(c.elog.new_empty(c.elog.shape, **f32) for c in children))
+
+
+class _DryFlash(_fa.FlashAttention):
+    """The kernel's Function on ``meta`` tensors: the forward counts one
+    launch at the inputs' route and returns an empty output; the backward
+    is the kernel's, a recompute through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        _count("flash_attention", {_fa.route(q, k, v): 1},
+               _work.flash_attention(q, k, v, causal))
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return torch.empty_like(q)
 
 
 def reset_launch_counts() -> None:

@@ -20,6 +20,11 @@ through pinned host buffers on the way out and copied back to the card on
 the way in.  NCCL needs a card per rank (two ranks on one card are
 refused), so asking for it raises until the port runs on such a machine.
 The LM's mesh (``launch/mesh.py``) meets over the same group.
+
+:class:`DryGroup` is the group as rank 0 of an ``n_shards``-process group
+sees it, with nothing to talk to: a dry run (``launch.step_cost``) runs
+shard 0's step on ``meta`` tensors and counts what its exchanges would
+move.
 """
 
 from __future__ import annotations
@@ -81,7 +86,11 @@ class ShardGroup:
       byte of the all-gather; nothing for virtual shards.
 
     ``calls`` counts the exchanges and ``seconds`` their host time, staging
-    included.
+    included.  ``histogram`` counts them by ``(kind, key, shape)``: how
+    many tensors of that shape were exchanged under that key and their
+    payload bytes, ``kind`` the collective the exchange stands for
+    (``"all-gather"``; ``"all-reduce"`` for :meth:`sum` and the mesh's
+    axis sums, a gather and an ordered sum).
     """
 
     def __init__(self, n_shards: int):
@@ -95,12 +104,18 @@ class ShardGroup:
         if self.world_size > 1 and dist.get_backend() != "gloo":
             raise ValueError(f"the shard group serves the gloo backend only, "
                              f"not {dist.get_backend()!r}")
-        self.shard_rank = np.repeat(np.arange(self.world_size, dtype=np.int32),
-                                    self.n_shards // self.world_size)
+        self._place(np.repeat(np.arange(self.world_size, dtype=np.int32),
+                              self.n_shards // self.world_size))
+
+    def _place(self, shard_rank: np.ndarray) -> None:
+        """Give each shard its rank (``shard_rank``), take this rank's as
+        ``local_shards``, and start every count at zero."""
+        self.shard_rank = shard_rank
         self.local_shards = [int(s) for s in
-                             np.flatnonzero(self.shard_rank == self.rank)]
+                             np.flatnonzero(shard_rank == self.rank)]
         self.payload: dict = {}
         self.wire: dict = {}
+        self.histogram: dict = {}
         self.calls = 0
         self.seconds = 0.0
         self._pinned: dict = {}
@@ -122,14 +137,10 @@ class ShardGroup:
     def wire_bytes(self) -> int:
         return sum(self.wire.values())
 
-    def gather(self, parts: dict, keys: list) -> list:
-        """Every shard's tensors, in shard order: ``parts`` maps each local
-        shard to a list of tensors (the same shapes and types on every
-        shard), ``keys`` names each position for the counts; returns one
-        such list per shard of the group, on the local tensors' device.
-        Virtual shards come back as they are; a remote shard's are its
-        bits, copied."""
-        t0 = time.perf_counter()
+    def _count(self, parts: dict, keys: list, kind: str) -> list:
+        """Check an exchange's ``parts`` and ``keys`` and count it (payload,
+        wire, histogram, calls); returns the first local shard's
+        tensors."""
         local = self.local_shards
         if sorted(parts) != local:
             raise ValueError(f"gather takes this rank's shards {local}, got "
@@ -137,23 +148,41 @@ class ShardGroup:
         first = parts[local[0]]
         if len(keys) != len(first):
             raise ValueError(f"{len(keys)} keys for {len(first)} tensors")
+        hops = 2 * (self.world_size - 1) * len(local)
         for key, t in zip(keys, first):
-            self.payload[key] = (self.payload.get(key, 0) + self.n_shards
-                                 * t.numel() * t.element_size())
+            nb = t.numel() * t.element_size()
+            self.payload[key] = self.payload.get(key, 0) + self.n_shards * nb
+            if hops:
+                self.wire[key] = (self.wire.get(key, 0)
+                                  + hops * (-(-nb // _ALIGN) * _ALIGN))
+            row = self.histogram.setdefault((kind, key, tuple(t.shape)),
+                                            [0, 0])
+            row[0] += 1
+            row[1] += self.n_shards * nb
         self.calls += 1
+        return first
+
+    def gather(self, parts: dict, keys: list, kind: str = "all-gather"
+               ) -> list:
+        """Every shard's tensors, in shard order: ``parts`` maps each local
+        shard to a list of tensors (the same shapes and types on every
+        shard), ``keys`` names each position for the counts, ``kind`` the
+        collective it stands for; returns one such list per shard of the
+        group, on the local tensors' device.  Virtual shards come back as
+        they are; a remote shard's are its bits, copied."""
+        t0 = time.perf_counter()
+        first = self._count(parts, keys, kind)
+        local = self.local_shards
         if self.world_size == 1:
             self.seconds += time.perf_counter() - t0
             return [list(parts[s]) for s in range(self.n_shards)]
         import torch.distributed as dist
         device = first[0].device
         specs, size = [], 0
-        hops = 2 * (self.world_size - 1) * len(local)
-        for key, t in zip(keys, first):
+        for t in first:
             nb = t.numel() * t.element_size()
             specs.append((size, nb, t.dtype, t.shape))
             size += -(-nb // _ALIGN) * _ALIGN
-            self.wire[key] = (self.wire.get(key, 0)
-                              + hops * (-(-nb // _ALIGN) * _ALIGN))
         send = torch.zeros(size * len(local), dtype=torch.uint8, device=device)
         for i, s in enumerate(local):
             for (off, nb, _, _), t in zip(specs, parts[s]):
@@ -179,7 +208,7 @@ class ShardGroup:
         """Position by position, the sum over every shard of ``parts``'
         tensors (:meth:`gather`), taken in shard order: shard 0's, plus
         shard 1's, and so on."""
-        got = self.gather(parts, keys)
+        got = self.gather(parts, keys, "all-reduce")
         out = []
         for i in range(len(got[0])):
             acc = got[0][i]
@@ -187,3 +216,37 @@ class ShardGroup:
                 acc = acc + g[i]
             out.append(acc)
         return out
+
+
+class DryGroup(ShardGroup):
+    """``n_shards`` shards as rank 0 of an ``n_shards``-process group sees
+    them, one shard a rank: only shard 0 is local.  Nothing is sent and
+    ``torch.distributed`` is never called: :meth:`gather` counts payload,
+    wire and histogram exactly as :meth:`ShardGroup.gather` does for rank
+    0, and returns shard 0's own tensors beside ``meta`` stand-ins of
+    their shapes for the other shards, views of one received buffer of
+    every remote shard's bytes, as the gloo path's.  ``models.parallel``
+    and a VMP plan run over it as over a real rank."""
+
+    def __init__(self, n_shards: int):
+        self.n_shards = self.world_size = int(n_shards)
+        if self.n_shards < 1:
+            raise ValueError(f"a group of {n_shards} shards")
+        self.rank = 0
+        self._place(np.arange(self.n_shards, dtype=np.int32))
+
+    def gather(self, parts: dict, keys: list, kind: str = "all-gather"
+               ) -> list:
+        first = self._count(parts, keys, kind)
+        if self.n_shards == 1:
+            return [list(first)]
+        nbytes = [t.numel() * t.element_size() for t in first]
+        packed = [-(-nb // _ALIGN) * _ALIGN for nb in nbytes]
+        # every rank's block lands in one device buffer, as gloo's copies do
+        buf = torch.empty((self.n_shards, sum(packed)), dtype=torch.uint8,
+                          device="meta")
+        got = [list(first)]
+        for row in buf[1:]:
+            got.append([p[:nb].view(t.dtype).view(t.shape) for p, nb, t in
+                        zip(row.split(packed), nbytes, first)])
+        return got

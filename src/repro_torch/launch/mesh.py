@@ -62,12 +62,13 @@ class Mesh:
     def model_index(self, shard: int) -> int:
         return int(shard) % self.n_model
 
-    def _gather(self, xs: list, key: str) -> list:
+    def _gather(self, xs: list, key: str, kind: str = "all-gather") -> list:
         """Every shard's tensors (a list per shard, in shard order) from the
-        local shards' ``xs`` (one list of tensors per local shard)."""
+        local shards' ``xs`` (one list of tensors per local shard);
+        ``kind`` the collective the exchange stands for."""
         local = self.local_shards
         return self.group.gather({s: list(x) for s, x in zip(local, xs)},
-                                 [key] * len(xs[0]))
+                                 [key] * len(xs[0]), kind)
 
     def axis_group(self, shard: int, axes) -> list:
         """The shards that share ``shard``'s index on every axis not in
@@ -93,7 +94,7 @@ class Mesh:
         computed once and shared by its local shards."""
         if all(self.shape[a] == 1 for a in axes):
             return [list(x) for x in xs]
-        got = self._gather(xs, key)
+        got = self._gather(xs, key, "all-reduce")
         done, out = {}, []
         for s in self.local_shards:
             m = tuple(self.axis_group(s, axes))
@@ -138,6 +139,16 @@ def make_host_mesh(shape=None, axes=None, group: ShardGroup | None = None):
         from .dist import process_count
         shape, axes = (process_count(),), ("data",)
     return Mesh(shape, axes, group)
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         group: ShardGroup | None = None) -> Mesh:
+    """The reference's production mesh: 16 data x 16 model shards, or with
+    ``multi_pod`` 2 pods x 16 x 16, the pod folded into data parallelism
+    (:func:`data_axes`)."""
+    if multi_pod:
+        return Mesh((2, 16, 16), ("pod", "data", "model"), group)
+    return Mesh((16, 16), ("data", "model"), group)
 
 
 def data_axes(mesh) -> tuple:

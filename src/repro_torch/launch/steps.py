@@ -28,8 +28,12 @@ from ..optim import adamw_update, clip_by_global_norm, lr_schedule
 def batch_to(batch: dict, device) -> dict:
     """A numpy batch (``TokenStream.batch_at``, with an encoder-decoder's
     ``frames`` or a vision model's ``patches``) as tensors on ``device``:
-    integer entries as int64, floating ones as f32."""
+    integer entries as int64, floating ones as f32.  Entries may already be
+    tensors (a dry run's ``meta`` stand-ins)."""
     def one(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device, torch.float32 if v.is_floating_point()
+                        else torch.int64)
         v = np.asarray(v)
         dt = torch.float32 if np.issubdtype(v.dtype, np.floating) \
             else torch.int64

@@ -127,6 +127,24 @@ class ShardedServer:
                 o[name] = t[sl].contiguous()
         return out
 
+    def place_cache(self, cache: list, cache_len: int) -> MeshCache:
+        """A whole decode cache (``transformer.init_cache``'s list, its
+        global layers of ``cache_len`` positions) as the local shards'
+        slices, placed as :meth:`prefill` places its own."""
+        mesh = self.mesh
+        shards = {t: [] for t in self.local}
+        specs, lengths = [], []
+        for kind, layer in zip(self.cfg.layer_kinds(), cache):
+            b = next(iter(layer.values())).shape[0]
+            spec, n = self._specs(kind, b, cache_len)
+            for t in self.local:
+                shards[t].append({name: layer[name][shard_slices(
+                    sp, layer[name].shape, mesh, t)].contiguous()
+                    for name, sp in spec.items()})
+            specs.append(spec)
+            lengths.append(n)
+        return MeshCache(shards, specs, lengths)
+
     # -- the steps --------------------------------------------------------
     def _logits(self, xs: list, split: bool):
         """The last position's logits (B, V_padded) f32, whole."""

@@ -189,10 +189,14 @@ def init_params(cfg: ArchConfig, run: RunConfig, generator=None,
     """f32 parameters from ``generator`` (seeded with ``run.seed`` on
     ``device``, ``None`` meaning ``"cuda"``, when not given): N(0, 1/fan_in)
     weights (``frontend_proj`` too), ``wo`` at 1/sqrt(h*dh), ``embed``
-    at 0.02, norms at their identity."""
+    at 0.02, norms at their identity.  On ``device="meta"`` (a dry run's
+    shapes, no values) no generator is made: torch has none for ``meta``."""
     from ..core.vmp import resolve_device
     if generator is None:
-        generator = torch.Generator(device=resolve_device(device))
+        device = resolve_device(device)
+        if device.type == "meta":
+            return Decoder(cfg, None, device)
+        generator = torch.Generator(device=device)
         generator.manual_seed(run.seed)
     return Decoder(cfg, generator, generator.device)
 

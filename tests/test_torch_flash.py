@@ -187,10 +187,12 @@ def test_kernel_wrapper_rejects_non_contiguous():
         tfa.flash_attention(q, q.contiguous(), q.contiguous())
 
 
-def test_ops_dispatch_by_device():
+def test_ops_dispatch_by_device(monkeypatch):
     """A CPU tensor takes the plain version, bit for bit and without a
-    launch; any other device goes to the kernel's wrapper, which raises
-    where there is no kernel (no fallback)."""
+    launch; a meta tensor is a dry run's, which raises outside a cost count;
+    any other device goes to the kernel's wrapper, which raises where there
+    is no kernel (no fallback): meta tensors stand in for such a device
+    once the dry run's branch is switched off."""
     q, k, v = map(torch.from_numpy, _qkv(2, 24, 24, 16))
     tops.reset_launch_counts()
     for causal in (True, False):
@@ -198,6 +200,9 @@ def test_ops_dispatch_by_device():
                            tref.flash_attention(q, k, v, causal=causal))
     assert tops.launch_counts()["flash_attention"] == 0
     meta = [t.to("meta") for t in (q, k, v)]
+    with pytest.raises(ValueError, match="meta tensor runs no kernel"):
+        tops.flash_attention(*meta)
+    monkeypatch.setattr(tops, "_dry", lambda t: False)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tops.flash_attention(*meta)
 

@@ -43,7 +43,8 @@ def test_fence_covers_the_port():
             "foldin.py", "server.py", "validate.py", "audit.py",
             "explain.py", "ql.py", "plan.py", "admission.py", "compact.py",
             "gateway.py", "partition.py", "dist.py", "elastic.py",
-            "serve.py"} <= names
+            "serve.py", "work.py", "roofline.py", "step_cost.py",
+            "dryrun.py", "collective_histo.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -72,6 +73,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.analysis.audit, repro_torch.analysis.validate\n"
             "import repro_torch.core.partition, repro_torch.launch.dist\n"
             "import repro_torch.launch.elastic, repro_torch.launch.serve\n"
+            "import repro_torch.kernels.work, repro_torch.launch.roofline\n"
+            "import repro_torch.launch.step_cost, repro_torch.launch.dryrun\n"
+            "import repro_torch.launch.collective_histo\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
             "assert not bad, bad\n"

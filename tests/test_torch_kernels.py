@@ -846,8 +846,10 @@ def test_cpu_tensors_take_plain_versions_without_launches():
 def test_zmap_latent_off_cpu_raises_not_implemented(monkeypatch):
     """Off the CPU a segment latent goes to the ``fused_zmap`` wrapper, which
     refuses a device without a kernel; it never reaches a plain version
-    (meta tensors stand in for CUDA ones here)."""
+    (meta tensors stand in for CUDA ones here, the dry run's branch for
+    meta switched off)."""
     from repro_torch.kernels import fused_zmap as tfzm
+    monkeypatch.setattr(tops, "_dry", lambda t: False)
     calls = []
     orig = tfzm.zstats_zmap
     monkeypatch.setattr(tfzm, "zstats_zmap",
@@ -868,15 +870,24 @@ def test_zmap_latent_off_cpu_raises_not_implemented(monkeypatch):
                    torch.empty(40, dtype=torch.int32, **meta), (child,))
 
 
-def test_wrappers_refuse_devices_without_kernels():
+def test_wrappers_refuse_devices_without_kernels(monkeypatch):
+    """Off the CPU the dispatch reaches the kernels' wrappers, which refuse a
+    device without a kernel (meta tensors stand in for CUDA ones here, the
+    dry run's branch for meta switched off).  With that branch on, a meta
+    tensor outside a cost count raises the dry run's own error instead."""
     meta = dict(device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        tops.zstats(torch.empty(10, 3, **meta),
-                    torch.empty(40, dtype=torch.int32, **meta), ())
-    with pytest.raises(ValueError, match="no kernel"):
-        tops.dirichlet_expectation(torch.empty(4, 3, **meta))
-    with pytest.raises(ValueError, match="no kernel"):
-        tops.zstep(torch.empty(4, 3, **meta))
+    calls = [
+        lambda: tops.zstats(torch.empty(10, 3, **meta),
+                            torch.empty(40, dtype=torch.int32, **meta), ()),
+        lambda: tops.dirichlet_expectation(torch.empty(4, 3, **meta)),
+        lambda: tops.zstep(torch.empty(4, 3, **meta))]
+    for call in calls:
+        with pytest.raises(ValueError, match="count the call"):
+            call()
+    monkeypatch.setattr(tops, "_dry", lambda t: False)
+    for call in calls:
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            call()
 
 
 @pytest.mark.parametrize("bad,error,match", [

@@ -510,3 +510,68 @@ def test_slice_arrays_is_untouched_by_plans(docs):
         per_value = np.bincount(x["values"][~real])
         assert per_row.max() == -(-n_pad // len(free))
         assert per_value.max() == -(-n_pad // prog.dirichlets["phi"].k)
+
+
+# ---------------------------------------------------------------------------
+# full-batch VMP in two processes (gloo) against one
+# ---------------------------------------------------------------------------
+
+_VMP_CHILD = """
+import sys; sys.path.insert(0, {src!r})
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repro_torch.core import models
+from repro_torch.core.partition import ShardingPlan, make_distributed_step
+from repro_torch.launch.dist import init_distributed
+if {world} > 1:
+    init_distributed("127.0.0.1:{port}", {world}, {rank})
+rng = np.random.default_rng(1)
+doc_len = rng.integers(10, 80, size=30)
+m = models.make("lda", alpha=0.1, beta=0.1, K=4, V=40)
+m["x"].observe(rng.integers(0, 40, size=doc_len.sum()).astype(np.int32),
+               segment_ids=np.repeat(np.arange(30), doc_len).astype(np.int32))
+plan = ShardingPlan(4, {strategy!r})
+step, state = make_distributed_step(m.compile(), plan, seed=0, device="cpu")
+elbos = []
+for _ in range(3):
+    state, elbo = step(state)
+    elbos.append(float(elbo))
+np.savez({out!r}, elbo=np.asarray(elbos, np.float64),
+         local=np.asarray(plan.group.local_shards),
+         **{{n: p.numpy() for n, p in state.posteriors.items()}})
+print("DONE", flush=True)
+"""
+
+
+@pytest.mark.parametrize("strategy", ["inferspark", "gspmd"])
+def test_vmp_in_two_processes_is_bitwise_one(strategy, tmp_path):
+    """Two gloo ranks, each running its 2 of the plan's 4 shards and
+    holding only their rows of theta, give the bits of one process running
+    all 4: the shards meet only in the group's ordered sums."""
+    import socket
+    from repro_torch.testing import faults
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    outs = {r: str(tmp_path / f"r{r}.npz") for r in (0, 1)}
+    procs = [faults.spawn_child(_VMP_CHILD.format(
+        src=SRC, world=2, port=port, rank=r, strategy=strategy,
+        out=outs[r])) for r in (0, 1)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, f"gloo child failed:\n{err[-4000:]}"
+    one_out = str(tmp_path / "one.npz")
+    one = faults.run_child(_VMP_CHILD.format(
+        src=SRC, world=1, port=0, rank=0, strategy=strategy, out=one_out),
+        timeout=300)
+    assert one.returncode == 0, one.stderr[-4000:]
+    whole = np.load(one_out)
+    local = strategy == "inferspark"
+    for r in (0, 1):
+        part = np.load(outs[r])
+        np.testing.assert_array_equal(part["local"], [2 * r, 2 * r + 1])
+        np.testing.assert_array_equal(part["elbo"], whole["elbo"])
+        np.testing.assert_array_equal(part["phi"], whole["phi"])
+        want = whole["theta"][2 * r:2 * r + 2] if local else whole["theta"]
+        np.testing.assert_array_equal(part["theta"], want)
