@@ -5407,6 +5407,20 @@ SHARD_MP_MESH, SHARD_MP_LAYERS, SHARD_MP_STEPS = (1, 2), 2, 2
 # (2, 1) (its sequence over data)
 SHARD_SERVE_CASES = ((8, (1, 2)), (1, (2, 1)))
 SHARD_SERVE_PROMPT, SHARD_SERVE_NEW = 512, 32
+# serving whisper-large-v3 and internvl2-1b on a mesh: full width and depth,
+# f32, through build_prefill_step/build_decode_step(mesh=), whisper's
+# ENC_FRAMES frames and ENC_SOT prompt, internvl2's 256 patches and
+# SHARD_MODAL_TEXT tokens, SHARD_MODAL_NEW greedy tokens; (arch, batch,
+# mesh): whisper 4 on (2, 2) (its 20 KV heads over model) and 1 on (2, 1)
+# (the rows cannot split the batch: each runs the whole encoder),
+# internvl2 4 on (1, 4) (its 2 KV heads leave the sequence over model) and
+# on (2, 2) (the heads over model)
+SHARD_MODAL_CASES = ((ENC_WHISPER, 4, (2, 2)), (ENC_WHISPER, 1, (2, 1)),
+                     (ENC_VLM, 4, (1, 4)), (ENC_VLM, 4, (2, 2)))
+SHARD_MODAL_TEXT, SHARD_MODAL_NEW = 512, 16
+# a zeroed-input prefill must move the logits by more than this many times
+# the largest gap between the mesh and one device
+SHARD_MODAL_POWER = 100
 
 SHARD_MP_CHILD = """
 import sys
@@ -5707,7 +5721,8 @@ def shard_serve(report):
     """olmo-1b at full width and depth served in f32 through
     ``serve(mesh=)`` for each of SHARD_SERVE_CASES: the greedy tokens equal
     one device's ``serve`` from the same parameters; the cache's placement,
-    prefill and decode times beside one device's."""
+    prefill and decode times beside one device's.  Then whisper-large-v3
+    and internvl2-1b for each of SHARD_MODAL_CASES (:func:`modal_serve`)."""
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.serve import serve
@@ -5748,7 +5763,118 @@ def shard_serve(report):
         out[f"{b} on {shape}"] = dict(
             spec=spec, tokens_equal=same, stats=st, one_device=one,
             peak_memory_gb=peak_gb)
+    del want, got
+    for name, b, shape in SHARD_MODAL_CASES:
+        out[f"{name} {b} on {shape}"] = modal_serve(name, b, shape)
     report["lm_shard"]["serve"] = out
+
+
+def modal_greedy(cfg, run, params, batch, cache_len, start, mesh=None):
+    """A timed prefill of ``batch`` into a cache of ``cache_len`` positions
+    and SHARD_MODAL_NEW greedy decode steps from position ``start``, on one
+    device or ``mesh`` (``params`` placed there first): the tokens, every
+    step's logits, the ms and, on a mesh, the cache's first layer's specs,
+    the prefill's payload by key and the step functions."""
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models.parallel import ShardedParams
+    pre = build_prefill_step(cfg, run, DEV, mesh=mesh)
+    dec = build_decode_step(cfg, run, DEV, mesh=mesh)
+    if mesh is not None:
+        params = ShardedParams.from_module(pre["server"].layout, params)
+    out = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = pre["fn"](params, batch, cache_len)
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        if mesh is not None:
+            out["prefill_payload"] = dict(mesh.group.payload)
+            out["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["specs"] = cache.specs[0]
+        logits, toks = [lg], []
+        t0 = time.perf_counter()
+        for i in range(SHARD_MODAL_NEW):
+            toks.append(lg.argmax(-1))
+            lg, cache = dec["fn"](params, cache, toks[-1][:, None], start + i)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / SHARD_MODAL_NEW
+        del cache
+    return dict(out, tokens=torch.stack(toks, 1).cpu().numpy(),
+                logits=logits, params=params, prefill=pre["fn"])
+
+
+def modal_serve(name, b, shape):
+    """``name`` at full width and depth in f32 on ``shape`` against one
+    device from the same parameters: the greedy tokens equal; the prefill
+    with the frames or patches zeroed moves the logits by more than
+    SHARD_MODAL_POWER times the largest logit gap between the two; the self
+    and cross K/V placements, that gap, prefill and decode ms against one
+    device's and the peak memory logged."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.models import make_model
+    cfg = get_arch(name)
+    if cfg.family == "encdec":
+        text, prefix, key = len(ENC_SOT), 0, "frames"
+        nb = encoder_batch(cfg, b, text, SEED + 80 + b, tokens=np.tile(
+            np.asarray(ENC_SOT, np.int32), (b, 1)))
+    else:
+        text, prefix, key = SHARD_MODAL_TEXT, cfg.n_patches, "patches"
+        nb = encoder_batch(cfg, b, text, SEED + 80 + b)
+        del nb["labels"]
+    run = RunConfig(seq_len=text, global_batch=b, dtype="float32")
+    torch.cuda.empty_cache()
+    params = make_model(cfg)["init"](run, device=DEV)
+    batch = batch_to(nb, DEV)
+    cache_len, start = prefix + text + SHARD_MODAL_NEW, prefix + text
+    one = modal_greedy(cfg, run, params, batch, cache_len, start)
+    mesh = Mesh(shape, ("data", "model"))
+    one_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    got = modal_greedy(cfg, run, params, batch, cache_len, start, mesh)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    same = bool(np.array_equal(got["tokens"], one["tokens"]))
+    v = cfg.vocab
+    gap = max(float((a[:, :v] - w[:, :v]).abs().max())
+              for a, w in zip(got["logits"], one["logits"]))
+    with torch.inference_mode():
+        zeroed = got["prefill"](got["params"], dict(
+            batch, **{key: torch.zeros_like(batch[key])}), cache_len)[0]
+    moved = float((zeroed[:, :v] - one["logits"][0][:, :v]).abs().max())
+    specs = got["specs"]
+    cross = specs.get("cross", {}).get("k")
+    log(f"[lm_shard] serve {name} f32, {b} x ({prefix} + {text}) + "
+        f"{SHARD_MODAL_NEW}" + (f" against {ENC_FRAMES} frames" if
+                                key == "frames" else "")
+        + f" on {mesh.shape}: self K/V placed {specs['k']}"
+        + (f", cross K/V {cross}" if cross else "")
+        + f" over (B, KV, S, Dh); greedy tokens "
+        f"{'equal' if same else 'DIFFER from'} one device's; largest logit "
+        f"gap {gap:.3e}; {key} zeroed move the prefill's logits {moved:.3e} "
+        f"({moved / max(gap, 1e-30):.3g}x the gap); prefill "
+        f"{got['prefill_ms']:.1f} ms (one device {one['prefill_ms']:.1f}), "
+        f"decode {got['decode_ms']:.2f} ms a step (one device "
+        f"{one['decode_ms']:.2f}); peak memory {peak_gb:.2f} GB ("
+        f"{one_gb:.2f} GB held before the mesh's steps)")
+    check(same, f"lm_shard: {name} on {mesh.shape} gives other tokens than "
+                f"one device")
+    check(moved > SHARD_MODAL_POWER * gap and moved > 0, f"lm_shard: {name} "
+          f"on {mesh.shape} with its {key} zeroed moves the logits {moved:.3e},"
+          f" not {SHARD_MODAL_POWER}x the mesh's gap {gap:.3e}")
+    res = dict(self_spec=specs["k"], cross_spec=cross, tokens_equal=same,
+               logit_gap=gap, zeroed_moved=moved,
+               prefill_ms=got["prefill_ms"], decode_ms=got["decode_ms"],
+               one_device=dict(prefill_ms=one["prefill_ms"],
+                               decode_ms=one["decode_ms"]),
+               prefill_payload=got["prefill_payload"],
+               prefill_peak_gb=got["prefill_peak_gb"], held_gb=one_gb,
+               peak_memory_gb=peak_gb)
+    del params, one, got, zeroed, batch
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_lm_shard(report):
@@ -5757,7 +5883,7 @@ def phase_lm_shard(report):
     ``lm_shard``), the elastic re-mesh from a checkpoint, qwen3-moe's
     experts split over (1, 2) against lm_moe's one device, two gloo
     processes bitwise one, and serving on (1, 2) and (2, 1) against one
-    device's tokens."""
+    device's tokens, whisper-large-v3 and internvl2-1b too."""
     report["lm_shard"] = {}
     stage_s = report["lm_shard"]["stage_s"] = {}
 
@@ -5816,7 +5942,10 @@ def phase_costs(report, prog, steps):
     bytes within PEAK_TOL of its ``max_memory_allocated``) and
     ``lm_shard``'s (2, 2) FSDP step with every shard in one process, as
     measured (payload by key equal to a measured step's, flash launches,
-    peak within PEAK_TOL); each with its counted FLOPs and bytes, the
+    peak within PEAK_TOL) and whisper's (2, 2) prefill of ``lm_shard``'s
+    serve stage, every shard in one process (payload by key equal to the
+    measured prefill's, the counted peak logged beside its
+    ``max_memory_allocated``); each with its counted FLOPs and bytes, the
     roofline's ms, the measured ms and their ratio.  The dry run's fit
     limit, ``launch.roofline.HBM_BYTES``, must not exceed the memory the
     allocator sees on this card."""
@@ -5889,6 +6018,48 @@ def phase_costs(report, prog, steps):
           f"measured step's {pay}")
     out["lm_shard"] = lm_costs("lm_shard", costs, seen, seen["launches"],
                                SHARD_STEPS, dev_line)
+    out["lm_shard_whisper"] = whisper_prefill_costs(report, dev_line)
+
+
+def whisper_prefill_costs(report, dev_line):
+    """The (2, 2) prefill of ``modal_serve``'s whisper case counted on
+    ``meta`` at its shapes, every shard in one process as measured: the
+    payload by key must equal the measured prefill's; the counted peak
+    beside that prefill's ``max_memory_allocated``."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.step_cost import count
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import make_model
+    from repro_torch.models.parallel import ShardedParams
+    name, b, shape = SHARD_MODAL_CASES[0]
+    seen = report["lm_shard"]["serve"][f"{name} {b} on {shape}"]
+    cfg = get_arch(name)
+    text = len(ENC_SOT)
+    run = RunConfig(seq_len=text, global_batch=b, dtype="float32")
+    mesh = Mesh(shape, ("data", "model"))
+    built = build_prefill_step(cfg, run, "meta", mesh=mesh)
+    params = ShardedParams.from_module(built["server"].layout, make_model(
+        cfg)["init"](run, device="meta"))
+    batch = {"tokens": torch.empty((b, text), dtype=torch.int64,
+                                   device="meta"),
+             "frames": torch.empty((b, ENC_FRAMES, cfg.d_model),
+                                   device="meta")}
+    costs = count(built["fn"], params, batch, text + SHARD_MODAL_NEW,
+                  group=mesh.group)
+    want = seen["prefill_payload"]
+    check(mesh.group.payload == want,
+          f"costs: whisper's counted prefill payload {mesh.group.payload} "
+          f"on {shape} is not the measured {want}")
+    peak = costs.peak_bytes / 1e9
+    log(f"[costs] whisper prefill on {shape}: payload by key equal to the "
+        f"measured prefill's ({sum(want.values())} bytes, "
+        f"{len(want)} keys); counted peak {peak:.3f} GB beside "
+        f"max_memory_allocated {seen['prefill_peak_gb']:.3f} GB, which "
+        f"also holds the one-device parameters' {seen['held_gb']:.3f} GB")
+    return dict(costs_line(f"whisper prefill on {shape}", costs,
+                           seen["prefill_ms"], dev_line),
+                peak_memory_gb=seen["prefill_peak_gb"])
 
 
 def lm_costs(label, costs, seen, launches, times, dev_line):

@@ -27,9 +27,12 @@ block (``vmp._sharded_step_body``), with its own owner plans built from its
 own streams: every shard shares one shadow program of equal shapes, so a
 plan cached on the shadow would feed shard 1 the plan of shard 0.  Padded
 blocks take the masked kernel route, and a local Dirichlet's padding rows
-sit exactly at the prior.  All shards of a full-batch VMP run live in one
-process (the shard group sums them on the device); the multi-process path
-is SVI's (``core/svi.py``, ``hosts=``).
+sit exactly at the prior.  The shards of a full-batch VMP run live in
+one process (the shard group sums them on the device) or across
+processes, each rank running its own shards and holding only their rows
+of the local Dirichlets (:func:`make_distributed_step`); two ranks are
+bitwise one process.  SVI's multi-process path is ``core/svi.py``'s
+(``hosts=``).
 
 ``strategy="gspmd"`` is the flat baseline: the flat arrays cut into
 contiguous padded blocks, every Dirichlet (theta too) replicated and its

@@ -369,7 +369,7 @@ def main(argv=None):
                 print(f"[dryrun] {a:22s} {s:12s} SKIP   ({why})")
                 n_skip += 1
                 continue
-            kind, seq, batch = SHAPES[s]
+            _, seq, batch = SHAPES[s]
             run = RunConfig(seq_len=seq, global_batch=batch,
                             remat=args.remat, fsdp=args.fsdp,
                             microbatch=args.microbatch,
@@ -377,15 +377,6 @@ def main(argv=None):
                             act_shard=args.act_shard,
                             attn_f32_scores=not args.bf16_scores)
             for mp in meshes:
-                if kind != "train" and args.mesh_shape != "1x1" and \
-                        _modal(cfg):
-                    print(f"[dryrun] {a:22s} {s:12s} "
-                          f"{args.mesh_shape or ('multi' if mp else 'single'):8s}"
-                          f" SKIP   (serving on a mesh takes token-only "
-                          f"decoders: models/parallel_serve.py:"
-                          f"ShardedServer)")
-                    n_skip += 1
-                    continue
                 one(a, s, mp, lambda: run_cell(a, s, mp, run=run,
                                                mesh_shape=args.mesh_shape))
     if vmp:
@@ -394,11 +385,6 @@ def main(argv=None):
                 mp, mesh_shape=args.mesh_shape))
     print(f"[dryrun] done: {n_ok} ok, {n_skip} skipped, {n_fail} failed")
     return 0 if n_fail == 0 else 1
-
-
-def _modal(cfg) -> bool:
-    from ..models.transformer import modality_inputs
-    return bool(modality_inputs(cfg))
 
 
 if __name__ == "__main__":

@@ -551,21 +551,28 @@ class ShardedForward:
         else:
             outs = self.attention([bp["attn"] for bp in bps], hs, kind,
                                   positions, causal)
-        xs = [x + o for x, o in zip(xs, outs)]
-        if "cross" in bps[0]:
-            if enc is None:
-                raise ValueError("a decoder layer with cross-attention needs "
-                                 "the encoder's output")
-            hc = [L.apply_norm(bp["cross_norm"], x, cfg)
-                  for bp, x in zip(bps, xs)]
-            cs = self.attention([bp["cross"] for bp in bps], hc, "global",
-                                positions, True, enc)
-            xs = [x + c for x, c in zip(xs, cs)]
+        xs = self.cross(bps, [x + o for x, o in zip(xs, outs)], positions,
+                        enc)
         if kind == "ssd":
             return xs
         h2 = [L.apply_norm(bp["norm2"], x, cfg) for bp, x in zip(bps, xs)]
         ffn = self.moe if "router" in bps[0]["ffn"] else self.mlp
         return [x + y for x, y in zip(xs, ffn([bp["ffn"] for bp in bps], h2))]
+
+    def cross(self, bps, xs, positions, enc):
+        """``transformer.Block.cross_step`` over the local shards: ``xs``
+        plus the cross-attention of their norm to ``enc`` (one encoder
+        output per local shard); ``xs`` itself for a block without it."""
+        if "cross" not in bps[0]:
+            return xs
+        if enc is None:
+            raise ValueError("a decoder layer with cross-attention needs "
+                             "the encoder's output")
+        hc = [L.apply_norm(bp["cross_norm"], x, self.cfg)
+              for bp, x in zip(bps, xs)]
+        cs = self.attention([bp["cross"] for bp in bps], hc, "global",
+                            positions, True, enc)
+        return [x + c for x, c in zip(xs, cs)]
 
     def stack(self, blocks: list, xs, positions, cycle, kinds, enc=None,
               causal=True):
@@ -603,10 +610,18 @@ class ShardedForward:
             kept = False
         return gather_kept(mesh, xs, 1, "seq") if kept else xs
 
-    def __call__(self, trees, batch: list, own: list) -> list:
-        """Per local shard ``(loss sum, count)`` of its row's batch
-        (``transformer.train_loss`` split at the mean's division)."""
+    def inputs(self, trees, batch: list):
+        """``transformer._inputs`` over the local shards (``batch`` one dict
+        per local shard): ``(xs, enc, offset)``, the embedded tokens after
+        the projected patch prefix, the encoder's output (a list, or
+        ``None``) and the prefix's length.  A missing modality entry raises
+        ``ValueError``."""
         cfg = self.cfg
+        missing = [k for k in T.modality_inputs(cfg)
+                   if batch[0].get(k) is None]
+        if missing:
+            raise ValueError(f"{cfg.name} reads batch entries {missing} "
+                             f"besides the tokens")
         xs = self.embed(trees, [b["tokens"] for b in batch])
         enc, offset = None, 0
         if cfg.family == "encdec":
@@ -621,6 +636,13 @@ class ShardedForward:
             pre = self.frontend(trees, [b["patches"] for b in batch])
             xs = [torch.cat([p, x], dim=1) for p, x in zip(pre, xs)]
             offset = pre[0].shape[1]
+        return xs, enc, offset
+
+    def __call__(self, trees, batch: list, own: list) -> list:
+        """Per local shard ``(loss sum, count)`` of its row's batch
+        (``transformer.train_loss`` split at the mean's division)."""
+        cfg = self.cfg
+        xs, enc, offset = self.inputs(trees, batch)
         positions = torch.arange(xs[0].shape[1], device=xs[0].device)[None, :]
         xs = self.stack([t["blocks"] for t in trees], xs, positions,
                         T._cycle_info(cfg), cfg.layer_kinds(), enc)

@@ -8,7 +8,9 @@ Each shard keeps its slice of every layer's cache (:class:`MeshCache`):
   the sequence split over the model axis; at a batch the data rows cannot
   split (batch 1), the sequence split over the data axes (and the model
   axis); else the head dim split over the model axis.  The batch is split
-  over the data rows where they divide it.
+  over the data rows where they divide it.  An encoder-decoder's cross K/V
+  (the encoder's keys and values, ``"cross"``) by the same rule at the
+  encoder's length.
 - The recurrent states, ``conv`` and ``h``, split over the model axis by
   their channels or heads, the whole batch on every row.
 
@@ -19,7 +21,15 @@ and its work over the cache splits as the cache does: each shard attends
 over its slice, a split of the heads or the head dim is gathered exactly,
 and a split sequence combines the shards' (max, sum-exp, weighted V) in
 shard order.  A new position's K/V is written by the shard that holds its
-slot; a "local" layer's ring slots are masked slot by slot.  A recurrent
+slot; a "local" layer's ring slots are masked slot by slot.  The model
+inputs are ``transformer._inputs``' on each row's part of the batch: a
+vision model's patches projected as a prefix that the positions and the
+cache count, an encoder-decoder's frames through the frontend and the
+encoder's blocks (unmasked, as the mesh trainer runs them).  Each decoder
+layer of an encoder-decoder adds its cross-attention to the encoder's
+output after its self-attention, in prefill dense and unmasked, in decode
+against the shards' slices of the cross K/V as the self K/V (no RoPE, no
+mask, no slot written).  A recurrent
 layer gathers its state's channels, steps the whole batch (the rows'
 inputs gathered where they split it) and keeps its slice.  The logits come
 back whole on every shard.  With one shard every op is the one-device
@@ -56,25 +66,25 @@ def _axes(entry) -> tuple:
 class MeshCache:
     """The local shards' slices of a decode cache: ``shards[s]`` one dict
     per layer, as ``transformer.init_cache`` lays a layer out (K/V (B, KV,
-    length, Dh)); ``specs`` per layer, each leaf's spec in that layout;
-    ``lengths`` per layer, its K/V's whole length."""
+    length, Dh), an encoder-decoder's ``"cross"`` K/V (B, KV, S_enc,
+    Dh)); ``specs`` per layer, each leaf's spec in that layout (``"cross"``
+    a dict of its own); ``lengths`` per layer, its K/V's whole length;
+    ``cross_lengths`` per layer, its cross K/V's (0 without one)."""
 
-    def __init__(self, shards: dict, specs: list, lengths: list):
+    def __init__(self, shards: dict, specs: list, lengths: list,
+                 cross_lengths: list):
         self.shards, self.specs, self.lengths = shards, specs, lengths
+        self.cross_lengths = cross_lengths
 
 
 class ShardedServer:
     """Prefill and decode of ``cfg`` on ``mesh`` from a
     :class:`~repro_torch.models.parallel.ShardedParams` (its compute views
-    gathered once, on the first call with those parameters).  Token-only
-    decoders: an encoder-decoder's cross cache and a vision prefix do not
-    run on a mesh, and raise ``NotImplementedError``."""
+    gathered once, on the first call with those parameters): decoders, an
+    encoder-decoder (its encoder and cross cache) and a vision prefix, as
+    the one-device ``transformer.prefill`` and ``decode_step``."""
 
     def __init__(self, cfg, run, mesh):
-        if T.modality_inputs(cfg):
-            raise NotImplementedError(
-                f"{cfg.name} reads {list(T.modality_inputs(cfg))}: serving "
-                f"on a mesh takes token-only decoders")
         self.cfg, self.run, self.mesh = cfg, run, mesh
         self.layout = Layout(cfg, run, mesh, split_attention=False)
         self.fwd = ShardedForward(self.layout, run)
@@ -97,14 +107,26 @@ class ShardedServer:
         n = b // mesh.n_data
         return [x[d * n:(d + 1) * n] for d in self.fwd.ds], True
 
-    def _specs(self, kind: str, b: int, cache_len: int):
-        """(a layer's specs in the port's layout, its K/V length)."""
+    def _kv_spec(self, name: str, b: int, n: int) -> tuple:
+        """``Rules.cache_leaf``'s spec of a K/V leaf of ``n`` positions (at
+        ``name``, the reference's path), in the port's (B, KV, S, Dh)."""
+        cfg = self.cfg
+        r = self.layout.rules.cache_leaf(name, (b, n, cfg.n_kv_heads,
+                                                cfg.head_dim_))
+        return (r[0], r[2], r[1], r[3])
+
+    def _specs(self, kind: str, b: int, cache_len: int, enc_len: int = 0):
+        """(a layer's specs in the port's layout, its K/V length); a layer
+        with a cross K/V of ``enc_len`` positions also has ``"cross"``."""
         cfg, rules = self.cfg, self.layout.rules
         if kind in ("global", "local"):
             n = min(cache_len, cfg.window) if kind == "local" else cache_len
-            r = rules.cache_leaf("k", (b, n, cfg.n_kv_heads, cfg.head_dim_))
-            spec = (r[0], r[2], r[1], r[3])          # (B, KV, S, Dh)
-            return {"k": spec, "v": spec}, n
+            spec = self._kv_spec("k", b, n)
+            out = {"k": spec, "v": spec}
+            if enc_len:
+                cross = self._kv_spec("cross/k", b, enc_len)
+                out["cross"] = {"k": cross, "v": cross}
+            return out, n
         if kind == "rglru":
             h, c = (b, cfg.d_inner), (b, cfg.ssm_conv - 1, cfg.d_inner)
         else:
@@ -120,6 +142,10 @@ class ShardedServer:
         mesh, out = self.mesh, [dict() for _ in self.local]
         for name, spec in specs.items():
             ts = [f[name] for f in full]
+            if isinstance(spec, dict):
+                for o, sub in zip(out, self._keep(ts, spec, split)):
+                    o[name] = sub
+                continue
             if split and not _axes(spec[0]):
                 ts = gather_rows(mesh, ts, "cache_rows")
             for o, t, s in zip(out, ts, self.local):
@@ -129,21 +155,28 @@ class ShardedServer:
 
     def place_cache(self, cache: list, cache_len: int) -> MeshCache:
         """A whole decode cache (``transformer.init_cache``'s list, its
-        global layers of ``cache_len`` positions) as the local shards'
-        slices, placed as :meth:`prefill` places its own."""
+        global layers of ``cache_len`` positions, its cross K/V of any
+        length) as the local shards' slices, placed as :meth:`prefill`
+        places its own."""
         mesh = self.mesh
+
+        def cut(layer, spec, t):
+            return {name: cut(layer[name], sp, t) if isinstance(sp, dict)
+                    else layer[name][shard_slices(sp, layer[name].shape,
+                                                  mesh, t)].contiguous()
+                    for name, sp in spec.items()}
         shards = {t: [] for t in self.local}
-        specs, lengths = [], []
+        specs, lengths, cross = [], [], []
         for kind, layer in zip(self.cfg.layer_kinds(), cache):
             b = next(iter(layer.values())).shape[0]
-            spec, n = self._specs(kind, b, cache_len)
+            n_enc = layer["cross"]["k"].shape[2] if "cross" in layer else 0
+            spec, n = self._specs(kind, b, cache_len, n_enc)
             for t in self.local:
-                shards[t].append({name: layer[name][shard_slices(
-                    sp, layer[name].shape, mesh, t)].contiguous()
-                    for name, sp in spec.items()})
+                shards[t].append(cut(layer, spec, t))
             specs.append(spec)
             lengths.append(n)
-        return MeshCache(shards, specs, lengths)
+            cross.append(n_enc)
+        return MeshCache(shards, specs, lengths, cross)
 
     # -- the steps --------------------------------------------------------
     def _logits(self, xs: list, split: bool):
@@ -173,20 +206,30 @@ class ShardedServer:
     @torch.inference_mode()
     def prefill(self, params, batch: dict, cache_len: int = 0):
         """``transformer.prefill`` on the mesh: ``(the last position's
-        logits (B, V_padded), the cache as a MeshCache)``."""
+        logits (B, V_padded), the cache as a MeshCache)``.  ``batch`` holds
+        the whole batch: ``tokens`` (B, S) and the model's ``frames`` or
+        ``patches``; each data row takes its part of every entry (all of it
+        where the rows do not divide B).  The cache is sized for
+        ``cache_len`` positions, a vision prefix's P included (P + S when
+        0)."""
         from ..launch.mesh import data_axes, model_axis
         from .sharding_ctx import mesh_ctx
         self.bind(params)
         cfg, run, fwd = self.cfg, self.run, self.fwd
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        cache_len = cache_len or s
-        rows, split = self._row_part(tokens, b)
+        b = batch["tokens"].shape[0]
+        rows = [dict() for _ in self.local]
+        for k, v in batch.items():
+            parts, split = self._row_part(v, b)
+            for r, part in zip(rows, parts):
+                r[k] = part
         fwd.rows_split = split
         shards = {t: [] for t in self.local}
-        specs, lengths = [], []
+        specs, lengths, cross = [], [], []
         with mesh_ctx(self.mesh, data_axes(self.mesh), model_axis(self.mesh)):
-            xs = fwd.embed(self.trees, rows)
+            xs, encs, _ = fwd.inputs(self.trees, rows)
+            s = xs[0].shape[1]
+            cache_len = cache_len or s
+            n_enc = encs[0].shape[1] if encs is not None else 0
             positions = torch.arange(s, device=xs[0].device)[None, :]
             for j, kind in enumerate(cfg.layer_kinds()):
                 bps = [t["blocks"][j] for t in self.trees]
@@ -202,16 +245,22 @@ class ShardedServer:
                     got = [T._attn_with_cache(bp["attn"], h, cfg, run, kind,
                                               positions, cache_len)
                            for bp, h in zip(bps, hs)]
-                spec, n = self._specs(kind, b, cache_len)
+                xs = fwd.cross(bps, [x + g[0] for x, g in zip(xs, got)],
+                               positions, encs)
+                n_cross = n_enc if "cross" in bps[0] else 0
+                if n_cross:
+                    for (_, c), bp, e in zip(got, bps, encs):
+                        c["cross"] = T._cross_kv(bp["cross"], e, cfg, run)
+                spec, n = self._specs(kind, b, cache_len, n_cross)
                 for t, c in zip(self.local, self._keep([g[1] for g in got],
                                                        spec, split)):
                     shards[t].append(c)
                 specs.append(spec)
                 lengths.append(n)
-                xs = self._feed_forward(bps, [x + g[0] for x, g in
-                                              zip(xs, got)], kind)
+                cross.append(n_cross)
+                xs = self._feed_forward(bps, xs, kind)
             logits = self._logits([x[:, -1:] for x in xs], split)[:, 0]
-        return logits, MeshCache(shards, specs, lengths)
+        return logits, MeshCache(shards, specs, lengths, cross)
 
     def _feed_forward(self, bps, xs, kind):
         if kind == "ssd":
@@ -248,8 +297,12 @@ class ShardedServer:
                                         caches, kind, int(pos),
                                         cache.specs[j]["k"],
                                         cache.lengths[j])
-                xs = self._feed_forward(bps, [x + o for x, o in
-                                              zip(xs, outs)], kind)
+                xs = [x + o for x, o in zip(xs, outs)]
+                if "cross" in bps[0]:
+                    xs = self._cross_attend(bps, xs, caches,
+                                            cache.specs[j]["cross"]["k"],
+                                            cache.cross_lengths[j])
+                xs = self._feed_forward(bps, xs, kind)
             logits = self._logits(xs, split)[:, 0]
         return logits, cache
 
@@ -292,7 +345,6 @@ class ShardedServer:
             raise IndexError(f"decode position {pos} outside the {length} "
                              f"slots of a local layer's ring, shorter than "
                              f"its window of {cfg.window}")
-        kv_ax, s_ax, d_ax = (_axes(e) for e in spec[1:])
         h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         slot = pos % length if kind == "local" else pos
         positions = torch.full((1,), pos, dtype=torch.int64,
@@ -317,35 +369,68 @@ class ShardedServer:
             else:
                 valid = idx <= pos
             parts.append((qh, c, valid))
-        # the scores, summed over a split of the head dim
+        outs = self._over_cache(parts, spec, dt, "")
+        return [o.reshape(o.shape[0], 1, h * dh) @ p["wo"].to(dt)
+                for o, p in zip(outs, ps)]
+
+    def _cross_attend(self, bps, xs, caches, spec, length):
+        """``xs`` plus each decoder layer's cross-attention of one token
+        against the shards' slices of its cross K/V (``spec`` over (B, KV,
+        S_enc, Dh)), as ``layers.cross_attention_decode``: no RoPE, no mask,
+        no slot written."""
+        cfg, run, mesh = self.cfg, self.run, self.mesh
+        dt = L._dtype(run)
+        h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        parts = []
+        for bp, x, c, s in zip(bps, xs, caches, self.local):
+            hc = L.apply_norm(bp["cross_norm"], x, cfg)
+            q = (hc @ bp["cross"]["wq"].to(dt)).reshape(
+                hc.shape[0], kvh, h // kvh, dh)
+            _, kv_sl, _, d_sl = shard_slices(
+                (None,) + tuple(spec[1:]), (1, kvh, length, dh), mesh, s)
+            parts.append((q[:, kv_sl, :, d_sl], c["cross"], None))
+        outs = self._over_cache(parts, spec, dt, "cross_")
+        return [x + o.reshape(o.shape[0], 1, h * dh) @ bp["cross"]["wo"]
+                .to(dt) for x, o, bp in zip(xs, outs, bps)]
+
+    def _over_cache(self, parts, spec, dt, tag: str):
+        """Each local shard's attention output (B, KV, G, Dh), whole, from
+        its ``(queries (B, KV_s, G, Dh_s), K/V slices, valid slots or
+        None)`` over a cache placed by ``spec``: the scores summed over a
+        split of the head dim, a split sequence combined (:meth:`_combine`),
+        a split of the head dim or the heads gathered; ``tag`` prefixes the
+        exchanges' keys."""
+        mesh, dh = self.mesh, self.cfg.head_dim_
+        kv_ax, s_ax, d_ax = (_axes(e) for e in spec[1:])
         if d_ax:
             part = [qh.float() @ c["k"].float().transpose(-1, -2)
                     for qh, c, _ in parts]
             scores = [_ordered([r[0] for r in row]) / math.sqrt(dh)
                       for row in mesh.gather_axes([[sc] for sc in part],
-                                                  "scores", d_ax)]
+                                                  tag + "scores", d_ax)]
         else:
             scores = [(qh @ c["k"].transpose(-1, -2)) / math.sqrt(dh)
                       for qh, c, _ in parts]
-        scores = [torch.where(v, sc.float(), -1e30)
+        scores = [sc.float() if v is None else torch.where(v, sc.float(),
+                                                           -1e30)
                   for sc, (_, _, v) in zip(scores, parts)]
         if s_ax:
             outs = self._combine(scores, [c["v"] for _, c, _ in parts], s_ax,
-                                 dt)
+                                 dt, tag)
         else:
             outs = [torch.softmax(sc, dim=-1).to(dt) @ c["v"]
                     for sc, (_, c, _) in zip(scores, parts)]
         if d_ax:
             outs = [torch.cat([r[0] for r in row], dim=-1) for row in
-                    mesh.gather_axes([[o] for o in outs], "attn_dh", d_ax)]
+                    mesh.gather_axes([[o] for o in outs], tag + "attn_dh",
+                                     d_ax)]
         if kv_ax:
             outs = [torch.cat([r[0] for r in row], dim=1) for row in
-                    mesh.gather_axes([[o] for o in outs], "attn_heads",
+                    mesh.gather_axes([[o] for o in outs], tag + "attn_heads",
                                      kv_ax)]
-        return [o.reshape(o.shape[0], 1, h * dh) @ p["wo"].to(dt)
-                for o, p in zip(outs, ps)]
+        return outs
 
-    def _combine(self, scores, values, axes, dt):
+    def _combine(self, scores, values, axes, dt, tag: str):
         """Softmax-weighted values over a sequence split over ``axes``:
         each shard's (max, sum-exp, exp-weighted V) in f32, combined in
         shard order."""
@@ -356,7 +441,7 @@ class ShardedServer:
             p = torch.exp(sc - m[..., None])
             stats.append([m, p.sum(-1), p @ v.float()])
         out = []
-        for row in mesh.gather_axes(stats, "softmax", axes):
+        for row in mesh.gather_axes(stats, tag + "softmax", axes):
             top = row[0][0]
             for r in row[1:]:
                 top = torch.maximum(top, r[0])

@@ -11,7 +11,8 @@ reference's tools and to the port's own runs.
 - **FLOPs**: a reduced olmo-1b train step's products outside attention
   against the reference's ``hlo_cost`` count of its compiled step.
 - **Payload**: the dry group's payload by key equal, as integers, to a real
-  CPU run's, for a reduced olmo-1b on (2, 2) with FSDP and LDA VMP on 4
+  CPU run's, for a reduced olmo-1b on (2, 2) with FSDP, reduced whisper
+  and internvl2 prefill and decode steps on (2, 2), and LDA VMP on 4
   ``"inferspark"`` shards; the paper's claim at 256 shards.
 - **Kernel work**: the bounds ``PERF.md`` reports where shapes alone define
   them; a ``meta`` tensor outside a count raises at every kernel entry;
@@ -46,7 +47,8 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.step_cost import count
 from repro_torch.launch.train import to_mesh
 from repro_torch.models import input_specs, make_model
-from repro_torch.models.transformer import _cycle_info
+from repro_torch.models.parallel import ShardedParams
+from repro_torch.models.transformer import _cycle_info, init_cache
 
 META = "meta"
 CELLS = [(a, s) for a in sorted(ARCHS) for s in SHAPES
@@ -248,6 +250,54 @@ def test_payload_of_a_dry_fsdp_step_is_the_real_runs():
     assert dry.group.calls == real.group.calls
     # rank 0 of 4 processes: 2 (4 - 1) hops of each 8-byte-aligned piece
     assert dry.group.wire_bytes > 0 and real.group.wire_bytes == 0
+
+
+def _serving_step(cfg, run, kind, mesh, device):
+    """One prefill or decode step of ``cfg`` on ``mesh`` on ``device``:
+    on ``meta`` counted (``step_cost.count``), else run.  The prompt is 4 x
+    8 tokens with whisper's 12 frames or internvl2's patches; decode writes
+    the last of 24 positions."""
+    b, s, cache_len = 4, 8, 24
+    built = (S.build_prefill_step if kind == "prefill" else
+             S.build_decode_step)(cfg, run, device, mesh=mesh)
+    server = built["server"]
+    params = ShardedParams.from_module(
+        server.layout, make_model(cfg)["init"](run, device=device))
+    if kind == "prefill":
+        n, key = (12, "frames") if cfg.family == "encdec" else \
+            (cfg.n_patches, "patches")
+        args = (params, {"tokens": torch.zeros((b, s), dtype=torch.int64,
+                                               device=device),
+                         key: torch.zeros((b, n, cfg.d_model),
+                                          device=device)})
+    else:
+        cache = init_cache(cfg, run, b, cache_len, device=device)
+        args = (params, server.place_cache(cache, cache_len),
+                torch.zeros((b, 1), dtype=torch.int64, device=device),
+                cache_len - 1)
+    if device == META:
+        return count(built["fn"], *args, group=mesh.group)
+    return built["fn"](*args)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("name", ["whisper-large-v3", "internvl2-1b"])
+def test_payload_of_a_dry_modality_serving_step_is_the_real_runs(name, kind):
+    """Serving an encoder-decoder (its encoder, cross-attention and cross
+    K/V) and a vision prefix on (2, 2): the dry group's payload by key,
+    histogram and exchanges equal those of the same step run on the CPU."""
+    cfg = get_arch(name).reduced()
+    run = RunConfig(seq_len=8, global_batch=4, dtype="float32",
+                    flash_kernel=True)
+    dry = Mesh((2, 2), ("data", "model"), DryGroup(4))
+    _serving_step(cfg, run, kind, dry, META)
+    real = Mesh((2, 2), ("data", "model"), ShardGroup(4))
+    _serving_step(cfg, run, kind, real, "cpu")
+    assert dry.group.payload == real.group.payload
+    assert dry.group.histogram == real.group.histogram
+    assert dry.group.calls == real.group.calls
+    if cfg.family == "encdec" and kind == "decode":
+        assert real.group.payload["cross_attn_heads"] > 0
 
 
 def _lda(n_docs=40, k=6, v=50):

@@ -18,7 +18,11 @@ the port's mesh run is held to the port's one-device run, which
 - **Serving**: prefill and greedy decode against one device for every
   placement of the cache ``Rules.cache`` gives (heads, a few KV heads'
   sequence, batch 1's sequence over data and model, the head dim, the
-  recurrent states), ``serve(mesh=)`` giving one device's tokens.
+  recurrent states), whisper's cross K/V and internvl2's patch prefix
+  included, ``serve(mesh=)`` giving one device's tokens; zeroed frames or
+  patches move the logits past the tolerance; internvl2's mesh prefill
+  against the reference's ``prefill`` (whisper's is held to one device
+  only: the reference's prefill skips the encoder).
 - **Two processes**: gloo children on (1, 2) and (2, 2), bitwise the one
   process run of the same mesh.
 """
@@ -27,10 +31,15 @@ import dataclasses
 import os
 import socket
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as J_ARCHS
+from repro.configs import RunConfig as JRun
+from repro.models import make_model as j_make_model
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import ARCHS, RunConfig, get_arch
 from repro_torch.launch import elastic
@@ -40,7 +49,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.train import restore_state, train
 from repro_torch.models import make_model
 from repro_torch.models.parallel import ShardedParams, gather_leaves
-from repro_torch.models.transformer import modality_inputs
+from repro_torch.models.transformer import modality_inputs, params_from_numpy
 from repro_torch.testing import faults
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -260,21 +269,18 @@ def test_nccl_is_refused():
         init_distributed("127.0.0.1:1", 2, 0, backend="nccl")
 
 
-def test_serving_a_modality_on_a_mesh_is_refused():
-    cfg = _cfg("whisper-large-v3")
-    with pytest.raises(NotImplementedError, match="token-only decoders"):
-        S.build_prefill_step(cfg, RunConfig(**BASE), "cpu",
-                             mesh=Mesh((1, 2), ("data", "model")))
-
-
 # ---------------------------------------------------------------------------
 # prefill, decode and serve on a mesh
 # ---------------------------------------------------------------------------
 
-def _decode(cfg, run, prompts, new, module, mesh=None):
+def _decode(cfg, run, prompts, new, module, mesh=None, inputs=None):
     """Every logits of a greedy prefill + decode (prefill's last, then each
-    step's) and the tokens, on one device or ``mesh``."""
+    step's) and the tokens, on one device or ``mesh``; ``inputs`` the
+    model's frames or patches (numpy), a patch prefix counted in the
+    positions."""
     b, s0 = prompts.shape
+    inputs = inputs or {}
+    s0 += inputs["patches"].shape[1] if "patches" in inputs else 0
     pre = S.build_prefill_step(cfg, run, "cpu", mesh=mesh)
     if mesh is None:
         dec, params = S.build_decode_step(cfg, run, "cpu"), module
@@ -282,8 +288,8 @@ def _decode(cfg, run, prompts, new, module, mesh=None):
         dec = S.build_decode_step(cfg, run, "cpu", mesh=mesh)
         params = ShardedParams.from_module(pre["server"].layout, module)
     with torch.inference_mode():
-        logits, cache = pre["fn"](params, {"tokens": torch.from_numpy(
-            prompts).long()}, s0 + new)
+        logits, cache = pre["fn"](params, S.batch_to(
+            dict(inputs, tokens=prompts), "cpu"), s0 + new)
         out, toks = [logits.clone()], []
         for i in range(new):
             toks.append(logits.argmax(-1))
@@ -291,6 +297,22 @@ def _decode(cfg, run, prompts, new, module, mesh=None):
                                       s0 + i)
             out.append(logits.clone())
     return out, torch.stack(toks, 1), cache
+
+
+def _inputs(cfg, b, seed, frames=12, scale=1.0):
+    """The model's frames (``frames`` of them) or patches from ``seed``,
+    times ``scale`` (0: zeroed); ``{}`` for a decoder alone."""
+    rng = np.random.default_rng(seed)
+    return {k: (scale * rng.normal(size=(
+        b, frames if k == "frames" else cfg.n_patches,
+        cfg.d_model))).astype(np.float32) for k in modality_inputs(cfg)}
+
+
+def _local_shape_fits(cache_t, spec, full, mesh):
+    from repro_torch.launch.shardings import shard_slices
+    sl = shard_slices(spec, full, mesh, mesh.local_shards[-1])
+    assert tuple(cache_t.shape) == tuple(
+        len(range(*x.indices(n))) for x, n in zip(sl, full))
 
 
 # (arch, batch, prompt, new tokens, mesh, the K/V spec it must take, in the
@@ -306,7 +328,36 @@ DECODE_CASES = [
      ("data", "model", None, None)),
     ("qwen3-moe-30b-a3b", 4, 8, 6, (2, 2), "global",
      ("data", "model", None, None)),
-    ("mamba2-370m", 1, 8, 6, (8, 1), None, None)]
+    ("mamba2-370m", 1, 8, 6, (8, 1), None, None),
+    # whisper (2 KV heads) against CROSS's frames, internvl2 (2 KV heads)
+    # after its 8 patches, which the cache's length counts
+    ("whisper-large-v3", 4, 8, 6, (2, 2), "global",
+     ("data", "model", None, None)),
+    ("whisper-large-v3", 1, 8, 6, (2, 1), "global",
+     (None, "model", "data", None)),
+    ("whisper-large-v3", 2, 8, 8, (1, 4), "global",
+     ("data", None, "model", None)),
+    ("whisper-large-v3", 2, 8, 6, (1, 4), "global",
+     ("data", None, None, "model")),
+    ("whisper-large-v3", 1, 8, 8, (2, 4), "global",
+     (None, None, ("data", "model"), None)),
+    ("internvl2-1b", 2, 8, 8, (1, 4), "global",
+     ("data", None, "model", None)),
+    ("internvl2-1b", 4, 8, 6, (2, 2), "global",
+     ("data", "model", None, None)),
+    ("internvl2-1b", 2, 8, 6, (1, 4), "global",
+     ("data", None, None, "model")),
+    ("internvl2-1b", 1, 8, 6, (2, 1), "global",
+     (None, "model", "data", None))]
+
+# whisper's cases: (its frames, the spec its cross K/V must take): heads
+# over model, batch 1's sequence over data (and model), the head dim where
+# 14 frames do not split over 4 model shards, the sequence over model
+CROSS = {(4, (2, 2), 8, 6): (12, ("data", "model", None, None)),
+         (1, (2, 1), 8, 6): (12, (None, "model", "data", None)),
+         (2, (1, 4), 8, 8): (14, ("data", None, None, "model")),
+         (2, (1, 4), 8, 6): (12, ("data", None, "model", None)),
+         (1, (2, 4), 8, 8): (16, (None, None, ("data", "model"), None))}
 
 
 @pytest.mark.parametrize("name,b,s0,new,shape,kind,spec", DECODE_CASES)
@@ -317,14 +368,18 @@ def test_decode_on_a_mesh_matches_one_device(name, b, s0, new, shape, kind,
     order), the cache placed as ``Rules.cache`` places it: heads over model,
     a few KV heads' sequence over model, batch 1's over data (and model),
     the head dim where nothing else divides; mamba2 at batch 1 on (8, 1) is
-    the reference's ``check_long_context_sp_decode``."""
+    the reference's ``check_long_context_sp_decode``.  whisper's cross K/V
+    takes its own placement (``CROSS``) at the frames' length."""
     cfg = _cfg(name)
     run = RunConfig(**dict(BASE, seq_len=s0, global_batch=b))
     module = make_model(cfg)["init"](run, device="cpu")
     prompts = np.random.default_rng(2).integers(0, cfg.vocab, (b, s0))
-    want, wt, _ = _decode(cfg, run, prompts, new, module)
+    frames, cross = CROSS.get((b, shape, s0, new), (12, None)) \
+        if cfg.family == "encdec" else (0, None)
+    inputs = _inputs(cfg, b, 2, frames)
+    want, wt, _ = _decode(cfg, run, prompts, new, module, inputs=inputs)
     mesh = Mesh(shape, ("data", "model"))
-    got, gt, cache = _decode(cfg, run, prompts, new, module, mesh)
+    got, gt, cache = _decode(cfg, run, prompts, new, module, mesh, inputs)
     assert torch.equal(gt, wt)
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-5,
@@ -332,12 +387,19 @@ def test_decode_on_a_mesh_matches_one_device(name, b, s0, new, shape, kind,
     if kind is not None:
         j = cfg.layer_kinds().index(kind)
         assert cache.specs[j]["k"] == spec
-        local = cache.shards[mesh.local_shards[-1]][j]["k"]
-        full = (b, cfg.n_kv_heads, cache.lengths[j], cfg.head_dim_)
-        from repro_torch.launch.shardings import shard_slices
-        sl = shard_slices(spec, full, mesh, mesh.local_shards[-1])
-        assert tuple(local.shape) == tuple(
-            len(range(*x.indices(n))) for x, n in zip(sl, full))
+        local = cache.shards[mesh.local_shards[-1]][j]
+        _local_shape_fits(local["k"], spec, (b, cfg.n_kv_heads,
+                                             cache.lengths[j],
+                                             cfg.head_dim_), mesh)
+        if kind == "global":
+            assert cache.lengths[j] == s0 + new + (
+                cfg.n_patches if "patches" in inputs else 0)
+        assert ("cross" in local) == (cross is not None)
+        if cross is not None:
+            assert cache.specs[j]["cross"]["k"] == cross
+            assert cache.cross_lengths[j] == frames
+            _local_shape_fits(local["cross"]["v"], cross, (
+                b, cfg.n_kv_heads, frames, cfg.head_dim_), mesh)
 
 
 def test_one_shard_decode_is_bitwise_one_device():
@@ -350,6 +412,75 @@ def test_one_shard_decode_is_bitwise_one_device():
                          Mesh((1, 1), ("data", "model")))
     assert torch.equal(gt, wt)
     assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", ["whisper-large-v3", "internvl2-1b"])
+def test_one_shard_modality_decode_is_bitwise_one_device(name):
+    """The encoder, the cross K/V and the patch prefix on (1, 1) run every
+    op of the one-device prefill and decode."""
+    cfg = _cfg(name)
+    run = RunConfig(**dict(BASE, seq_len=8, global_batch=2))
+    module = make_model(cfg)["init"](run, device="cpu")
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (2, 8))
+    inputs = _inputs(cfg, 2, 3)
+    want, wt, _ = _decode(cfg, run, prompts, 8, module, inputs=inputs)
+    got, gt, _ = _decode(cfg, run, prompts, 8, module,
+                         Mesh((1, 1), ("data", "model")), inputs)
+    assert torch.equal(gt, wt)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name,b,shape", [("whisper-large-v3", 4, (2, 2)),
+                                          ("internvl2-1b", 2, (1, 4))])
+def test_zeroed_modality_inputs_leave_the_tolerance_on_a_mesh(name, b, shape):
+    """The mesh reads the frames and the patches: zeroing them moves the
+    prefill's logits and the decode's past the 1e-5 that holds the mesh to
+    one device, and past 100 times the mesh's own gap."""
+    cfg = _cfg(name)
+    run = RunConfig(**dict(BASE, seq_len=8, global_batch=b))
+    module = make_model(cfg)["init"](run, device="cpu")
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (b, 8))
+    mesh = Mesh(shape, ("data", "model"))
+    want, _, _ = _decode(cfg, run, prompts, 4, module,
+                         inputs=_inputs(cfg, b, 6))
+    got, _, _ = _decode(cfg, run, prompts, 4, module, mesh,
+                        _inputs(cfg, b, 6))
+    zeroed, _, _ = _decode(cfg, run, prompts, 4, module, mesh,
+                           _inputs(cfg, b, 6, scale=0.0))
+    gap = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    for z, w in zip(zeroed, want):
+        moved = float((z - w).abs().max())
+        assert moved > max(1e-5, 100 * gap), (moved, gap)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_vlm_mesh_prefill_matches_the_reference(shape):
+    """internvl2's prefill on a mesh, the sequence (1, 4) or the heads (2,
+    2) of its cache over the model shards, against the reference's
+    ``prefill`` from the same parameters: the last logits within
+    ``tests/test_torch_encoder.py``'s 1e-5."""
+    name = "internvl2-1b"
+    cfg, jcfg = get_arch(name).reduced(), J_ARCHS[name].reduced()
+    kw = dict(seq_len=16, global_batch=2, dtype="float32")
+    run, jrun = RunConfig(**kw), JRun(**kw)
+    tree = jax.tree_util.tree_map(np.asarray, j_make_model(jcfg)["init"](
+        jrun, jax.random.PRNGKey(0)))
+    module = params_from_numpy(cfg, tree, device="cpu")
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32),
+             "patches": rng.normal(size=(2, cfg.n_patches, cfg.d_model))
+             .astype(np.float32)}
+    cache_len = cfg.n_patches + 16 + 8
+    want, _ = jax.jit(lambda p, b: j_make_model(jcfg)["prefill"](
+        p, b, jrun, cache_len))(jax.tree_util.tree_map(jnp.asarray, tree),
+                                {k: jnp.asarray(v) for k, v in batch.items()})
+    mesh = Mesh(shape, ("data", "model"))
+    built = S.build_prefill_step(cfg, run, "cpu", mesh=mesh)
+    got, cache = built["fn"](ShardedParams.from_module(
+        built["server"].layout, module), S.batch_to(batch, "cpu"), cache_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert cache.lengths == [cache_len] * cfg.n_layers
 
 
 @pytest.mark.parametrize("name,b,shape", [("olmo-1b", 8, (1, 2)),
