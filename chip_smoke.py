@@ -22,7 +22,12 @@ Phases, each of which exits non-zero on a failed check:
      bf16 tables, and each path's shapes; strided children on their
      passes: DCM-LDA layouts at K = 16 on the "runs" pass (a hot word, one
      (document, word) run of 1,500 tokens, masks), ``strided-base`` on the
-     per-column "strided" pass; two launches of each pass bitwise;
+     per-column "strided" pass; two launches of each pass bitwise; segment
+     latents' phase 2b on DCM-SLDA layouts (ZMAP_RUNS_CASES: a hot word, a
+     run of 1,500 tokens, masks with fractions, an empty and an all-masked
+     sentence, K = 100) on the "runs" pass, each twice bitwise and bitwise
+     the per-column "strided" pass at the same inputs, and ``zmap-strided``
+     (colliding rows) on the per-column pass;
   4. repeatability: two ``zstats`` calls, and two 3-step runs from one
      state, must be bitwise equal;
   5. the main path: LDA at the NYTimes bag-of-words widths (K = 100,
@@ -201,7 +206,18 @@ Phases, each of which exits non-zero on a failed check:
      monotone, the stats
      sums, the digest, the kernels at the inputs the last step and
      ``get_result`` handed them (the Elog pass on phi timed too), ms a step
-     and device time;
+     and device time; then DCM-SLDA (``dcmslda``): SLDA's sentence topics
+     over DCM-LDA's per-document phi, defined in the DSL (``dcmslda``), over
+     the same corpus cut into sentences of SENT_LEN tokens, 10 steps through
+     ``Model.infer`` and ``get_result``: ``zstats_zmap`` once a step with
+     phi's phase 2b on the "runs" pass (route ``zmap passes=runs
+     logits=group``, the one ``explain_plan`` names), the ELBO monotone,
+     theta's stats summing to the sentences and phi's to N, q(z) rows to
+     1, the digest; at the last step's inputs ``zstats_zmap`` against its
+     plain version, twice bitwise and bitwise the per-column pass, both
+     timed (the call, and phase 2b alone and its zero fill, CUDA events)
+     beside their bounds; ``zmap_logits``, ``zstep`` and the Elog passes at
+     the inputs handed them; ms a step and device time;
   13. experts (``lm_moe``, after ``lm_serve``): qwen3-moe-30b-a3b at full
      width and 8 of its 48 layers through ``serve`` (8 x 4,096, 64 new
      tokens, bf16: prefill, decode, tokens/s, the decode profile, peak
@@ -289,7 +305,7 @@ bit.
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, lda_svi, query,
 gateway, lda_ooc, gibbs, lda_dist, lda_multihost, slda, slda_svi,
-slda_query, naive_bayes, naive_bayes_svi, dcmlda, lm_train,
+slda_query, naive_bayes, naive_bayes_svi, dcmlda, dcmslda, lm_train,
 lm_train_gemma3, lm_moe_train, lm_whisper_train, lm_internvl_train,
 lm_shard; the
 flash entries' ``"variant"`` names the kernel the path took and
@@ -331,12 +347,15 @@ NB_CLASSES, NB_VOCAB, NB_DOCS, NB_STEPS = 20, 61188, 18774, 5
 # passes; SLDA's sentences of 7 tokens, one piece an instance; naive Bayes'
 # documents, many longer than a piece (PIECE = 256 tokens); DCM-LDA's phi
 # on docs x topics rows (base doc * K, stride 1: one row for each (base,
-# k)), a lane group for each (document, word) run
+# k)), a lane group for each (document, word) run; DCM-SLDA's sentences
+# over the same phi, phase 2b a lane group for each (document, word) run
 EXPECTED_ROUTE = {"main": "flat passes=pieces",
                   "slda": "zmap passes=pieces logits=group",
                   "naive_bayes": "zmap passes=pieces logits=warp",
-                  "dcmlda": "flat passes=runs"}
-# each path's sha256 at full depth from the run of commit 4685efb; a
+                  "dcmlda": "flat passes=runs",
+                  "dcmslda": "zmap passes=runs logits=group"}
+# each path's sha256 at full depth from the run of commit 4685efb
+# (dcmslda's from its first run, on the card, of the "runs" phase 2b); a
 # documented change of a sum's order changes one, and the log says which
 KNOWN_DIGESTS = {
     "main": "d0ad08fa4f6303d2cc6bdc9c7b5fb4b4a1b6cc136669e3b65a6f6a72528c0e2d",
@@ -346,6 +365,8 @@ KNOWN_DIGESTS = {
     "lda_svi":
         "edae20df45a7500206cf8cc55b79b5356683661ae322e588b6eb82a63dc5e1b2",
     "dcmlda": "165659cb944f802ef32b692678fe9cbcfbf8c05b0cab5c3aad58ba43dbd24ebc",
+    "dcmslda":
+        "314189b3875a33ec9e898a454e9d59ec40fb205bcf702bec9f1545c88d12affd",
 }
 
 ZSTATS_TOL = dict(rtol=2e-4, atol=2e-4, lse_rtol=2e-5)
@@ -417,6 +438,18 @@ ZMAP_CASES = {
 ZMAP_ROUTES = {"zmap-strided": "zmap passes=strided logits=group",
                "zmap+flat": "zmap passes=pieces,runs logits=group",
                "zmap-k100": "zmap passes=pieces,strided logits=group"}
+# DCM-SLDA layouts (seed, documents, K, V, mean length, hot word share,
+# long run, masked): sentences of SENT_LEN tokens over phi's docs x topics
+# rows (base doc * K, stride 1), so phi's zmap child takes the "runs" pass; a
+# word in 30% of all tokens; document 0 opening with 1,500 tokens of one word
+# (one run across 215 sentences); masks of 0, 1 and fractions with a zmask,
+# an empty sentence and an all-masked one; K = 100
+ZMAP_RUNS_CASES = {
+    "dcms-hot-word": (600, 300, 16, 2000, 120, 0.3, 0, False),
+    "dcms-run-1500": (601, 50, 16, 500, 60, 0.0, 1500, False),
+    "dcms-masked": (602, 200, 16, 1000, 90, 0.1, 300, True),
+    "dcms-k100": (603, 60, 100, 500, 90, 0.1, 200, True),
+}
 # the reference's ALPHA_CASES "zmap" (seed 24, concentration tables)
 ZMAP_ALPHA_CASE = (24, 240, 3, 10, [(3, 15, 1, False, True, True)], True, 40)
 # the LM trainer: olmo-1b (arXiv:2402.00838), the default --arch of the
@@ -636,6 +669,39 @@ def runs_case_np(seed, docs, k, vocab, mean_len, hot, run, masked):
     tab = rng.normal(size=(docs * k, vocab)).astype(np.float32)
     return (rng.normal(size=(docs, k)).astype(np.float32), doc,
             [(tab, words, 1, None, (doc * k).astype(np.int32), mask)], zm)
+
+
+def zmap_runs_case_np(seed, docs, k, vocab, mean_len, hot, run, masked):
+    """A :data:`ZMAP_RUNS_CASES` draw as :func:`zcase_np`'s numpy case, a
+    DCM-SLDA layout: each document cut into sentences (:func:`sentences`),
+    the latent's instances, whose prior row is their document; phi's rows
+    docs x topics (base doc * K, stride 1), the zmap each token's sentence.
+    A share ``hot`` of the tokens is word 0, and document 0 opens with
+    ``run`` tokens of word 1.  ``masked``: token masks of 0, 1 and
+    fractions, a zmask, sentence 0 without tokens and every token of
+    sentence 2 masked."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(mean_len // 2, mean_len * 3 // 2 + 1, docs)
+    lens[0] += run
+    doc = np.repeat(np.arange(docs), lens).astype(np.int32)
+    words = rng.choice(vocab, len(doc), p=rng.dirichlet(
+        np.full(vocab, BETA))).astype(np.int32)
+    words[rng.random(len(doc)) < hot] = 0
+    words[:run] = 1
+    tok_sent, sent_doc = sentences({"lengths": lens, "doc_ids": doc})
+    mask = zm = None
+    if masked:
+        tok_sent = tok_sent + 1                  # sentence 0: no tokens
+        sent_doc = np.r_[sent_doc[:1], sent_doc].astype(np.int32)
+        u = rng.random(len(doc))
+        mask = np.where(u < 0.2, 0.0, np.where(
+            u < 0.6, rng.uniform(0.05, 1.0, len(doc)), 1.0))
+        mask = np.where(tok_sent == 2, 0.0, mask).astype(np.float32)
+        zm = (rng.random(len(sent_doc)) > 0.15).astype(np.float32)
+    tab = rng.normal(size=(docs * k, vocab)).astype(np.float32)
+    return (rng.normal(size=(docs, k)).astype(np.float32), sent_doc,
+            [(tab, words, 1, tok_sent.astype(np.int32),
+              (doc * k).astype(np.int32), mask)], zm)
 
 
 def to_port(case, dtype=torch.float32, device="cuda"):
@@ -900,6 +966,10 @@ def phase_zmap_kernels():
                 dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"])))
     log("  strided children on their passes: " + ", ".join(
         f"{k} {v.split()[1]}" for k, v in ZMAP_ROUTES.items()))
+    log("[kernels vs plain] DCM-SLDA layouts: phase 2b on the runs pass")
+    for label, case in ZMAP_RUNS_CASES.items():
+        err = zmap_runs_check(label, to_port(zmap_runs_case_np(*case)))[0]
+        worst["zstats_zmap"] = max(worst["zstats_zmap"], err)
     args = to_port(zcase_np(420, *ZMAP_CASES["zmap+flat"]))
     plan = ops.zstats_plan(*args[:3])
     a = fzm.zstats_zmap(*args, plan=plan)
@@ -909,6 +979,36 @@ def phase_zmap_kernels():
     log("  zstats_zmap with ops.zstats_plan's plan and without: bitwise equal")
     torch.cuda.synchronize()
     return worst
+
+
+def zmap_runs_check(label, args, plan=None):
+    """``zstats_zmap`` on ``args`` (a segment latent whose strided zmap child
+    takes phase 2b's runs pass; ``plan`` its owner plan, built here when
+    None) against ``ref.zstats``, two launches bitwise, and bitwise the
+    per-column pass at the same inputs (a plan built ``per_column``), each
+    plan on the route it names.  Returns (max abs error, the plan, the
+    per-column plan)."""
+    from repro_torch.kernels import fused_zmap as fzm
+    from repro_torch.kernels import ops, ref
+    if plan is None:
+        plan = ops.zstats_plan(*args[:3])
+    col = fzm.build_zmap_plan(args[1], args[2], tuple(args[0].shape),
+                              per_column=True).to(args[0].device)
+    routes = [ops.routing(*args[:3], plan=p).label for p in (plan, col)]
+    want = [EXPECTED_ROUTE["dcmslda"], "zmap passes=strided logits=group"]
+    check(routes == want, f"zstats_zmap {label}: routes {routes}, not {want}")
+    got = fzm.zstats_zmap(*args, plan=plan)
+    err = compare_zstats(label, got, ref.zstats(*args), name="zstats_zmap")
+    again = fzm.zstats_zmap(*args, plan=plan)
+    per_col = fzm.zstats_zmap(*args, plan=col)
+    check(bitwise(flat_out(got), flat_out(again)),
+          f"zstats_zmap {label}: two launches of the runs pass differ")
+    check(bitwise(flat_out(got), flat_out(per_col)),
+          f"zstats_zmap {label}: the runs pass differs from the per-column "
+          f"pass at the same inputs")
+    log(f"  zstats_zmap {label}: two launches bitwise; bitwise the "
+        f"per-column pass ({routes[1]})")
+    return err, plan, col
 
 
 def make_main_model(args):
@@ -4300,6 +4400,239 @@ def phase_dcmlda(report):
 
 
 # ---------------------------------------------------------------------------
+# DCM-SLDA: sentence topics over per-document phi, phase 2b on "runs"
+# ---------------------------------------------------------------------------
+
+def dcmslda(m, alpha, beta, K, V):
+    """SLDA's sentence topics (the paper's Figure 21) over DCM-LDA's
+    per-document topic-word tables (Figure 22), in the DSL."""
+    docs = m.plate("?", name="docs")
+    sents = m.plate("?", name="sents", within=docs)
+    tokens = m.plate("?", name="tokens", within=sents)
+    theta = m.dirichlet("theta", alpha, dim=K, plate=docs)
+    phi = m.dirichlet("phi", beta, dim=V,
+                      plate=m.plate(K, name="topics", within=docs))
+    z = m.categorical("z", given=theta, plate=sents)
+    m.categorical("x", given=phi, plate=tokens, selector=z)
+
+
+def make_dcmslda():
+    """DCM-SLDA at DCM-LDA's settings (:func:`make_dcmlda`'s corpus), each
+    document cut into sentences of SENT_LEN tokens: (corpus, sentence count,
+    model observed, its program)."""
+    from repro_torch.core.models import Model
+    from repro_torch.data import SyntheticCorpus
+    corpus = SyntheticCorpus(n_docs=DCM_DOCS, vocab=DCM_VOCAB,
+                             n_topics=DCM_TOPICS, mean_len=DCM_MEAN_LEN,
+                             seed=SEED).generate()
+    tok_sent, sent_doc = sentences(corpus)
+    m = Model(dcmslda, alpha=ALPHA, beta=BETA, K=DCM_TOPICS, V=DCM_VOCAB)
+    m["x"].observe(corpus["tokens"], segment_ids=tok_sent)
+    m.bind("sents", sent_doc)
+    return corpus, len(sent_doc), m, m.compile()
+
+
+def phase2b_ms(args, plan, reps=20):
+    """ms of ``zstats_zmap``'s phase 2b alone at ``args`` under ``plan``
+    (the one zmap child's zero fill and stats pass,
+    ``fused_zmap._stats_pass``) and of the zero fill alone, CUDA events
+    around back-to-back calls.  r is a seeded uniform table of the call's
+    shape: the pass's time depends on the streams, not on r's values."""
+    from repro_torch.kernels import fused_zmap as fzm
+    from repro_torch.kernels import fused_zstats as fz
+    prior, rows, children, _ = args
+    (c,) = [c for c in children if c.zmap is not None]
+    gen = torch.Generator(device=prior.device).manual_seed(SEED)
+    r = torch.rand((rows.shape[0], prior.shape[1]), generator=gen,
+                   device=prior.device)
+    zargs = fz.make_args(prior.shape[1], (c,), (c.elog,))
+    lib, stream = fz.library(), torch.cuda.current_stream().cuda_stream
+    both = time_ms(lambda: fzm._stats_pass(lib, zargs, plan, 0, c, r, stream),
+                   reps=reps)
+    fill = time_ms(lambda: torch.zeros(c.elog.shape, dtype=torch.float32,
+                                       device=prior.device), reps=reps)
+    return dict(phase2b_ms=both, fill_ms=fill, pass_ms=both - fill)
+
+
+def phase_dcmslda(report):
+    """DCM-SLDA at DCM-LDA's settings, sentences of SENT_LEN tokens:
+    DCM_STEPS steps through ``Model.infer`` and ``get_result`` with the
+    launch counts set to 0 just before and read just after
+    (``zstats_zmap`` once a step, phi's phase 2b on the "runs" pass that
+    ``explain_plan(backend="cuda")`` names), the ELBO monotone, theta's
+    stats summing to the sentences and phi's to N, q(z) rows to 1, the
+    digest; at the inputs that the last step handed ``zstats_zmap``: the
+    kernel against ``ref.zstats``, twice bitwise and bitwise the per-column
+    pass, both timed (the call, and phase 2b alone) beside their bounds;
+    ``zmap_logits``, ``zstep`` and the Elog passes at the inputs
+    ``get_result`` and the last step handed them; ms a step and the
+    device's busy time under the profiler."""
+    from repro_torch.kernels import dirichlet_expectation as de
+    from repro_torch.kernels import fused_zmap as fzm
+    from repro_torch.kernels import ops, ref, work
+    from repro_torch.kernels import vmp_zstep as zs
+    from repro_torch.launch.roofline import bound
+    t0 = time.perf_counter()
+    corpus, n_sent, m, prog = make_dcmslda()
+    n = len(corpus["tokens"])
+    log(f"[dcmslda] corpus D={DCM_DOCS} V={DCM_VOCAB} K={DCM_TOPICS} N={n} "
+        f"tokens in {n_sent} sentences of <= {SENT_LEN} (phi on "
+        f"{DCM_DOCS * DCM_TOPICS} docs x topics rows), made and compiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ops.reset_launch_counts()
+    with recording("zstats", "dirichlet_expectation", "zmap_logits",
+                   "zstep") as calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.infer(steps=DCM_STEPS, seed=SEED, device=DEV)
+        torch.cuda.synchronize()
+        infer_s = time.perf_counter() - t0
+        after_infer, routes = ops.launch_counts(), ops.route_counts()
+        r = m["z"].get_result()
+    counts = ops.launch_counts()
+    trace = m.elbo_trace
+    log(f"[dcmslda] infer(steps={DCM_STEPS}) {infer_s:.2f} s; ELBO "
+        f"{trace[0]:.6e} -> {trace[-1]:.6e}; launches {counts}")
+    zr = routes["zstats_zmap"]
+    check(after_infer["zstats_zmap"] == DCM_STEPS == zr["runs"] == zr["group"]
+          and after_infer["zstats"] == 0,
+          f"dcmslda: zstats_zmap launched {after_infer['zstats_zmap']} times "
+          f"in {DCM_STEPS} steps, by route {zr}")
+    check(counts["dirichlet_expectation"] > 0 and counts["zstep"] == 1
+          and counts["zmap_logits"] == 1,
+          f"dcmslda: get_result('z') did not run zmap_logits and zstep: "
+          f"{counts}")
+    diffs = np.diff(trace)
+    check(bool((diffs >= -1e-6 * abs(trace[-1])).all()),
+          f"dcmslda: ELBO not monotone within 1e-6 relative: "
+          f"{diffs.tolist()}")
+    posts = {name: m[name].get_result() for name in ("theta", "phi")}
+    digest = output_digest(posts, trace)
+    log(f"[dcmslda] sha256 of the final posteriors and ELBO trace: "
+        f"{digest_note('dcmslda', digest)}")
+    sums = {"theta": float(posts["theta"].sum(dtype=np.float64)) -
+            posts["theta"].size * ALPHA,
+            "phi": float(posts["phi"].sum(dtype=np.float64)) -
+            posts["phi"].size * BETA}
+    for name, want in (("theta", n_sent), ("phi", n)):
+        s = sums[name]
+        log(f"[dcmslda] sum of {name} stats {s:.1f} vs {want} (rel "
+            f"{abs(s - want) / want:.2e}, tol 1e-5); {name} "
+            f"{posts[name].shape}")
+        check(abs(s - want) <= 1e-5 * want,
+              f"dcmslda: {name} stats do not sum to {want}")
+    row_err = float(np.abs(r.sum(axis=1, dtype=np.float64) - 1.0).max())
+    log(f"[dcmslda] q(z) {r.shape}: max |row sum - 1| = {row_err:.2e} (tol "
+        f"1e-5)")
+    check(r.shape == (n_sent, DCM_TOPICS) and np.isfinite(r).all() and
+          row_err <= 1e-5, "dcmslda: q(z) rows do not sum to 1")
+    explain_check("dcmslda", m, routes, EXPECTED_ROUTE["dcmslda"])
+    del posts, r
+
+    log("[kernels vs plain] dcmslda: the inputs of its last step and of "
+        "get_result('z')")
+    args, plan = replayed("dcmslda", calls)
+    zerr, plan, col = zmap_runs_check("dcmslda inputs", args, plan)
+    zkids = tuple(c for c in args[2] if c.zmap is not None)
+    g = plan.by_value[0]
+    run_len = np.diff(g.key_start)
+    col_len = np.bincount(zkids[0].values.cpu().numpy(),
+                          minlength=DCM_VOCAB)
+    log(f"  phi's child: {g.n_keys} (document, word) runs, longest "
+        f"{run_len.max()}, mean {run_len.mean():.4f} tokens; hottest value "
+        f"column {col_len.max()} tokens")
+    t_runs = time_ms(lambda: fzm.zstats_zmap(*args, plan=plan), reps=20)
+    t_col = time_ms(lambda: fzm.zstats_zmap(*args, plan=col), reps=5)
+    t_plain = time_ms(lambda: ref.zstats(*args), reps=3)
+    split = {kind: phase2b_ms(args, p) for kind, p in (("runs", plan),
+                                                        ("strided", col))}
+    z_bound = work_bound("zstats_zmap", *args)
+    p_bound = bound(*work.zmap_stats(zkids, args[1].shape[0],
+                                     args[0].shape[1])[::-1])
+    log(f"  zstats_zmap dcmslda: runs {t_runs:.4f} ms, per column "
+        f"{t_col:.4f} ms, plain {t_plain:.4f} ms, bound {z_bound[0]:.4f} ms "
+        f"({z_bound[1]})")
+    for kind, sp in split.items():
+        log(f"  phase 2b alone on {kind}: {sp['phase2b_ms']:.4f} ms, the "
+            f"zero fill {sp['fill_ms']:.4f} ms and the pass "
+            f"{sp['pass_ms']:.4f} ms (CUDA events, 20 calls); phase 2b's "
+            f"bound {p_bound[0]:.4f} ms ({p_bound[1]})")
+    del col
+    # get_result's zmap_logits and zstep, the Elog passes of the last step
+    (lkids, n_inst, k), lkw, lout = calls["zmap_logits",
+                                         tuple(zkids[0].elog.shape)]
+    lerr = compare("zmap_logits", "dcmslda get_result", lout,
+                   ref.zmap_logits(lkids, n_inst, k),
+                   dict(rtol=ZSTATS_TOL["rtol"], atol=ZSTATS_TOL["atol"]))
+    t_l = time_ms(lambda: fzm.zmap_logits(lkids, n_inst, k, **lkw), reps=10)
+    t_lp = time_ms(lambda: ref.zmap_logits(lkids, n_inst, k), reps=3)
+    (logits,), _, (rz, lse) = [v for (nm, _), v in calls.items()
+                               if nm == "zstep"][0]
+    rp, lp = ref.zstep(logits)
+    s_err = max(compare("zstep", f"dcmslda r {tuple(logits.shape)}", rz, rp,
+                        ZSTEP_TOL),
+                compare("zstep", "dcmslda lse", lse, lp,
+                        dict(rtol=1e-5, atol=1e-5)))
+    t_s = time_ms(lambda: zs.zstep(logits), reps=20)
+    t_sp = time_ms(lambda: ref.zstep(logits), reps=5)
+    de_err = 0.0
+    for (nm, shape), (a, kw, out) in calls.items():
+        if nm == "dirichlet_expectation":
+            de_err = max(de_err, compare(
+                nm, f"dcmslda {shape}", out,
+                de_plain(a[0], kw.get("transpose", False)), DE_TOL))
+    (a, kw, _), = [v for (nm, shape), v in calls.items()
+                   if nm == "dirichlet_expectation"
+                   and shape == tuple(zkids[0].elog.shape)]
+    phi = a[0]
+    t_de = time_ms(lambda: de.dirichlet_expectation(phi, **kw), reps=20)
+    t_de_dev = device_ms(lambda: de.dirichlet_expectation(phi, **kw))
+    t_dep = time_ms(lambda: de_plain(phi, kw.get("transpose", False))
+                    .contiguous(), reps=5)
+    entries = []
+    src = "src/repro_torch/kernels/csrc/zstats.cu"
+    for name, route, source, rep, ms, pms, (bms, by), e in [
+        ("zstats_zmap", "cuda", src, "src/repro/kernels/fused_zmap.py:236",
+         t_runs, t_plain, z_bound, zerr),
+        ("zmap_logits", "cuda", src, "src/repro/kernels/fused_zmap.py:165",
+         t_l, t_lp, work_bound("zmap_logits", lkids, n_inst, k), lerr),
+        ("dirichlet_expectation", "triton",
+         "src/repro_torch/kernels/dirichlet_expectation.py",
+         "src/repro/kernels/dirichlet_expectation.py:52", t_de, t_dep,
+         work_bound("dirichlet_expectation", phi), de_err),
+        ("zstep", "triton", "src/repro_torch/kernels/vmp_zstep.py",
+         "src/repro/kernels/vmp_zstep.py:40", t_s, t_sp,
+         work_bound("zstep", logits), s_err),
+    ]:
+        entries.append(kernel_entry("dcmslda", name, route, source, rep,
+                                    counts[name], e, ms, pms, bms, by))
+        log(f"  {name:<22} {ms:9.4f} ms  plain {pms:9.4f} ms  bound "
+            f"{bms:8.4f} ms ({by})  launches {counts[name]}")
+    entries[0].update(variant=EXPECTED_ROUTE["dcmslda"], strided_ms=t_col)
+    entries[2]["device_ms"] = t_de_dev
+    log(f"  dirichlet_expectation on phi {tuple(phi.shape)}: device time "
+        f"{t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
+    del calls, a, phi, logits, args, plan, lkids, lout, rz, lse, rp, lp
+    t_step, step, st = time_steps(prog, m._state)
+    trace_steps = phase_trace(step, st)
+    log(f"[dcmslda] VMP step {t_step:.2f} ms, {n / t_step * 1e3:.4e} "
+        f"tokens/s, device busy {trace_steps['busy_ms']:.3f} ms a step")
+    report["dcmslda"] = dict(
+        n_tokens=n, n_sentences=n_sent, launches=counts, routes=routes,
+        elbo_trace=trace, digest=digest, stats_sums=sums, infer_s=infer_s,
+        step_ms=t_step, tokens_per_s=n / t_step * 1e3, trace=trace_steps,
+        zstats_zmap=dict(runs_ms=t_runs, strided_ms=t_col, plain_ms=t_plain,
+                         bound_ms=z_bound[0], bound_by=z_bound[1],
+                         phase2b_bound_ms=p_bound[0],
+                         phase2b_bound_by=p_bound[1], split=split,
+                         n_runs=g.n_keys, longest_run=int(run_len.max()),
+                         hottest_column=int(col_len.max())))
+    del m, prog, step, st, corpus
+    torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # experts: qwen3-moe and moonshot serving and training
 # ---------------------------------------------------------------------------
 
@@ -6152,6 +6485,7 @@ def main(argv=None) -> int:
                      nb, report, bitwise_vmp=True)[0]
     del nb
     kernels += timed("dcmlda", phase_dcmlda, report)
+    kernels += timed("dcmslda", phase_dcmslda, report)
     kernels += phase_lm_train(report, phase_flash(report))
     kernels += timed("lm_serve", phase_lm_serve, report)
     kernels += timed("lm_moe", phase_lm_moe, report)

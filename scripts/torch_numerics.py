@@ -53,7 +53,11 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
   SLDA path's phi, also its two Triton passes timed apart in each tree).
   Timed with CUDA events in turns (parent, this, this, parent), each output
   said bitwise equal to the parent's or not; the Elog passes also by device
-  time (``chip_smoke.device_ms``).
+  time (``chip_smoke.device_ms``).  Then ``zstats_zmap`` at the DCM-SLDA
+  inputs of ``chip_smoke.py`` (a strided zmap child, after 2 VMP steps),
+  each tree with its own owner plan, without and with a fractional mask on
+  that child, and at both this checkout's phase 2b on the "runs" pass
+  against its per-column pass (a ``per_column`` plan).
 - ``ab-flash``: ``flash_attention`` in bf16, causal, at AB_FLASH_SHAPES
   (the trainer's and qwen3-moe's Dh-128 shapes, a Dh-64 shape, gemma3-4b's
   Dh-256 global layer at batch 1 x 4,096 and 4 x 2,048): TREE's kernel
@@ -76,7 +80,8 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
   time by kernel under torch.profiler (each launch of the call apart: the
   prior's pass, its finish, the lse sum, the zero fill, the child's pass),
   and the count of FFMA, FMUL and FADD in the machine code of the strided
-  children's stats kernels.
+  children's stats kernels (the flat passes' and a segment latent's phase
+  2b).
 
 Imports the port only, never JAX nor the JAX package.
 """
@@ -269,7 +274,9 @@ def zstats_split(cs):
     # add
     for name, code in sorted(_sass(fz.build()[0]).items()):
         if not name.startswith(("_Z14strided_kernelILi1E",
-                                "_Z11runs_kernelILi1E")):
+                                "_Z11runs_kernelILi1E",
+                                "_Z19zmap_strided_kernelILi1E",
+                                "_Z16zmap_runs_kernelILi1E")):
             continue
         ins = [x for x in re.findall(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", code)
                if x]
@@ -481,7 +488,63 @@ def ab_zmap(cs, parent: Path, more=()):
               f"ms (device {sum(d['this']) / 2:.4f}); turns (ms) parent "
               f"{t['parent']}, this {t['this']}; device {d['parent']}, "
               f"{d['this']}", flush=True)
+    del runs, phi, part
+    torch.cuda.empty_cache()
+    _ab_dcmslda(cs, mods, trees)
     return 0
+
+
+def _ab_dcmslda(cs, mods, trees):
+    """``zstats_zmap`` at ``chip_smoke.py``'s DCM-SLDA inputs (after 2 VMP
+    steps), this checkout's against each tree's, each with its own owner
+    plan (this one's phase 2b on "runs"), and again with a fractional
+    mask on phi's child (a seeded draw in [0.05, 1) a token); at both,
+    this checkout's "runs" pass against its per-column one."""
+    import importlib
+    import numpy as np
+    import torch
+    from repro_torch.kernels import fused_zmap as fzm
+    from repro_torch.kernels import ops
+    _, _, m, _ = cs.make_dcmslda()
+    with cs.recording("zstats") as calls:
+        m.infer(steps=2, seed=cs.SEED, device="cuda")
+    (a, kw, _), = calls.values()
+    args, plan = (*a, kw.get("zmask")), kw.get("plan")
+    del m, calls
+    c = args[2][0]
+    rng = np.random.default_rng(cs.SEED)
+    frac = torch.from_numpy(rng.uniform(0.05, 1.0, len(c.values)).astype(
+        np.float32)).to(c.values.device)
+    masked = (*args[:2], (c._replace(mask=frac),), args[3])
+    for label, a, pl in (("dcmslda", args, plan),
+                         ("dcmslda fractional mask", masked,
+                          ops.zstats_plan(*masked[:3]))):
+        col = fzm.build_zmap_plan(a[1], a[2], tuple(a[0].shape),
+                                  per_column=True).to(a[0].device)
+        print(f"[ab-zmap] {label}: N = {len(a[2][0].values)}, "
+              f"{a[1].shape[0]} sentences, child table "
+              f"{tuple(a[2][0].elog.shape)}; this "
+              f"{ops.routing(a[0], plan=pl, children=a[2]).label}",
+              flush=True)
+        _ab(cs, f"zstats_zmap {label}: per column (as 'parent') against "
+            f"runs", {"this": lambda a=a, pl=pl: fzm.zstats_zmap(*a, plan=pl),
+                      "parent": lambda a=a, col=col: fzm.zstats_zmap(
+                          *a, plan=col)})
+        for who in trees:
+            wfzm = mods[who]["fused_zmap"]
+            wref = importlib.import_module(f"{who}_repro_torch.kernels.ref")
+            wa = (*a[:2], tuple(wref.ZChild(*x) for x in a[2]), a[3])
+            wplan = wfzm.build_zmap_plan(wa[1], wa[2], tuple(a[0].shape)).to(
+                a[0].device)
+            tag = "" if who == "parent" else f" against {who}"
+            _ab(cs, f"zstats_zmap {label}{tag}", {
+                "this": lambda a=a, pl=pl: fzm.zstats_zmap(*a, plan=pl),
+                "parent": lambda f=wfzm, wa=wa, wp=wplan: f.zstats_zmap(
+                    *wa, plan=wp)})
+            del wplan
+        del col
+        torch.cuda.empty_cache()
+
 
 
 def de_sweep(cs):

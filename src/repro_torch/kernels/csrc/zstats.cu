@@ -89,10 +89,19 @@
 //      as `extra` after the prior row, writes each instance's r row once
 //      (`r_out`) besides the prior stats, the lse and the stats of any
 //      child without a zmap;
-//   2b. zmap_stats: the host groups each zmap child's tokens by value; a
-//      few lanes per piece sum mask * r[zmap] and zstats_finish writes the
-//      value's column of the stats (zmap_strided walks a strided child's
-//      value column in token order).
+//   2b. per zmap child, by the pass the host plan chose for it:
+//      zmap_stats (a specialized child: SLDA's phi): the host groups its
+//      tokens by value; a few lanes per piece sum mask * r[zmap] and
+//      zstats_finish writes the value's column of the stats;
+//      zmap_runs (a strided child whose rows base + stride*k are one to one
+//      over its (base, k): DCM-SLDA's per-document phi, base = doc * K,
+//      stride 1): the host groups its tokens by (base, value) run, and one
+//      lane group per run sums mask * r[zmap] in registers and stores the
+//      run's K cells once into the zeroed table;
+//      zmap_strided (a strided child whose rows collide): a warp walks each
+//      value column in token order, adding into the zeroed table.  Both
+//      strided passes round each product, then the add, so their cells are
+//      bitwise equal where both apply.
 // Bound on the H100 at the SLDA main path (10M tokens, 1.44M sentences,
 // K = 100): operations, about 0.08 ms, just above the 0.06 ms that its
 // inputs and outputs take at 3.35 TB/s.  The (n_latent, K) logits and r
@@ -105,8 +114,8 @@
 // Tables arrive as f32 Elog values (the wrapper's Triton pre-pass computes
 // them from f32 or bf16 concentrations); accumulation is f32.  K may be
 // anything from 1 to 1024 (KPL, a template parameter: it sets the lanes per
-// token of the flat passes and per piece of the segment ones, Lanes; the
-// strided segment pass keeps KPL topics a lane).
+// token of the flat passes and per piece or run of the segment ones, Lanes;
+// the per-column strided segment pass keeps KPL topics a lane).
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() after its launch.
@@ -826,9 +835,17 @@ __global__ void zmap_stats_kernel(ZArgs a, int target, const float* __restrict__
   }
 }
 
-// Phase 2b of a strided child: one warp per value column walks the column's
-// tokens in order and adds mask * r[zmap] into rows base + stride * k of out
-// (zeroed).  Off every path at full size; it reads the pass's streams.
+// Phase 2b of a strided child whose rows collide (two bases stride * m apart,
+// 0 < |m| < K: the host's rows_one_to_one test fails): one warp per value
+// column walks the column's tokens in order and adds mask * r[zmap] into
+// rows base + stride * k of out (zeroed), each product rounded, then the add,
+// as zmap_runs_kernel sums the same terms.  Written `out += r * w` it compiled
+// to one FFMA a cell on the H100 (cuobjdump): a fused multiply-add rounds
+// once, so with a fractional mask its cells differed from a rounded product
+// then an add in the last bits (with masks of 0 and 1 the two agree).  A hot
+// value's column is one serial chain of read-modify-writes; a child whose
+// rows are one to one takes zmap_runs_kernel instead.  It reads the pass's
+// streams.
 template <int KPL>
 __global__ void zmap_strided_kernel(ZArgs a, int target, const float* __restrict__ r,
                                     const int* __restrict__ key_start, int n_keys,
@@ -846,10 +863,66 @@ __global__ void zmap_strided_kernel(ZArgs a, int target, const float* __restrict
 #pragma unroll
     for (int j = 0; j < KPL; ++j) {
       const int kk = lane + 32 * j;
-      if (kk < k) out[(size_t)(b + ch.stride * kk) * ch.kf + warp] += rrow[kk] * w;
+      if (kk < k) {
+        float* o = out + (size_t)(b + ch.stride * kk) * ch.kf + warp;
+        *o = __fadd_rn(*o, __fmul_rn(rrow[kk], w));
+      }
     }
     __syncwarp();   // rows may repeat across tokens and lanes: keep token order
   }
+}
+
+// Phase 2b of a strided child whose rows base + stride * k are one to one
+// over its (base, k) (SLDA's sentence topics over DCM-LDA's per-document phi:
+// base = doc * K, stride 1).  The host groups the child's tokens by (base,
+// value) run, runs in (base, value) order, each run's tokens in their
+// original order (fused_zstats.group_runs), and gathers the pass's streams
+// (values, base, mask, zmap) in run order.  One lane group (QL lanes, the
+// segment passes' layout) owns each run, PPW runs a warp: lane q walks the
+// run's tokens, gathers its chunks of r[zmap[t]] (16 bytes a load where vec),
+// adds mask * r in registers, a product rounded then the add, and stores its
+// cells (b + stride * k, v) once into the zeroed table.  No other run reaches
+// those cells, so there is no read-modify-write and no serial chain down a hot
+// value's column.  Each cell sums the terms of zmap_strided_kernel, in the
+// same order (a column's tokens in their original order, those of one base
+// among them) from the same 0, with the same roundings: bitwise equal.  The
+// groups of a warp share no shuffle: each runs as long as its own run.  A run
+// is one word's occurrences in one document, so consecutive tokens share an r
+// row only where the word repeats within a sentence; the loads are not
+// deduplicated.
+template <int KPL>
+__global__ void zmap_runs_kernel(ZArgs a, int target, const float* __restrict__ r,
+                                 const int* __restrict__ key_start, int n_runs,
+                                 float* __restrict__ out, int vec) {
+  constexpr int QL = Lanes<KPL>::QL, CH = Lanes<KPL>::CH, PPW = 32 / QL;
+  const int warp = blockIdx.x * FLAT_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, q = lane % QL, run = warp * PPW + lane / QL;
+  if (run >= n_runs) return;
+  const ZChildArgs& ch = a.c[target];
+  const int k = a.k;
+  const int t0 = key_start[run], t1 = key_start[run + 1];
+  const int v = ch.values[t0], b = ch.base ? ch.base[t0] : 0;
+  float acc[CH][4];
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  for (int t = t0; t < t1; ++t) {
+    const float w = ch.mask ? __ldcs(ch.mask + t) : 1.0f;
+    float x[CH][4];
+    load_row<QL, CH>(r + (size_t)__ldcs(ch.zmap + t) * k, q, k, vec != 0, 0.0f, x);
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = __fadd_rn(acc[i][e], __fmul_rn(x[i][e], w));
+  }
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kk = topic<QL>(i, q, e);
+      if (kk < k) __stcs(out + (size_t)(b + ch.stride * kk) * ch.kf + v, acc[i][e]);
+    }
 }
 
 // One block: out[0] = sum of x in a fixed order (strided per thread, then a
@@ -1055,6 +1128,18 @@ int zmap_strided(const void* args, int target, const void* r, const void* key_st
     zmap_strided_kernel<decltype(kpl)::value>
         <<<blocks_for(n_keys), THREADS, 0, (cudaStream_t)stream>>>(
             a, target, (const float*)r, (const int*)key_start, n_keys, (float*)out);
+  });
+}
+
+int zmap_runs(const void* args, int target, const void* r, const void* key_start, int n_runs,
+              void* out, void* stream) {
+  const ZArgs a = *(const ZArgs*)args;
+  if (n_runs <= 0) return 0;
+  const int vec = a.k % 4 == 0 && aligned16(r);
+  return dispatch_kpl(a.k, [&](auto kpl) {
+    zmap_runs_kernel<decltype(kpl)::value>
+        <<<seg_blocks(n_runs, a.k), 32 * FLAT_WARPS, 0, (cudaStream_t)stream>>>(
+            a, target, (const float*)r, (const int*)key_start, n_runs, (float*)out, vec);
   });
 }
 

@@ -17,21 +17,27 @@ source note says what bounds them on the H100):
   2a. the flat kernel's passes (``fused_zstats.launch_flat``) over the
      latent instances, with those logits added after the prior row: the
      softmax, lse, prior stats and any child without a zmap, writing r;
-  2b. ``zmap_stats`` / ``zmap_strided``: per zmap child,
-     ``stats[row(k), v_t] += mask[t] * r[zmap[t], k]``.
+  2b. per zmap child, ``stats[row(k), v_t] += mask[t] * r[zmap[t], k]``
+     on the pass :func:`build_zmap_plan` chose (``ZmapPlan.kinds``):
+     ``zmap_stats`` for a specialized child (SLDA's phi), ``zmap_runs`` for
+     a strided child whose rows ``base + stride * k`` are one to one over
+     its (base, k) (DCM-SLDA's per-document phi: a lane group a (base,
+     value) run stores the run's K cells once), ``zmap_strided`` for one
+     whose rows collide (a warp walks each value column).
 
 Owner passes, as in ``fused_zstats``: the host groups each zmap child's
-tokens by instance (phase 1) and by value (phase 2b) once per program
-(:func:`build_zmap_plan`), so no float atomics run and two calls are
-bitwise equal.  The plan also holds each pass's token streams gathered into
-its piece order (:func:`zmap_streams`), so no pass reads a permutation, and
-routes phase 1 (:func:`latent_route`): an instance of one piece (an SLDA
-sentence) gets its logits row from that piece, an instance of several (a
-naive Bayes document) from f64 partials that a finishing pass adds in
-order.  What the TPU kernel did only for the TPU is gone: the
-8 MiB budget that sent SLDA at NYTimes widths to the chunked oracle
-(``fusable_zmap``), the one-hot matmuls and the padding.  The plain version
-is ``ref.zstats`` (its segmented path); ``ops`` runs it on the CPU.
+tokens by instance (phase 1) and by value, or by (base, value) run (phase
+2b), once per program (:func:`build_zmap_plan`), so no float atomics run
+and two calls are bitwise equal.  The plan also holds each pass's token
+streams gathered into its piece order (:func:`zmap_streams`), so no pass
+reads a permutation, and routes phase 1 (:func:`latent_route`): an
+instance of one piece (an SLDA sentence) gets its logits row from that
+piece, an instance of several (a naive Bayes document) from f64 partials
+that a finishing pass adds in order.  What the TPU kernel did only for the
+TPU is gone: the 8 MiB budget that sent SLDA at NYTimes widths to the
+chunked oracle (``fusable_zmap``), the one-hot matmuls and the padding.
+The plain version is ``ref.zstats`` (its segmented path); ``ops`` runs it
+on the CPU.
 """
 
 import ctypes
@@ -59,15 +65,18 @@ logits_route_launches = {"group": 0, "warp": 0}
 class ZmapPlan:
     """The owner plan of one segment latent: phase 2a's flat plan (the
     prior rows over the latent instances, the children without a zmap), per
-    zmap child its tokens grouped by instance and by value, and
-    :func:`zmap_streams`' arrays (each pass's streams in its piece order,
-    phase 1's routes)."""
+    zmap child its tokens grouped by instance and by value (by (base,
+    value) run where its pass is ``"runs"``), :func:`zmap_streams`' arrays
+    (each pass's streams in its piece order, phase 1's routes), and
+    ``kinds``, per zmap child its phase 2b pass (``fused_zstats.pass_kind``).
+    """
     flat: Optional[_fz.ZPlan]
     by_latent: tuple
     by_value: tuple
     device: Optional[torch.device] = None
     tensors: dict = dataclasses.field(default_factory=dict)
     streams: dict = dataclasses.field(default_factory=dict)
+    kinds: tuple = ()
 
     def host_arrays(self) -> dict:
         """``{key: numpy array}`` of the zmap groupings and streams (the
@@ -90,7 +99,8 @@ class ZmapPlan:
         arrays = self.host_arrays()
         flat = self.flat.to(device) if self.flat is not None else None
         return ZmapPlan(flat, self.by_latent, self.by_value, device,
-                        _fz.device_arrays(arrays, device), self.streams)
+                        _fz.device_arrays(arrays, device), self.streams,
+                        self.kinds)
 
 
 def _split(children):
@@ -132,38 +142,57 @@ def _gathered(name: str, g: _fz.Grouping, c, fields) -> dict:
             if getattr(c, f) is not None}
 
 
-def zmap_streams(zkids, by_latent, by_value) -> dict:
+def zmap_streams(zkids, by_latent, by_value, kinds=()) -> dict:
     """``{(pass, field): array}`` for the segment passes: phase 1's
     (``latent{j}``) values, base and mask of zmap child j in its grouping by
     instance, and its :func:`latent_route`; phase 2b's (``value{j}``) zmap,
-    base and mask in its grouping by value."""
+    base and mask in its grouping by value, and its values too where its
+    pass (``kinds[j]``) is ``"runs"``, whose runs read their value there."""
     out = {}
     for j, (c, g) in enumerate(zip(zkids, by_latent)):
         out.update(_gathered(f"latent{j}", g, c, ("values", "base", "mask")))
         out.update({(f"latent{j}", f): a for f, a in latent_route(g).items()})
     for j, (c, g) in enumerate(zip(zkids, by_value)):
-        out.update(_gathered(f"value{j}", g, c, ("zmap", "base", "mask")))
+        runs = j < len(kinds) and kinds[j] == "runs"
+        out.update(_gathered(f"value{j}", g, c, ("zmap", "base", "mask")
+                             + (("values",) if runs else ())))
     return out
 
 
 def build_zmap_plan(prior_rows, children, prior_shape: tuple,
-                    piece: int = _fz.PIECE) -> ZmapPlan:
+                    piece: int = _fz.PIECE,
+                    per_column: bool = False) -> ZmapPlan:
     """The owner plan from the static index streams (tensors or arrays).
-    Raises on an index the kernel would read or write out of bounds, and
-    when no child has a zmap."""
+    Phase 2b groups a specialized zmap child's tokens by value (``"pieces"``),
+    a strided one's by (base, value) run where its rows are one to one over
+    its (base, k) (``fused_zstats.rows_one_to_one``: ``"runs"``), and any
+    other's by value (``"strided"``).  ``per_column`` gives every strided
+    zmap child the per-column ``"strided"`` pass, the route the runs pass
+    replaced, so that the two can be held to each other and timed.  Raises
+    on an index the kernel would read or write out of bounds, and when no
+    child has a zmap."""
     zkids, flat = _split(children)
     if not zkids:
         raise ValueError("no child has a zmap; fused_zstats.build_plan "
                          "plans a flat latent")
     k = prior_shape[1]
+    by_value, kinds = [], []
     for i, c in enumerate(zkids):
         _fz.check_strided_rows(i, c, k)
+        base = _fz.host(c.base) if c.base is not None else None
+        kinds.append(_fz.pass_kind(c, not c.specialized and not per_column
+                                   and _fz.rows_one_to_one(base, c.stride, k)))
+        values = _fz.host(c.values)
+        by_value.append(
+            _fz.group_runs(values, base, c.elog.shape[1])
+            if kinds[-1] == "runs" else
+            _fz.group_tokens(values, c.elog.shape[1], piece))
     by_latent = _by_latent(zkids, len(prior_rows), piece)
-    by_value = tuple(_fz.group_tokens(_fz.host(c.values), c.elog.shape[1],
-                                      piece) for c in zkids)
+    by_value, kinds = tuple(by_value), tuple(kinds)
     return ZmapPlan(_fz.build_plan(prior_rows, flat, prior_shape, piece),
                     by_latent, by_value,
-                    streams=zmap_streams(zkids, by_latent, by_value))
+                    streams=zmap_streams(zkids, by_latent, by_value, kinds),
+                    kinds=kinds)
 
 
 def _check_device(t: torch.Tensor):
@@ -182,11 +211,12 @@ def _pass_args(base, plan: ZmapPlan, name: str, j: int):
 
 
 def pass_kinds(children, plan: ZmapPlan) -> tuple:
-    """Per child in order, its stats pass: a zmap child's by
-    ``fused_zstats.pass_kind`` (``"pieces"`` or ``"strided"``), a child
-    without a zmap's as phase 2a's flat plan chose it (``ZPlan.kinds``)."""
-    flat = iter(plan.flat.kinds)
-    return tuple(_fz.pass_kind(c) if c.zmap is not None else next(flat)
+    """Per child in order, its stats pass as the plan chose it: a zmap
+    child's phase 2b (``ZmapPlan.kinds``: ``"pieces"``, ``"runs"`` or
+    ``"strided"``), a child without a zmap's in phase 2a's flat plan
+    (``ZPlan.kinds``)."""
+    zmap, flat = iter(plan.kinds), iter(plan.flat.kinds)
+    return tuple(next(zmap) if c.zmap is not None else next(flat)
                  for c in children)
 
 
@@ -220,6 +250,35 @@ def _logits(lib, zargs, plan: ZmapPlan, n_latent: int, k: int, stream):
             t[name, "fstart"].data_ptr(), len(fkeys), k, logits.data_ptr(), k,
             1, int(j > 0), stream), "finish64")
     return logits
+
+
+def _stats_pass(lib, zargs, plan: ZmapPlan, j: int, c, r: torch.Tensor,
+                stream) -> torch.Tensor:
+    """Phase 2b of zmap child ``j`` (``c``) on the pass the plan chose for
+    it: its ``(Gf, Kf)`` f32 stats from the ``(n_latent, K)``
+    responsibilities ``r``."""
+    gf, kf = c.elog.shape
+    k, dev, t = r.shape[1], r.device, plan.tensors
+    g, name, kind = plan.by_value[j], f"value{j}", plan.kinds[j]
+    args = _pass_args(zargs, plan, name, j)
+    if kind == "pieces":
+        cs = torch.empty((gf, kf), dtype=torch.float32, device=dev)
+        partial = torch.empty((g.n_pieces, k), dtype=torch.float32,
+                              device=dev)
+        _fz.check_launch(lib.zmap_stats(
+            ctypes.addressof(args), j, r.data_ptr(),
+            t[name, "piece_start"].data_ptr(), g.n_pieces,
+            partial.data_ptr(), stream), "zmap_stats")
+        _fz.finish(lib, partial, t, name, kf, k, cs, 1, kf, stream)
+        return cs
+    # the cells that no token reaches stay 0
+    cs = torch.zeros((gf, kf), dtype=torch.float32, device=dev)
+    launch = lib.zmap_runs if kind == "runs" else lib.zmap_strided
+    _fz.check_launch(launch(
+        ctypes.addressof(args), j, r.data_ptr(),
+        t[name, "key_start"].data_ptr(), g.n_keys, cs.data_ptr(), stream),
+        f"zmap_{kind}")
+    return cs
 
 
 def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
@@ -259,28 +318,8 @@ def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
         r_out=r)
     del logits
 
-    zout = []
-    t = plan.tensors
-    for j, (c, g) in enumerate(zip(zkids, plan.by_value)):
-        gf, kf = c.elog.shape
-        name = f"value{j}"
-        args = _pass_args(zargs, plan, name, j)
-        if _fz.pass_kind(c) == "pieces":
-            cs = torch.empty((gf, kf), dtype=torch.float32, device=dev)
-            partial = torch.empty((g.n_pieces, k), dtype=torch.float32,
-                                  device=dev)
-            _fz.check_launch(lib.zmap_stats(
-                ctypes.addressof(args), j, r.data_ptr(),
-                t[name, "piece_start"].data_ptr(), g.n_pieces,
-                partial.data_ptr(), stream), "zmap_stats")
-            _fz.finish(lib, partial, t, name, kf, k, cs, 1, kf, stream)
-        else:
-            cs = torch.zeros((gf, kf), dtype=torch.float32, device=dev)
-            _fz.check_launch(lib.zmap_strided(
-                ctypes.addressof(args), j, r.data_ptr(),
-                t[name, "key_start"].data_ptr(), kf, cs.data_ptr(), stream),
-                "zmap_strided")
-        zout.append(cs)
+    zout = [_stats_pass(lib, zargs, plan, j, c, r, stream)
+            for j, c in enumerate(zkids)]
     zit, fit = iter(zout), iter(fstats)
     cstats = tuple(next(zit) if c.zmap is not None else next(fit)
                    for c in children)

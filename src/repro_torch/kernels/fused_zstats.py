@@ -364,11 +364,12 @@ def library() -> ctypes.CDLL:
     lib.zmap_logits.argtypes = [p, i, p, p, p, i, p, p, i, i, p]
     lib.zmap_stats.argtypes = [p, i, p, p, i, p, p]
     lib.zmap_strided.argtypes = [p, i, p, p, i, p, p]
+    lib.zmap_runs.argtypes = [p, i, p, p, i, p, p]
     for fn in (lib.zstats_pieces, lib.zstats_finish, lib.zstats_finish64,
                lib.zstats_strided, lib.zstats_runs,
                lib.zstats_sum, lib.zmap_logits, lib.zmap_stats,
-               lib.zmap_strided, lib.zstats_max_k, lib.zstats_max_children,
-               lib.zstats_args_size):
+               lib.zmap_strided, lib.zmap_runs, lib.zstats_max_k,
+               lib.zstats_max_children, lib.zstats_args_size):
         fn.restype = ctypes.c_int
     if lib.zstats_args_size() != ctypes.sizeof(_Args) or \
             lib.zstats_max_children() != _MAX_CHILDREN or \
@@ -532,8 +533,10 @@ def pass_kind(child, one_to_one: bool = False) -> str:
       - ``"strided"``: any other strided child; a warp walks each value
         column of the table, adding token after token into its rows.
 
-    ``build_plan`` sets each child's in ``ZPlan.kinds``; the wrappers
-    launch by those and ``ops.routing`` reports them."""
+    ``build_plan`` sets each child's in ``ZPlan.kinds`` and
+    ``fused_zmap.build_zmap_plan`` each zmap child's phase 2b pass in
+    ``ZmapPlan.kinds``; the wrappers launch by those and ``ops.routing``
+    reports them."""
     if child.specialized:
         return "pieces"
     return "runs" if one_to_one else "strided"

@@ -3,7 +3,8 @@ shapes and index streams, whatever implements the call.
 
 One function per kernel of ``ops``: :func:`zstats` (a flat latent),
 :func:`zstats_zmap` (a segment latent), :func:`zmap_logits`,
-:func:`dirichlet_expectation`, :func:`zstep` and :func:`flash_attention`.
+:func:`dirichlet_expectation`, :func:`zstep` and :func:`flash_attention`;
+and :func:`zmap_stats`, phase 2b of ``zstats_zmap`` timed apart.
 Bytes count each input read once and each output written once; where the
 work depends on the data (the table cells a call's tokens gather, the
 tokens a mask keeps) it is what these streams need.  A stream that holds
@@ -151,12 +152,32 @@ def zstats(table_prior, prior_rows, children, zmask=None) -> tuple:
 def zstats_zmap(table_prior, prior_rows, children, zmask=None) -> tuple:
     """A segment latent's ``zstats_zmap``: 8 operations a (kept instance,
     topic) and 4 a (counted token, topic) (phase 1's message sum, phase
-    2b's weighted stats), and :func:`zstats_bytes`."""
+    2b's weighted stats), and :func:`zstats_bytes`: each child's streams,
+    the cells its tokens gather (for a strided child, the cells its runs
+    store), and its stats table written dense, which is the zero fill of a
+    strided child's cells that no token reaches.  The logits and r are
+    intermediates, not counted; :func:`zmap_stats` counts phase 2b's r."""
     k = table_prior.shape[1]
     inst = _kept(len(prior_rows), zmask)
     tok = real_tokens(children, zmask, len(prior_rows))
     return 8 * inst * k + 4 * tok * k, \
         zstats_bytes(table_prior, prior_rows, children, zmask)
+
+
+def zmap_stats(children, n_latent: int, k: int) -> tuple:
+    """Phase 2b of ``zstats_zmap`` alone, each child's (each with a
+    ``zmap``) stats pass from the ``(n_latent, K)`` f32 responsibilities r:
+    2 operations a (kept token, topic), the child's streams read once, the
+    rows of r that its kept tokens gather, and its stats table written once
+    (the cells its tokens reach and the zero fill of the others).  Not a
+    call of ``ops``: ``chip_smoke.py`` times the pass apart against it."""
+    ops = nbytes = 0
+    for c in children:
+        ops += 2 * _kept(len(c.values), c.mask) * k
+        nbytes += (_nbytes(c.values, c.zmap, c.base, c.mask)
+                   + _cells(c.zmap, None, c.mask, k, (n_latent, k)) * 4
+                   + math.prod(c.elog.shape) * 4)
+    return ops, nbytes
 
 
 def zmap_logits(children, n_latent: int, k: int) -> tuple:
