@@ -1863,11 +1863,14 @@ def svi_step_times(label, fit, state, dev_line, warm=0):
     """Per step, over SVI_TIMED_STEPS steps after the fit (and ``warm``
     untimed ones): host-clock ms of ``SVI.step`` (each ending in the ELBO's
     ``float``) and tokens/s, and inside those same steps the host ms of the
-    slicing, of the owner plans and of the host-to-device copy
-    (``SVI.host_ms``; out of core the first two on the prefetch thread, and
-    the caller's wait for the batch); device ms and idle share under
+    slicing, of the owner plans and of the host-to-device copy (the spans
+    ``svi.slice``, ``svi.plan`` and ``svi.h2d`` recorded by
+    ``repro_torch.trace``, a mean of each span's instances; out of core the
+    first two on the prefetch thread, and the caller's wait for the batch,
+    ``svi.wait``); device ms and idle share under
     torch.profiler over the next SVI_TIMED_STEPS steps; the held-out
     evaluation's ms, cold (slice and plan) and cached."""
+    from repro_torch import trace as spans
     from repro_torch.core import svi as svi_mod
     prog = fit.program
     st = state
@@ -1878,15 +1881,18 @@ def svi_step_times(label, fit, state, dev_line, warm=0):
     steps = range(t_first, t_first + SVI_TIMED_STEPS)
     tokens = float(np.mean([fit._weights[fit.sampler.batch_at(t)].sum()
                             for t in steps]))
-    fit.host_ms = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in steps:
-        st, elbo = fit.step(t, st)
-        float(elbo)
+    with spans.recording():
+        for t in steps:
+            st, elbo = fit.step(t, st)
+            float(elbo)
     step_ms = (time.perf_counter() - t0) / len(steps) * 1e3
-    parts, fit.host_ms = fit.host_ms, None
-    ms = {k: float(np.mean([p[k] for p in parts])) for k in parts[0]}
+    parts = {}
+    for r in spans.records():
+        if r.name.startswith("svi.") and r.end_ns is not None:
+            parts.setdefault(r.name[4:], []).append(r.host_ms)
+    ms = {k: float(np.mean(v)) for k, v in parts.items()}
     st2 = st
 
     def run():
@@ -3615,7 +3621,7 @@ def phase_flash(report):
     bound, the plain version and SDPA (a yardstick the port never calls),
     and at FLASH_DH256_TIMED (:func:`flash_dh256_times`)."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     log("[flash] flash_attention against ref.flash_attention")
     bh, s, dh = LM_BH, LM_SEQ, 128
     cases = [(b, n, n, d, True) for b, n, d in FLASH_SHAPES] + [
@@ -3633,10 +3639,11 @@ def phase_flash(report):
             rt = fa.route(q, k, v)
             label = (f"({b},{sq},{sk},{d}) {'causal' if causal else 'full'} "
                      f"{str(dt)[6:]}")
-            before = dict(fa.route_launches)
+            before = ops.route_counts()["flash_attention"]
             got = fa.flash_attention(q, k, v, causal=causal)
-            check(fa.route_launches[rt] == before[rt] + 1 and
-                  sum(fa.route_launches.values()) == sum(before.values()) + 1,
+            after = ops.route_counts()["flash_attention"]
+            check(after[rt] == before[rt] + 1 and
+                  sum(after.values()) == sum(before.values()) + 1,
                   f"flash_attention {label} did not take route {rt}")
             worst[label] = compare("flash_attention", f"{label} {rt}", got,
                                    want, tol)
@@ -3779,7 +3786,6 @@ def phase_lm_train(report, flash):
     import dataclasses
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.data import TokenStream
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.launch.roofline import PEAK_FLOPS
     from repro_torch.launch.steps import batch_to, build_train_step
@@ -3807,7 +3813,7 @@ def phase_lm_train(report, flash):
         f"losses {losses}")
     log(f"[lm_train] launches: {counts}")
     want = cfg.n_layers * LM_STEPS
-    routes = dict(fa.route_launches)
+    routes = ops.route_counts()["flash_attention"]
     log(f"[lm_train] flash_attention launches by route: {routes}")
     check(counts["flash_attention"] == want,
           f"flash_attention launched {counts['flash_attention']} times, not "

@@ -21,6 +21,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from .. import trace
 from ..analysis.diagnostics import raise_error
 
 from .network import UNKNOWN, BayesianNetwork, CategoricalRV, DirichletRV, Plate
@@ -120,6 +121,7 @@ class Model:
         return _RVHandle(self, name)
 
     # -- observe ----------------------------------------------------------
+    @trace.span("model.observe")
     def _observe(self, name, values, segment_ids, lengths):
         rv = self.net.rvs[name]
         if not isinstance(rv, CategoricalRV):
@@ -159,6 +161,7 @@ class Model:
         return self
 
     # -- inference --------------------------------------------------------
+    @trace.span("model.compile")
     def compile(self, sharding=None):
         """Metadata collection + "code generation" (the ``VMPProgram``).
         ``sharding`` is recorded in the program's meta, where

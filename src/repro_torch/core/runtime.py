@@ -15,6 +15,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import trace
 from .compiler import VMPProgram
 from .vmp import (VMPState, _program_arrays, _step_body, init_state,
                   program_plans, resolve_device)
@@ -34,8 +35,9 @@ def make_step(program: VMPProgram, elog_dtype=None, device=None):
     """``step(state) -> (state, elbo)`` on ``device`` (``None`` means
     ``"cuda"``).  ``elog_dtype`` narrows the concentration tables the token
     plate reads — see ``vmp._step_body``."""
-    arrays = _program_arrays(program, resolve_device(device))
-    plans = program_plans(program, arrays)
+    with trace.span("runtime.make_step"):
+        arrays = _program_arrays(program, resolve_device(device))
+        plans = program_plans(program, arrays)
     elog_dtype = _resolve_elog_dtype(elog_dtype)
 
     def step(state: VMPState):
@@ -90,16 +92,22 @@ def run_inference(program: VMPProgram, steps: int = 20,
     if step_fn is None:
         step_fn = make_step(program, elog_dtype=elog_dtype, device=device)
 
-    trace: list[float] = []
+    elbos: list[float] = []
     start = int(state.step)
     for i in range(start, start + steps):
-        state, elbo = step_fn(state)
-        elbo_f = float(elbo)
-        trace.append(elbo_f)
-        if store is not None:
-            store.maybe_save(i + 1, state)
-        if callback is not None and callback(i, elbo_f) is False:
-            break
+        with trace.span("runtime.step"):
+            with trace.span("vmp.step"):
+                state, elbo = step_fn(state)
+            with trace.span("runtime.sync"):
+                elbo_f = float(elbo)
+            elbos.append(elbo_f)
+            if store is not None:
+                with trace.span("runtime.checkpoint"):
+                    store.maybe_save(i + 1, state)
+            if callback is not None:
+                with trace.span("runtime.callback"):
+                    if callback(i, elbo_f) is False:
+                        break
     if store is not None:
         store.wait()              # final async checkpoint durable on return
-    return state, trace
+    return state, elbos

@@ -52,12 +52,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..data.pipeline import MinibatchSampler, holdout_split
 from . import dists
 from .compiler import (VMPProgram, check_resident, local_dirichlets,
@@ -278,7 +278,7 @@ def make_svi_step(program: VMPProgram, caps: dict[str, int], plan=None,
 # ---------------------------------------------------------------------------
 
 def host_batch(program: VMPProgram, groups, caps_fn=None, plan=None, *,
-               device=None, times: Optional[dict] = None, slicer=None,
+               device=None, slicer=None,
                group_weights: Optional[np.ndarray] = None, caps_probe=None):
     """Build one minibatch's host-side (numpy) arrays for ``device``
     (``None`` means ``"cuda"``; no card is needed, as nothing is placed).
@@ -287,13 +287,13 @@ def host_batch(program: VMPProgram, groups, caps_fn=None, plan=None, *,
     "plans"}``: numpy leaves and the batch's kernel owner plans, built from
     its own streams (``vmp.owner_plans``, empty unless ``device`` is CUDA).
     Pure host work, no CUDA call, so it can run on a prefetch thread:
-    :func:`device_put_batch` places the result on a device.  ``times`` (a
-    dict) gets the host ms of the slicing and of the plans under
-    ``"slice"`` and ``"plan"``.  ``slicer(groups, caps_fn) -> (arrays,
-    dirs, caps, n_tokens)`` selects the corpus view: by default
-    ``compiler.slice_arrays`` over the resident ``program``; the
-    out-of-core path binds ``data.store.slice_sharded`` (the same contract,
-    reading only the shards the batch touches).
+    :func:`device_put_batch` places the result on a device.  The slicing
+    and the plans are the spans ``svi.slice`` and ``svi.plan``
+    (``repro_torch.trace``), on the thread that builds the batch.
+    ``slicer(groups, caps_fn) -> (arrays, dirs, caps, n_tokens)`` selects
+    the corpus view: by default ``compiler.slice_arrays`` over the resident
+    ``program``; the out-of-core path binds ``data.store.slice_sharded``
+    (the same contract, reading only the shards the batch touches).
 
     With ``plan`` the batch's groups are LPT-packed into ``plan.n_shards``
     sub-minibatches by token mass (``group_weights``), each padded to
@@ -318,17 +318,13 @@ def host_batch(program: VMPProgram, groups, caps_fn=None, plan=None, *,
         caps = shared_caps(parts, caps_probe or (
             lambda p: slicer(p, None)[2]), caps_fn)
         batch, n_tok = shard_batches(program, parts, plan.group.local_shards,
-                                     caps, slicer, device, times)
+                                     caps, slicer, device)
         return batch, caps, n_tok
-    t0 = time.perf_counter()
-    arrays, dirs, caps, n_tok = slicer(groups, caps_fn)
-    t1 = time.perf_counter()
-    batch = {"arrays": arrays, "dirs": dirs,
-             "plans": owner_plans(program, arrays, device, caps)}
-    if times is not None:
-        times.update(slice=(t1 - t0) * 1e3,
-                     plan=(time.perf_counter() - t1) * 1e3)
-    return batch, caps, n_tok
+    with trace.span("svi.slice"):
+        arrays, dirs, caps, n_tok = slicer(groups, caps_fn)
+    with trace.span("svi.plan"):
+        plans = owner_plans(program, arrays, device, caps)
+    return {"arrays": arrays, "dirs": dirs, "plans": plans}, caps, n_tok
 
 
 def shared_caps(parts, probe, caps_fn=None) -> dict[str, int]:
@@ -377,26 +373,22 @@ def spread_padding(program: VMPProgram, arrays: dict, dirs: dict) -> None:
 
 
 def shard_batches(program: VMPProgram, parts, shards, caps: dict, slicer,
-                  device, times: Optional[dict] = None):
+                  device):
     """``({"shards": {shard: batch}}, n_tokens)``: each of ``shards``'
     groups (``parts[shard]``) sliced at ``caps``, its padding spread
     (:func:`spread_padding`), with the owner plans of its own streams —
     the shards share every shape, so no shard may read another's plan.
-    ``times`` gets the slicing's and the plans' host ms, summed over the
-    shards."""
-    out, n_tok, t_slice, t_plan = {}, 0, 0.0, 0.0
+    Each shard's slicing and plans are the spans ``svi.slice`` and
+    ``svi.plan``."""
+    out, n_tok = {}, 0
     for s in shards:
-        t0 = time.perf_counter()
-        arrays, dirs, _, nt = slicer(parts[s], lambda name, n: caps[name])
-        spread_padding(program, arrays, dirs)
-        t1 = time.perf_counter()
-        out[s] = {"arrays": arrays, "dirs": dirs,
-                  "plans": owner_plans(program, arrays, device, caps)}
-        t_slice += t1 - t0
-        t_plan += time.perf_counter() - t1
+        with trace.span("svi.slice"):
+            arrays, dirs, _, nt = slicer(parts[s], lambda name, n: caps[name])
+            spread_padding(program, arrays, dirs)
+        with trace.span("svi.plan"):
+            plans = owner_plans(program, arrays, device, caps)
+        out[s] = {"arrays": arrays, "dirs": dirs, "plans": plans}
         n_tok += nt
-    if times is not None:
-        times.update(slice=t_slice * 1e3, plan=t_plan * 1e3)
     return {"shards": out}, n_tok
 
 
@@ -720,10 +712,6 @@ class SVI:
             self._weights = self._group_token_weights()
         self._steps: dict = {}
         self._heldout_cache: dict = {}
-        # a list to record, per step, the host ms of its slicing, owner
-        # plans and host-to-device copy ({"slice", "plan", "h2d"}), and in
-        # corpus mode the caller's wait on the prefetcher ("wait")
-        self.host_ms: Optional[list] = None
 
     def _group_token_weights(self) -> np.ndarray:
         """Per-group observed-token counts ``(pstar_size,) int64``: the
@@ -746,18 +734,17 @@ class SVI:
     def _load_groups(self, groups):
         """Host batch of one group set for the engine's device: runs on the
         prefetch thread in corpus mode (numpy and host plans only).  Returns
-        ``(batch, caps, n_tokens, n_groups, {"slice", "plan"} host ms)``."""
+        ``(batch, caps, n_tokens, n_groups)``."""
         if self.cfg.growing:
             # refresh() rebinds corpus.lengths wholesale; re-fetch so the
             # weights cover newly committed documents
             self._weights = np.asarray(self.corpus.lengths, np.int64)
-        times: dict = {}
         hb, caps, n_tok = host_batch(self.program, groups, self._caps_fn,
                                      plan=self.plan, device=self.device,
-                                     times=times, slicer=self._slicer,
+                                     slicer=self._slicer,
                                      group_weights=self._weights,
                                      caps_probe=self._caps_probe)
-        return hb, caps, n_tok, len(groups), times
+        return hb, caps, n_tok, len(groups)
 
     # -- multi-host partitioned batching ----------------------------------
 
@@ -842,39 +829,35 @@ class SVI:
         ``groups`` (:meth:`_host_parts`) at caps agreed from the
         lengths-only probe of **every** shard's part — no cross-host
         traffic, no shard I/O — so all hosts pad to identical shapes.
-        Returns ``(batch, caps, times)``."""
+        Returns ``(batch, caps)``."""
         parts = self._host_parts(groups)
         caps = shared_caps(parts, self._caps_probe, caps_fn)
-        times: dict = {}
         batch, _ = shard_batches(self.program, parts,
                                  self.plan.group.local_shards, caps,
-                                 self._slicer, self.device, times)
-        return batch, caps, times
+                                 self._slicer, self.device)
+        return batch, caps
 
     def _load_groups_hosts(self, groups):
         """Multi-host loader: the *schedule* stays the global ``(seed,
         epoch)`` permutation (every host computes the same ``batch_at``);
         only the slicing is partitioned (:meth:`_host_slices`)."""
         groups = np.unique(np.asarray(groups, np.int64))
-        batch, caps, times = self._host_slices(groups, self._caps_fn)
+        batch, caps = self._host_slices(groups, self._caps_fn)
         n_tok = int(np.asarray(self.corpus.lengths)[groups].sum())
-        return batch, caps, n_tok, len(groups), times
+        return batch, caps, n_tok, len(groups)
 
     def step(self, t: int, state: VMPState):
-        """One SVI step at schedule position ``t``; returns (state', elbo)."""
-        t0 = time.perf_counter()
+        """One SVI step at schedule position ``t``; returns (state', elbo).
+        The caller's wait for a prefetched batch (corpus mode) and the
+        batch's host-to-device copy are the spans ``svi.wait`` and
+        ``svi.h2d``."""
         if self.corpus is not None:
-            hb, caps, _, n_b, times = self.sampler.host_batch_at(t)
+            with trace.span("svi.wait"):
+                hb, caps, _, n_b = self.sampler.host_batch_at(t)
         else:
-            hb, caps, _, n_b, times = self._load_groups(
-                self.sampler.batch_at(t))
-        t1 = time.perf_counter()
-        batch = device_put_batch(hb, self.device)
-        if self.host_ms is not None:
-            rec = dict(times, h2d=(time.perf_counter() - t1) * 1e3)
-            if self.corpus is not None:
-                rec["wait"] = (t1 - t0) * 1e3
-            self.host_ms.append(rec)
+            hb, caps, _, n_b = self._load_groups(self.sampler.batch_at(t))
+        with trace.span("svi.h2d"):
+            batch = device_put_batch(hb, self.device)
         sig = tuple(sorted(caps.items()))
         if sig not in self._steps:
             self._steps[sig] = make_svi_step(
@@ -916,7 +899,7 @@ class SVI:
         entry = self._heldout_cache.get("hosts")
         if entry is None:
             groups = np.asarray(self.holdout, np.int64)
-            batch, caps, _ = self._host_slices(groups, None)
+            batch, caps = self._host_slices(groups, None)
             n_tok = int(np.asarray(self.corpus.lengths)[groups].sum())
             shards = {s: (b["arrays"], b["plans"]) for s, b in
                       device_put_batch(batch, self.device)["shards"].items()}

@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import ops as kops
 from . import dists
 from .compiler import VMPProgram, check_resident
@@ -187,8 +188,10 @@ def program_plans(program: VMPProgram, arrays: dict) -> dict:
         # meta arrays hold no values: the plan reads the program's own
         host = _program_arrays(program, "cpu") if device.type == "meta" \
             else arrays
-        cache[str(device)] = {n: p.to(device) for n, p in owner_plans(
-            program, host, device).items()}
+        with trace.span("vmp.owner_plans"):
+            plans = owner_plans(program, host, device)
+        with trace.span("vmp.plans_to_device"):
+            cache[str(device)] = {n: p.to(device) for n, p in plans.items()}
     return cache[str(device)]
 
 
@@ -196,6 +199,7 @@ def program_plans(program: VMPProgram, arrays: dict) -> dict:
 # the step
 # ---------------------------------------------------------------------------
 
+@trace.span("vmp.program_arrays")
 def _program_arrays(program: VMPProgram, device) -> dict:
     """Device constants: observed values, maps, static rows (paper: the MPG's
     edge structure, here dense index tensors)."""
@@ -248,56 +252,61 @@ def _step_stats(program: VMPProgram, arrays: dict, state: VMPState,
     """
 
     device = state.device
-    elog = _elog_tables(program, state)
-    if elog_dtype is None:
-        tabs, tables = elog, "elog"
-    else:
-        tabs, tables = {n: p.to(elog_dtype)
-                        for n, p in state.posteriors.items()}, "alpha"
+    with trace.span("vmp.elog_tables"):
+        elog = _elog_tables(program, state)
+        if elog_dtype is None:
+            tabs, tables = elog, "elog"
+        else:
+            tabs, tables = {n: p.to(elog_dtype)
+                            for n, p in state.posteriors.items()}, "alpha"
     elbo = torch.zeros((), dtype=torch.float32, device=device)
     stats = {n: torch.zeros((d.g, d.k), dtype=torch.float32, device=device)
              for n, d in program.dirichlets.items()}
 
     for spec in program.latents:
-        children = _latent_children(spec, tabs, arrays)
-        plan = plans.get(spec.name)
-        if plan is None and device.type in ("cuda", "meta"):
-            raise ValueError(f"no owner plan for latent {spec.name!r}: pass "
-                             f"the step's plans (vmp.owner_plans)")
-        lse_sum, pstats, cstats = kops.zstats(
-            tabs[spec.prior_dir], arrays[spec.name]["prior_rows"], children,
-            zmask=arrays[spec.name].get("mask"), tables=tables, plan=plan)
-        elbo = elbo + lse_sum
-        # prior-factor stats (theta <- z)
-        stats[spec.prior_dir] = stats[spec.prior_dir] + pstats
-        # child-factor stats (phi <- x weighted by r)
-        for f, cs in zip(spec.children, cstats):
-            stats[f.dir_name] = stats[f.dir_name] + cs
+        with trace.span("vmp.token_plate"):
+            children = _latent_children(spec, tabs, arrays)
+            plan = plans.get(spec.name)
+            if plan is None and device.type in ("cuda", "meta"):
+                raise ValueError(f"no owner plan for latent {spec.name!r}: "
+                                 f"pass the step's plans (vmp.owner_plans)")
+            lse_sum, pstats, cstats = kops.zstats(
+                tabs[spec.prior_dir], arrays[spec.name]["prior_rows"],
+                children, zmask=arrays[spec.name].get("mask"), tables=tables,
+                plan=plan)
+            elbo = elbo + lse_sum
+            # prior-factor stats (theta <- z)
+            stats[spec.prior_dir] = stats[spec.prior_dir] + pstats
+            # child-factor stats (phi <- x weighted by r)
+            for f, cs in zip(spec.children, cstats):
+                stats[f.dir_name] = stats[f.dir_name] + cs
 
-    for s in program.statics:
-        a = arrays[s.x_name]
-        d = program.dirichlets[s.dir_name]
-        rows, vals = a["rows"].long(), a["values"].long()
-        e = elog[s.dir_name][rows, vals]
-        ones = torch.ones(vals.shape, dtype=torch.float32, device=device)
-        if a.get("mask") is not None:
-            e = e * a["mask"]
-            ones = ones * a["mask"]
-        elbo = elbo + e.sum()
-        # counts of 1.0 are exact in f32 in any order: deterministic
-        add = torch.zeros(d.g * d.k, dtype=torch.float32,
-                          device=device).index_add_(0, rows * d.k + vals, ones)
-        stats[s.dir_name] = stats[s.dir_name] + add.reshape(d.g, d.k)
+    with trace.span("vmp.statics"):
+        for s in program.statics:
+            a = arrays[s.x_name]
+            d = program.dirichlets[s.dir_name]
+            rows, vals = a["rows"].long(), a["values"].long()
+            e = elog[s.dir_name][rows, vals]
+            ones = torch.ones(vals.shape, dtype=torch.float32, device=device)
+            if a.get("mask") is not None:
+                e = e * a["mask"]
+                ones = ones * a["mask"]
+            elbo = elbo + e.sum()
+            # counts of 1.0 are exact in f32 in any order: deterministic
+            add = torch.zeros(d.g * d.k, dtype=torch.float32,
+                              device=device).index_add_(0, rows * d.k + vals,
+                                                        ones)
+            stats[s.dir_name] = stats[s.dir_name] + add.reshape(d.g, d.k)
 
-    # Dirichlet ELBO terms
-    for name, d in program.dirichlets.items():
-        if name not in local_dirs and not global_terms:
-            continue
-        term = dists.dirichlet_elbo_term(_prior(d, device),
-                                         state.posteriors[name], elog[name])
-        if name not in local_dirs and n_replicas != 1:
-            term = term / n_replicas
-        elbo = elbo + term
+    with trace.span("vmp.elbo_terms"):
+        for name, d in program.dirichlets.items():
+            if name not in local_dirs and not global_terms:
+                continue
+            term = dists.dirichlet_elbo_term(
+                _prior(d, device), state.posteriors[name], elog[name])
+            if name not in local_dirs and n_replicas != 1:
+                term = term / n_replicas
+            elbo = elbo + term
     return elbo, stats
 
 
@@ -322,8 +331,9 @@ def _step_body(program: VMPProgram, arrays: dict, state: VMPState,
     elbo, stats = _step_stats(program, arrays, state, elog_dtype,
                               plans=plans, local_dirs=local_dirs,
                               global_terms=global_terms)
-    return VMPState(_updated(program, stats, state.device),
-                    state.step + 1), elbo
+    with trace.span("vmp.update"):
+        posts = _updated(program, stats, state.device)
+    return VMPState(posts, state.step + 1), elbo
 
 
 def _sharded_step_body(program: VMPProgram, shards: dict, group,
@@ -352,14 +362,15 @@ def _sharded_step_body(program: VMPProgram, shards: dict, group,
                      ["elbo"] + glob)
     any_state = next(iter(shards.values()))[1]
     device = any_state.device
-    posts = _updated(program, dict(zip(glob, sums[1:])), device)
     out = {}
-    for s, (_, stats) in parts.items():
-        local = _updated(program, {n: stats[n] for n in program.dirichlets
-                                   if n in local_dirs}, device)
-        out[s] = VMPState({n: posts[n] if n in posts else local[n]
-                           for n in program.dirichlets},
-                          shards[s][1].step + 1)
+    with trace.span("vmp.update"):
+        posts = _updated(program, dict(zip(glob, sums[1:])), device)
+        for s, (_, stats) in parts.items():
+            local = _updated(program, {n: stats[n] for n in program.dirichlets
+                                       if n in local_dirs}, device)
+            out[s] = VMPState({n: posts[n] if n in posts else local[n]
+                               for n in program.dirichlets},
+                              shards[s][1].step + 1)
     return out, sums[0]
 
 

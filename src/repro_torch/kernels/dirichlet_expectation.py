@@ -43,8 +43,7 @@ import functools
 
 import torch
 
-#: launches of the Triton kernel pair (one per wrapper call)
-launches = 0
+from .. import trace
 
 _MAX_BLOCK_K = 1024
 #: row-sum programs to aim for, per SM
@@ -197,7 +196,6 @@ def dirichlet_expectation(alpha: torch.Tensor,
     (G, K), or as (K, G) when ``transpose``.  CUDA tensors only: the plain
     version is ``ref.dirichlet_expectation``, which ``ops`` runs on the
     CPU."""
-    global launches
     _check(alpha)
     if alpha.device.type != "cuda":
         raise ValueError(f"no kernel for device {alpha.device}")
@@ -206,5 +204,5 @@ def dirichlet_expectation(alpha: torch.Tensor,
         return torch.empty((k, g) if transpose else (g, k),
                            dtype=torch.float32, device=alpha.device)
     out = elog_from_sums(alpha, row_sums(alpha), transpose)
-    launches += 1
+    trace.count("kernels.launches.dirichlet_expectation")
     return out

@@ -22,8 +22,9 @@ This module holds the parts around them:
   - the build: ``nvcc`` compiles the source into ``libflash_attention-<hash>
     .so`` under ``build/`` (``build.build_library``), and ``ctypes`` loads it;
   - :func:`launch`, which allocates the output and launches the kernel of
-    the input's route on PyTorch's current stream, counting each launch in
-    :data:`launches` and in :data:`route_launches`;
+    the input's route on PyTorch's current stream, counting each launch as
+    ``kernels.launches.flash_attention`` and
+    ``kernels.routes.flash_attention.<route>`` (``trace.count``);
   - :class:`FlashAttention`, the ``torch.autograd.Function``: its forward
     launches the kernel and saves only q, k and v; its backward recomputes
     attention through ``ref.flash_attention`` and returns the gradient of
@@ -40,13 +41,12 @@ from pathlib import Path
 
 import torch
 
+from .. import trace
 from . import build as _build
 from . import ref
 
-#: kernel launches (one per forward)
-launches = 0
-#: kernel launches by route
-route_launches = {"wgmma": 0, "mma": 0}
+#: the kernels, by route
+ROUTES = ("wgmma", "mma")
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -122,10 +122,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel of the inputs' :func:`route` on checked inputs:
     ``(BH, Sq, Dh)`` in q's dtype.  ``route`` forces one kernel, for timing
     both on one input; one that cannot take the input raises."""
-    global launches
     want = _route_of(q, k, v)
     route = route or want
-    if route not in route_launches or (route == "wgmma" and want != "wgmma"):
+    if route not in ROUTES or (route == "wgmma" and want != "wgmma"):
         raise ValueError(f"route {route!r} does not take {q.dtype} at Dh "
                          f"{q.shape[2]}")
     bh, sq, dh = q.shape
@@ -142,8 +141,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash attention kernel ({route}) failed to "
                            f"launch: CUDA error {err}")
-    launches += 1
-    route_launches[route] += 1
+    trace.count("kernels.launches.flash_attention")
+    trace.count(f"kernels.routes.flash_attention.{route}")
     return out
 
 

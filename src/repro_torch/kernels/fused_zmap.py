@@ -47,18 +47,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from . import fused_zstats as _fz
 
-#: ``zstats_zmap`` calls that launched the kernel
-launches = 0
-#: their child stats passes by kind (:func:`pass_kinds`) and their zmap
-#: children's phase 1 by route (:func:`logits_route`)
-route_launches = {"pieces": 0, "runs": 0, "strided": 0, "group": 0,
-                  "warp": 0}
-#: ``zmap_logits`` calls that launched phase 1 alone
-logits_launches = 0
-#: their children's phase 1 by route
-logits_route_launches = {"group": 0, "warp": 0}
+#: a ``zmap_logits`` call's phase 1 by route (:func:`logits_route`),
+#: counted as ``kernels.routes.zmap_logits.<route>`` with the call's
+#: ``kernels.launches.zmap_logits`` (``trace.count``)
+LOGITS_ROUTES = ("group", "warp")
+#: a ``zstats_zmap`` call's child stats passes by kind (:func:`pass_kinds`)
+#: and its zmap children's phase 1 by route, counted as
+#: ``kernels.routes.zstats_zmap.<route>`` with ``kernels.launches.zstats_zmap``
+ROUTES = _fz.ROUTES + LOGITS_ROUTES
 
 
 @dataclasses.dataclass
@@ -291,7 +290,6 @@ def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     is :func:`build_zmap_plan`'s, built here when not given.  CUDA tensors
     only: the kernel runs or the call raises.
     """
-    global launches
     zkids, flat = _split(children)
     if not zkids:
         raise ValueError("no child has a zmap; fused_zstats.zstats takes a "
@@ -323,11 +321,11 @@ def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     zit, fit = iter(zout), iter(fstats)
     cstats = tuple(next(zit) if c.zmap is not None else next(fit)
                    for c in children)
-    launches += 1
+    trace.count("kernels.launches.zstats_zmap")
     for kind in pass_kinds(children, plan):
-        route_launches[kind] += 1
+        trace.count(f"kernels.routes.zstats_zmap.{kind}")
     for g in plan.by_latent:
-        route_launches[logits_route(g)] += 1
+        trace.count(f"kernels.routes.zstats_zmap.{logits_route(g)}")
     return lse_sum, pstats, cstats
 
 
@@ -338,7 +336,6 @@ def zmap_logits(children: tuple, n_latent: int, k: int, *,
     ``zmap[t]``.  The plain version is ``ref.zmap_logits``.  ``plan`` — a
     :func:`build_zmap_plan` result whose zmap children are ``children``, or
     None to group them here.  CUDA tensors only."""
-    global logits_launches
     if not children or any(c.zmap is None for c in children):
         raise ValueError("zmap_logits takes children that all have a zmap")
     _check_device(children[0].elog)
@@ -362,7 +359,7 @@ def zmap_logits(children: tuple, n_latent: int, k: int, *,
     zargs = _fz.make_args(k, children, tabs)
     out = _logits(_fz.library(), zargs, plan, n_latent, k,
                   torch.cuda.current_stream(dev).cuda_stream)
-    logits_launches += 1
+    trace.count("kernels.launches.zmap_logits")
     for g in plan.by_latent:
-        logits_route_launches[logits_route(g)] += 1
+        trace.count(f"kernels.routes.zmap_logits.{logits_route(g)}")
     return out

@@ -45,13 +45,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from . import build as _build
 from . import dirichlet_expectation as _de
 
-#: calls that launched the kernel (one per wrapper call)
-launches = 0
-#: child stats passes those calls launched, by kind (:func:`pass_kind`)
-route_launches = {"pieces": 0, "runs": 0, "strided": 0}
+#: the child stats passes by kind (:func:`pass_kind`); each call counts
+#: ``kernels.launches.zstats`` and each pass ``kernels.routes.zstats.<kind>``
+#: (``trace.count``)
+ROUTES = ("pieces", "runs", "strided")
 
 #: most tokens one warp sums before its partial goes to the finishing pass
 PIECE = 256
@@ -504,7 +505,6 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     CUDA tensors only: the kernel runs or the call raises.  Segment latents
     (a child with a ``zmap``) belong to ``fused_zmap.zstats_zmap``.
     """
-    global launches
     if any(c.zmap is not None for c in children):
         raise ValueError("a child with a zmap makes a segment latent; "
                          "fused_zmap.zstats_zmap takes it")
@@ -515,9 +515,9 @@ def zstats(table_prior: torch.Tensor, prior_rows: torch.Tensor,
         plan = build_plan(prior_rows, children, tuple(table_prior.shape))
     eprior, etabs = elog_tables(table_prior, children, tables)
     out = launch_flat(eprior, prior_rows, children, etabs, zmask, plan)
-    launches += 1
+    trace.count("kernels.launches.zstats")
     for kind in plan.kinds:
-        route_launches[kind] += 1
+        trace.count(f"kernels.routes.zstats.{kind}")
     return out
 
 

@@ -15,9 +15,10 @@ outputs of the kernel's shapes and dtypes and hands the count its kernel,
 the routes it would launch (those :func:`routing` names) and its work
 (``kernels/work.py``), one launch; ``flash_attention``'s backward still
 recomputes through the plain version, as on the card.  Outside a count a
-``meta`` tensor raises.  Each kernel module keeps a plain integer count of its
-launches (``<module>.launches``; ``fused_zmap.logits_launches`` for
-``zmap_logits``) and of the routes they took (``route_counts``).
+``meta`` tensor raises.  Each kernel wrapper counts its launches and the
+routes they took as counters of ``repro_torch.trace``
+(``kernels.launches.<kernel>``, ``kernels.routes.<kernel>.<route>``), read
+here by :func:`launch_counts` and :func:`route_counts`.
 :func:`routing` says, before anything runs, which route a ``zstats`` call
 takes, from the same functions the wrappers launch by.
 """
@@ -30,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from . import dirichlet_expectation as _de
 from . import flash_attention as _fa
 from . import fused_zmap as _fzm
@@ -337,21 +339,24 @@ class _DryFlash(_fa.FlashAttention):
         return torch.empty_like(q)
 
 
+#: the routes of each kernel that has them, in :func:`route_counts`' order
+_ROUTES = {"zstats": _fz.ROUTES, "zstats_zmap": _fzm.ROUTES,
+           "zmap_logits": _fzm.LOGITS_ROUTES, "flash_attention": _fa.ROUTES}
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0, and its counts by route."""
-    _de.launches = _fz.launches = _zs.launches = _fa.launches = 0
-    _fzm.launches = _fzm.logits_launches = 0
-    for counts in (_fa.route_launches, _fz.route_launches,
-                   _fzm.route_launches, _fzm.logits_route_launches):
-        counts.update(dict.fromkeys(counts, 0))
+    """Set every kernel's launch count to 0, and its counts by route (the
+    ``kernels.`` counters of ``repro_torch.trace``; its spans' totals
+    stay)."""
+    trace.reset("kernels.")
 
 
 def launch_counts() -> dict:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
-    return {"zstats": _fz.launches, "zstats_zmap": _fzm.launches,
-            "zmap_logits": _fzm.logits_launches,
-            "dirichlet_expectation": _de.launches, "zstep": _zs.launches,
-            "flash_attention": _fa.launches}
+    c = trace.counters()
+    return {k: c.get(f"kernels.launches.{k}", 0) for k in (
+        "zstats", "zstats_zmap", "zmap_logits", "dirichlet_expectation",
+        "zstep", "flash_attention")}
 
 
 def route_counts() -> dict:
@@ -361,10 +366,9 @@ def route_counts() -> dict:
     children's phase 1 by route (``"group"``, ``"warp"``), flash
     attention's kernel (``"wgmma"``, ``"mma"``).  The routes
     :func:`routing` names."""
-    return {"zstats": dict(_fz.route_launches),
-            "zstats_zmap": dict(_fzm.route_launches),
-            "zmap_logits": dict(_fzm.logits_route_launches),
-            "flash_attention": dict(_fa.route_launches)}
+    c = trace.counters()
+    return {k: {r: c.get(f"kernels.routes.{k}.{r}", 0) for r in routes}
+            for k, routes in _ROUTES.items()}
 
 
 __all__ = ["ZChild", "RouteInfo", "routing", "route_label", "L2_BYTES",

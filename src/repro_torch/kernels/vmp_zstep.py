@@ -23,8 +23,7 @@ import functools
 
 import torch
 
-#: launches of the Triton kernel (one per wrapper call)
-launches = 0
+from .. import trace
 
 _MAX_K = 8192
 
@@ -61,7 +60,6 @@ def zstep(logits: torch.Tensor):
     """Rowwise ``(softmax, logsumexp)`` of (N, K) float32 logits on the
     card.  CUDA tensors only: the plain version is ``ref.zstep``, which
     ``ops`` runs on the CPU."""
-    global launches
     if logits.ndim != 2:
         raise ValueError(f"expected (N, K) logits, got shape {tuple(logits.shape)}")
     if logits.dtype != torch.float32:
@@ -84,5 +82,5 @@ def zstep(logits: torch.Tensor):
     kernel[(triton.cdiv(n, bn),)](logits, r, lse, n, k,
                                   BLOCK_N=bn, BLOCK_K=bk,
                                   num_warps=4 if bk <= 1024 else 8)
-    launches += 1
+    trace.count("kernels.launches.zstep")
     return r, lse

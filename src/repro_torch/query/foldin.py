@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import svi
 from ..core.compiler import _padded, slice_arrays
 from ..core.vmp import resolve_device
@@ -172,10 +173,12 @@ class FoldIn:
         # caps signature -> scorer (bounded LRU, lock inside)
         self._fns = _BucketCache(self.cfg.max_compiled)
         # a list to record, per score, the ms of its host parts ("compile":
-        # the blank model's copy, observe and compile; "slice", "plan",
-        # "h2d") and of the scorer's run to results on the host ("run"),
-        # one record appended whole by whichever thread scored (the
-        # server's dispatcher, or a gateway caller scoring direct)
+        # the blank model's copy, observe and compile; "slice", "plan":
+        # the latest svi.slice and svi.plan spans of the process, this
+        # score's unless another thread built a batch meanwhile; "h2d")
+        # and of the scorer's run to results on the host ("run"), one
+        # record appended whole by whichever thread scored (the server's
+        # dispatcher, or a gateway caller scoring direct)
         self.times: Optional[list] = None
 
     def _on_device(self, posterior: Posterior) -> dict:
@@ -288,9 +291,8 @@ class FoldIn:
         program, n_docs, caps_fn = self._bind(values, segment_ids, lengths,
                                               observed, bindings)
         t1 = time.perf_counter()
-        times: dict = {}
         hb, caps, n_tok = svi.host_batch(program, np.arange(n_docs), caps_fn,
-                                         device=self.device, times=times)
+                                         device=self.device)
         n_seg, sig = self._signature(caps, n_docs)
         seg = {k: svi.segment_index(v, n_seg) for k, v in
                _segment_arrays(program, caps, hb["dirs"], n_seg).items()}
@@ -321,9 +323,11 @@ class FoldIn:
                                 else np.zeros(d.g, np.int64))
         doc_ll = grp.cpu().numpy()[:n_docs]
         if self.times is not None:
+            spans = trace.totals()
             self.times.append(dict(
                 compile=(t1 - t0) * 1e3,
-                slice=times["slice"], plan=times["plan"],
+                slice=spans["svi.slice"]["last_s"] * 1e3,
+                plan=spans["svi.plan"]["last_s"] * 1e3,
                 h2d=(t3 - t2) * 1e3, run=(time.perf_counter() - t3) * 1e3))
         per_tok = elbo / n_tok if n_tok else float("nan")
         return FoldInResult(

@@ -19,6 +19,9 @@ def pytest_configure(config):
         "markers",
         "slow: full-length run, skipped by default "
         "(enable with --runslow or -m slow)")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one (run them on "
+        "the chip: python -m pytest tests/test_torch_trace.py -m card)")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -31,6 +31,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
+from repro_torch import trace
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_zstats as tfz
@@ -159,11 +160,11 @@ def test_function_backward_is_the_plain_versions_gradient(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_kernel_wrapper_raises_on_cpu_tensors():
-    before = tfa.launches
+    before = tops.launch_counts()["flash_attention"]
     q, k, v = map(torch.from_numpy, _qkv(2, 16, 16, 16))
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         tfa.flash_attention(q, k, v)
-    assert tfa.launches == before
+    assert tops.launch_counts()["flash_attention"] == before
 
 
 @pytest.mark.parametrize("shapes,dtype,error,match", [
@@ -256,17 +257,23 @@ def test_route_answers_every_input_check_inputs_takes():
 def test_launch_refuses_a_route_that_cannot_take_the_input(dtype, dh, forced):
     """A forced route must take the input; the refusal comes before any
     library is built or kernel launched, and counts nothing."""
-    before = dict(tfa.route_launches)
+    before = tops.route_counts()["flash_attention"]
     q, k, v = (torch.zeros(2, 16, dh, dtype=dtype) for _ in range(3))
     with pytest.raises(ValueError, match="does not take"):
         tfa.launch(q, k, v, True, route=forced)
-    assert tfa.route_launches == before
+    assert tops.route_counts()["flash_attention"] == before
 
 
 def test_reset_launch_counts_clears_the_route_counts():
-    tfa.route_launches["wgmma"] += 3
+    """The route counts are counters of the port's tracer: a reset of
+    the launch counts clears them and leaves the spans' totals."""
+    trace.count("kernels.routes.flash_attention.wgmma", 3)
+    with trace.span("test.kept"):
+        pass
+    assert tops.route_counts()["flash_attention"]["wgmma"] >= 3
     tops.reset_launch_counts()
-    assert tfa.route_launches == {"wgmma": 0, "mma": 0}
+    assert tops.route_counts()["flash_attention"] == {"wgmma": 0, "mma": 0}
+    assert trace.totals()["test.kept"]["calls"] >= 1
 
 
 # ---------------------------------------------------------------------------

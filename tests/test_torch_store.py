@@ -24,6 +24,7 @@ from repro.core import models as jmodels
 from repro.core.svi import SVI as JSVI, SVIConfig as JSVIConfig
 from repro.core.vmp import init_state as j_init
 from repro.data import store as jstore
+from repro_torch import trace
 from repro_torch.core import compiler as tcomp
 from repro_torch.core import models
 from repro_torch.core import svi as tsvi
@@ -390,9 +391,10 @@ def test_out_of_core_svi_bitwise_equals_resident(store, program, prefetch):
     res = SVI(program, cfg, device=CPU)
     s_res, h_res = res.fit(steps=9)
     sh = SVI(_lda(), cfg, corpus=ShardedCorpus.open(store.path), device=CPU)
-    sh.host_ms = []
-    s_sh, h_sh = sh.fit(steps=9)
-    sh.close()
+    with trace.recording():
+        s_sh, h_sh = sh.fit(steps=9)
+        sh.close()
+    recs = trace.records()
     np.testing.assert_array_equal(res.train, sh.train)
     np.testing.assert_array_equal(res.holdout, sh.holdout)
     _bitwise(s_res, s_sh)
@@ -400,10 +402,19 @@ def test_out_of_core_svi_bitwise_equals_resident(store, program, prefetch):
     assert h_res["heldout"] == h_sh["heldout"]
     assert sh.sampler.peak_buffer_bytes > 0
     assert sh.corpus.bytes_read > 0
-    # the host split keeps its keys and adds the wait on the loader
-    assert len(sh.host_ms) == 9
-    assert all(set(r) == {"slice", "plan", "h2d", "wait"}
-               for r in sh.host_ms)
+    # the host split: each step's wait on the loader and its copy on the
+    # caller's thread; the slicing and plans of step 0 inside its wait and
+    # of steps 1 to 9 ahead on the prefetch thread, or, without prefetch,
+    # of every step inside its wait
+    main = threading.current_thread().name
+    for name in ("svi.wait", "svi.h2d"):
+        assert [r.thread for r in recs if r.name == name] == [main] * 9
+    waits = {r.id for r in recs if r.name == "svi.wait"}
+    for name in ("svi.slice", "svi.plan"):
+        rs = [r for r in recs if r.name == name]
+        in_wait = sum(r.parent in waits for r in rs)
+        ahead = sum(r.thread == "sharded-corpus-prefetch" for r in rs)
+        assert (in_wait, ahead) == ((1, 9) if prefetch else (9, 0))
 
 
 def test_out_of_core_svi_matches_reference(store):
