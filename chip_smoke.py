@@ -217,7 +217,16 @@ Phases, each of which exits non-zero on a failed check:
      plain version, twice bitwise and bitwise the per-column pass, both
      timed (the call, and phase 2b alone and its zero fill, CUDA events)
      beside their bounds; ``zmap_logits``, ``zstep`` and the Elog passes at
-     the inputs handed them; ms a step and device time;
+     the inputs handed them; ms a step and device time; then the Dirichlet
+     terms (``dirichlet_terms``): the ELBO term and the update at the
+     benchmark's tables (dcmlda-nips' phi, lda-nytimes' phi through its
+     transposed Elog table and its theta), the ELBO term within
+     ``dirichlet_terms.error_limit`` (set by the plain f32 version's own
+     error) and DIRICHLET_TOL of an f64 evaluation and exactly 0 on a
+     table that is all prior, each kernel twice bitwise and the update
+     bitwise ``prior * ones + stats``, each timed beside its plain version
+     and its bound (the same checks run on the largest Dirichlet table of
+     each VMP path: lda, lda_svi, slda, naive_bayes, dcmlda, dcmslda);
   13. experts (``lm_moe``, after ``lm_serve``): qwen3-moe-30b-a3b at full
      width and 8 of its 48 layers through ``serve`` (8 x 4,096, 64 new
      tokens, bf16: prefill, decode, tokens/s, the decode profile, peak
@@ -305,13 +314,14 @@ bit.
 The last two lines are a ``{"kernels": [...]}`` JSON object (one entry per
 kernel and path, the path named in ``"path"``: lda, lda_svi, query,
 gateway, lda_ooc, gibbs, lda_dist, lda_multihost, slda, slda_svi,
-slda_query, naive_bayes, naive_bayes_svi, dcmlda, dcmslda, lm_train,
-lm_train_gemma3, lm_moe_train, lm_whisper_train, lm_internvl_train,
-lm_shard; the
+slda_query, naive_bayes, naive_bayes_svi, dcmlda, dcmslda,
+dirichlet_terms, lm_train, lm_train_gemma3, lm_moe_train, lm_whisper_train,
+lm_internvl_train, lm_shard; the ``dirichlet_terms`` entries name their
+benchmark table in ``"table"``; the
 flash entries' ``"variant"`` names the kernel the path took and
 ``"mma_ms"`` is the other one's time in the same call; each
-``dirichlet_expectation`` entry's ``"device_ms"`` is its time inside a CUDA
-graph, where ``"ms"``, CUDA events around back-to-back calls, times the
+``dirichlet_expectation``, ``dirichlet_elbo_term`` and ``dirichlet_update``
+entry's ``"device_ms"`` is its time inside a CUDA graph, where ``"ms"``, CUDA events around back-to-back calls, times the
 host's launches of so small a kernel) and the
 ``{"ok": true, "device": {...}}`` JSON object.  A fuller report goes to
 ``chiprun_out/chip_smoke.json``.  The script imports the port only, never
@@ -354,19 +364,21 @@ EXPECTED_ROUTE = {"main": "flat passes=pieces",
                   "naive_bayes": "zmap passes=pieces logits=warp",
                   "dcmlda": "flat passes=runs",
                   "dcmslda": "zmap passes=runs logits=group"}
-# each path's sha256 at full depth from the run of commit 4685efb
-# (dcmslda's from its first run, on the card, of the "runs" phase 2b); a
-# documented change of a sum's order changes one, and the log says which
+# each path's sha256 at full depth: the posteriors are those of commit
+# 4685efb's run (dcmslda's of its first run of the "runs" phase 2b), the
+# ELBO traces those of the Dirichlet ELBO-term kernel (rows summed in f64),
+# which sums in another order than the plain version; a documented change
+# of a sum's order changes one, and the log says which
 KNOWN_DIGESTS = {
-    "main": "d0ad08fa4f6303d2cc6bdc9c7b5fb4b4a1b6cc136669e3b65a6f6a72528c0e2d",
-    "slda": "072c12e5cd365395467d151c85b0c4726a3afe8c3cf7caf64250984d56995ed0",
+    "main": "2c35a6036dceeb3f0d7751a572301b0511ba7f958e9862c2c5af2ddb295ba755",
+    "slda": "4413815808e73583029e8d374bbc14f89642fb35d334eaae2fb58f8ea7165872",
     "naive_bayes":
-        "56eabdf72141712e455ab5165bea6b1276938bb40fc6149f996b01e6eecda82c",
+        "e213215ef084155533acd8906fbdcf0ae43d61abcccf45be2f1af8d4d93044f3",
     "lda_svi":
-        "edae20df45a7500206cf8cc55b79b5356683661ae322e588b6eb82a63dc5e1b2",
-    "dcmlda": "165659cb944f802ef32b692678fe9cbcfbf8c05b0cab5c3aad58ba43dbd24ebc",
+        "361d458cf9ff33efc9feb67af093c1e58077bf770e8e79bee064a7da9cedab7e",
+    "dcmlda": "10ce50eb743dc1dfab2d93ccc97482d67f8d9fddb37e537bf96bca3047a1fa4b",
     "dcmslda":
-        "314189b3875a33ec9e898a454e9d59ec40fb205bcf702bec9f1545c88d12affd",
+        "41fba3c9f2db7d90192e60622a6c11a548161fb4deadd736a3bc32725c753843",
 }
 
 ZSTATS_TOL = dict(rtol=2e-4, atol=2e-4, lse_rtol=2e-5)
@@ -1184,6 +1196,7 @@ def phase_repeat_and_time(args, report, m, prog, counts):
         f"{t_softmax:.4f} ms")
     log(f"  VMP step: {t_step:.2f} ms, {n / t_step * 1e3:.4e} tokens/s "
         f"(N = {n})")
+    kernels += path_dirichlet_entries("lda", prog, st, counts)
     report.update(kernels=kernels, step_ms=t_step,
                   tokens_per_s=n / t_step * 1e3, softmax_ms=t_softmax,
                   de_theta_ms=t_de_theta, de_passes=de_split,
@@ -1557,6 +1570,7 @@ def phase_segment_times(label, m, report, counts):
         f"{gathered / 1e9:.2f} GB): "
         f"{gathered / HBM_BW * 1e3:.4f} ms at the memory rate")
     de_split = de_passes(f"{label} {child_dir}", phi)
+    entries += path_dirichlet_entries(label, prog, state, counts)
     t_step, step, st = time_steps(prog, state)
     log(f"  {label} VMP step: {t_step:.2f} ms, {n_tok / t_step * 1e3:.4e} "
         f"tokens/s (N = {n_tok}, {n_inst} latent instances)")
@@ -1794,6 +1808,7 @@ def phase_lda_svi(report, prog, m):
         f"traces: {digest_note(label, digest)}")
 
     entries = svi_flat_kernels(label, fit, state, counts)
+    entries += path_dirichlet_entries(label, prog, state, counts)
     out.update(svi_step_times(label, fit, state, report["device"]))
     out.update(elbo_trace=hist["elbo"], heldout=hist["heldout"],
                launches=counts, fit_s=fit_s, digest=digest,
@@ -4377,6 +4392,7 @@ def phase_dcmlda(report):
     log("[kernels vs plain] dcmlda: the inputs of its last step and of "
         "get_result('z')")
     entries = flat_recorded("dcmlda", calls, counts, "theta's (D, K) rows")
+    entries += path_dirichlet_entries("dcmlda", prog, m._state, counts)
     theta_shape = (DCM_DOCS, DCM_TOPICS)
     (a, kw, _), = [v for (name, shape), v in calls.items()
                    if name == "dirichlet_expectation" and shape != theta_shape]
@@ -4402,6 +4418,191 @@ def phase_dcmlda(report):
                       bound_ms=phi_bound[0], bound_by=phi_bound[1]))
     del m, prog, step, st, corpus
     torch.cuda.empty_cache()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# the Dirichlet terms: each table's ELBO term and its prior + stats update
+# ---------------------------------------------------------------------------
+
+# (rows, columns, Elog a transposed view) of the benchmark's tables:
+# dcmlda-nips' phi, lda-nytimes' phi (stored (V, K), read as (K, V)) and
+# its theta
+DIRICHLET_TABLES = {"dcmlda-nips phi": (150000, 12419, False),
+                    "lda-nytimes phi": (100, 102660, True),
+                    "lda-nytimes theta": (300000, 100, False)}
+# the ELBO term's largest error against an f64 evaluation as a share of the
+# sum of its parts' magnitudes (sum |lgamma(post)| + sum |post * elog|),
+# beside ``dirichlet_terms.error_limit`` (set by the plain f32 version's
+# own error): 1e-7 of dcmlda-nips' phi is some 2,000 nats, a third of one
+# of its rows
+DIRICHLET_TOL = 1e-7
+DIRICHLET_SRC = "src/repro_torch/kernels/dirichlet_terms.py"
+DIRICHLET_REPLACES = "none (the JAX package leaves it to XLA)"
+
+
+def dirichlet_table(g, k, transpose, seed=SEED):
+    """(prior row, posterior, its Elog table, stats) of a (g, k) Dirichlet
+    at the benchmark's prior (BETA), a fifth of its cells counted; with
+    ``transpose`` the Elog table is the (g, k) view of a (k, g) one."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    prior = torch.full((1, k), BETA, device=DEV)
+    stats = torch.rand((g, k), generator=gen, device=DEV)
+    stats = torch.where(stats < 0.2, stats * 40.0, 0.0)
+    post = ref.dirichlet_update(prior, stats)
+    elog = ops.dirichlet_expectation(post, transpose=transpose)
+    return prior, post, elog.T if transpose else elog, stats
+
+
+def f64_elbo_term(prior, post, elog, rows=4096):
+    """(the ELBO term in f64, the sum of its parts' magnitudes), by blocks
+    of ``rows`` rows."""
+    from repro_torch.kernels import ref
+    p64, total, scale = prior.double(), 0.0, 0.0
+    for lo in range(0, post.shape[0], rows):
+        a, e = post[lo:lo + rows].double(), elog[lo:lo + rows].double()
+        total += float(ref.dirichlet_elbo_term(p64, a, e))
+        scale += float(torch.lgamma(a).abs().sum() + (a * e.abs()).sum())
+    return total, scale
+
+
+def dirichlet_terms_check(tag, prior, post, elog, stats):
+    """The Dirichlet terms' kernels on one table, through ``ops``: the ELBO
+    term within ``dirichlet_terms.error_limit`` and DIRICHLET_TOL of an
+    f64 evaluation (the plain f32 version's error beside it) and twice
+    bitwise; the update bitwise the plain ``prior * ones + stats``, twice
+    bitwise; each timed (CUDA events, and device time in a CUDA graph)
+    beside its plain version and its bound (``kernels/work.py``).  Returns
+    the ELBO term's numbers and ``{kernel: times}``."""
+    from repro_torch.kernels import dirichlet_terms as dt
+    from repro_torch.kernels import ops, ref
+    term = ops.dirichlet_elbo_term(prior, post, elog)
+    again = ops.dirichlet_elbo_term(prior, post, elog)
+    upd = ops.dirichlet_update(prior, stats)
+    check(torch.equal(term, again)
+          and torch.equal(upd, ops.dirichlet_update(prior, stats)),
+          f"dirichlet_terms {tag}: two calls differ")
+    check(torch.equal(upd, ref.dirichlet_update(prior, stats)),
+          f"dirichlet_terms {tag}: the update is not prior * ones + stats "
+          f"bit for bit")
+    del upd
+    truth, scale = f64_elbo_term(prior, post, elog)
+    plain = float(ref.dirichlet_elbo_term(prior, post, elog))
+    err, plain_err = abs(float(term) - truth), abs(plain - truth)
+    limit = dt.error_limit(plain_err, truth)
+    log(f"  dirichlet_elbo_term {tag}: {float(term):.9e}, f64 {truth:.9e}, "
+        f"plain f32 {plain:.9e}; error {err:.3e} (plain {plain_err:.3e}, "
+        f"limit {limit:.3e}), {err / scale:.2e} of the parts' {scale:.3e} "
+        f"(tol {DIRICHLET_TOL})")
+    check(err <= limit and err <= DIRICHLET_TOL * scale,
+          f"dirichlet_elbo_term {tag} is off its f64 evaluation")
+    times = {}
+    for name, fn, plain_fn, work_args in (
+            ("dirichlet_elbo_term",
+             lambda: ops.dirichlet_elbo_term(prior, post, elog),
+             lambda: ref.dirichlet_elbo_term(prior, post, elog),
+             (post, elog)),
+            ("dirichlet_update",
+             lambda: ops.dirichlet_update(prior, stats),
+             lambda: ref.dirichlet_update(prior, stats), (stats,))):
+        ms, dev_ms = time_ms(fn, reps=20), device_ms(fn, reps=3)
+        plain_ms = time_ms(plain_fn, reps=3)
+        bound_ms, bound_by = work_bound(name, *work_args)
+        log(f"  {name} {tag}: {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}): "
+            f"{bound_ms / dev_ms:.1%} of its roofline")
+        times[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+    numbers = dict(value=float(term), f64=truth, plain=plain, err=err,
+                   plain_err=plain_err, limit=limit, scale=scale)
+    return numbers, times
+
+
+def dirichlet_entries(path, routes, err, times, counts):
+    """The kernels-line entries of the Dirichlet terms' kernels on ``path``
+    (the ELBO term on its table's route), with the launch ``counts`` of
+    that path's own run."""
+    entries = []
+    for name, t in times.items():
+        entry = kernel_entry(
+            path, name, routes if name == "dirichlet_elbo_term" else "flat",
+            DIRICHLET_SRC, DIRICHLET_REPLACES, counts[name],
+            err if name == "dirichlet_elbo_term" else 0.0, t["ms"],
+            t["plain_ms"], t["bound_ms"], t["bound_by"])
+        entry["device_ms"] = t["device_ms"]
+        entries.append(entry)
+    return entries
+
+
+def path_dirichlet_entries(label, prog, state, counts):
+    """The Dirichlet terms' kernels on path ``label`` at its largest
+    Dirichlet table of ``state`` and that table's Elog table as the step
+    makes it (``vmp._elog_tables``: phi's a transposed view where the
+    path's child is specialized), checked and timed
+    (:func:`dirichlet_terms_check`): the kernels-line entries with the
+    launch ``counts`` of the path's own run, each at least one a step."""
+    from repro_torch.core import vmp
+    from repro_torch.kernels import dirichlet_terms as dt
+    name = max(state.posteriors, key=lambda n: state.posteriors[n].numel())
+    post = state.posteriors[name]
+    elog = vmp._elog_tables(prog, state)[name]
+    prior = vmp._prior(prog.dirichlets[name], post.device)
+    stats = post - prior
+    g, k = post.shape
+    route = dt.elbo_plan(g, k, dt.transposed(elog), dt._n_sm(post.device))
+    log(f"[kernels vs plain] {label}: the Dirichlet terms on {name} "
+        f"{(g, k)}, route {route.route}; launches "
+        f"{counts['dirichlet_elbo_term']} and {counts['dirichlet_update']}")
+    check(counts["dirichlet_elbo_term"] > 0 and counts["dirichlet_update"] > 0,
+          f"{label}: the Dirichlet terms' kernels did not run: {counts}")
+    numbers, times = dirichlet_terms_check(f"{label} {name} {(g, k)}", prior,
+                                           post, elog, stats)
+    del post, elog, prior, stats
+    return dirichlet_entries(label, route.route, numbers["err"], times,
+                             counts)
+
+
+def phase_dirichlet_terms(report):
+    """The Dirichlet terms' Triton kernels (``kernels/dirichlet_terms.py``)
+    at the benchmark's tables (DIRICHLET_TABLES), each through
+    :func:`dirichlet_terms_check`, the ELBO term on the route its plan
+    names and exactly 0 on a table that is all prior.  The kernels-line
+    entries are the path ``dirichlet_terms``'s, one per table and kernel
+    (its ``"table"``), with the launches of the table's first calls."""
+    from repro_torch.kernels import dirichlet_terms as dt
+    from repro_torch.kernels import ops
+    out = report["dirichlet_terms"] = {}
+    entries = []
+    log(f"[dirichlet_terms] {device_line()}")
+    for label, (g, k, transpose) in DIRICHLET_TABLES.items():
+        prior, post, elog, stats = dirichlet_table(g, k, transpose)
+        plan = dt.elbo_plan(g, k, transpose, dt._n_sm(post.device))
+        ops.reset_launch_counts()
+        numbers, times = dirichlet_terms_check(label, prior, post, elog,
+                                               stats)
+        counts, routes = ops.launch_counts(), ops.route_counts()
+        log(f"  {label} {(g, k)}: route {plan.route} ({plan.chunks} chunks "
+            f"of {plan.chunk_cols} columns, tiles {plan.block}, "
+            f"{plan.warps} warps); the checks' launches "
+            f"{counts['dirichlet_elbo_term']} and {counts['dirichlet_update']}")
+        check(routes["dirichlet_elbo_term"][plan.route]
+              == counts["dirichlet_elbo_term"] > 0,
+              f"dirichlet_terms {label}: routes {routes}, planned "
+              f"{plan.route}")
+        flat = prior.expand(g, k).contiguous()
+        zero = float(ops.dirichlet_elbo_term(prior, flat, elog))
+        check(zero == 0.0, f"dirichlet_terms {label}: a table that is all "
+              f"prior gives {zero}, not 0")
+        del flat
+        for entry in dirichlet_entries("dirichlet_terms", plan.route,
+                                       numbers["err"], times, counts):
+            entry["table"] = label
+            entries.append(entry)
+        out[label] = dict(shape=(g, k), transposed=transpose,
+                          launches=counts, **numbers, **times)
+        del prior, post, elog, stats
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -4618,6 +4819,7 @@ def phase_dcmslda(report):
     entries[2]["device_ms"] = t_de_dev
     log(f"  dirichlet_expectation on phi {tuple(phi.shape)}: device time "
         f"{t_de_dev:.4f} ms a call (CUDA graph of 20 calls)")
+    entries += path_dirichlet_entries("dcmslda", prog, m._state, counts)
     del calls, a, phi, logits, args, plan, lkids, lout, rz, lse, rp, lp
     t_step, step, st = time_steps(prog, m._state)
     trace_steps = phase_trace(step, st)
@@ -6492,6 +6694,7 @@ def main(argv=None) -> int:
     del nb
     kernels += timed("dcmlda", phase_dcmlda, report)
     kernels += timed("dcmslda", phase_dcmslda, report)
+    kernels += timed("dirichlet_terms", phase_dirichlet_terms, report)
     kernels += phase_lm_train(report, phase_flash(report))
     kernels += timed("lm_serve", phase_lm_serve, report)
     kernels += timed("lm_moe", phase_lm_moe, report)

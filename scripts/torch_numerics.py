@@ -6,6 +6,7 @@
     python3 scripts/torch_numerics.py zmap-precision [TREE]
     python3 scripts/torch_numerics.py ab-zstats PARENT [TREE ...]
     python3 scripts/torch_numerics.py ab-steps PARENT
+    python3 scripts/torch_numerics.py ab-digests PARENT
     python3 scripts/torch_numerics.py ab-zmap PARENT [TREE ...]
     python3 scripts/torch_numerics.py ab-flash PARENT [TREE]
     python3 scripts/torch_numerics.py de-sweep
@@ -44,6 +45,13 @@ checkout's ``chip_smoke.py``, so two trees run the same thing.
   corpus each, after one warm-up step, timed on the host clock (each step
   ends in a host read of its ELBO, as ``chip_smoke.py`` times them) in
   turns (parent, this, this, parent, 10 steps each).
+- ``ab-digests``: the five VMP paths of ``chip_smoke.py`` at its depths
+  (LDA, SLDA and naive Bayes, DCM-LDA, DCM-SLDA) and its SVI fit
+  (``lda_svi``: LDA's corpus, its batch and steps), fitted from the same
+  corpora by this checkout's package and by PARENT's: whether each final
+  posterior is bitwise the parent's, the largest per-step difference of
+  the two ELBO traces, and both trees' sha256 (``chip_smoke.output_digest``,
+  which hashes the posteriors and the ELBO trace).
 - ``ab-zmap``: the segment-latent kernels and the Elog pass, this
   checkout's against PARENT's (and, for the segment-latent kernels, against
   each further checkout given after it, say variants of this one) on the
@@ -659,6 +667,103 @@ def ab_steps(cs, parent: Path):
     return 0
 
 
+def _fits(pkg: str, cs, corpora: dict) -> dict:
+    """{path: (posteriors as numpy, ELBO trace)} of package ``pkg``'s five
+    VMP fits and its SVI fit at ``chip_smoke.py``'s depths and seeds (the
+    SVI fit's trace: the batch ELBOs, then the held-out ones)."""
+    import dataclasses
+    import importlib
+    models = importlib.import_module(pkg + ".core.models")
+    core = importlib.import_module(pkg + ".core")
+    corpus, nb_corpus, dcm = corpora["lda"], corpora["nb"], corpora["dcm"]
+    out = {}
+
+    def infer(name, m, steps):
+        m.infer(steps=steps, seed=cs.SEED, device="cuda")
+        out[name] = ({n: m[n].get_result() for n in ("theta", "phi")},
+                     list(m.elbo_trace))
+
+    def fit(name, m, steps):
+        res = core.make_engine("vmp", steps=steps, seed=cs.SEED,
+                               device="cuda").fit(m)
+        out[name] = (res.posteriors, list(res.elbo_trace))
+
+    lda = models.make("lda", alpha=cs.ALPHA, beta=cs.BETA, K=cs.TOPICS,
+                      V=cs.VOCAB)
+    lda["x"].observe(corpus["tokens"], segment_ids=corpus["doc_ids"])
+    infer("main", lda, 10)
+    # SVI at lda_svi's settings over the main path's program, from its
+    # initial state
+    svi = importlib.import_module(pkg + ".core.svi")
+    vmp = importlib.import_module(pkg + ".core.vmp")
+    prog = lda.compile()
+    state, hist = svi.SVI(
+        prog, svi.SVIConfig(**dataclasses.asdict(cs.svi_config())),
+        device="cuda").fit(cs.SVI_STEPS,
+                           state=vmp.init_state(prog, cs.SEED, device="cuda"))
+    out["lda_svi"] = (vmp.state_to_numpy(state)[0],
+                      hist["elbo"] + [v for _, v in hist["heldout"]])
+    tok_sent, sent_doc = cs.sentences(corpus)
+    slda = models.make("slda", alpha=cs.ALPHA, beta=cs.BETA, K=cs.TOPICS,
+                       V=cs.VOCAB)
+    slda["x"].observe(corpus["tokens"], segment_ids=tok_sent)
+    slda.bind("sents", sent_doc)
+    fit("slda", slda, 10)
+    nb = models.make("naive_bayes", alpha=cs.ALPHA, beta=cs.BETA,
+                     C=cs.NB_CLASSES, V=cs.NB_VOCAB)
+    nb["x"].observe(nb_corpus["tokens"], segment_ids=nb_corpus["doc_ids"])
+    fit("naive_bayes", nb, cs.NB_STEPS)
+    dl = models.make("dcmlda", alpha=cs.ALPHA, beta=cs.BETA,
+                     K=cs.DCM_TOPICS, V=cs.DCM_VOCAB)
+    dl["x"].observe(dcm["tokens"], segment_ids=dcm["doc_ids"])
+    infer("dcmlda", dl, cs.DCM_STEPS)
+    tok_sent, sent_doc = cs.sentences(dcm)
+    ds = models.Model(cs.dcmslda, alpha=cs.ALPHA, beta=cs.BETA,
+                      K=cs.DCM_TOPICS, V=cs.DCM_VOCAB)
+    ds["x"].observe(dcm["tokens"], segment_ids=tok_sent)
+    ds.bind("sents", sent_doc)
+    infer("dcmslda", ds, cs.DCM_STEPS)
+    return out
+
+
+def ab_digests(cs, parent: Path):
+    import numpy as np
+    from repro_torch.data import SyntheticCorpus
+    _load_package(parent, "parent_repro_torch")
+    corpora = {
+        "lda": SyntheticCorpus(n_docs=30000, vocab=cs.VOCAB,
+                               n_topics=cs.TOPICS, alpha=cs.ALPHA,
+                               beta=cs.BETA, mean_len=cs.MEAN_LEN,
+                               seed=cs.SEED).generate(),
+        "nb": SyntheticCorpus(n_docs=cs.NB_DOCS, vocab=cs.NB_VOCAB,
+                              n_topics=cs.NB_CLASSES, alpha=cs.ALPHA,
+                              beta=cs.BETA, mean_len=cs.MEAN_LEN,
+                              seed=cs.SEED).generate(),
+        "dcm": SyntheticCorpus(n_docs=cs.DCM_DOCS, vocab=cs.DCM_VOCAB,
+                               n_topics=cs.DCM_TOPICS,
+                               mean_len=cs.DCM_MEAN_LEN,
+                               seed=cs.SEED).generate()}
+    fits = {who: _fits(pkg, cs, corpora) for who, pkg in
+            (("parent", "parent_repro_torch"), ("this", "repro_torch"))}
+    print(f"[ab-digests] {cs.device_line()}")
+    same = True
+    for path, (posts, trace) in fits["this"].items():
+        p_posts, p_trace = fits["parent"][path]
+        bitwise = {n: bool(np.array_equal(np.asarray(posts[n]),
+                                          np.asarray(p_posts[n])))
+                   for n in sorted(posts)}
+        diff = np.abs(np.asarray(trace) - np.asarray(p_trace))
+        rel = diff / np.abs(np.asarray(p_trace))
+        same &= all(bitwise.values())
+        print(f"[ab-digests] {path}: posteriors bitwise the parent's "
+              f"{bitwise}; ELBO trace largest step difference "
+              f"{diff.max():.6e} ({rel.max():.3e} relative, step "
+              f"{int(diff.argmax())}); sha256 parent "
+              f"{cs.output_digest(p_posts, p_trace)}, this "
+              f"{cs.output_digest(posts, trace)}", flush=True)
+    return 0 if same else 1
+
+
 def _worst(tag, got, want, tol):
     """Worst |got - want| / (atol + rtol |want|) of the stats, and the lse's
     relative error."""
@@ -728,13 +833,13 @@ def zmap_precision(cs):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("check", choices=["digest", "zmap-precision",
-                                      "ab-zstats", "ab-steps", "ab-zmap",
-                                      "ab-flash", "de-sweep",
+                                      "ab-zstats", "ab-steps", "ab-digests",
+                                      "ab-zmap", "ab-flash", "de-sweep",
                                       "zstats-split"])
     p.add_argument("tree", nargs="?", default=str(HERE),
                    help="checkout whose src/repro_torch runs (ab-zstats, "
-                        "ab-steps, ab-zmap, ab-flash: the parent's, beside "
-                        "this checkout's)")
+                        "ab-steps, ab-digests, ab-zmap, ab-flash: the "
+                        "parent's, beside this checkout's)")
     p.add_argument("more", nargs="*",
                    help="ab-zmap, ab-zstats: further checkouts (variants), "
                         "each timed against this one; ab-flash: the "
@@ -745,8 +850,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_numerics: no CUDA device", file=sys.stderr)
         return 2
-    ab = {"ab-zstats": ab_zstats, "ab-steps": ab_steps, "ab-zmap": ab_zmap,
-          "ab-flash": ab_flash}
+    ab = {"ab-zstats": ab_zstats, "ab-steps": ab_steps,
+          "ab-digests": ab_digests, "ab-zmap": ab_zmap, "ab-flash": ab_flash}
     if args.check in ab:
         if Path(args.tree).resolve() == HERE:
             p.error(f"{args.check} needs the parent's checkout")

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import ref
+
 
 def dirichlet_expectation(alpha: torch.Tensor) -> torch.Tensor:
     """E_q[log theta] for rows of Dirichlet parameters.
@@ -38,14 +40,12 @@ def dirichlet_elbo_term(prior: torch.Tensor, post: torch.Tensor,
 
     ``prior`` broadcasts against ``post`` (priors are usually symmetric
     scalars expanded lazily).  ``elog`` may be supplied to reuse an already
-    computed expectation table.
+    computed expectation table.  The formula is the plain version of the
+    card's kernel, ``kernels/ref.py:dirichlet_elbo_term``.
     """
     if elog is None:
         elog = dirichlet_expectation(post)
-    prior = torch.broadcast_to(prior, post.shape)
-    term = dirichlet_log_norm(post) - dirichlet_log_norm(prior)
-    term = term + ((prior - post) * elog).sum(dim=-1)
-    return term.sum()
+    return ref.dirichlet_elbo_term(prior, post, elog)
 
 
 def categorical_entropy(r: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -34,7 +34,6 @@ import torch
 
 from .. import trace
 from ..kernels import ops as kops
-from . import dists
 from .compiler import VMPProgram, check_resident
 
 
@@ -229,7 +228,8 @@ def _step_stats(program: VMPProgram, arrays: dict, state: VMPState,
     statistics from these ``arrays``.
 
     Each Dirichlet's Elog table is made once (:func:`_elog_tables`) and read
-    by the token plate, the statics and the Dirichlet ELBO terms.  Per
+    by the token plate, the statics and the Dirichlet ELBO terms (one
+    ``kops.dirichlet_elbo_term`` call per Dirichlet).  Per
     latent, the fused ``kops.zstats`` substep gathers the Elog messages,
     takes the softmax/logsumexp and scatters the sufficient statistics, so
     the token plate's (N, K) responsibilities are never materialized (a
@@ -302,7 +302,7 @@ def _step_stats(program: VMPProgram, arrays: dict, state: VMPState,
         for name, d in program.dirichlets.items():
             if name not in local_dirs and not global_terms:
                 continue
-            term = dists.dirichlet_elbo_term(
+            term = kops.dirichlet_elbo_term(
                 _prior(d, device), state.posteriors[name], elog[name])
             if name not in local_dirs and n_replicas != 1:
                 term = term / n_replicas
@@ -316,9 +316,10 @@ def _prior(d, device) -> torch.Tensor:
 
 def _updated(program: VMPProgram, stats: dict, device) -> dict:
     """The posterior update ``prior + stats`` of each Dirichlet in
-    ``stats``."""
-    return {name: _prior(program.dirichlets[name], device)
-            * torch.ones_like(st) + st for name, st in stats.items()}
+    ``stats`` (``kops.dirichlet_update``)."""
+    return {name: kops.dirichlet_update(_prior(program.dirichlets[name],
+                                               device), st)
+            for name, st in stats.items()}
 
 
 def _step_body(program: VMPProgram, arrays: dict, state: VMPState,

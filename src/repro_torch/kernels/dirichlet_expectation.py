@@ -66,17 +66,25 @@ def _blocks(k: int) -> tuple:
     return _MAX_BLOCK_K // bk, bk
 
 
-def row_chunks(g: int, k: int, n_sm: int = 132) -> tuple:
-    """``(chunks, chunk columns)`` of the row-sum pass over a (g, k) table:
-    each row is cut into ``chunks`` runs of ``chunk columns`` (whole column
-    blocks; the last run shorter), the shortest runs that keep the count
-    within the chunks that give ``_WAVES`` programs per SM over the card's
-    ``n_sm`` SMs, and within ``_MAX_CHUNKS``."""
-    br, bk = _blocks(k)
+def chunk_plan(g: int, k: int, block: tuple, n_sm: int = 132,
+               max_chunks: int = _MAX_CHUNKS) -> tuple:
+    """``(chunks, chunk columns)`` of a pass over a (g, k) table whose
+    programs each take a ``block`` of (rows, columns) tiles and one chunk
+    of a row: each row is cut into ``chunks`` runs of ``chunk columns``
+    (whole column blocks; the last run shorter), the shortest runs that
+    keep the count within the chunks that give ``_WAVES`` programs per SM
+    over the card's ``n_sm`` SMs, and within ``max_chunks``."""
+    br, bk = block
     blocks = -(-k // bk)
     want = -(-_WAVES * n_sm // -(-g // br))
-    per = -(-blocks // max(1, min(want, blocks, _MAX_CHUNKS)))
+    per = -(-blocks // max(1, min(want, blocks, max_chunks)))
     return -(-blocks // per), per * bk
+
+
+def row_chunks(g: int, k: int, n_sm: int = 132) -> tuple:
+    """``(chunks, chunk columns)`` of the row-sum pass over a (g, k) table
+    (:func:`chunk_plan` over its blocks)."""
+    return chunk_plan(g, k, _blocks(k), n_sm)
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,7 +5,8 @@ this module is the one place that looks: a CPU tensor runs the plain PyTorch
 version from ``ref.py``, a ``meta`` tensor is counted (below), any other
 tensor goes to the Hopper kernel's wrapper (CUDA C++ for ``zstats``,
 ``zstats_zmap``, ``zmap_logits`` and ``flash_attention``, Triton for
-``dirichlet_expectation`` and ``zstep``).  The wrappers take CUDA tensors
+``dirichlet_expectation``, ``dirichlet_elbo_term``, ``dirichlet_update``
+and ``zstep``).  The wrappers take CUDA tensors
 only and raise on any other device: nothing on the card falls back to a
 plain version.
 
@@ -33,6 +34,7 @@ import torch
 
 from .. import trace
 from . import dirichlet_expectation as _de
+from . import dirichlet_terms as _dt
 from . import flash_attention as _fa
 from . import fused_zmap as _fzm
 from . import fused_zstats as _fz
@@ -84,6 +86,37 @@ def dirichlet_expectation(alpha: torch.Tensor,
         return _de.dirichlet_expectation(alpha, transpose)
     out = ref.dirichlet_expectation(alpha.float())
     return out.T.contiguous() if transpose else out
+
+
+def dirichlet_elbo_term(prior: torch.Tensor, post: torch.Tensor,
+                        elog: torch.Tensor) -> torch.Tensor:
+    """A Dirichlet's ELBO term, ``E_q[log p(theta)] - E_q[log q(theta)]``
+    summed over the rows of a ``(G, K)`` f32 posterior table, as a 0-d f32
+    tensor: ``prior`` is its ``(1, K)`` prior row, ``elog`` its Elog table
+    (any strides: LDA's phi is a transposed view).  On the card each sum
+    runs in a fixed order and the rows' sum in f64
+    (``dirichlet_terms.elbo_term``)."""
+    if _dry(post):
+        g, k = post.shape
+        plan = _dt.elbo_plan(g, k, _dt.transposed(elog))
+        _count("dirichlet_elbo_term", {plan.route: 1},
+               _work.dirichlet_elbo_term(post, elog))
+        return post.new_empty((), dtype=torch.float32)
+    if _plain(post):
+        return ref.dirichlet_elbo_term(prior, post, elog)
+    return _dt.elbo_term(prior, post, elog)
+
+
+def dirichlet_update(prior: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """A Dirichlet's new posterior ``prior + stats``: the ``(1, K)``
+    prior row added to each row of the ``(G, K)`` f32 stats, the same f32
+    add on every device."""
+    if _dry(stats):
+        _count("dirichlet_update", {}, _work.dirichlet_update(stats))
+        return stats.new_empty(stats.shape, dtype=torch.float32)
+    if _plain(stats):
+        return ref.dirichlet_update(prior, stats)
+    return _dt.update(prior, stats)
 
 
 def zstep(logits: torch.Tensor):
@@ -341,7 +374,8 @@ class _DryFlash(_fa.FlashAttention):
 
 #: the routes of each kernel that has them, in :func:`route_counts`' order
 _ROUTES = {"zstats": _fz.ROUTES, "zstats_zmap": _fzm.ROUTES,
-           "zmap_logits": _fzm.LOGITS_ROUTES, "flash_attention": _fa.ROUTES}
+           "zmap_logits": _fzm.LOGITS_ROUTES, "flash_attention": _fa.ROUTES,
+           "dirichlet_elbo_term": _dt.ROUTES}
 
 
 def reset_launch_counts() -> None:
@@ -356,7 +390,8 @@ def launch_counts() -> dict:
     c = trace.counters()
     return {k: c.get(f"kernels.launches.{k}", 0) for k in (
         "zstats", "zstats_zmap", "zmap_logits", "dirichlet_expectation",
-        "zstep", "flash_attention")}
+        "dirichlet_elbo_term", "dirichlet_update", "zstep",
+        "flash_attention")}
 
 
 def route_counts() -> dict:
@@ -364,14 +399,16 @@ def route_counts() -> dict:
     ``zstats``' and ``zstats_zmap``'s child passes by kind (``"pieces"``,
     ``"runs"``, ``"strided"``), ``zstats_zmap``'s and ``zmap_logits``' zmap
     children's phase 1 by route (``"group"``, ``"warp"``), flash
-    attention's kernel (``"wgmma"``, ``"mma"``).  The routes
-    :func:`routing` names."""
+    attention's kernel (``"wgmma"``, ``"mma"``), the Dirichlet ELBO term's
+    tiles (``"rows"``, ``"chunks"``, as ``dirichlet_terms.elbo_plan`` cuts
+    the table).  ``zstats``' are the routes :func:`routing` names."""
     c = trace.counters()
     return {k: {r: c.get(f"kernels.routes.{k}.{r}", 0) for r in routes}
             for k, routes in _ROUTES.items()}
 
 
 __all__ = ["ZChild", "RouteInfo", "routing", "route_label", "L2_BYTES",
-           "dirichlet_expectation", "zstep", "zstats", "host_plan",
+           "dirichlet_expectation", "dirichlet_elbo_term", "dirichlet_update",
+           "zstep", "zstats", "host_plan",
            "zstats_plan", "zmap_logits", "flash_attention",
            "reset_launch_counts", "launch_counts", "route_counts"]

@@ -21,6 +21,28 @@ def dirichlet_expectation(alpha: torch.Tensor) -> torch.Tensor:
         alpha.sum(dim=-1, keepdim=True))
 
 
+def dirichlet_elbo_term(prior: torch.Tensor, post: torch.Tensor,
+                        elog: torch.Tensor) -> torch.Tensor:
+    """A Dirichlet's ELBO term, ``E_q[log p(theta)] - E_q[log q(theta)]``
+    summed over the rows of ``post``, against a prior that broadcasts
+    against it and its Elog table, a 0-d tensor: the rows' log-normalizers
+    ``sum lgamma(a) - lgamma(sum a)`` of the posterior less the prior's,
+    plus ``sum (prior - post) * elog`` (``core.dists.dirichlet_elbo_term``
+    is this function)."""
+    prior = torch.broadcast_to(prior, post.shape)
+    term = (torch.lgamma(post).sum(dim=-1) - torch.lgamma(post.sum(dim=-1))
+            - (torch.lgamma(prior).sum(dim=-1)
+               - torch.lgamma(prior.sum(dim=-1))))
+    term = term + ((prior - post) * elog).sum(dim=-1)
+    return term.sum()
+
+
+def dirichlet_update(prior: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """A Dirichlet's posterior update ``prior + stats``, the prior row
+    broadcast over the rows of ``stats``."""
+    return prior * torch.ones_like(stats) + stats
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Plain version of the flash kernel: dense masked attention.

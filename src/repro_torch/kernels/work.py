@@ -3,7 +3,8 @@ shapes and index streams, whatever implements the call.
 
 One function per kernel of ``ops``: :func:`zstats` (a flat latent),
 :func:`zstats_zmap` (a segment latent), :func:`zmap_logits`,
-:func:`dirichlet_expectation`, :func:`zstep` and :func:`flash_attention`;
+:func:`dirichlet_expectation`, :func:`dirichlet_elbo_term`,
+:func:`dirichlet_update`, :func:`zstep` and :func:`flash_attention`;
 and :func:`zmap_stats`, phase 2b of ``zstats_zmap`` timed apart.
 Bytes count each input read once and each output written once; where the
 work depends on the data (the table cells a call's tokens gather, the
@@ -29,6 +30,8 @@ import torch
 
 #: f32 operations of one digamma (shift by 8, then the asymptotic series)
 DIGAMMA_OPS = 30
+#: f32 operations counted for one lgamma, as for a digamma
+LGAMMA_OPS = 30
 
 _SINK = contextvars.ContextVar("kernel_work_sink", default=None)
 
@@ -193,6 +196,23 @@ def dirichlet_expectation(alpha) -> tuple:
     read and the f32 result written."""
     n = math.prod(alpha.shape)
     return DIGAMMA_OPS * n, n * (_esize(alpha) + 4)
+
+
+def dirichlet_elbo_term(post, elog) -> tuple:
+    """A Dirichlet's ELBO term over a ``(G, K)`` posterior: an lgamma and 5
+    operations a cell (``post - prior``, the lgamma's excess over the
+    prior's, the three sums), the posterior and the Elog table read once,
+    the prior row read and the scalar written."""
+    g, k = post.shape
+    return (LGAMMA_OPS + 5) * g * k, g * k * (_esize(post) + _esize(elog)) \
+        + 4 * k + 4
+
+
+def dirichlet_update(stats) -> tuple:
+    """A Dirichlet's update ``prior + stats`` over a ``(G, K)`` table: an add
+    a cell, the stats and the prior row read, the f32 posterior written."""
+    g, k = stats.shape
+    return g * k, g * k * (_esize(stats) + 4) + 4 * k
 
 
 def zstep(logits) -> tuple:

@@ -21,7 +21,8 @@ def pytest_configure(config):
         "(enable with --runslow or -m slow)")
     config.addinivalue_line(
         "markers", "card: needs a CUDA card; skips without one (run them on "
-        "the chip: python -m pytest tests/test_torch_trace.py -m card)")
+        "the chip: python -m pytest tests/test_torch_trace.py "
+        "tests/test_torch_dirichlet_terms.py -m card)")
 
 
 def pytest_collection_modifyitems(config, items):

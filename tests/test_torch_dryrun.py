@@ -323,6 +323,31 @@ def test_payload_of_a_dry_vmp_step_is_the_real_runs():
     assert costs.launches["dirichlet_expectation"]["count"] == 2
 
 
+def test_a_dry_vmp_step_counts_the_dirichlet_terms_work():
+    """A VMP step on meta counts one ELBO-term and one update launch per
+    Dirichlet at the route its table takes (phi's Elog a transposed view),
+    and the two kernels' counted work is ``kernels/work.py``'s."""
+    from repro_torch.core import runtime
+    prog = _lda(n_docs=40, k=6, v=5000)
+    state = init_state(prog, 0, META)
+    costs = count(runtime.make_step(prog, device=META), state)
+    assert costs.launches["dirichlet_elbo_term"] == {
+        "count": 2, "routes": {"rows": 1, "chunks": 1}}
+    assert costs.launches["dirichlet_update"] == {"count": 2, "routes": {}}
+    phi = state.posteriors["phi"]
+    elog = torch.empty(phi.shape[::-1], device=META).T
+    m = lambda *s: torch.empty(s, device=META)              # noqa: E731
+    for call, want in [
+            (lambda: ops.dirichlet_elbo_term(m(1, 5000), phi, elog),
+             work.dirichlet_elbo_term(phi, elog)),
+            (lambda: ops.dirichlet_update(m(1, 5000), phi),
+             work.dirichlet_update(phi))]:
+        one = count(call)
+        assert (one.flops, one.traffic) == want
+    assert work.dirichlet_elbo_term(phi, elog)[1] == 8 * 6 * 5000 + 4 * 5000 \
+        + 4
+
+
 # ---------------------------------------------------------------------------
 # (e) the paper's claim at 256 shards
 # ---------------------------------------------------------------------------
@@ -376,6 +401,9 @@ def _meta_calls():
         "zstats": lambda: ops.zstats(m(g, k), mi(rows), (child,), plan=flat),
         "zmap_logits": lambda: ops.zmap_logits((zchild,), 5, k, plan=seg),
         "dirichlet_expectation": lambda: ops.dirichlet_expectation(m(g, k)),
+        "dirichlet_elbo_term": lambda: ops.dirichlet_elbo_term(
+            m(1, k), m(g, k), m(g, k)),
+        "dirichlet_update": lambda: ops.dirichlet_update(m(1, k), m(g, k)),
         "zstep": lambda: ops.zstep(m(n, k)),
         "flash_attention": lambda: ops.flash_attention(m(2, 8, 16), m(2, 8, 16),
                                                        m(2, 8, 16)),
@@ -383,8 +411,9 @@ def _meta_calls():
 
 
 @pytest.mark.parametrize("name", ["zstats", "zmap_logits",
-                                  "dirichlet_expectation", "zstep",
-                                  "flash_attention"])
+                                  "dirichlet_expectation",
+                                  "dirichlet_elbo_term", "dirichlet_update",
+                                  "zstep", "flash_attention"])
 def test_meta_outside_a_count_raises(name):
     call = _meta_calls()[name]
     with pytest.raises(ValueError, match="meta tensor runs no kernel"):

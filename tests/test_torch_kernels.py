@@ -18,6 +18,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import dirichlet_expectation as tde
+from repro_torch.kernels import dirichlet_terms as tdt
 from repro_torch.kernels import fused_zstats as tfz
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -252,6 +253,124 @@ def test_row_chunks_at_the_paths_shapes():
     row-sum programs for its 100 rows); theta's rows of K = 100 stay whole."""
     assert tde.row_chunks(100, 102660) == (11, 10240)
     assert tde.row_chunks(30000, 100) == (1, 128)
+
+
+# ---------------------------------------------------------------------------
+# the Dirichlet terms: the ELBO term and the prior + stats update
+# ---------------------------------------------------------------------------
+
+# (g, k, Elog a transposed view): one row, Beta's k = 2, theta-like rows,
+# long rows read through a transposed Elog view (LDA's phi), a ragged k
+DIRICHLET_SHAPES = [(1, 7, False), (500, 2, False), (3000, 100, False),
+                    (4, 20000, True), (37, 1237, False)]
+
+
+def _dirichlet_case(g, k, transpose, seed=0):
+    """(prior row, posterior, its Elog table, stats) of a (g, k) Dirichlet;
+    with ``transpose`` the Elog table is the (g, k) view of a (k, g)
+    table, as LDA's phi."""
+    rng = np.random.default_rng(seed + g + k)
+    prior = torch.from_numpy(rng.uniform(0.02, 0.5, (1, k)).astype(np.float32))
+    stats = torch.from_numpy(
+        (rng.gamma(0.3, 4.0, (g, k)) * (rng.random((g, k)) < 0.3))
+        .astype(np.float32))
+    post = prior * torch.ones_like(stats) + stats
+    elog = tref.dirichlet_expectation(post)
+    if transpose:
+        elog = elog.T.contiguous().T
+    return prior, post, elog, stats
+
+
+@pytest.mark.parametrize("g,k,transpose", DIRICHLET_SHAPES)
+def test_dirichlet_terms_plain_versions_are_dists_and_updated(g, k,
+                                                              transpose):
+    """On the CPU ``ops`` runs ``ref``'s versions, which are bit for bit
+    ``dists.dirichlet_elbo_term`` and the VMP step's ``prior + stats``
+    update (``vmp._updated``), the transposed Elog view included."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import dists, vmp
+    prior, post, elog, stats = _dirichlet_case(g, k, transpose)
+    assert tdt.transposed(elog) == transpose
+    want = dists.dirichlet_elbo_term(prior, post, elog)
+    for got in (tref.dirichlet_elbo_term(prior, post, elog),
+                tops.dirichlet_elbo_term(prior, post, elog)):
+        assert got.shape == () and got.dtype == torch.float32
+        assert torch.equal(got, want)
+    prog = SimpleNamespace(dirichlets={"d": SimpleNamespace(
+        prior=prior[0].numpy())})
+    upd = vmp._updated(prog, {"d": stats}, "cpu")["d"]
+    assert torch.equal(upd, prior * torch.ones_like(stats) + stats)
+    assert torch.equal(tref.dirichlet_update(prior, stats), upd)
+    assert torch.equal(tops.dirichlet_update(prior, stats), upd)
+    assert torch.equal(upd, post)
+
+
+def _emulated_elbo_term(prior, post, elog):
+    """The card's ELBO term emulated on the CPU from its plan: per (row,
+    chunk) three f64 sums of each cell's f32 excess over its prior
+    (lgamma(post) - lgamma(prior), post - prior, (post - prior) * elog),
+    each row's chunk partials added, its term in f64 from the prior's f64
+    sum, the rows summed in f64."""
+    g, k = post.shape
+    plan = tdt.elbo_plan(g, k, tdt.transposed(elog))
+    lg = s = x = 0
+    for c in range(plan.chunks):
+        cols = slice(c * plan.chunk_cols, min((c + 1) * plan.chunk_cols, k))
+        a, e, p = post[:, cols], elog[:, cols], prior[0, cols]
+        d = a - p
+        lg = lg + (torch.lgamma(a) - torch.lgamma(p)).double().sum(1)
+        s = s + d.double().sum(1)
+        x = x + (d * e).double().sum(1)
+    sp = prior.double().sum()
+    norm = torch.lgamma(sp + s) - torch.lgamma(sp)
+    return (lg - norm - x).sum().float()
+
+
+@pytest.mark.parametrize("g,k,transpose", DIRICHLET_SHAPES)
+def test_dirichlet_elbo_chunks_cover_each_row_once(g, k, transpose):
+    """The kernel's decomposition (chunk partials of each cell's excess
+    over its prior, rows in f64) gives the ELBO term of an f64 evaluation
+    within the limit the card's kernel is held to, and within 1e-7 of the
+    sum of the parts' magnitudes, as the plain f32 version does; and
+    exactly 0 for a table that is all prior, where the plain version's
+    f32 sums need not cancel."""
+    prior, post, elog, _ = _dirichlet_case(g, k, transpose, seed=1)
+    p64, a64, e64 = prior.double(), post.double(), elog.double()
+    truth = float(tref.dirichlet_elbo_term(p64, a64, e64))
+    scale = float(torch.lgamma(a64).abs().sum() + (a64 * e64.abs()).sum())
+    got = float(_emulated_elbo_term(prior, post, elog))
+    plain = float(tref.dirichlet_elbo_term(prior, post, elog))
+    assert abs(got - truth) <= tdt.error_limit(abs(plain - truth), truth)
+    assert abs(got - truth) <= 1e-7 * scale
+    assert abs(plain - truth) <= 1e-7 * scale
+    flat = prior * torch.ones_like(post)
+    assert float(_emulated_elbo_term(prior, flat, elog)) == 0.0
+
+
+@pytest.mark.parametrize("g,k,transpose,route,block,chunks", [
+    (150000, 12419, False, "rows", (4, 256), 1),         # DCM-LDA's phi
+    (100, 102660, True, "chunks", (16, 64), 146),        # LDA's phi
+    (300000, 100, False, "rows", (4, 128), 1),           # LDA's theta
+    (1500, 100, False, "rows", (4, 128), 1),             # DCM-LDA's theta
+    (100, 102660, False, "chunks", (4, 256), 41),
+    (10, 2, False, "rows", (256, 2), 1)])
+def test_dirichlet_elbo_plan_at_the_paths_shapes(g, k, transpose, route,
+                                                 block, chunks):
+    """The ELBO term's tiles: whole rows where there are rows enough to fill
+    the card, else each row cut into chunks of whole column blocks that
+    cover it once, within the count that gives _WAVES programs an SM."""
+    plan = tdt.elbo_plan(g, k, transpose)
+    br, bk = plan.block
+    assert (plan.route, plan.block, plan.chunks) == (route, block, chunks)
+    assert plan.warps in (4, 8)
+    assert transpose or plan.warps * 32 * tdt._PER_THREAD == br * bk
+    assert plan.chunk_cols % bk == 0
+    assert (plan.chunks - 1) * plan.chunk_cols < k <= plan.chunks * \
+        plan.chunk_cols
+    programs = -(-g // br) * plan.chunks
+    assert plan.chunks == 1 or programs <= tde._WAVES * tdt.N_SM + -(-g // br)
+    assert plan.chunks <= tdt._MAX_CHUNKS
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -831,12 +950,19 @@ def test_cpu_tensors_take_plain_versions_without_launches():
     zkids = _torch_children(zdata[2])
     tops.zmap_logits(zkids, 40, 3)
     tops.dirichlet_expectation(torch.rand(3, 4) + 0.1)
+    prior, post, elog, stats = _dirichlet_case(3, 4, False)
+    tops.dirichlet_elbo_term(prior, post, elog)
+    tops.dirichlet_update(prior, stats)
     tops.zstep(torch.randn(5, 3))
     tops.flash_attention(*torch.randn(3, 2, 9, 8))
     assert tops.launch_counts() == {"zstats": 0, "zstats_zmap": 0,
                                     "zmap_logits": 0,
-                                    "dirichlet_expectation": 0, "zstep": 0,
+                                    "dirichlet_expectation": 0,
+                                    "dirichlet_elbo_term": 0,
+                                    "dirichlet_update": 0, "zstep": 0,
                                     "flash_attention": 0}
+    assert tops.route_counts()["dirichlet_elbo_term"] == {"rows": 0,
+                                                          "chunks": 0}
     assert tops.zstats_plan(torch.zeros(2, 3), torch.zeros(4, dtype=torch.int32),
                             ()) is None
     assert tops.zstats_plan(torch.zeros(10, 3), torch.from_numpy(zdata[1]),
@@ -880,6 +1006,11 @@ def test_wrappers_refuse_devices_without_kernels(monkeypatch):
         lambda: tops.zstats(torch.empty(10, 3, **meta),
                             torch.empty(40, dtype=torch.int32, **meta), ()),
         lambda: tops.dirichlet_expectation(torch.empty(4, 3, **meta)),
+        lambda: tops.dirichlet_elbo_term(torch.empty(1, 3, **meta),
+                                         torch.empty(4, 3, **meta),
+                                         torch.empty(4, 3, **meta)),
+        lambda: tops.dirichlet_update(torch.empty(1, 3, **meta),
+                                      torch.empty(4, 3, **meta)),
         lambda: tops.zstep(torch.empty(4, 3, **meta))]
     for call in calls:
         with pytest.raises(ValueError, match="count the call"):
@@ -904,8 +1035,37 @@ def test_wrappers_check_inputs(bad, error, match):
         tzs.zstep(x)
 
 
+@pytest.mark.parametrize("bad,error,match", [
+    ("rank", ValueError, "shape"), ("dtype", TypeError, "float32"),
+    ("shapes", ValueError, "differ"), ("prior", ValueError, "prior row"),
+    ("layout", ValueError, "contiguous"), ("offsets", ValueError, "2\\^31")])
+def test_dirichlet_terms_check_inputs(bad, error, match):
+    """The Dirichlet terms' wrappers reject bad inputs before they look at
+    the device: the update takes contiguous stats, the ELBO term any
+    strides (a transposed Elog view is no bad input) whose column offsets
+    stay within 2^31 elements."""
+    prior, post, elog, stats = _dirichlet_case(4, 3, True)
+    far = torch.empty_strided((4, 3), (1, 2 ** 30), device="meta")
+    args = {"rank": (prior, post[None], elog[None]),
+            "dtype": (prior, post.double(), elog.double()),
+            "shapes": (prior, post, elog[:3]),
+            "prior": (prior[:, :2], post, elog),
+            "layout": (prior, stats.T.contiguous().T, elog),
+            "offsets": (prior, post, far)}[bad]
+    if bad != "layout":                      # the ELBO term takes any strides
+        with pytest.raises(error, match=match):
+            tdt.elbo_term(*args)
+    if bad not in ("shapes", "offsets"):     # the update takes one table
+        with pytest.raises(error, match=match):
+            tdt.update(*args[:2])
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        tdt.elbo_term(prior, post, elog)
+
+
 @pytest.mark.parametrize("wrapper", ["zstats", "zstats_zmap", "zmap_logits",
-                                     "dirichlet_expectation", "zstep"])
+                                     "dirichlet_expectation",
+                                     "dirichlet_elbo_term", "dirichlet_update",
+                                     "zstep"])
 def test_kernel_wrappers_take_cuda_tensors_only(wrapper):
     """The kernel wrappers never run a plain version: ``ops`` alone sends a
     CPU tensor to ``ref``."""
@@ -920,6 +1080,10 @@ def test_kernel_wrappers_take_cuda_tensors_only(wrapper):
             "zmap_logits": lambda: tfzm.zmap_logits(zkids, len(rows), 3),
             "dirichlet_expectation": lambda: tde.dirichlet_expectation(
                 torch.rand(4, 3) + 0.1),
+            "dirichlet_elbo_term": lambda: tdt.elbo_term(
+                *_dirichlet_case(4, 3, False)[:3]),
+            "dirichlet_update": lambda: tdt.update(
+                *_dirichlet_case(4, 3, True)[::3]),
             "zstep": lambda: tzs.zstep(torch.rand(4, 3))}[wrapper]
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         call()

@@ -389,13 +389,15 @@ def test_launch_and_route_counts_keep_their_shape():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "zstats": 0, "zstats_zmap": 0, "zmap_logits": 0,
-        "dirichlet_expectation": 0, "zstep": 0, "flash_attention": 0}
+        "dirichlet_expectation": 0, "dirichlet_elbo_term": 0,
+        "dirichlet_update": 0, "zstep": 0, "flash_attention": 0}
     assert ops.route_counts() == {
         "zstats": {"pieces": 0, "runs": 0, "strided": 0},
         "zstats_zmap": {"pieces": 0, "runs": 0, "strided": 0, "group": 0,
                         "warp": 0},
         "zmap_logits": {"group": 0, "warp": 0},
-        "flash_attention": {"wgmma": 0, "mma": 0}}
+        "flash_attention": {"wgmma": 0, "mma": 0},
+        "dirichlet_elbo_term": {"rows": 0, "chunks": 0}}
     trace.count("kernels.launches.zstats", 2)
     trace.count("kernels.routes.zstats.runs")
     assert ops.launch_counts()["zstats"] == 2
@@ -559,10 +561,12 @@ def test_the_launch_counts_of_a_few_kernel_calls(cuda):
     ops.dirichlet_expectation(alpha, transpose=True)
     ops.zstep(torch.randn(50, 6, device=cuda))
     run = _card_fit(cuda, steps=2)            # 3 steps: 3 zstats, 6 Elogs
-    run()
+    run()                                     # and 6 ELBO terms and updates
     counts = ops.launch_counts()
     assert counts == {"zstats": 3, "zstats_zmap": 0, "zmap_logits": 0,
-                      "dirichlet_expectation": 8, "zstep": 1,
+                      "dirichlet_expectation": 8, "dirichlet_elbo_term": 6,
+                      "dirichlet_update": 6, "zstep": 1,
                       "flash_attention": 0}
-    assert ops.route_counts()["zstats"] == {"pieces": 3, "runs": 0,
-                                            "strided": 0}
+    routes = ops.route_counts()
+    assert routes["zstats"] == {"pieces": 3, "runs": 0, "strided": 0}
+    assert routes["dirichlet_elbo_term"] == {"rows": 3, "chunks": 3}
