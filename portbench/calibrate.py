@@ -8,8 +8,9 @@ For each seed, in one process: the cell's corpus and set-up, the program's
 checked steps (the lower readings), the control's, which are the port's
 own ``elog_dtype="bfloat16"`` tables switched on from the same starting
 posteriors (an upper reading), and, for the first ``--faults`` seeds, the
-reference with a fault planted (``reference/flat.py``'s ``FAULTS``: half
-the tokens left out with the rest doubled, topic 0's statistics doubled
+reference with a fault planted (the ``FAULTS`` of the cell's reference
+step, ``reference/flat.py``'s or the model's own: half the tokens or
+instances left out with the rest doubled, topic 0's statistics doubled
 where they are produced), each against the clean reference.  One JSON line
 a seed, and at the end the largest program reading and the smallest
 control and fault readings of each number.  No window is timed.
@@ -40,11 +41,11 @@ def main(argv=None) -> int:
 
     import check
     import harness
-    from reference.flat import FAULTS
     device = "cuda"
     harness.log(f"[device] {run.power_line()}")
     from repro_torch.core import runtime
     cell = harness.load_cell(ROOT, args.workload)
+    _, faults = harness.reference_step(cell)
     rows = []
     for i, seed in enumerate(args.seeds):
         t0 = time.perf_counter()
@@ -69,7 +70,7 @@ def main(argv=None) -> int:
                "program": check.compare(prog_read, ref),
                "control": check.compare(ctrl_read, ref)}
         if i < args.faults:
-            for f in FAULTS:
+            for f in faults:
                 row[f] = check.compare(harness.reference_readings(
                     cell, inputs["host"], seed, device, fault=f), ref)
         row["seconds"] = time.perf_counter() - t0
@@ -87,7 +88,7 @@ def main(argv=None) -> int:
             "program_max": max(r["program"][n] for r in rows),
             "control_min": min(r["control"][n] for r in rows),
             **{f"{f}_min": min(r[f][n] for r in rows if f in r)
-               for f in FAULTS if any(f in r for r in rows)}}
+               for f in faults if any(f in r for r in rows)}}
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -5,7 +5,11 @@
 Dir(beta)`` over the vocabulary, per-document mixtures ``theta_d ~
 Dir(alpha)``, Poisson document lengths (at least ``min_len``), a topic per
 token from its document's mixture and a word from that topic.  Documents lie
-back to back, so ``doc_ids`` never decreases.  :func:`initial_posteriors` makes the fit's starting point: each
+back to back, so ``doc_ids`` never decreases.  With ``sentence_len`` in the
+spec, each document is cut into consecutive sentences of that many tokens
+(the last one may be shorter) and the topic is drawn once per sentence and
+shared by all its words (SLDA's process, the paper's Figure 21).
+:func:`initial_posteriors` makes the fit's starting point: each
 Dirichlet's prior plus uniform(0.5, 1.5) noise, as the port's
 ``vmp.init_state`` does, drawn here so that the program and the reference
 start from the same tensors.
@@ -63,10 +67,29 @@ def _inverse_cdf(p: torch.Tensor) -> torch.Tensor:
     return (cdf / cdf[:, -1:]).clamp_(max=1.0)
 
 
+def _sentences(lengths: torch.Tensor, size: int) -> tuple:
+    """Each document cut into sentences of ``size`` tokens, the last one
+    shorter: ``(sentences per document, sentence of each token, document
+    of each sentence)``, the last two int64 and never decreasing."""
+    device = lengths.device
+    per_doc = (lengths + size - 1) // size
+    first_tok = torch.cumsum(lengths, 0) - lengths
+    first_sent = torch.cumsum(per_doc, 0) - per_doc
+    docs = torch.repeat_interleave(
+        torch.arange(len(lengths), device=device), lengths)
+    pos = torch.arange(len(docs), device=device) - first_tok[docs]
+    sent_ids = first_sent[docs] + pos // size
+    sent_doc = torch.repeat_interleave(
+        torch.arange(len(lengths), device=device), per_doc)
+    return per_doc, sent_ids, sent_doc
+
+
 def make(spec: dict, seed: int, device) -> dict:
     """The corpus of ``spec`` (``docs``, ``topics``, ``vocab``, ``alpha``,
-    ``beta``, ``mean_len``, ``min_len``) as int32 tensors on ``device``:
-    ``tokens`` and ``doc_ids`` ``(N,)``."""
+    ``beta``, ``mean_len``, ``min_len``, and optionally ``sentence_len``)
+    as int32 tensors on ``device``: ``tokens`` and ``doc_ids`` ``(N,)``;
+    with ``sentence_len`` also ``sent_ids`` ``(N,)`` (token -> sentence)
+    and ``sent_doc`` ``(S,)`` (sentence -> document)."""
     device = torch.device(device)
     gen = generator(seed, device)
     n_docs, k, v = int(spec["docs"]), int(spec["topics"]), int(spec["vocab"])
@@ -76,13 +99,30 @@ def make(spec: dict, seed: int, device) -> dict:
         torch.full((n_docs,), float(spec["mean_len"]), dtype=torch.float64,
                    device=device), generator=gen).long().clamp_(
         min=int(spec.get("min_len", 2)))
-    lmax = int(lengths.max())
-    # a topic for each position of each document, kept up to its length
-    u = torch.rand((n_docs, lmax), generator=gen, dtype=torch.float64,
-                   device=device)
-    z = torch.searchsorted(_inverse_cdf(theta), u, right=True).clamp_(max=k - 1)
-    keep = torch.arange(lmax, device=device)[None, :] < lengths[:, None]
-    z = z[keep]
+    out = {}
+    if spec.get("sentence_len") is None:
+        # a topic for each position of each document, kept up to its length
+        lmax = int(lengths.max())
+        u = torch.rand((n_docs, lmax), generator=gen, dtype=torch.float64,
+                       device=device)
+        z = torch.searchsorted(_inverse_cdf(theta), u,
+                               right=True).clamp_(max=k - 1)
+        keep = torch.arange(lmax, device=device)[None, :] < lengths[:, None]
+        z = z[keep]
+    else:
+        # a topic for each sentence of each document, shared by its words
+        per_doc, sent_ids, sent_doc = _sentences(
+            lengths, int(spec["sentence_len"]))
+        smax = int(per_doc.max())
+        u = torch.rand((n_docs, smax), generator=gen, dtype=torch.float64,
+                       device=device)
+        z = torch.searchsorted(_inverse_cdf(theta), u,
+                               right=True).clamp_(max=k - 1)
+        keep = torch.arange(smax, device=device)[None, :] < per_doc[:, None]
+        z = z[keep][sent_ids]
+        out = {"sent_ids": sent_ids.to(torch.int32),
+               "sent_doc": sent_doc.to(torch.int32)}
+        del per_doc, sent_ids, sent_doc
     del u, keep, theta
     # a word from its topic: one sorted search over the topics' CDFs laid
     # end to end (topic k's spans [k, k + 1])
@@ -95,7 +135,7 @@ def make(spec: dict, seed: int, device) -> dict:
     del glob, u, words, z, phi
     doc_ids = torch.repeat_interleave(
         torch.arange(n_docs, dtype=torch.int32, device=device), lengths)
-    return {"tokens": tokens, "doc_ids": doc_ids}
+    return {"tokens": tokens, "doc_ids": doc_ids, **out}
 
 
 def initial_posteriors(dirichlets: dict, seed: int, device) -> dict:

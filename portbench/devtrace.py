@@ -28,7 +28,7 @@ PREFIX = "portbench."
 LAYER_SPANS = {
     ("repro_torch.core.vmp", "_elog_tables"): "portbench.elog_tables",
     ("repro_torch.kernels.ops", "zstats"): "portbench.zstats",
-    ("repro_torch.core.dists", "dirichlet_elbo_term"): "portbench.elbo_term",
+    ("repro_torch.kernels.ops", "dirichlet_elbo_term"): "portbench.elbo_term",
     ("repro_torch.core.vmp", "_updated"): "portbench.update",
 }
 

@@ -7,11 +7,15 @@ metric is a set of new files and entries:
   - ``BENCHMARK.json`` at the root: the cell's configuration and traffic,
     its end-to-end and per-layer metrics;
   - ``portbench/configs/<config>.json``: the model (``model``, ``dsl``),
-    its corpus (``corpus``), how the corpus is observed (``observe``);
+    its corpus (``corpus``), how the corpus is observed (``observe``),
+    and the parent map of each intermediate plate (``bind``: ``{plate:
+    corpus key}``, as SLDA's sentences);
   - ``portbench/traffic/<traffic>.json``: the fit (``checked_steps``,
     ``warmup_steps``, ``profiled_steps``);
   - ``portbench/reference/<model>.py``: the plain model (``dirichlets``,
-    ``model``), and the step work ``portbench/work/<step_work>.py``;
+    ``model``, and ``step`` and ``FAULTS`` where the model's latent is not
+    flat; else ``reference/flat.py``'s), and the step work
+    ``portbench/work/<step_work>.py``;
   - ``portbench/metrics/<metric>.py``: a reader ``read(ctx)`` per
     per-layer metric, which may name a call of the port to time
     (``WRAP = "module:attribute"``, with ``signature(args, kwargs)``);
@@ -20,7 +24,7 @@ metric is a set of new files and entries:
 
 Nothing here imports the port before :func:`run_cell` has made and handed
 over the inputs; the port is imported, set up and driven through its own
-entry points (``core.models.make``, ``observe``, ``compile``,
+entry points (``core.models.make``, ``observe``, ``bind``, ``compile``,
 ``runtime.make_step``, ``runtime.run_inference``).
 """
 
@@ -230,6 +234,15 @@ def posts0(cell: dict, seed: int, device) -> dict:
         cell["reference"].dirichlets(cell["config"]), seed, device)
 
 
+def reference_step(cell: dict) -> tuple:
+    """``(step, FAULTS)`` of the cell's plain reference: its own where its
+    module defines them, else ``reference/flat.py``'s."""
+    ref = cell["reference"]
+    flat = importlib.import_module("reference.flat")
+    return (getattr(ref, "step", flat.step),
+            getattr(ref, "FAULTS", flat.FAULTS))
+
+
 def priors(cell: dict) -> dict:
     return {n: p for n, (_, _, p) in
             cell["reference"].dirichlets(cell["config"]).items()}
@@ -244,6 +257,8 @@ def build_program(cell: dict, host: dict, device, spans: dict):
     for rv, spec in cfg["observe"].items():
         m[rv].observe(host[spec["values"]],
                       segment_ids=host[spec["segment_ids"]])
+    for plate, key in cfg.get("bind", {}).items():
+        m.bind(plate, host[key])
     prog = m.compile()
     spans["compile"] = time.perf_counter() - t
     t = time.perf_counter()
@@ -292,14 +307,14 @@ def reference_readings(cell: dict, host: dict, seed: int, device,
     """The plain reference's readings over the checked steps, from the same
     corpus and starting posteriors."""
     ref = cell["reference"]
-    flat = importlib.import_module("reference.flat")
+    step, _ = reference_step(cell)
     corp = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     model = ref.model(cell["config"], corp)
     post = posts0(cell, seed, device)
     pri = priors(cell)
     elbos, stats = [], None
     for i in range(int(cell["traffic"]["checked_steps"])):
-        elbo, post = flat.step(model, post, fault=fault)
+        elbo, post = step(model, post, fault=fault)
         elbos.append(elbo)
         if i == 0:
             stats = {k: check.norm(p, pri[k]) for k, p in post.items()}
@@ -388,12 +403,13 @@ def run_cell(root, workload: str, seed: int, seconds: float, trace: bool,
         step_fn=step)
     _sync(device)
     setup_s = time.perf_counter() - t_setup - check_s
+    launches = ops.launch_counts()
+    routes = {k: r for k, r in ops.route_counts().items() if launches.get(k)}
     log(f"[setup] {setup_s:.3f} s: import {spans['import']:.3f} s, compile "
         f"{spans['compile']:.3f} s, make_step {spans['make_step']:.3f} s, "
         f"checked steps {spans['checked_steps']:.3f} s (the first builds "
-        f"or loads the kernels); routes "
-        f"{json.dumps(ops.route_counts()['zstats'])}, launches "
-        f"{json.dumps(ops.launch_counts())} in "
+        f"or loads the kernels); routes of the kernels launched "
+        f"{json.dumps(routes)}, launches {json.dumps(launches)} in "
         f"{traffic['checked_steps'] + traffic['warmup_steps']} steps")
 
     # the window (with the metrics' wrapped calls under --trace 1)

@@ -2,9 +2,10 @@
 
 ``tiny_root`` is a copy of the benchmark (``BENCHMARK.json`` and
 ``portbench/``) in a temporary directory with throwaway cells added from
-files alone: ``tiny-lda.vmp`` and ``tiny-dcmlda.vmp`` (the two models at a
-few hundred tokens, held to the real cells' limits) and a throwaway
-per-layer metric ``tiny_steps``.  Tests that need a card take the
+files alone: ``tiny-lda.vmp``, ``tiny-dcmlda.vmp`` and ``tiny-slda.vmp``
+(the models at a few hundred tokens, held to the real cells' limits and
+read by the real cells' per-layer metrics) and a throwaway per-layer
+metric ``tiny_steps``.  Tests that need a card take the
 ``cuda`` fixture, which skips where there is none.
 """
 
@@ -30,6 +31,8 @@ TINY = {
                                              mean_len=30)),
     "tiny-dcmlda.vmp": ("dcmlda-nips.vmp", dict(K=3, V=40, docs=30,
                                                    mean_len=25)),
+    "tiny-slda.vmp": ("slda-nytimes.vmp", dict(K=4, V=50, docs=40,
+                                               mean_len=30)),
 }
 
 TINY_METRIC = '''"""A throwaway metric: steps in the timed window."""
@@ -69,7 +72,7 @@ def make_tiny_root(dest: Path) -> Path:
         shutil.copy(dest / "portbench" / "limits" / f"{real}.json",
                     dest / "portbench" / "limits" / f"{name}.json")
         for m in bench["per_layer"]:
-            if "workloads" in m:
+            if real in m.get("workloads", ()):
                 m["workloads"].append(name)
     (dest / "portbench" / "metrics" / "tiny_steps.py").write_text(TINY_METRIC)
     bench["per_layer"].append({

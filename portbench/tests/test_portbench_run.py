@@ -21,7 +21,7 @@ sys.path.insert(0, str(BENCH))
 sys.path.append(str(ROOT / "src"))
 import harness  # noqa: E402
 
-TINY = ["tiny-lda.vmp", "tiny-dcmlda.vmp"]
+TINY = ["tiny-lda.vmp", "tiny-dcmlda.vmp", "tiny-slda.vmp"]
 SEED = 2 ** 31 + 101
 
 
@@ -39,7 +39,13 @@ def test_throwaway_cell_and_metric_run_from_files(tiny_root, workload):
     assert list(r["checks"]) == ["elbo_gap", "stats_gap", "change_gap"]
     t = run(tiny_root, workload, trace=True)
     assert t["correct"]
-    assert {"compile_s", "owner_plan_s", "step_mfu", "zstats_roofline",
+    # the kernel roofline of the real cell: zstats_zmap's for a segment
+    # latent, zstats' for a flat one
+    (roofline,) = [m["name"] for m in harness.load_cell(
+        tiny_root, workload)["per_layer"] if m["name"].endswith("_roofline")]
+    assert roofline == ("zmap_roofline" if "slda" in workload
+                        else "zstats_roofline")
+    assert {"compile_s", "owner_plan_s", "step_mfu", roofline,
             "tiny_steps"} <= set(t["metrics"])
     assert t["metrics"]["tiny_steps"]["value"] >= 1
     # no device on the CPU: the device's readers find nothing to read
@@ -69,11 +75,23 @@ def _zstats_fault(monkeypatch, kind):
     from repro_torch.kernels import ops
     real = ops.zstats
 
+    def every_other(t):
+        return None if t is None else t[::2]
+
     def broken(table_prior, prior_rows, children, zmask=None, **kw):
+        if kind == "half" and children[0].zmap is not None:
+            # a segment latent: every other token left out, the instances
+            # kept
+            kids = tuple(c._replace(values=c.values[::2],
+                                    zmap=every_other(c.zmap),
+                                    base=every_other(c.base))
+                         for c in children)
+            lse, ps, cs = real(table_prior, prior_rows, kids, zmask, **kw)
+            return 2 * lse, 2 * ps, tuple(2 * c for c in cs)
         if kind == "half":
             kids = tuple(c._replace(values=c.values[::2],
-                                    base=None if c.base is None
-                                    else c.base[::2]) for c in children)
+                                    base=every_other(c.base))
+                         for c in children)
             lse, ps, cs = real(table_prior, prior_rows[::2], kids, **kw)
             return 2 * lse, 2 * ps, tuple(2 * c for c in cs)
         lse, ps, cs = real(table_prior, prior_rows, children, zmask, **kw)
@@ -98,6 +116,32 @@ def test_broken_step_is_not_correct(tiny_root, workload, fault,
         _zstats_fault(monkeypatch, fault)
     r = run(tiny_root, workload)
     assert not r["correct"], r["checks"]
+
+
+@pytest.mark.parametrize("workload", TINY)
+@pytest.mark.parametrize("fault", ["half", "topic"])
+def test_reference_fault_is_not_correct(tiny_root, workload, fault):
+    """Each fault of the cell's reference step (the calibration's upper
+    readings) fails the cell's limits against the clean reference."""
+    import check
+    cell = harness.load_cell(tiny_root, workload)
+    _, faults = harness.reference_step(cell)
+    assert fault in faults
+    host = harness.make_inputs(cell, SEED, "cpu", False)["host"]
+    clean = harness.reference_readings(cell, host, SEED, "cpu")
+    bad = harness.reference_readings(cell, host, SEED, "cpu", fault=fault)
+    ok, checks = check.judge(check.compare(bad, clean), cell["limits"])
+    assert not ok, checks
+
+
+def test_cell_takes_its_reference_step():
+    """A flat model runs ``reference/flat.py``'s step, SLDA its own."""
+    from reference import flat, segment
+    root = BENCH.parent
+    assert harness.reference_step(harness.load_cell(
+        root, "lda-nytimes.vmp")) == (flat.step, flat.FAULTS)
+    assert harness.reference_step(harness.load_cell(
+        root, "slda-nytimes.vmp")) == (segment.step, segment.FAULTS)
 
 
 def test_a_run_loads_no_jax_and_no_reference_package(tiny_root):

@@ -6,7 +6,8 @@ cell; the posterior read, the table written), its ELBO term (an lgamma and
 3 operations a cell; the posterior and the Elog table read, a number
 written) and its update ``prior + stats`` (an add a cell; the stats read,
 the new posterior written); and for each token plate, its ``zstats`` call
-(``work/zstats.py``).  Each part is one read of its inputs and one write of
+(``work/zstats.py``: ``count`` for a flat latent, ``count_zmap`` for a
+segment latent).  Each part is one read of its inputs and one write of
 its outputs, whatever the program launches: a fusion of the parts does not
 lower this count, and eager temporaries do not raise it.
 """
@@ -32,21 +33,27 @@ def dirichlet(g: int, k: int) -> tuple:
 
 def count(dirichlets: dict, plates) -> tuple:
     """``dirichlets`` ``{name: (rows, dim, prior)}``; ``plates`` a list of
-    ``(prior shape, prior rows, [work.zstats.Child])``, one per latent."""
+    ``(prior shape, prior rows, [work.zstats.Child])``, one per latent (a
+    segment latent's children carry their ``zmap``)."""
     ops = nbytes = 0
     for g, k, _ in dirichlets.values():
         o, b = dirichlet(g, k)
         ops, nbytes = ops + o, nbytes + b
     for prior_shape, rows, children in plates:
-        o, b = zstats.count(prior_shape, rows, children)
+        plate = zstats.count_zmap if zstats.segmented(children) \
+            else zstats.count
+        o, b = plate(prior_shape, rows, children)
         ops, nbytes = ops + o, nbytes + b
     return ops, nbytes
 
 
 def of_model(model) -> tuple:
-    """:func:`count` of a plain reference model with one flat latent
-    (``reference.flat.FlatModel``)."""
+    """:func:`count` of a plain reference model with one latent: flat
+    (``reference.flat.FlatModel``) or segment
+    (``reference.segment.SegmentModel``, whose ``seg`` is each child's
+    zmap)."""
     dirs = model.dirichlets
-    children = [zstats.Child(dirs[c.dirichlet][:2], c.values, c.base)
-                for c in model.children]
+    zmap = getattr(model, "seg", None)
+    children = [zstats.Child(dirs[c.dirichlet][:2], c.values, c.base,
+                             zmap=zmap) for c in model.children]
     return count(dirs, [(dirs[model.prior][:2], model.rows, children)])

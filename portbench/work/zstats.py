@@ -1,14 +1,21 @@
-"""The work of one ``ops.zstats`` call (a flat latent's token plate):
-``(operations, bytes)`` from the call's shapes and index streams alone.
+"""The work of one ``ops.zstats`` call: ``(operations, bytes)`` from the
+call's shapes and index streams alone, :func:`count` for a flat latent's
+token plate and :func:`count_zmap` for a segment latent's (a child with a
+``zmap``, which the port sends to ``zstats_zmap``).
 
-A frozen copy of the port's ``kernels/work.py:zstats``, so that a change to
-the program cannot move its own yardstick.  8 operations a (counted token,
-topic): the message sum, the softmax, the logsumexp and the scattered
-stats.  Bytes count each input read once and each output written once: the
-prior rows and mask, the prior table's cells that the tokens gather, each
-child's streams and the cells its tokens gather (one for each topic at
-each distinct (base, value) pair), every stats table written once as the
-dense table the call returns, and the logsumexp total.
+Frozen copies of the port's ``kernels/work.py:zstats`` and
+``zstats_zmap``, so that a change to the program cannot move its own
+yardstick.  A flat latent: 8 operations a (counted token, topic), the
+message sum, the softmax, the logsumexp and the scattered stats.  A
+segment latent: 8 a (kept instance, topic), the softmax, the logsumexp and
+the prior stats, and 4 a (counted token, topic), the message summed into
+its instance and the r-weighted child stats; its logits and r are
+intermediates, not counted.  Both count the same bytes, each input read
+once and each output written once: the prior rows and mask, the prior
+table's cells that the instances gather, each child's streams (its zmap
+among them) and the cells its tokens gather (one for each topic at each
+distinct (base, value) pair), every stats table written once as the dense
+table the call returns, and the logsumexp total.
 """
 
 from __future__ import annotations
@@ -65,11 +72,35 @@ def cells(key, base, keep, k: int, table: tuple) -> int:
     return min(torch.unique(key).numel() * k, math.prod(table))
 
 
+def segmented(children) -> bool:
+    """True where the latent is a segment latent (a child has a zmap)."""
+    return any(c.zmap is not None for c in children)
+
+
 def count(prior_shape: tuple, prior_rows, children, zmask=None) -> tuple:
     """``(operations, bytes)`` of a ``zstats`` call on a ``prior_shape``
     (G, K) prior table with these streams and children."""
     k = prior_shape[1]
     n = real_tokens(children, zmask, len(prior_rows))
+    return 8 * n * k, _bytes(prior_shape, prior_rows, children, zmask)
+
+
+def count_zmap(prior_shape: tuple, prior_rows, children,
+               zmask=None) -> tuple:
+    """``(operations, bytes)`` of a segment latent's ``zstats`` call (the
+    port's ``zstats_zmap``) on a ``prior_shape`` (G, K) prior table, with
+    ``prior_rows`` one per instance and children with a ``zmap``."""
+    k = prior_shape[1]
+    inst = _kept(len(prior_rows), zmask)
+    tok = real_tokens(children, zmask, len(prior_rows))
+    return 8 * inst * k + 4 * tok * k, _bytes(prior_shape, prior_rows,
+                                              children, zmask)
+
+
+def _bytes(prior_shape: tuple, prior_rows, children, zmask) -> int:
+    """Each input read once and each output written once (the module's
+    docstring)."""
+    k = prior_shape[1]
     nbytes = (_nbytes(prior_rows, zmask)
               + cells(prior_rows, None, zmask, k, tuple(prior_shape)) * 4
               + math.prod(prior_shape) * 4 + 4)
@@ -78,4 +109,4 @@ def count(prior_shape: tuple, prior_rows, children, zmask=None) -> tuple:
                    + cells(c.values, c.base, counted(c, zmask), k,
                            tuple(c.table)) * 4
                    + math.prod(c.table) * 4)
-    return 8 * n * k, nbytes
+    return nbytes
