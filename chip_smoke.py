@@ -207,7 +207,7 @@ Phases, each of which exits non-zero on a failed check:
      sums, the digest, the kernels at the inputs the last step and
      ``get_result`` handed them (the Elog pass on phi timed too), ms a step
      and device time; then DCM-SLDA (``dcmslda``): SLDA's sentence topics
-     over DCM-LDA's per-document phi, defined in the DSL (``dcmslda``), over
+     over DCM-LDA's per-document phi (``models.make("dcmslda")``), over
      the same corpus cut into sentences of SENT_LEN tokens, 10 steps through
      ``Model.infer`` and ``get_result``: ``zstats_zmap`` once a step with
      phi's phase 2b on the "runs" pass (route ``zmap passes=runs
@@ -4610,30 +4610,18 @@ def phase_dirichlet_terms(report):
 # DCM-SLDA: sentence topics over per-document phi, phase 2b on "runs"
 # ---------------------------------------------------------------------------
 
-def dcmslda(m, alpha, beta, K, V):
-    """SLDA's sentence topics (the paper's Figure 21) over DCM-LDA's
-    per-document topic-word tables (Figure 22), in the DSL."""
-    docs = m.plate("?", name="docs")
-    sents = m.plate("?", name="sents", within=docs)
-    tokens = m.plate("?", name="tokens", within=sents)
-    theta = m.dirichlet("theta", alpha, dim=K, plate=docs)
-    phi = m.dirichlet("phi", beta, dim=V,
-                      plate=m.plate(K, name="topics", within=docs))
-    z = m.categorical("z", given=theta, plate=sents)
-    m.categorical("x", given=phi, plate=tokens, selector=z)
-
-
 def make_dcmslda():
     """DCM-SLDA at DCM-LDA's settings (:func:`make_dcmlda`'s corpus), each
     document cut into sentences of SENT_LEN tokens: (corpus, sentence count,
     model observed, its program)."""
-    from repro_torch.core.models import Model
+    from repro_torch.core import models
     from repro_torch.data import SyntheticCorpus
     corpus = SyntheticCorpus(n_docs=DCM_DOCS, vocab=DCM_VOCAB,
                              n_topics=DCM_TOPICS, mean_len=DCM_MEAN_LEN,
                              seed=SEED).generate()
     tok_sent, sent_doc = sentences(corpus)
-    m = Model(dcmslda, alpha=ALPHA, beta=BETA, K=DCM_TOPICS, V=DCM_VOCAB)
+    m = models.make("dcmslda", alpha=ALPHA, beta=BETA, K=DCM_TOPICS,
+                    V=DCM_VOCAB)
     m["x"].observe(corpus["tokens"], segment_ids=tok_sent)
     m.bind("sents", sent_doc)
     return corpus, len(sent_doc), m, m.compile()

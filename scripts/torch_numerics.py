@@ -718,7 +718,10 @@ def _fits(pkg: str, cs, corpora: dict) -> dict:
     dl["x"].observe(dcm["tokens"], segment_ids=dcm["doc_ids"])
     infer("dcmlda", dl, cs.DCM_STEPS)
     tok_sent, sent_doc = cs.sentences(dcm)
-    ds = models.Model(cs.dcmslda, alpha=cs.ALPHA, beta=cs.BETA,
+    # this checkout's DSL lines, so a tree whose make lacks the model fits
+    # the same one
+    from repro_torch.core.models import dcmslda
+    ds = models.Model(dcmslda, alpha=cs.ALPHA, beta=cs.BETA,
                       K=cs.DCM_TOPICS, V=cs.DCM_VOCAB)
     ds["x"].observe(dcm["tokens"], segment_ids=tok_sent)
     ds.bind("sents", sent_doc)

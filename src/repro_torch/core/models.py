@@ -54,6 +54,20 @@ def dcmlda(m: ModelBuilder, alpha: float, beta: float, K: int, V: int):
     m.categorical("x", given=phi, plate=tokens, selector=z)
 
 
+def dcmslda(m: ModelBuilder, alpha: float, beta: float, K: int, V: int):
+    """DCM-SLDA: Sentence-LDA's topic per sentence (Figure 21) over
+    DCM-LDA's per-document topic-word tables (Figure 22); a sentence's
+    words read phi's row doc * K + k of its document."""
+    docs = m.plate("?", name="docs")
+    sents = m.plate("?", name="sents", within=docs)
+    tokens = m.plate("?", name="tokens", within=sents)
+    theta = m.dirichlet("theta", alpha, dim=K, plate=docs)
+    phi = m.dirichlet("phi", beta, dim=V,
+                      plate=m.plate(K, name="topics", within=docs))
+    z = m.categorical("z", given=theta, plate=sents)
+    m.categorical("x", given=phi, plate=tokens, selector=z)
+
+
 def naive_bayes(m: ModelBuilder, alpha: float, beta: float, C: int, V: int):
     """Bayesian naive Bayes (the paper's spam-filtering motivation [19]):
     one latent class per doc, words conditionally independent given it."""
@@ -68,5 +82,5 @@ def naive_bayes(m: ModelBuilder, alpha: float, beta: float, C: int, V: int):
 def make(name: str, **params) -> Model:
     """Instantiate a paper model by name."""
     defs = {"two_coins": two_coins, "lda": lda, "slda": slda,
-            "dcmlda": dcmlda, "naive_bayes": naive_bayes}
+            "dcmlda": dcmlda, "dcmslda": dcmslda, "naive_bayes": naive_bayes}
     return Model(defs[name], **params)

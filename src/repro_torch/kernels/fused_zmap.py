@@ -38,6 +38,13 @@ TPU is gone: the 8 MiB budget that sent SLDA at NYTimes widths to the
 chunked oracle (``fusable_zmap``), the one-hot matmuls and the padding.
 The plain version is ``ref.zstats`` (its segmented path); ``ops`` runs it
 on the CPU.
+
+Spans (``repro_torch.trace``): :func:`zstats_zmap` opens ``zmap.logits``
+around phase 1, ``zmap.prior`` around phase 2a and ``zmap.stats`` around
+phase 2b (every zmap child's pass, its zero fill included), children of
+the caller's span (``vmp.token_plate`` in a VMP step).  They add no sync,
+launch or allocation of their own; recorded on the card, each holds a CUDA
+event pair.
 """
 
 import ctypes
@@ -309,15 +316,18 @@ def zstats_zmap(table_prior: torch.Tensor, prior_rows: torch.Tensor,
     n_latent, k = prior_rows.shape[0], table_prior.shape[1]
     zargs = _fz.make_args(k, zkids, ztabs)
 
-    logits = _logits(lib, zargs, plan, n_latent, k, stream)
-    r = torch.empty((n_latent, k), dtype=torch.float32, device=dev)
-    lse_sum, pstats, fstats = _fz.launch_flat(
-        eprior, prior_rows, flat, ftabs, zmask, plan.flat, extra=logits,
-        r_out=r)
+    with trace.span("zmap.logits"):
+        logits = _logits(lib, zargs, plan, n_latent, k, stream)
+    with trace.span("zmap.prior"):
+        r = torch.empty((n_latent, k), dtype=torch.float32, device=dev)
+        lse_sum, pstats, fstats = _fz.launch_flat(
+            eprior, prior_rows, flat, ftabs, zmask, plan.flat, extra=logits,
+            r_out=r)
     del logits
 
-    zout = [_stats_pass(lib, zargs, plan, j, c, r, stream)
-            for j, c in enumerate(zkids)]
+    with trace.span("zmap.stats"):
+        zout = [_stats_pass(lib, zargs, plan, j, c, r, stream)
+                for j, c in enumerate(zkids)]
     zit, fit = iter(zout), iter(fstats)
     cstats = tuple(next(zit) if c.zmap is not None else next(fit)
                    for c in children)

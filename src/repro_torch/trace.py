@@ -1,7 +1,9 @@
 """Spans and counters of the port: where a fit's host and device time goes.
 
 A :func:`span` marks one layer boundary of the port (``runtime.step``,
-``vmp.token_plate``, ``svi.slice``, ...).  Spans nest on a stack per
+``vmp.token_plate``, ``svi.slice``, ...; inside a segment latent's
+``vmp.token_plate``, ``kernels/fused_zmap.py``'s ``zmap.logits``,
+``zmap.prior`` and ``zmap.stats``, one a phase).  Spans nest on a stack per
 thread, so each knows its parent, and every span, always, adds to totals
 by name: calls, host seconds, self host seconds (its duration less that
 of its child spans) and the host seconds of its latest instance

@@ -1,8 +1,8 @@
 """DCM-SLDA in the port, on the CPU: SLDA's sentence topics (the paper's
-Figure 21) over DCM-LDA's per-document topic-word tables (Figure 22),
-defined through each package's DSL, held to a live run of the JAX reference
-on the same numpy inputs; and the owner plan that sends its strided zmap
-child to phase 2b's ``runs`` pass.
+Figure 21) over DCM-LDA's per-document topic-word tables (Figure 22), the
+port's ``models.make("dcmslda")`` held to a live run of the JAX reference
+(this file's DSL lines) on the same numpy inputs; and the owner plan that
+sends its strided zmap child to phase 2b's ``runs`` pass.
 
 Tolerances, each with its reason:
 
@@ -50,6 +50,8 @@ ROUTE = "zmap passes=runs logits=group"
 
 
 def dcmslda(m, alpha, beta, K, V):
+    """The JAX package's side of the model (its ``make`` has no DCM-SLDA);
+    the port's is ``models.make("dcmslda")``."""
     docs = m.plate("?", name="docs")
     sents = m.plate("?", name="sents", within=docs)
     tokens = m.plate("?", name="tokens", within=sents)
@@ -74,9 +76,13 @@ def _corpus(seed, docs=14):
     return i32(words), i32(tok_sent), i32(sent_doc)
 
 
-def _model(pkg, seed=0):
+def _model(pkg, seed=0, own=False):
+    """The model observed over :func:`_corpus`: the port's from its
+    ``make``, the reference's (or, with ``own``, the port's too) from this
+    file's DSL lines."""
     words, tok_sent, sent_doc = _corpus(seed)
-    m = pkg.Model(dcmslda, **PARAMS)
+    m = pkg.make("dcmslda", **PARAMS) if pkg is tmodels and not own else \
+        pkg.Model(dcmslda, **PARAMS)
     m["x"].observe(words, segment_ids=tok_sent)
     m.bind("sents", sent_doc)
     return m
@@ -138,6 +144,23 @@ def test_elbo_monotone_and_stats_sum_to_sentences_and_tokens():
         got = float((state.posteriors[name].double() - torch.from_numpy(
             prog.dirichlets[name].prior).double()).sum())
         assert abs(got - n) <= 1e-5 * n, (name, got, n)
+
+
+def test_make_is_bitwise_these_dsl_lines():
+    """``models.make("dcmslda")`` and this file's DSL lines, through the
+    port, give the same posteriors and ELBOs, bit for bit, over 3 steps
+    from one seeded state."""
+    out = []
+    for own in (False, True):
+        prog = _model(tmodels, seed=2, own=own).compile()
+        state, trace = trun.run_inference(
+            prog, steps=3, state=tvmp.init_state(prog, 11, device="cpu"),
+            device="cpu")
+        out.append((state.posteriors, trace))
+    (made, t_made), (own, t_own) = out
+    assert t_made == t_own and made.keys() == own.keys() == {"theta", "phi"}
+    for n in made:
+        assert torch.equal(made[n], own[n]), n
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ The tests marked ``card`` need a CUDA card and skip without one (on the
 chip: ``python -m pytest tests/test_torch_trace.py -m card``): a profiled
 step's trace holds the port's spans and ``devtrace`` counts none of them
 as device work, a pageable copy and an ``.item()`` each count one sync,
-and the Dirichlets' event pairs are positive and shorter than the step.
+the Dirichlets' event pairs are positive and shorter than the step, and a
+segment latent's step holds ``zstats_zmap``'s three phase spans.
 """
 
 from __future__ import annotations
@@ -382,6 +383,93 @@ def test_spans_leave_the_step_bitwise():
 
 
 # ---------------------------------------------------------------------------
+# zstats_zmap's phase spans
+# ---------------------------------------------------------------------------
+
+ZMAP = ["zmap.logits", "zmap.prior", "zmap.stats"]
+
+
+def _zmap_call(seed=0, docs=6, K=3, V=12):
+    """``zstats`` arguments of a tiny DCM-SLDA token plate on the CPU: the
+    prior table, the sentences' document rows, phi's strided zmap child."""
+    g = torch.Generator().manual_seed(seed)
+    sent_doc = torch.sort(torch.randint(0, docs, (20,), generator=g)).values
+    sent_ids = torch.repeat_interleave(torch.arange(20),
+                                       torch.randint(1, 6, (20,), generator=g))
+    words = torch.randint(0, V, (len(sent_ids),), generator=g)
+    i32 = lambda t: t.to(torch.int32)  # noqa: E731
+    child = ops.ZChild(torch.randn(docs * K, V, generator=g), i32(words),
+                       zmap=i32(sent_ids), base=i32(sent_doc[sent_ids] * K))
+    return torch.randn(docs, K, generator=g), i32(sent_doc), (child,)
+
+
+def test_a_cpu_zstats_call_records_no_zmap_span():
+    """The plain path never enters the kernel's wrapper: with recording
+    off no record at all, and on, no ``zmap.*`` record or total."""
+    table, rows, kids = _zmap_call()
+    ops.zstats(table, rows, kids)
+    assert trace.records() == []
+    with trace.recording():
+        with trace.span("vmp.token_plate"):
+            ops.zstats(table, rows, kids)
+    assert _names(trace.records()) == ["vmp.token_plate"]
+    assert not {n for n in trace.totals() if n.startswith("zmap.")}
+
+
+@pytest.fixture
+def stand_in_kernels(monkeypatch):
+    """``fused_zmap.zstats_zmap`` on CPU tensors with each phase's launches
+    stood in for by empty results, and what each phase was handed."""
+    from repro_torch.kernels import fused_zmap, fused_zstats
+    seen = []
+
+    def logits(lib, zargs, plan, n_latent, k, stream):
+        seen.append(("logits", _names(trace.records())))
+        return torch.zeros(n_latent, k)
+
+    def flat(eprior, prior_rows, flat_kids, ftabs, zmask, plan, extra,
+             r_out):
+        seen.append(("prior", _names(trace.records())))
+        return torch.zeros(()), torch.zeros_like(eprior), ()
+
+    def stats(lib, zargs, plan, j, c, r, stream):
+        seen.append(("stats", _names(trace.records())))
+        return torch.zeros(c.elog.shape)
+
+    monkeypatch.setattr(fused_zmap, "_check_device", lambda t: None)
+    monkeypatch.setattr(fused_zmap, "_logits", logits)
+    monkeypatch.setattr(fused_zmap, "_stats_pass", stats)
+    monkeypatch.setattr(fused_zstats, "launch_flat", flat)
+    monkeypatch.setattr(fused_zstats, "library", lambda: None)
+    monkeypatch.setattr(fused_zstats, "make_args", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: SimpleNamespace(cuda_stream=0))
+    return fused_zmap, seen
+
+
+def test_zmap_phase_spans_nest_under_the_token_plate(stand_in_kernels):
+    """Each phase runs inside its own span, the three children of the
+    caller's span in order; off, they add totals and no record."""
+    fused_zmap, seen = stand_in_kernels
+    table, rows, kids = _zmap_call()
+    with trace.recording():
+        with trace.span("vmp.token_plate"):
+            fused_zmap.zstats_zmap(table, rows, kids)
+    recs = trace.records()
+    assert _names(recs) == ["vmp.token_plate"] + ZMAP
+    assert [r.parent for r in recs[1:]] == [recs[0].id] * 3
+    assert [w for w, _ in seen] == ["logits", "prior", "stats"]
+    # each phase sees its own span open, the last record begun
+    assert [names[-1] for _, names in seen] == ZMAP
+    trace.reset()
+    fused_zmap.zstats_zmap(table, rows, kids)
+    assert trace.records() == []
+    assert {n: t["calls"] for n, t in trace.totals().items()} == \
+        dict.fromkeys(ZMAP, 1)
+    assert ops.launch_counts()["zstats_zmap"] == 1
+
+
+# ---------------------------------------------------------------------------
 # the kernels' counters
 # ---------------------------------------------------------------------------
 
@@ -570,3 +658,57 @@ def test_the_launch_counts_of_a_few_kernel_calls(cuda):
     routes = ops.route_counts()
     assert routes["zstats"] == {"pieces": 3, "runs": 0, "strided": 0}
     assert routes["dirichlet_elbo_term"] == {"rows": 3, "chunks": 3}
+
+
+def _segment_fit(device, name):
+    """A tiny segment-latent fit on ``device`` after one step: DCM-SLDA or
+    SLDA, 40 documents in sentences of 2 to 7 tokens."""
+    rng = np.random.default_rng(5)
+    K, V, D = 8, 300, 40
+    sent_doc = np.repeat(np.arange(D), rng.integers(3, 9, D)).astype(np.int32)
+    tok_sent = np.repeat(np.arange(len(sent_doc)),
+                         rng.integers(2, 8, len(sent_doc))).astype(np.int32)
+    m = models.make(name, alpha=0.1, beta=0.05, K=K, V=V)
+    m["x"].observe(rng.integers(0, V, len(tok_sent)).astype(np.int32),
+                   segment_ids=tok_sent)
+    m.bind("sents", sent_doc)
+    prog = m.compile()
+    step = runtime.make_step(prog, device=device)
+    box = {"state": runtime.run_inference(
+        prog, steps=1, state=vmp.init_state(prog, 0, device=device),
+        step_fn=step)[0]}
+
+    def run(steps):
+        box["state"], _ = runtime.run_inference(prog, steps=steps,
+                                                state=box.pop("state"),
+                                                step_fn=step)
+    return run
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ["dcmslda", "slda"])
+def test_a_segment_step_holds_the_three_zmap_spans(cuda, name):
+    """Each profiled step's ``vmp.token_plate`` holds ``zmap.logits``,
+    ``zmap.prior`` and ``zmap.stats`` once each, in order, each with device
+    ms; the step's blocking syncs stay 5."""
+    run = _segment_fit(cuda, name)
+    p = _devtrace().profile_steps(lambda: run(2), 2, cuda)
+    recs = trace.records()
+    by_id = {r.id: r for r in recs}
+    plates = [r for r in recs if r.name == "vmp.token_plate"]
+    assert len(plates) == 2
+    for plate in plates:
+        kids = [r for r in recs if r.parent == plate.id]
+        assert _names(kids) == ZMAP
+        assert all(r.device_ms is not None and r.device_ms > 0
+                   for r in kids)
+    assert all(by_id[r.parent].name == "vmp.token_plate"
+               for r in recs if r.name in ZMAP)
+    syncs = _reader("syncs_per_step").read(SimpleNamespace(device=cuda,
+                                                           profile=p))
+    assert syncs == 5
+    for reader in ("zmap_logits_ms", "zmap_stats_ms"):
+        ms = _reader(reader).read(SimpleNamespace(device=cuda, profile=p))
+        assert 0 < ms < min(r.device_ms for r in recs
+                            if r.name == "runtime.step")
+
